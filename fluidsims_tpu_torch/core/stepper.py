@@ -1,0 +1,78 @@
+"""Step drivers: the multi-step loop and the headless benchmark.
+
+Port of fluidsims_tpu.core.stepper.  JAX compiles a batch of steps into one
+`lax.scan`; PyTorch runs eagerly, so the loop is a Python loop that only
+enqueues device work.  Nothing inside it reads a value back to the host
+(no `.item()`, `float()` or sync): dt lives on the device from the
+wavespeed reduction to the update (see core/clock.py).  Capturing the loop
+in a CUDA graph, the GPU analog of the compiled scan, is later work.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Callable
+
+import torch
+
+__all__ = ["run_steps", "benchmark"]
+
+
+def run_steps(step_fn: Callable[[Any], Any], state: Any, n_steps: int):
+    """Apply `step_fn(state) -> state` `n_steps` times."""
+    for _ in range(n_steps):
+        state = step_fn(state)
+    return state
+
+
+def _device_of(state: Any) -> torch.device:
+    """The device of the first tensor found in a (nested) tuple state."""
+    stack = [state]
+    while stack:
+        x = stack.pop(0)
+        if isinstance(x, torch.Tensor):
+            return x.device
+        if isinstance(x, (tuple, list)):
+            stack.extend(x)
+    raise TypeError("state holds no tensor")
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def benchmark(
+    step_fn: Callable[[Any], Any],
+    state: Any,
+    steps: int,
+    warmup_steps: int = 10,
+    cells: int | None = None,
+) -> dict:
+    """Headless benchmark: run `steps` steps, report wall-clock rates.
+
+    Mirrors the reference's --headless benches (js_cuda.cu:401-441): the
+    warm-up (kernel build, first launches) is excluded, and the timed
+    window is bracketed by device synchronisation so it measures the
+    device's work, not the enqueue.  Returns the keys of the JAX twin.
+    """
+    device = _device_of(state)
+    warm = run_steps(step_fn, state, max(1, warmup_steps))
+    _sync(device)
+    del warm
+
+    t0 = time.perf_counter()
+    out = run_steps(step_fn, state, steps)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    del out
+
+    result = {
+        "steps": steps,
+        "wall_s": dt,
+        "steps_per_sec": steps / dt,
+    }
+    if cells is not None:
+        result["cells"] = cells
+        result["mcells_per_sec"] = cells * steps / dt / 1e6
+    return result
