@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
-Every `csrc/*.cu` is compiled at first use, in one nvcc call, into a shared
-library with a plain C interface, which is loaded with ctypes.  No PyTorch
-header is included, so a build takes seconds rather than the minutes of
+Every `csrc/*.cu` is compiled at first use into a shared library with a
+plain C interface, which is loaded with ctypes: one nvcc process per source,
+all started together, then one link.  No PyTorch header is included, so a
+build takes seconds rather than the minutes of
 `torch.utils.cpp_extension.load`.
 
 The library lands in `build/fluidsims_tpu_torch/` beside the package,
@@ -39,7 +40,7 @@ DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-fmad=false", "-Xptxas", "-v",
 )
 
@@ -95,19 +96,32 @@ def load_library() -> ctypes.CDLL:
     lib = _lib_path(nvcc)
     if not lib.is_file():
         lib.parent.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-               *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
+        with tempfile.TemporaryDirectory(dir=lib.parent) as tmpdir:
+            objs = [Path(tmpdir) / f"{src.stem}.o" for src in _sources()]
+            compiles = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
+                         str(obj), str(src)]
+                        for src, obj in zip(_sources(), objs)]
+            link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                    str(Path(tmpdir) / lib.name), *map(str, objs)]
+            log = "".join(_run_all(compiles)) + "".join(_run_all([link]))
+            lib.with_suffix(".log").write_text(log)
+            # atomic: a concurrent loader sees all or nothing
+            os.replace(Path(tmpdir) / lib.name, lib)
+    return ctypes.CDLL(str(lib))
+
+
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands at once; their output, or KernelBuildError naming
+    the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
         if proc.returncode != 0:
-            os.unlink(tmp)
             raise KernelBuildError(
                 f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{log}")
-        lib.with_suffix(".log").write_text(log)
-        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
-    return ctypes.CDLL(str(lib))
+    return logs
 
 
 def build_log() -> str:

@@ -30,6 +30,7 @@ import torch
 
 from ..core.clock import cfl_dt
 from ..core.config import BaseConfig
+from ..core.device import resolve_device
 from ..core.stepper import run_steps
 from ..ops import euler2d as e2
 from ..ops.euler2d import Cons, Prim
@@ -154,7 +155,10 @@ def build_mask(cfg: Hypersonic2DConfig, device=None) -> torch.Tensor:
 
 def init(cfg: Hypersonic2DConfig, device=None) -> Hypersonic2DState:
     """Fill the domain with inflow; solid cells hold the stagnant state
-    (rho, 0, 0, p) (tau_hypersonic_cuda.cu:767-769)."""
+    (rho, 0, 0, p) (tau_hypersonic_cuda.cu:767-769).  `device=None` means
+    the GPU (raises where there is none)."""
+    if device is None:
+        device = resolve_device("cuda")
     mask = build_mask(cfg, device)
     infl = _inflow(cfg, device)
     shape = (cfg.ny, cfg.nx)

@@ -59,5 +59,6 @@ def test_snapshot_matches_jax_on_same_state():
     s = jax.jit(lambda st: jh2.run(jcfg, st, 5))(jh2.init(jcfg))
     st = interop.state_from_numpy([np.asarray(f) for f in s.U],
                                   np.asarray(s.mask), np.asarray(s.t),
-                                  dtype=torch.float64)
+                                  dtype=torch.float64,
+                                  device=torch.device("cpu"))
     assert treg.compute_snapshot(tcfg, st, 5) == jreg.compute_snapshot(jcfg, s, 5)

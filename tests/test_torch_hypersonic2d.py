@@ -25,6 +25,7 @@ from fluidsims_tpu_torch.solvers import hypersonic2d as th2
 from tests.oracles import hypersonic2d_oracle as oracle
 
 torch.set_num_threads(1)
+CPU = torch.device("cpu")
 
 
 def small_kw(nx=40, ny=20, dtype="float64"):
@@ -91,7 +92,7 @@ def test_default_config_mask_equal():
 def test_init_matches(dtype):
     kw = small_kw(64, 32, dtype)
     sj = jh2.init(jh2.Hypersonic2DConfig(**kw))
-    st = th2.init(th2.Hypersonic2DConfig(**kw))
+    st = th2.init(th2.Hypersonic2DConfig(**kw), CPU)
     np.testing.assert_allclose(t_np(st.U), as_np(sj.U), rtol=1e-12, atol=1e-12)
     np.testing.assert_array_equal(st.mask.numpy(), np.asarray(sj.mask))
     assert st.t.dtype == getattr(torch, dtype) and float(st.t) == 0.0
@@ -105,7 +106,7 @@ def test_plain_core_matches_jax_f64():
     dt = jh2.compute_dt(jcfg, jU, jnp.asarray(mask))
     Up, Mp = jh2.pad_bc(jcfg, jU, jnp.asarray(mask))
     ref = jh2.step_core_padded(jcfg, Up, Mp, dt)
-    st = interop.state_from_numpy(U, mask, 0.0, dtype=torch.float64)
+    st = interop.state_from_numpy(U, mask, 0.0, dtype=torch.float64, device=CPU)
     got = hk.step_core_plain(tcfg, st.U, st.mask,
                              torch.tensor(float(dt), dtype=torch.float64))
     assert max_rel(t_np(got), as_np(ref)) <= 1e-12
@@ -121,7 +122,7 @@ def test_wavespeed_and_dt_match_jax():
     U[0][3, 7] = np.nan
     jcfg, tcfg = jh2.Hypersonic2DConfig(**kw), th2.Hypersonic2DConfig(**kw)
     jU = JCons(*(jnp.asarray(f) for f in U))
-    st = interop.state_from_numpy(U, mask, 0.0, dtype=torch.float64)
+    st = interop.state_from_numpy(U, mask, 0.0, dtype=torch.float64, device=CPU)
     j = jh2.max_wavespeed(jcfg, jU, jnp.asarray(mask))
     t = th2.max_wavespeed(tcfg, st.U, st.mask)
     assert float(j) == float(t)
@@ -139,7 +140,7 @@ def test_plain_core_matches_pallas_interpret_f32():
     dt = jh2.compute_dt(jcfg, jU, jm)
     core = jhp.make_core_pallas(jcfg, band=8, interpret=True)
     ref = core(jU, jm, dt)
-    st = interop.state_from_numpy(U, mask, 0.0, dtype=torch.float32)
+    st = interop.state_from_numpy(U, mask, 0.0, dtype=torch.float32, device=CPU)
     got = hk.step_core_plain(tcfg, st.U, st.mask,
                              torch.tensor(np.asarray(dt), dtype=torch.float32))
     assert max_rel(t_np(got), as_np(ref)) <= 1e-5
@@ -149,7 +150,7 @@ def test_steps_match_jax_f64():
     kw = small_kw(40, 20, "float64")
     jcfg, tcfg = jh2.Hypersonic2DConfig(**kw), th2.Hypersonic2DConfig(**kw)
     sj = jh2.init(jcfg)
-    st = th2.init(tcfg)
+    st = th2.init(tcfg, CPU)
     jstep = jax.jit(lambda s: jh2.step(jcfg, s))
     for _ in range(6):
         sj, st = jstep(sj), th2.step(tcfg, st)
@@ -160,7 +161,7 @@ def test_steps_match_jax_f64():
 @pytest.mark.parametrize("dtype,tol", [("float64", 1e-10), ("float32", 5e-4)])
 def test_steps_match_oracle(dtype, tol):
     tcfg = th2.Hypersonic2DConfig(**small_kw(40, 20, dtype))
-    s = th2.init(tcfg)
+    s = th2.init(tcfg, CPU)
     oU, omask = oracle.init(oracle.Cfg(nx=40, ny=20))
     np.testing.assert_array_equal(s.mask.numpy(), omask)
     for _ in range(6):
@@ -178,7 +179,7 @@ def test_interop_roundtrip_and_continue():
         sj = jstep(sj)
     st = interop.state_from_numpy([np.asarray(f) for f in sj.U],
                                   np.asarray(sj.mask), np.asarray(sj.t),
-                                  dtype=torch.float64)
+                                  dtype=torch.float64, device=CPU)
     U, m, t = interop.state_to_numpy(st)
     for a, b in zip(U, sj.U):
         np.testing.assert_array_equal(a, np.asarray(b))
@@ -190,12 +191,12 @@ def test_interop_roundtrip_and_continue():
     with pytest.raises(ValueError):
         interop.state_from_numpy([np.zeros((3, 4))] * 3 + [np.zeros((3, 5))],
                                  np.zeros((3, 4), bool), 0.0,
-                                 dtype=torch.float64)
+                                 dtype=torch.float64, device=CPU)
 
 
 def test_step_hooks_and_inplace_inflow():
     tcfg = th2.Hypersonic2DConfig(**small_kw(40, 20, "float64"))
-    s = th2.init(tcfg)
+    s = th2.init(tcfg, CPU)
     s.U.rho[:, 0] = 2.0               # the step restores the inflow column
     a = th2.step(tcfg, s)
     assert float(s.U.rho[~s.mask[:, 0], 0].max()) == 1.0   # in place
@@ -205,5 +206,5 @@ def test_step_hooks_and_inplace_inflow():
     for x, y in zip(a.U, b.U):
         assert torch.equal(x, y)      # idempotent inflow, same engine on CPU
     assert torch.equal(a.t, b.t)
-    r = th2.run(tcfg, th2.init(tcfg), 2)
+    r = th2.run(tcfg, th2.init(tcfg, CPU), 2)
     assert float(r.t) > float(a.t) > 0.0

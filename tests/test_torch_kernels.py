@@ -26,15 +26,16 @@ def test_imports_without_cuda_and_counts_start_at_zero():
     hk.reset_launches()
     assert hk.LAUNCHES == {"step": 0, "wavespeed": 0}
     assert set(_build.CSRC.glob("*.cu")) == {
-        _build.CSRC / "hypersonic2d_step.cu",
-        _build.CSRC / "hypersonic2d_wavespeed.cu"}
+        _build.CSRC / f for f in (
+            "hypersonic2d_step.cu", "hypersonic2d_wavespeed.cu",
+            "sph_bin.cu", "sph_density.cu", "sph_forces.cu")}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_cpu_tensors_take_plain_version_uncounted(dtype):
     cfg = small(dtype)
     hk.reset_launches()
-    s = h2.init(cfg)
+    s = h2.init(cfg, torch.device("cpu"))
     s.U.rho[:, 0] = 3.0
     U2 = Cons(*(f.clone() for f in s.U))
     w = hk.inflow_wavespeed(cfg, s.U, s.mask)
@@ -60,7 +61,7 @@ def test_unsupported_device_raises():
 
 def test_wrapper_checks():
     cfg = small()
-    s = h2.init(cfg)
+    s = h2.init(cfg, torch.device("cpu"))
     dt = torch.tensor(1e-3)
     hk._check(cfg, s.U, s.mask, dt)  # accepted
     with pytest.raises(TypeError):
