@@ -39,6 +39,28 @@ failure of which ends the run with a non-zero exit:
              mean height below the initial one, tau > 0); then, from each
              run's final state, each kernel against its plain version at
              that shape (same bars) and per-launch times.
+8. hyp3d_kernels — the two 3-D hypersonic kernels (cell update, masked
+             max wavespeed) against their plain PyTorch versions, f32 and
+             f64, both outflow modes, on a non-cubic 24x40x56 (z, y, x) grid
+             and on 32^3, from init u0-seeded with seeded noise on every
+             field and a NaN, a negative-pressure and an infinite-velocity
+             cell in the padded input: step max|err|/max|ref| <= 1e-5 (f32)
+             / 1e-12 (f64) with non-finite cells in the same places, the
+             wavespeed bitwise; then 5 steps of the CUDA engine against the
+             plain engine at f32 (<= 5e-4 relative).
+9. hyp3d_main — solvers.hypersonic3d.run with the CUDA engine:
+             default_config(64) f32 x 400 steps (bench.py's hypersonic3d_64
+             and the reference's size) and default_config(256) f32 x 20;
+             each kernel launched once a step; steps/s beside the plain
+             engine's (20 steps at 64^3, 1 at 256^3); physics (finite,
+             rho > 0, p > 0, t advanced, dtau in [1e-7, 5e-2], solid cells
+             unchanged, max u > 0.1 at 64^3); then from each final state
+             both kernels against their plain versions at full shape and
+             per-launch times.
+10. th3cs  — solvers.th3cs.export_4spl at 64^3, 60 frames x 4 steps, CUDA
+             engine, into a temporary file, read back with the port's
+             read_4spl (magic, dims, frames, pSize, flags, size, CRC, more
+             than one index in the last frame); frames/s.
 
 Every kernel's line in {"kernels": [...]} carries bound_ms, the least time
 the card could take for its work at the main path's shape: the larger of
@@ -89,6 +111,16 @@ SPH_DENSITY_OPS = (9, 6, 10)
 SPH_FORCES_OPS = (5, 23, 14)
 # sph_bin.cu per particle: the cell id (2 divisions, 2 floors).
 SPH_BIN_OPS_PER_PARTICLE = 4
+# hypersonic3d_step.cu per cell, each face counted once (the work of the
+# JAX function): per axis 6 fields x ~76 for the WENO pair (~32 per cell
+# for the smoothness weights, 3 divisions; ~44 per face for the candidate
+# polynomials and the two weighted sums, 2 divisions) + ~12 floors + one
+# HLLC (~250), and ~150 for U0, the update, the decode, repair,
+# Landau-Teller and sponges; the kernel solves each face twice.
+HYP3D_STEP_OPS_PER_CELL = 2300
+# hypersonic3d_wavespeed.cu per fluid cell: sound speed (4), three
+# |u|+a divided by d (9), two adds, the test.
+HYP3D_WAVESPEED_OPS_PER_FLUID_CELL = 17
 
 
 def log(msg: str) -> None:
@@ -577,20 +609,295 @@ def phase_sph_main(sk, ts, device, smi, errs, runs=SPH_RUNS) -> dict:
     return res
 
 
+# ------------------------------- 3-D hypersonic -----------------------------
+
+def hyp3d_state(h3, interop, cfg, device, seed):
+    """init() with u0 = 0.05 in the fluid cells (the transmissive outlet's
+    reversed-flow branch is then well determined) and seeded noise on
+    every log field of the fluid cells."""
+    s = h3.init(cfg, torch.device("cpu"))
+    rng = np.random.default_rng(seed)
+    fl = ~s.solid.numpy()
+    f = [x.numpy().astype(np.float64) for x in s[:6]]
+    f[1][fl] = np.arcsinh(0.05 / cfg.u_ref)
+    for k, amp in enumerate((0.3, 0.05, 0.05, 0.05, 0.3, 0.3)):
+        f[k] = f[k] + np.where(fl, amp * rng.standard_normal(f[k].shape), 0.0)
+    return interop.hyp3d_state_from_numpy(*f, s.solid.numpy(), cfg.t0,
+                                          cfg.dtau0, dtype=cfg.torch_dtype,
+                                          device=device)
+
+
+def rel_fields(got, ref, what: str, tol: float) -> tuple[float, float]:
+    """max over fields of max|err| / max|ref| (finite cells), and max|err|;
+    raises on a breach or on non-finite cells in different places."""
+    rel = ab = 0.0
+    for name, a, b in zip(ref._fields, got, ref):
+        fa, fb = torch.isfinite(a), torch.isfinite(b)
+        if not torch.equal(fa, fb):
+            raise AssertionError(f"{what}.{name}: non-finite cells differ "
+                                 f"({int((~fa).sum())} vs {int((~fb).sum())})")
+        if not bool(fb.any()):
+            continue
+        d = float((a[fb] - b[fb]).abs().max())
+        rel = max(rel, d / max(float(b[fb].abs().max()), 1e-300))
+        ab = max(ab, d)
+    if not rel <= tol:
+        raise AssertionError(f"{what}: max rel err {rel:.3e} > {tol:g}")
+    return rel, ab
+
+
+def check_hyp3d_call(h3, hk3, cfg, s, what: str, errs: dict,
+                     inject: bool) -> float:
+    """Both 3-D kernels vs their plain versions on the same inputs: the
+    step from the padded prims of `s` (with a NaN, a negative-pressure and
+    an infinite-velocity cell when `inject`) at the state's CFL dt, then
+    the wavespeed of its result (with a NaN cell) bitwise.  Folds the
+    absolute errors into `errs`; returns the step's max rel err."""
+    dev = s.xi.device
+    sp = h3.solid_pad_of(cfg, dev)
+    q = h3._decode(cfg, *s[:6])
+    qp = h3.PrimT(*(f.clone() for f in h3._padded_prims(cfg, q, sp)))
+    if inject:
+        nz, ny, nx = cfg.nz, cfg.ny, cfg.nx
+        qp.r[3 + nz // 4, 3 + ny // 5, 3 + nx // 6] = float("nan")
+        qp.p[3 + nz // 2, 3 + ny // 7, 3 + (3 * nx) // 4] = -0.5
+        qp.u[3 + (3 * nz) // 4, 3 + ny // 3, 3 + nx - 2] = float("inf")
+    dt = torch.div(torch.full((), cfg.cfl, dtype=cfg.torch_dtype, device=dev),
+                   hk3.wavespeed_plain(cfg, q, s.solid))
+    gain = torch.full((), 0.6, dtype=cfg.torch_dtype, device=dev)
+    ck = hk3.step_core(cfg, qp, sp, dt, gain)
+    cp = hk3.step_core_plain(cfg, qp, sp, dt, gain)
+    rel, ab = rel_fields(ck, cp, f"hyp3d step {what}",
+                         STEP_TOL[cfg.torch_dtype])
+    errs["step"] = max(errs["step"], ab)
+    q1 = h3.PrimT(*(f.clone() for f in cp))
+    fluid = (~s.solid).nonzero()
+    q1.v[tuple(fluid[len(fluid) // 2])] = float("nan")
+    wk = hk3.wavespeed(cfg, q1, s.solid)
+    wp = hk3.wavespeed_plain(cfg, q1, s.solid)
+    errs["wavespeed"] = max(errs["wavespeed"], float((wk - wp).abs()))
+    if not torch.equal(wk.view(1), wp.view(1)):
+        raise AssertionError(f"hyp3d wavespeed {what}: kernel {float(wk)!r} "
+                             f"!= plain {float(wp)!r}")
+    return rel
+
+
+def plain3(hk3, cfg) -> dict:
+    """run()/step() hooks of the plain engine."""
+    return {"core": lambda qp, sp, dt, g: hk3.step_core_plain(cfg, qp, sp,
+                                                              dt, g),
+            "wavespeed": lambda q1, solid: hk3.wavespeed_plain(cfg, q1, solid)}
+
+
+HYP3D_KERNEL_GRIDS = ((24, 40, 56), (32, 32, 32))
+
+
+def phase_hyp3d_kernels(h3, hk3, interop, device) -> dict:
+    errs = {"step": 0.0, "wavespeed": 0.0, "rel": {}, "trajectory": {}}
+    for dtype in ("float32", "float64"):
+        for outflow in ("transmissive", "characteristic"):
+            for nz, ny, nx in HYP3D_KERNEL_GRIDS:
+                cfg = h3.Hypersonic3DConfig(
+                    nx=nx, ny=ny, nz=nz, dx=1.0 / nx, dy=1.0 / ny,
+                    dz=1.0 / nz, outflow=outflow, dtype=dtype)
+                key = f"{nz}x{ny}x{nx} {dtype} {outflow}"
+                s = hyp3d_state(h3, interop, cfg, device, SEED)
+                rel = check_hyp3d_call(h3, hk3, cfg, s, key, errs, True)
+                errs["rel"][key] = rel
+                log(f"[hyp3d] {key}: step max rel err {rel:.3e} (tol "
+                    f"{STEP_TOL[cfg.torch_dtype]:g}), non-finite cells in the "
+                    f"same places; wavespeed bitwise equal")
+    for nz, ny, nx in HYP3D_KERNEL_GRIDS:
+        cfg = h3.Hypersonic3DConfig(nx=nx, ny=ny, nz=nz, dx=1.0 / nx,
+                                    dy=1.0 / ny, dz=1.0 / nz)
+        a = b = hyp3d_state(h3, interop, cfg, device, SEED + 1)
+        for _ in range(5):
+            a = h3.step(cfg, a)
+            b = h3.step(cfg, b, **plain3(hk3, cfg))
+        torch.cuda.synchronize()
+        worst = 0.0
+        for name in ("xi", "phix", "phiy", "phiz", "lam", "zet"):
+            x, y = getattr(a, name), getattr(b, name)
+            if not torch.equal(torch.isfinite(x), torch.isfinite(y)):
+                raise AssertionError(f"5 steps: non-finite {name} differ")
+            worst = max(worst, float((x - y).abs().max())
+                        / max(float(y.abs().max()), 1e-3))
+        if not worst <= 5e-4:
+            raise AssertionError(f"5 steps cuda vs plain {nz}x{ny}x{nx}: "
+                                 f"{worst:.3e} > 5e-4")
+        errs["trajectory"][f"{nz}x{ny}x{nx}"] = worst
+        log(f"[hyp3d] 5 steps {nz}x{ny}x{nx} f32, cuda engine vs plain "
+            f"engine: max rel err {worst:.3e} (tol 5e-4)")
+    return errs
+
+
+def check_hyp3d_physics(h3, cfg, s0, out, key: str) -> dict:
+    for name in ("xi", "phix", "phiy", "phiz", "lam", "zet"):
+        if not bool(torch.isfinite(getattr(out, name)).all()):
+            raise AssertionError(f"{key}: non-finite {name}")
+    rho, p = out.xi.exp(), out.lam.exp()
+    if not (bool((rho > 0).all()) and bool((p > 0).all())):
+        raise AssertionError(f"{key}: rho or p not positive")
+    t, dtau = float(out.t), float(out.dtau)
+    if not (t > float(s0.t) and 1e-7 <= dtau <= 5e-2):
+        raise AssertionError(f"{key}: t {t} (from {float(s0.t)}), dtau {dtau}")
+    solid = out.solid
+    for name in ("xi", "phix", "phiy", "phiz", "lam", "zet"):
+        if not torch.equal(getattr(out, name)[solid], getattr(s0, name)[solid]):
+            raise AssertionError(f"{key}: solid cells of {name} changed")
+    u_max = float((cfg.u_ref * torch.sinh(out.phix))[~solid].max())
+    shock = float(rho[~solid].max()) / cfg.inflow_r
+    log(f"[physics] hyp3d {key}: finite, rho > 0, p > 0, t {t:.6e}, dtau "
+        f"{dtau:.4e}, solid cells unchanged, max u over the fluid {u_max:.4g}, "
+        f"max rho / inflow_r {shock:.4g}")
+    return {"t": t, "dtau": dtau, "u_max": u_max, "rho_max_over_inflow": shock}
+
+
+# (name, n, steps, plain steps): bench.py's hypersonic3d_64 (the reference's
+# size), and 256^3
+HYP3D_RUNS = (("64", 64, 400, 20), ("256", 256, 20, 1))
+
+
+def phase_hyp3d_main(h3, hk3, device, smi, errs) -> dict:
+    res = {}
+    for key, n, steps, p_steps in HYP3D_RUNS:
+        cfg = h3.default_config(n)
+        s0 = h3.init(cfg, device)
+        # warm-up, not counted: builds the padded mask on the host once
+        # and makes the allocator's first blocks
+        h3.run(cfg, s0, 1)
+        hk3.reset_launches()
+        out, wall = run_timed(h3, cfg, s0, steps)
+        launches = dict(hk3.LAUNCHES)
+        if any(v != steps for v in launches.values()):
+            raise AssertionError(f"launches {launches} in {steps} steps")
+        _, p_wall = run_timed(h3, cfg, s0, p_steps, **plain3(hk3, cfg))
+        if hk3.LAUNCHES != launches:
+            raise AssertionError("the plain engine launched a kernel")
+        cells = n ** 3
+        rate, p_rate = steps / wall, p_steps / p_wall
+        log(f"[hyp3d] {n}^3 f32 on {smi}: cuda engine {steps} steps in "
+            f"{wall:.3f} s, {rate:.2f} steps/s {cells * rate / 1e6:.1f} "
+            f"Mcell-steps/s; plain engine {p_steps} step(s) {p_rate:.3f} "
+            f"steps/s {cells * p_rate / 1e6:.2f} Mcell-steps/s; launches "
+            f"{launches}")
+        phys = check_hyp3d_physics(h3, cfg, s0, out, f"{n}^3 f32 x {steps}")
+        if n == 64 and not phys["u_max"] > 0.1:
+            raise AssertionError(f"max u {phys['u_max']} <= 0.1 at 64^3")
+        rel = check_hyp3d_call(h3, hk3, cfg, out, f"{n}^3 final state", errs,
+                               False)
+        errs["rel"][f"{n}^3 final state f32"] = rel
+        sp = h3.solid_pad_of(cfg, device)
+        qp = h3._padded_prims(cfg, h3._decode(cfg, *out[:6]), sp)
+        dt = torch.full((), 1e-6, device=device)
+        g = torch.full((), 1.0, device=device)
+        q1 = hk3.step_core(cfg, qp, sp, dt, g)
+        big = n > 64
+        times = {
+            "step": time_launches(
+                lambda: hk3.step_core(cfg, qp, sp, dt, g), 10 if big else 50),
+            "step_plain": time_launches(
+                lambda: hk3.step_core_plain(cfg, qp, sp, dt, g),
+                1 if big else 5),
+            "wavespeed": time_launches(
+                lambda: hk3.wavespeed(cfg, q1, out.solid), 50),
+            "wavespeed_plain": time_launches(
+                lambda: hk3.wavespeed_plain(cfg, q1, out.solid), 10),
+        }
+        bounds = hyp3d_bounds(cfg, out.solid)
+        log(f"[hyp3d] {n}^3 f32 final state: kernels vs plain: step max rel "
+            f"err {rel:.3e}, wavespeed bitwise; per launch on {smi}: step "
+            f"{times['step']:.4f} ms vs plain {times['step_plain']:.4f} ms "
+            f"(bound {bounds['step'][0]:.4f} ms, {bounds['step'][1]}), "
+            f"wavespeed {times['wavespeed']:.4f} ms vs plain "
+            f"{times['wavespeed_plain']:.4f} ms (bound "
+            f"{bounds['wavespeed'][0]:.4f} ms, {bounds['wavespeed'][1]})")
+        res[key] = {"launches": launches, "times": times, "bounds": bounds,
+                    "rate": rate, "plain_rate": p_rate, "physics": phys}
+    return res
+
+
+def hyp3d_bounds(cfg, solid) -> dict:
+    """bound_ms of both 3-D kernels at cfg's shape: the step reads six
+    halo-3 padded fields and the padded mask and writes six fields, and
+    computes every cell; the wavespeed reads five fields and the mask."""
+    cells = cfg.nx * cfg.ny * cfg.nz
+    padded = (cfg.nx + 6) * (cfg.ny + 6) * (cfg.nz + 6)
+    fluid = int((~solid).sum())
+    T = torch.finfo(cfg.torch_dtype).bits // 8
+    return {"step": bound(padded * (6 * T + 1) + cells * 6 * T,
+                          cells * HYP3D_STEP_OPS_PER_CELL, cfg.torch_dtype),
+            "wavespeed": bound(cells * (5 * T + 1),
+                               fluid * HYP3D_WAVESPEED_OPS_PER_FLUID_CELL,
+                               cfg.torch_dtype)}
+
+
+def phase_th3cs(h3, hk3, th3cs, fourspl, device, smi) -> dict:
+    """The .4spl export at 64^3, 60 frames x 4 steps, read back."""
+    import tempfile
+    import zlib
+    from pathlib import Path
+
+    cfg = h3.default_config(64)
+    frames, spf = 60, 4
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "th3cs_64.4spl"
+        hk3.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        th3cs.export_4spl(path, cfg, frames=frames, steps_per_frame=spf,
+                          device=device, engine="cuda")
+        wall = time.perf_counter() - t0
+        launches = dict(hk3.LAUNCHES)
+        if any(v != frames * spf for v in launches.values()):
+            raise AssertionError(f"th3cs launches {launches}, want "
+                                 f"{frames * spf} each")
+        data = path.read_bytes()
+        v = fourspl.read_4spl(path)
+    n = cfg.nx
+    size = 32 + 256 * 48 + frames * n ** 3 + 16
+    if not (len(data) == size and (v.width, v.height, v.depth) == (n, n, n)
+            and v.frames == frames and v.p_size == 256
+            and v.flags == fourspl.FLAG_F32_PRECISION):
+        raise AssertionError(f"th3cs file: {len(data)} bytes (want {size}), "
+                             f"dims {(v.width, v.height, v.depth)}, frames "
+                             f"{v.frames}, pSize {v.p_size}, flags {v.flags}")
+    magic = int.from_bytes(data[:4], "little")
+    crc = int.from_bytes(data[-16:-12], "little")
+    if magic != fourspl.MAGIC or crc != zlib.crc32(v.indices.tobytes()):
+        raise AssertionError("th3cs file: bad magic or CRC")
+    n_idx = len(np.unique(v.indices[-1]))
+    if not n_idx > 1:
+        raise AssertionError("th3cs: the last frame uses one index")
+    fps = frames / wall
+    log(f"[th3cs] {n}^3 {frames} frames x {spf} steps, cuda engine, on {smi}: "
+        f"{wall:.3f} s, {fps:.2f} frames/s ({fps * spf:.1f} steps/s); read "
+        f"back: {len(data)} bytes, magic, dims, frames, pSize 256, flags "
+        f"0x4 and CRC ok; {n_idx} indices in the last frame; launches "
+        f"{launches}")
+    return {"frames_per_s": fps, "launches": launches, "last_frame_indices":
+            n_idx}
+
+
 def main() -> int:
     smi = phase_device()
     from fluidsims_tpu_torch import interop, regression
     from fluidsims_tpu_torch.core.clock import cfl_dt
+    from fluidsims_tpu_torch.io import fourspl
     from fluidsims_tpu_torch.kernels import _build
     from fluidsims_tpu_torch.kernels import hypersonic2d_cuda as hk
+    from fluidsims_tpu_torch.kernels import hypersonic3d_cuda as hk3
     from fluidsims_tpu_torch.kernels import sph_cuda as sk
     from fluidsims_tpu_torch.solvers import hypersonic2d as h2
+    from fluidsims_tpu_torch.solvers import hypersonic3d as h3
     from fluidsims_tpu_torch.solvers import sph as ts
+    from fluidsims_tpu_torch.solvers import th3cs
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     phase_build(hk, _build)
     sk.load()
+    hk3.load()
     errs = phase_kernels(h2, hk, interop, cfl_dt, device)
     sk.reset_launches()
     main_res = phase_main(h2, hk, regression, cfl_dt, device, smi, errs)
@@ -603,6 +910,14 @@ def main() -> int:
     if any(hk.LAUNCHES.values()):
         raise AssertionError(f"the SPH path launched hypersonic kernels: "
                              f"{hk.LAUNCHES}")
+    hyp3d_errs = phase_hyp3d_kernels(h3, hk3, interop, device)
+    hk.reset_launches()
+    sk.reset_launches()
+    hyp3d_res = phase_hyp3d_main(h3, hk3, device, smi, hyp3d_errs)
+    th3cs_res = phase_th3cs(h3, hk3, th3cs, fourspl, device, smi)
+    if any(hk.LAUNCHES.values()) or any(sk.LAUNCHES.values()):
+        raise AssertionError(f"the 3-D path launched other kernels: "
+                             f"{hk.LAUNCHES} {sk.LAUNCHES}")
 
     t = main_res["times"]
     flag, ref = t["2048x2048 float32"], t["8192x1024 float64"]
@@ -659,6 +974,33 @@ def main() -> int:
             "plain_ms_1048576": b["times"][name + "_plain"],
             "bound_ms_1048576": b["bounds"][name][0],
             "bound_by_1048576": b["bounds"][name][1]})
+    a3, b3 = hyp3d_res["64"], hyp3d_res["256"]
+    for name, src, replaces in (
+            ("step", "hypersonic3d_step.cu",
+             "fluidsims_tpu/kernels/hypersonic3d_pallas.py:46"),
+            # JAX computes this part as a masked jnp.max in XLA, next to the
+            # Pallas step kernel
+            ("wavespeed", "hypersonic3d_wavespeed.cu",
+             "fluidsims_tpu/solvers/hypersonic3d.py:913")):
+        kernels.append({
+            "name": f"hypersonic3d_{name}", "route": "cuda",
+            "source": f"fluidsims_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": a3["launches"][name],
+            "max_abs_err": hyp3d_errs[name],
+            "ms": a3["times"][name], "plain_ms": a3["times"][name + "_plain"],
+            "bound_ms": a3["bounds"][name][0],
+            "bound_by": a3["bounds"][name][1], "library_ms": None,
+            "launches_256": b3["launches"][name],
+            "launches_th3cs": th3cs_res["launches"][name],
+            "ms_256": b3["times"][name],
+            "plain_ms_256": b3["times"][name + "_plain"],
+            "bound_ms_256": b3["bounds"][name][0],
+            "bound_by_256": b3["bounds"][name][1]})
+    kernels[-2]["max_rel_err"] = hyp3d_errs["rel"]
+    log(f"[hyp3d] steps/s: 64^3 f32 {a3['rate']:.2f} (plain "
+        f"{a3['plain_rate']:.3f}), 256^3 f32 {b3['rate']:.2f} (plain "
+        f"{b3['plain_rate']:.4f}); th3cs 64^3 "
+        f"{th3cs_res['frames_per_s']:.2f} frames/s")
     log(f"[sph] M particle-steps/s: n=65536 {a['rate']:.3f} (plain "
         f"{a['plain_rate']:.4f}), n=1048576 {b['rate']:.3f} (plain "
         f"{b['plain_rate']:.4f}); pairs {a['bounds']['pairs']} / "

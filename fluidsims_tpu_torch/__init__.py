@@ -10,9 +10,12 @@ Ported so far: the flagship 2-D hypersonic Euler solver
 (`solvers.hypersonic2d`), whose cell update and CFL wavespeed reduction run
 as hand-written CUDA kernels on the GPU (`kernels.hypersonic2d_cuda`), and
 2-D SPH (`solvers.sph`, `ops.cell_dense`), whose binning, density and
-forces + integrate run as three more (`kernels.sph_cuda`); the sources
-are in `csrc/`.  Kernels build with nvcc at first use; on CPU tensors
-every kernel wrapper takes its plain PyTorch version.  Entry points
+forces + integrate run as three more (`kernels.sph_cuda`), and the 3-D
+hypersonic solver (`solvers.hypersonic3d`, `ops.weno`) with its `.4spl`
+export (`solvers.th3cs`, `io.fourspl`), whose cell update and masked
+max-wavespeed reduction run as two more (`kernels.hypersonic3d_cuda`);
+the sources are in `csrc/`.  Kernels build with nvcc at first use; on
+CPU tensors every kernel wrapper takes its plain PyTorch version.  Entry points
 (`init`, `interop.*_from_numpy`) put their tensors on the GPU unless
 given a device.
 

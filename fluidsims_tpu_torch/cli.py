@@ -2,16 +2,21 @@
 
     python -m fluidsims_tpu_torch.cli hypersonic2d --nx 2048 --ny 2048 --steps 200
     python -m fluidsims_tpu_torch.cli sph --n 65536 --no-rain --steps 200
+    python -m fluidsims_tpu_torch.cli hypersonic3d --n 64 --steps 400
+    python -m fluidsims_tpu_torch.cli th3cs --n 64 --out vol.4spl
 
-Ports of the `hypersonic2d` and `sph` subcommands of fluidsims_tpu.cli with
-the same physics flags and defaults, headless.  Both run on `--device cuda`
-unless asked for the CPU.
+Ports of the `hypersonic2d`, `sph`, `hypersonic3d` and `th3cs` subcommands
+of fluidsims_tpu.cli with the same physics flags and defaults, headless.
+All run on `--device cuda` unless asked for the CPU.
 
-hypersonic2d: `--impl cuda` (default) steps through the CUDA kernels and
-needs `--device cuda`; `--impl torch` steps through their plain PyTorch
-versions on either device, for timing and comparison.  There is no
-automatic choice between them: what is asked for runs, or the command
-fails.
+hypersonic2d, hypersonic3d: `--impl cuda` (default) steps through the CUDA
+kernels and needs `--device cuda`; `--impl torch` steps through their
+plain PyTorch versions on either device, for timing and comparison.  There
+is no automatic choice between them: what is asked for runs, or the
+command fails.
+
+th3cs: the `.4spl` schlieren volume-video export; the CUDA kernels on a
+GPU, their plain versions on the CPU; the engine that ran is printed.
 
 sph: `--engine auto` resolves as solvers.sph.resolve_engine does (the CUDA
 kernels on a GPU unless --xsph, else the plain cell-dense engine); the
@@ -27,24 +32,29 @@ import sys
 __all__ = ["build_parser", "main"]
 
 
-def _engine(cfg, impl: str, device) -> dict:
-    """step() hooks for the chosen implementation."""
-    from .kernels import hypersonic2d_cuda as hk
-
+def _engine(cfg, impl: str, device, core_plain, wavespeed_plain) -> dict:
+    """step() hooks for the chosen implementation: {} keeps step()'s
+    defaults (the kernels), "torch" takes the kernels' plain versions."""
     if impl == "cuda":
         if device.type != "cuda":
             raise SystemExit("--impl cuda runs the CUDA kernels and needs "
                              "--device cuda; use --impl torch on the CPU")
-        return {}  # step()'s defaults: the kernels
-    return {"core": functools.partial(hk.step_core_plain, cfg),
-            "wavespeed": functools.partial(hk.inflow_wavespeed_plain, cfg)}
+        return {}
+    return {"core": functools.partial(core_plain, cfg),
+            "wavespeed": functools.partial(wavespeed_plain, cfg)}
+
+
+def _device_name(device) -> str:
+    import torch
+
+    return torch.cuda.get_device_name(device) if device.type == "cuda" \
+        else "cpu"
 
 
 def cmd_hypersonic2d(args):
-    import torch
-
     from .core.device import resolve_device
     from .core.stepper import benchmark
+    from .kernels import hypersonic2d_cuda as hk
     from .solvers import hypersonic2d as h2
 
     device = resolve_device(args.device)
@@ -53,7 +63,8 @@ def cmd_hypersonic2d(args):
         visc_nu=args.visc_nu, visc_rho=args.visc_rho, visc_e=args.visc_e,
         inflow_mach=args.mach, dtype=args.dtype,
     )
-    engine = _engine(cfg, args.impl, device)
+    engine = _engine(cfg, args.impl, device, hk.step_core_plain,
+                     hk.inflow_wavespeed_plain)
     last = [h2.init(cfg, device)]
 
     def step_fn(st):
@@ -63,7 +74,7 @@ def cmd_hypersonic2d(args):
     # One warm-up step builds and loads the kernels; it is not timed.
     res = benchmark(step_fn, last[0], args.steps, warmup_steps=1,
                     cells=cfg.nx * cfg.ny)
-    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    name = _device_name(device)
     print(f"hypersonic2d {cfg.nx}x{cfg.ny} {cfg.dtype} impl={args.impl} "
           f"device={name}: {res['steps']} steps in {res['wall_s']:.3f}s -> "
           f"{res['steps_per_sec']:.1f} steps/s, "
@@ -73,8 +84,6 @@ def cmd_hypersonic2d(args):
 
 
 def cmd_sph(args):
-    import torch
-
     from .core.device import resolve_device
     from .core.stepper import benchmark
     from .solvers import sph
@@ -98,7 +107,7 @@ def cmd_sph(args):
     # One warm-up step builds and loads the kernels; it is not timed.
     res = benchmark(step_fn, last[0], args.steps, warmup_steps=1,
                     cells=cfg.n)
-    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    name = _device_name(device)
     out = last[0]
     print(f"sph n={cfg.n} {cfg.dtype} engine={engine} device={name}: "
           f"{res['steps']} steps in {res['wall_s']:.3f}s -> "
@@ -113,6 +122,62 @@ def cmd_sph(args):
               "bin capacity and are excluded from interactions this frame; "
               "raise --bin-capacity or use --engine exact", file=sys.stderr)
     return out
+
+
+def cmd_hypersonic3d(args):
+    from .core.device import resolve_device
+    from .core.stepper import benchmark
+    from .kernels import hypersonic3d_cuda as hk3
+    from .solvers import hypersonic3d as h3
+
+    device = resolve_device(args.device)
+    cfg = h3.default_config(args.n, dtype=args.dtype, outflow=args.outflow)
+    engine = _engine(cfg, args.impl, device, hk3.step_core_plain,
+                     hk3.wavespeed_plain)
+    last = [h3.init(cfg, device)]
+
+    def step_fn(st):
+        last[0] = h3.step(cfg, st, **engine)
+        return last[0]
+
+    # One warm-up step builds and loads the kernels; it is not timed.
+    res = benchmark(step_fn, last[0], args.steps, warmup_steps=1,
+                    cells=cfg.nx * cfg.ny * cfg.nz)
+    out = last[0]
+    print(f"hypersonic3d {cfg.nx}^3 {cfg.dtype} outflow={cfg.outflow} "
+          f"impl={args.impl} device={_device_name(device)}: {res['steps']} "
+          f"steps in {res['wall_s']:.3f}s -> {res['steps_per_sec']:.1f} "
+          f"steps/s, {res['mcells_per_sec']:.1f} Mcell-steps/s")
+    refl = float(h3.outflow_reflection_metric(cfg, out))
+    print(f"t = {float(out.t):.6f} dtau = {float(out.dtau):.3e} "
+          f"refl_dp = {refl:.3e}")
+    return out
+
+
+def cmd_th3cs(args):
+    import time
+
+    import torch
+
+    from .core.device import resolve_device
+    from .solvers import hypersonic3d as h3
+    from .solvers.th3cs import export_4spl
+
+    device = resolve_device(args.device)
+    engine = "cuda" if device.type == "cuda" else "torch"
+    cfg = h3.default_config(args.n)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    export_4spl(args.out, cfg, frames=args.frames,
+                steps_per_frame=args.steps_per_frame, device=device,
+                engine=engine)
+    wall = time.perf_counter() - t0
+    print(f"th3cs {cfg.nx}^3 engine={engine} device={_device_name(device)}: "
+          f"{args.frames} frames x {args.steps_per_frame} steps in "
+          f"{wall:.3f}s -> {args.frames / wall:.2f} frames/s (kernel build "
+          f"included)")
+    print(f"wrote {args.out}")
 
 
 def build_parser():
@@ -174,6 +239,32 @@ def build_parser():
     p.add_argument("--device", default="cuda",
                    help="cuda, cuda:N or cpu; a missing GPU is an error")
     p.set_defaults(fn=cmd_sph)
+
+    p = sub.add_parser("hypersonic3d",
+                       help="3-D hypersonic flow (tau_hypersonic_3d_cuda)")
+    p.add_argument("--n", type=int, default=64)
+    p.add_argument("--outflow", choices=("transmissive", "characteristic"),
+                   default="transmissive")
+    p.add_argument("--steps", type=int, default=100,
+                   help="number of physics steps")
+    p.add_argument("--dtype", default="float32",
+                   choices=("float32", "float64"))
+    p.add_argument("--impl", choices=("cuda", "torch"), default="cuda",
+                   help="step implementation: the hand-written CUDA kernels "
+                        "(needs --device cuda) or their plain PyTorch "
+                        "versions")
+    p.add_argument("--device", default="cuda",
+                   help="cuda, cuda:N or cpu; a missing GPU is an error")
+    p.set_defaults(fn=cmd_hypersonic3d)
+
+    p = sub.add_parser("th3cs", help=".4spl volume-video export (th3cs)")
+    p.add_argument("--n", type=int, default=64)
+    p.add_argument("--out", default="tau_hypersonic.4spl")
+    p.add_argument("--frames", type=int, default=60)
+    p.add_argument("--steps-per-frame", type=int, default=4)
+    p.add_argument("--device", default="cuda",
+                   help="cuda, cuda:N or cpu; a missing GPU is an error")
+    p.set_defaults(fn=cmd_th3cs)
     return ap
 
 

@@ -6,7 +6,9 @@ packages can step it and be compared; the reverse direction returns the
 port's state as numpy arrays for any consumer.  `sph_state_from_numpy` /
 `sph_state_to_numpy` do the same for SPH, and `sph_config_from_dict` maps
 the fields of a JAX `SPHConfig` (its `asdict()`) to the port's, renaming
-the engines.  Nothing here imports the JAX package.
+the engines.  `hyp3d_state_from_numpy` / `hyp3d_state_to_numpy` and
+`hyp3d_config_from_dict` do the same for the 3-D hypersonic solver.
+Nothing here imports the JAX package.
 
 Every `device=None` means the GPU, as for the solvers' `init`.
 """
@@ -19,10 +21,13 @@ import torch
 from .core.device import resolve_device
 from .ops.euler2d import Cons
 from .solvers.hypersonic2d import Hypersonic2DState
+from .solvers.hypersonic3d import Hypersonic3DConfig, Hypersonic3DState
 from .solvers.sph import SPHConfig, SPHState
 
 __all__ = ["state_from_numpy", "state_to_numpy", "sph_state_from_numpy",
-           "sph_state_to_numpy", "sph_config_from_dict"]
+           "sph_state_to_numpy", "sph_config_from_dict",
+           "hyp3d_state_from_numpy", "hyp3d_state_to_numpy",
+           "hyp3d_config_from_dict"]
 
 # JAX engine name -> port engine name
 _SPH_ENGINES = {"auto": "auto", "pallas": "cuda", "xla": "torch",
@@ -88,3 +93,37 @@ def sph_config_from_dict(fields: dict) -> SPHConfig:
     fields = dict(fields)
     fields["engine"] = _SPH_ENGINES[fields.get("engine", "auto")]
     return SPHConfig(**fields)
+
+
+def hyp3d_state_from_numpy(xi, phix, phiy, phiz, lam, zet, solid, t, dtau, *,
+                           dtype: torch.dtype,
+                           device=None) -> Hypersonic3DState:
+    """Build a 3-D state from the six (nz, ny, nx) log-space fields, the
+    bool solid mask and the scalars t and dtau.  The arrays are copied."""
+    device = _device(device)
+    fields = [torch.tensor(np.asarray(f), dtype=dtype, device=device)
+              for f in (xi, phix, phiy, phiz, lam, zet)]
+    m = torch.tensor(np.asarray(solid, dtype=bool), device=device)
+    if m.ndim != 3:
+        raise ValueError(f"solid must be (nz, ny, nx), got {tuple(m.shape)}")
+    for name, f in zip(Hypersonic3DState._fields, fields):
+        if f.shape != m.shape:
+            raise ValueError(f"{name} has shape {tuple(f.shape)}, solid "
+                             f"{tuple(m.shape)}")
+
+    def scalar(x):
+        return torch.tensor(np.asarray(x).item(), dtype=dtype, device=device)
+
+    return Hypersonic3DState(*fields, solid=m, t=scalar(t), dtau=scalar(dtau))
+
+
+def hyp3d_state_to_numpy(state: Hypersonic3DState):
+    """(xi, phix, phiy, phiz, lam, zet, solid, t, dtau) as numpy, copied to
+    the host."""
+    return tuple(f.detach().cpu().numpy() for f in state)
+
+
+def hyp3d_config_from_dict(fields: dict) -> Hypersonic3DConfig:
+    """The port's Hypersonic3DConfig for the fields of a JAX
+    Hypersonic3DConfig (`asdict()`): the same names and meanings."""
+    return Hypersonic3DConfig(**fields)

@@ -1,0 +1,211 @@
+"""CUDA kernels of the 3-D hypersonic step, with their wrappers and plain
+PyTorch versions.
+
+* `step_core(cfg, qp, solid_pad, dt, gain, x0=0) -> PrimT` —
+  csrc/hypersonic3d_step.cu, which replaces the TPU kernel
+  fluidsims_tpu/kernels/hypersonic3d_pallas.py::_band_kernel.  Plain
+  version: `step_core_plain` (step_core_padded of the solver: dense wall
+  fluxes, slab sponges).
+* `wavespeed(cfg, q1, solid) -> 0-d tensor` — csrc/
+  hypersonic3d_wavespeed.cu: the masked max over fluid cells of
+  (|u|+a)/dx + (|v|+a)/dy + (|w|+a)/dz, on the device.  Plain version:
+  `wavespeed_plain` (max_wavespeed of the solver).
+
+The wrappers take the plain version for CPU tensors only.  For CUDA
+tensors they check device, dtype, shape and contiguity, launch on the
+current stream, count the launch in `LAUNCHES`, and raise if the launch
+fails; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..solvers import hypersonic3d as h3
+from ..solvers.hypersonic3d import HALO, PrimT
+from . import _build
+
+__all__ = ["LAUNCHES", "reset_launches", "step_core", "step_core_plain",
+           "wavespeed", "wavespeed_plain", "load"]
+
+# Launches of each kernel since the last reset_launches(): one per wrapper
+# call that launched on the GPU.
+LAUNCHES = {"step": 0, "wavespeed": 0}
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+class _Params(ctypes.Structure):
+    """Mirror of fst::Hyp3DParams (csrc/hypersonic3d.cuh)."""
+
+    _fields_ = [
+        ("nz", ctypes.c_int),
+        ("ny", ctypes.c_int),
+        ("nx", ctypes.c_int),
+        ("nx_global", ctypes.c_int),
+        ("x0", ctypes.c_int),
+        ("sponge_n", ctypes.c_int),
+        ("sponge_out_n", ctypes.c_int),
+        ("gamma", ctypes.c_double),
+        ("gm1", ctypes.c_double),
+        ("R", ctypes.c_double),
+        ("theta_v", ctypes.c_double),
+        ("R_theta_v", ctypes.c_double),
+        ("tau_vib", ctypes.c_double),
+        ("inv_d", ctypes.c_double * 3),
+        ("d", ctypes.c_double * 3),
+        ("infl", ctypes.c_double * 6),
+        ("sponge_strength", ctypes.c_double),
+        ("sponge_out_strength", ctypes.c_double),
+        ("tgt_r", ctypes.c_double),
+        ("tgt_p", ctypes.c_double),
+        ("tgt_ev", ctypes.c_double),
+    ]
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """Build (first use) and load the kernel library, with typed entry
+    points."""
+    lib = _build.load_library()
+    P = ctypes.c_void_p
+    for sfx in _SUFFIX.values():
+        fn = getattr(lib, f"fst_hyp3d_step_{sfx}")
+        fn.argtypes = [P] * 15 + [ctypes.POINTER(_Params), ctypes.c_int, P]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"fst_hyp3d_wavespeed_{sfx}")
+        fn.argtypes = [P] * 7 + [ctypes.POINTER(_Params), ctypes.c_int, P]
+        fn.restype = ctypes.c_int
+    lib.fst_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.fst_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _params(cfg, x0: int = 0) -> _Params:
+    """Every constant in double, formed from the config as the plain code
+    forms it; the kernel rounds each to T once."""
+    tgtT = max(cfg.inflow_p, h3.RHO_P_FLOOR) / (
+        max(cfg.inflow_r, h3.RHO_P_FLOOR) * cfg.R)
+    D3 = ctypes.c_double * 3
+    return _Params(
+        cfg.nz, cfg.ny, cfg.nx, cfg.nx, x0, cfg.sponge_n, cfg.sponge_out_n,
+        cfg.gamma_floor, cfg.gamma_floor - 1.0, cfg.R, cfg.theta_v,
+        cfg.R * cfg.theta_v, max(cfg.tau_vib, h3.TAU_VIB_MIN),
+        D3(1.0 / cfg.dx, 1.0 / cfg.dy, 1.0 / cfg.dz),
+        D3(cfg.dx, cfg.dy, cfg.dz),
+        (ctypes.c_double * 6)(*h3.inflow_values(cfg)),
+        cfg.sponge_strength, cfg.sponge_out_strength,
+        max(cfg.inflow_r, h3.RHO_P_FLOOR), max(cfg.inflow_p, h3.RHO_P_FLOOR),
+        h3.evib_eq_py(cfg, tgtT))
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}; use cpu or cuda")
+    return False
+
+
+def _check_fields(cfg, q: PrimT, mask: torch.Tensor, shape, what: str,
+                  scalars=()) -> None:
+    dev = mask.device
+    if cfg.torch_dtype not in _SUFFIX:
+        raise TypeError(f"no kernel for dtype {cfg.torch_dtype}")
+    if mask.dtype != torch.bool or tuple(mask.shape) != shape:
+        raise ValueError(f"{what} mask must be bool {shape}, got "
+                         f"{mask.dtype} {tuple(mask.shape)}")
+    if not mask.is_contiguous():
+        raise ValueError(f"{what} mask must be contiguous")
+    for name, f in zip(PrimT._fields, q):
+        if f.device != dev:
+            raise ValueError(f"{what}.{name} on {f.device}, mask on {dev}")
+        if f.dtype != cfg.torch_dtype:
+            raise TypeError(f"{what}.{name} is {f.dtype}, config says "
+                            f"{cfg.torch_dtype}")
+        if tuple(f.shape) != shape:
+            raise ValueError(f"{what}.{name} has shape {tuple(f.shape)}, "
+                             f"config says {shape}")
+        if not f.is_contiguous():
+            raise ValueError(f"{what}.{name} must be contiguous")
+    for name, s in scalars:
+        if s.device != dev or s.dtype != cfg.torch_dtype or s.numel() != 1:
+            raise ValueError(f"{name} must be a one-element {cfg.torch_dtype} "
+                             f"tensor on {dev}, got {s.dtype} "
+                             f"{tuple(s.shape)} on {s.device}")
+
+
+def _padded_shape(cfg):
+    return (cfg.nz + 2 * HALO, cfg.ny + 2 * HALO, cfg.nx + 2 * HALO)
+
+
+def _raise_on_error(lib, code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(
+            f"{what} kernel launch failed: CUDA error {code} "
+            f"({lib.fst_cuda_error_string(code).decode()})")
+
+
+def step_core_plain(cfg, qp: PrimT, solid_pad, dt, gain, x0: int = 0) -> PrimT:
+    """Plain PyTorch version of the step kernel."""
+    return h3.step_core_padded(cfg, qp, solid_pad, dt, gain, x0=x0,
+                               solid_box="dense", sponge_mode="slab")
+
+
+def step_core(cfg, qp: PrimT, solid_pad, dt, gain, x0: int = 0) -> PrimT:
+    """step_core_padded on halo-3 padded prims: the step kernel on CUDA
+    tensors, the plain version on CPU tensors.  `dt` and `gain` are 0-d
+    tensors; the kernel reads them from device memory."""
+    if _on_cpu(solid_pad):
+        return step_core_plain(cfg, qp, solid_pad, dt, gain, x0)
+    _check_fields(cfg, qp, solid_pad, _padded_shape(cfg), "qp",
+                  (("dt", dt), ("gain", gain)))
+    lib = load()
+    shape = (cfg.nz, cfg.ny, cfg.nx)
+    out = PrimT(*(torch.empty(shape, dtype=cfg.torch_dtype,
+                              device=solid_pad.device) for _ in range(6)))
+    fn = getattr(lib, f"fst_hyp3d_step_{_SUFFIX[cfg.torch_dtype]}")
+    params = _params(cfg, x0)
+    with torch.cuda.device(solid_pad.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(*(f.data_ptr() for f in qp), solid_pad.data_ptr(),
+                  dt.data_ptr(), gain.data_ptr(),
+                  *(f.data_ptr() for f in out), ctypes.byref(params),
+                  solid_pad.device.index or 0, stream)
+    _raise_on_error(lib, code, "hypersonic3d step")
+    LAUNCHES["step"] += 1
+    return out
+
+
+def wavespeed_plain(cfg, q1: PrimT, solid) -> torch.Tensor:
+    """Plain PyTorch version of the wavespeed kernel."""
+    return h3.max_wavespeed(cfg, q1, solid)
+
+
+def wavespeed(cfg, q1: PrimT, solid) -> torch.Tensor:
+    """The masked max wavespeed of `q1` as a 0-d tensor on its device: the
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    if _on_cpu(solid):
+        return wavespeed_plain(cfg, q1, solid)
+    _check_fields(cfg, q1, solid, (cfg.nz, cfg.ny, cfg.nx), "q1")
+    lib = load()
+    out = torch.empty((), dtype=cfg.torch_dtype, device=solid.device)
+    fn = getattr(lib, f"fst_hyp3d_wavespeed_{_SUFFIX[cfg.torch_dtype]}")
+    params = _params(cfg)
+    with torch.cuda.device(solid.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(*(f.data_ptr() for f in q1[:5]), solid.data_ptr(),
+                  out.data_ptr(), ctypes.byref(params),
+                  solid.device.index or 0, stream)
+    _raise_on_error(lib, code, "hypersonic3d wavespeed")
+    LAUNCHES["wavespeed"] += 1
+    return out

@@ -1,1 +1,1 @@
-from . import euler2d, limiters, riemann, sdf  # noqa: F401
+from . import euler2d, limiters, riemann, sdf, weno  # noqa: F401
