@@ -61,6 +61,29 @@ failure of which ends the run with a non-zero exit:
              engine, into a temporary file, read back with the port's
              read_4spl (magic, dims, frames, pSize, flags, size, CRC, more
              than one index in the last frame); frames/s.
+11. stencil_kernels — the Gray–Scott and D2Q9 LBM kernels (one step, K
+             steps a launch) against their plain PyTorch versions, f32 and
+             f64, from init plus seeded noise, on a ragged 200x75 grid
+             (LBM with a radius-8 obstacle), an aligned 256x128 one and,
+             for LBM, 200x75 with the top wall row removed: Gray–Scott
+             bitwise, LBM bitwise or within 1e-5 (f32) / 1e-12 (f64)
+             relative; K = 16 and K = 1 (Gray–Scott), K = 8 and K = 1
+             (LBM); the overrides feed=0.04, kill=0.058 and drive=3e-4;
+             run(cfg, s, 23) at block_k=8 makes exactly 2 K-step and 7
+             one-step launches and equals 23 plain steps.
+12. stencil_main — solvers.gray_scott.run and solvers.lbm.run with engine
+             'auto', which must resolve to 'cuda': Gray–Scott 2048^2 f32 x
+             2000 at block_k 16 and 1 and f64 x 400 (bench.py's size and
+             step count); LBM 2048x1024 f32 x 1000 at block_k 8 and 1 and
+             f64 x 200 (bench.py's); launch counts n // K and n % K (K = 1:
+             the one-step kernel every step); steps/s, Mcell-steps/s or
+             MLUPS beside the plain 'torch' engine's (100 and 20 steps);
+             physics (Gray–Scott: finite, u and v in [-1e-3, 1 + 1e-3], max
+             v > 0.1; LBM: finite, mass summed in f64 within 2e-8 (f32) /
+             1e-14 (f64) a step relative to the start (f32 rounding drifts
+             by 1.3e-8 a step), max |u| < 0.1, mean x velocity of the fluid
+             above its start); then from each final state every kernel
+             against its plain version at full shape and per-launch times.
 
 Every kernel's line in {"kernels": [...]} carries bound_ms, the least time
 the card could take for its work at the main path's shape: the larger of
@@ -121,6 +144,15 @@ HYP3D_STEP_OPS_PER_CELL = 2300
 # hypersonic3d_wavespeed.cu per fluid cell: sound speed (4), three
 # |u|+a divided by d (9), two adds, the test.
 HYP3D_WAVESPEED_OPS_PER_FLUID_CELL = 17
+# gray_scott.cuh::gs_cell per cell-step: two Laplacians (3 adds for the
+# four neighbours, 4c, the subtraction, x inv_dx2: 6 each), uvv (2), du
+# (5), dv (4), the two forward-Euler updates (4).
+GS_OPS_PER_CELL = 2 * 6 + 2 + 5 + 4 + 4
+# lbm.cuh::lbm_collide per fluid cell-step: rho (8 adds, the floor), the
+# two momentum sums (5 each), ux, uy (3), u2 (3), and per direction cu
+# (4), feq (8) and the relaxation (3); counted for the fluid cells only
+# (solid cells and streaming do none).
+LBM_OPS_PER_CELL = 9 + 10 + 3 + 3 + 9 * 15
 
 
 def log(msg: str) -> None:
@@ -879,17 +911,330 @@ def phase_th3cs(h3, hk3, th3cs, fourspl, device, smi) -> dict:
             n_idx}
 
 
+# ------------------------- Gray–Scott and D2Q9 LBM ---------------------------
+
+def gs_state(gs, cfg, device, seed):
+    """init() plus seeded normal noise (0.05) on u and v."""
+    s = gs.init(cfg, torch.device("cpu"))
+    rng = np.random.default_rng(seed)
+    return gs.GrayScottState(*(
+        (f + torch.tensor(0.05 * rng.standard_normal(f.shape),
+                          dtype=f.dtype)).to(device) for f in s))
+
+
+def lbm_state(lbm, cfg, device, seed, top_wall=True):
+    """init() with the populations scaled by 1 + 0.05 x seeded normal
+    noise; without the top wall row if `top_wall` is False."""
+    s = lbm.init(cfg, torch.device("cpu"))
+    rng = np.random.default_rng(seed)
+    f = s.f * (1.0 + torch.tensor(0.05 * rng.standard_normal(s.f.shape),
+                                  dtype=s.f.dtype))
+    solid = s.solid.clone()
+    if not top_wall:
+        solid[-1] = False
+    return lbm.LBMState(f=f.contiguous().to(device), solid=solid.to(device))
+
+
+def stencil_err(got, ref, what: str, tol: float) -> tuple[float, float]:
+    """(max |err| / max |ref|, max |err|) over the fields of two states;
+    raises on non-finite values in different places or a breach of tol
+    (0: bitwise, NaN in the same places)."""
+    rel = ab = 0.0
+    for name, a, b in zip(ref._fields, got, ref):
+        if a.dtype == torch.bool:
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: {name} differs")
+            continue
+        if tol == 0.0:
+            if not same(a, b):
+                raise AssertionError(
+                    f"{what}.{name}: not bitwise equal (max |err| "
+                    f"{float((a - b).abs().nan_to_num(0).max()):.3e})")
+            continue
+        fa, fb = torch.isfinite(a), torch.isfinite(b)
+        if not torch.equal(fa, fb):
+            raise AssertionError(f"{what}.{name}: non-finite cells differ")
+        d = float((a[fb] - b[fb]).abs().max())
+        rel = max(rel, d / max(float(b[fb].abs().max()), 1e-300))
+        ab = max(ab, d)
+    if not rel <= tol:
+        raise AssertionError(f"{what}: max rel err {rel:.3e} > {tol:g}")
+    return rel, ab
+
+
+def check_stencil_call(kmod, solver, cfg, s, k, what, errs, tol,
+                       **over) -> float:
+    """One kernel of `solver` ("gs" or "lbm": the one-step kernel if k is
+    None, else the K-step kernel) against its plain version on the same
+    state; folds max |err| into errs["<solver>_step" / "_multistep"]."""
+    name = f"{solver}_{'step' if k is None else 'multistep'}"
+    args = () if k is None else (k,)
+    got = getattr(kmod, name)(cfg, s, *args, **over)
+    ref = getattr(kmod, f"{name}_plain")(cfg, s, *args, **over)
+    torch.cuda.synchronize()
+    rel, ab = stencil_err(got, ref, what, tol)
+    errs[name] = max(errs[name], ab)
+    return rel
+
+
+def check_run23(mod, kmod, cfg, s, what: str, tol: float) -> None:
+    """run(cfg, s, 23) at block_k=8: 2 K-step and 7 one-step launches,
+    equal to 23 plain steps."""
+    cfg = cfg.replace(block_k=8)
+    kmod.reset_launches()
+    out = mod.run(cfg, s, 23)
+    if kmod.LAUNCHES != {"step": 7, "multistep": 2}:
+        raise AssertionError(f"{what}: run(23) at block_k=8 launched "
+                             f"{kmod.LAUNCHES}, want step 7, multistep 2")
+    ref = s
+    for _ in range(23):
+        ref = mod.step(cfg, ref)
+    torch.cuda.synchronize()
+    stencil_err(out, ref, f"{what} run(23)", tol)
+
+
+def phase_stencil_kernels(gs, lbm, gk, lk, device) -> dict:
+    errs = {"gs_step": 0.0, "gs_multistep": 0.0, "lbm_step": 0.0,
+            "lbm_multistep": 0.0, "rel": {}}
+    for dtype in ("float32", "float64"):
+        dt = getattr(torch, dtype)
+        for nx, ny in ((200, 75), (256, 128)):
+            cfg = gs.GrayScottConfig(nx=nx, ny=ny, dtype=dtype)
+            key = f"gray_scott {nx}x{ny} {dtype}"
+            s = gs_state(gs, cfg, device, SEED)
+            for over in ({}, {"feed": 0.04, "kill": 0.058}):
+                for k in (None, 16, 1):
+                    check_stencil_call(gk, "gs", cfg, s, k,
+                                       f"{key} K={k} {over}", errs, 0.0,
+                                       **over)
+            check_run23(gs, gk, cfg, s, key, 0.0)
+            errs["rel"][key] = 0.0
+            log(f"[stencil] {key}: one-step and K-step (K=16, 1; default "
+                f"and feed=0.04 kill=0.058) bitwise equal to the plain "
+                f"version; run(23) at block_k=8: 2 + 7 launches, bitwise "
+                f"equal to 23 plain steps")
+        for nx, ny, top in ((200, 75, True), (256, 128, True),
+                            (200, 75, False)):
+            cfg = lbm.LBMConfig(nx=nx, ny=ny, dtype=dtype,
+                                obstacle_radius=8.0)
+            key = (f"lbm {nx}x{ny} {dtype}"
+                   + ("" if top else " no top wall"))
+            s = lbm_state(lbm, cfg, device, SEED, top)
+            worst = 0.0
+            for over in ({}, {"drive": 3e-4}):
+                for k in (None, 8, 1):
+                    worst = max(worst, check_stencil_call(
+                        lk, "lbm", cfg, s, k, f"{key} K={k} {over}", errs,
+                        STEP_TOL[dt], **over))
+            check_run23(lbm, lk, cfg, s, key, STEP_TOL[dt])
+            errs["rel"][key] = worst
+            log(f"[stencil] {key}: one-step and K-step (K=8, 1; default and "
+                f"drive=3e-4) vs the plain version: max rel err {worst:.3e} "
+                f"(tol {STEP_TOL[dt]:g}; 0 = bitwise); run(23) at block_k=8: "
+                f"2 + 7 launches, equal to 23 plain steps")
+    return errs
+
+
+def check_gs_physics(out, key: str) -> dict:
+    u, v = out.u, out.v
+    if not (bool(torch.isfinite(u).all()) and bool(torch.isfinite(v).all())):
+        raise AssertionError(f"{key}: non-finite u or v")
+    lo = min(float(u.min()), float(v.min()))
+    hi = max(float(u.max()), float(v.max()))
+    vmax = float(v.max())
+    if not (lo >= -1e-3 and hi <= 1.0 + 1e-3 and vmax > 0.1):
+        raise AssertionError(f"{key}: u, v in [{lo}, {hi}], max v {vmax}")
+    frac = float((v > 0.1).double().mean())
+    log(f"[physics] {key}: finite, u in [{float(u.min()):.4f}, "
+        f"{float(u.max()):.4f}], v in [{float(v.min()):.4f}, {vmax:.4f}], "
+        f"share of cells with v > 0.1 {frac:.4f}")
+    return {"u_min": float(u.min()), "u_max": float(u.max()),
+            "v_min": float(v.min()), "v_max": vmax, "v_gt_0.1": frac}
+
+
+def lbm_observables(lbm, cfg, s) -> dict:
+    """Total mass (f64 sum), max |u| and mean ux over the fluid cells."""
+    _, ux, uy = lbm.macroscopic(s.f)
+    fluid = ~s.solid
+    return {"mass": float(s.f.double().sum()),
+            "u_max": float(torch.sqrt(ux * ux + uy * uy)[fluid].max()),
+            "ux_mean": float(ux[fluid].double().mean())}
+
+
+# Relative mass drift allowed per step.  BGK with the shifted equilibrium
+# and bounce-back conserve mass exactly; what remains is rounding, which
+# at f32 is biased: the plain engine drifts by +1.3e-8 a step on the CPU
+# (linear in steps, the same at 512x256 and 1024x512, with and without
+# drive or obstacle; 1.3e-5 over 1000 steps), at f64 by ~1e-16.
+LBM_MASS_DRIFT_PER_STEP = {torch.float32: 2e-8, torch.float64: 1e-14}
+
+
+def check_lbm_physics(lbm, cfg, s0, out, key: str, steps: int) -> dict:
+    if not bool(torch.isfinite(out.f).all()):
+        raise AssertionError(f"{key}: non-finite f")
+    a, b = lbm_observables(lbm, cfg, s0), lbm_observables(lbm, cfg, out)
+    drift = abs(b["mass"] - a["mass"]) / a["mass"]
+    bar = LBM_MASS_DRIFT_PER_STEP[cfg.torch_dtype] * steps
+    if not (drift <= bar and b["u_max"] < 0.1
+            and b["ux_mean"] > a["ux_mean"]):
+        raise AssertionError(f"{key}: mass drift {drift:.3e} (bar "
+                             f"{bar:.1e}), start {a}, end {b}")
+    log(f"[physics] {key}: finite, mass {a['mass']:.9g} -> {b['mass']:.9g} "
+        f"(rel drift {drift:.3e}, bar {bar:.1e}), max |u| "
+        f"{b['u_max']:.5f}, mean ux of the "
+        f"fluid {a['ux_mean']:.4e} -> {b['ux_mean']:.4e}")
+    return {"mass_drift": drift, "u_max": b["u_max"],
+            "ux_mean_start": a["ux_mean"], "ux_mean": b["ux_mean"]}
+
+
+def stencil_bounds(cfg, k: int, lbm_fluid: int | None) -> dict:
+    """bound_ms of the one-step and the K-step kernel at cfg's shape: each
+    launch reads the state once and writes it once (LBM: and reads the
+    solid mask); the K-step kernel does k steps of work."""
+    cells = cfg.nx * cfg.ny
+    T = torch.finfo(cfg.torch_dtype).bits // 8
+    if lbm_fluid is None:
+        nbytes, ops = cells * 4 * T, cells * GS_OPS_PER_CELL
+    else:
+        nbytes, ops = cells * (18 * T + 1), lbm_fluid * LBM_OPS_PER_CELL
+    return {"step": bound(nbytes, ops, cfg.torch_dtype),
+            "multistep": bound(nbytes, k * ops, cfg.torch_dtype)}
+
+
+# (solver, nx, ny, dtype, steps, block_k, plain steps): bench.py's
+# gray_scott (2048^2 x 2000) and lbm (2048x1024 x 1000) at their default
+# block_k and at 1, and each at f64
+STENCIL_RUNS = (("gs", 2048, 2048, "float32", 2000, 16, 100),
+                ("gs", 2048, 2048, "float32", 2000, 1, 100),
+                ("gs", 2048, 2048, "float64", 400, 16, 100),
+                ("lbm", 2048, 1024, "float32", 1000, 8, 20),
+                ("lbm", 2048, 1024, "float32", 1000, 1, 20),
+                ("lbm", 2048, 1024, "float64", 200, 8, 20))
+
+
+def phase_stencil_main(gs, lbm, gk, lk, device, smi, errs,
+                       runs=STENCIL_RUNS) -> dict:
+    res = {}
+    launches = {"gs": {"step": 0, "multistep": 0},
+                "lbm": {"step": 0, "multistep": 0}}
+    for solver, nx, ny, dtype, steps, k, p_steps in runs:
+        mod, kmod = (gs, gk) if solver == "gs" else (lbm, lk)
+        cfg = (gs.GrayScottConfig if solver == "gs" else lbm.LBMConfig)(
+            nx=nx, ny=ny, dtype=dtype, block_k=k)
+        key = f"{solver} {nx}x{ny} {dtype} K={k}"
+        engine = mod.resolve_engine(cfg, device)
+        if engine != "cuda":
+            raise AssertionError(f"{key}: engine auto resolved to {engine!r}")
+        s0 = mod.init(cfg, device)
+        mod.run(cfg, s0, k + 1)   # warm-up, not counted: both kernels
+        kmod.reset_launches()
+        out, wall = run_timed(mod, cfg, s0, steps)
+        got = dict(kmod.LAUNCHES)
+        want = ({"step": steps % k, "multistep": steps // k} if k > 1
+                else {"step": steps, "multistep": 0})
+        if got != want:
+            raise AssertionError(f"{key}: launches {got}, want {want}")
+        for name in got:
+            launches[solver][name] += got[name]
+        _, p_wall = run_timed(mod, cfg.replace(engine="torch"), s0, p_steps)
+        if kmod.LAUNCHES != got:
+            raise AssertionError(f"{key}: the plain engine launched a kernel")
+        cells = nx * ny
+        rate, p_rate = steps / wall, p_steps / p_wall
+        unit = "Mcell-steps/s" if solver == "gs" else "MLUPS"
+        log(f"[stencil] {key} on {smi}: cuda engine {steps} steps in "
+            f"{wall:.4f} s, {rate:.2f} steps/s {cells * rate / 1e6:.1f} "
+            f"{unit}; plain torch engine {p_steps} steps {p_rate:.3f} "
+            f"steps/s {cells * p_rate / 1e6:.2f} {unit}; launches {got}")
+        phys = (check_gs_physics(out, key) if solver == "gs"
+                else check_lbm_physics(lbm, cfg, s0, out, key, steps))
+
+        # from the final state: each kernel vs its plain version at full
+        # shape, then per-launch times (none of these launches is counted)
+        # (K = 1 runs check and time the K-step kernel at K = 2)
+        tol = 0.0 if solver == "gs" else STEP_TOL[cfg.torch_dtype]
+        kk = max(k, 2)
+        rel = max(check_stencil_call(kmod, solver, cfg, out, None,
+                                     f"{key} final state step", errs, tol),
+                  check_stencil_call(kmod, solver, cfg, out, kk,
+                                     f"{key} final state K", errs, tol))
+        errs["rel"][f"{key} final state"] = rel
+        fns = {name: getattr(kmod, f"{solver}_{name}") for name in
+               ("step", "step_plain", "multistep", "multistep_plain")}
+        times = {
+            "step": time_launches(lambda: fns["step"](cfg, out), 100),
+            "step_plain": time_launches(
+                lambda: fns["step_plain"](cfg, out), 5),
+            "multistep": time_launches(
+                lambda: fns["multistep"](cfg, out, kk), 20),
+            "multistep_plain": time_launches(
+                lambda: fns["multistep_plain"](cfg, out, kk),
+                1 if dtype == "float64" else 2),
+        }
+        fluid = None if solver == "gs" else int((~out.solid).sum())
+        bounds = stencil_bounds(cfg, kk, fluid)
+        log(f"[stencil] {key} final state: kernels vs plain max rel err "
+            f"{rel:.3e} (0 = bitwise); per launch on {smi}: one-step "
+            f"{times['step']:.4f} ms vs plain {times['step_plain']:.4f} ms "
+            f"(bound {bounds['step'][0]:.4f} ms, {bounds['step'][1]}); "
+            f"K-step (K={kk}) {times['multistep']:.4f} "
+            f"ms vs plain {times['multistep_plain']:.4f} ms (bound "
+            f"{bounds['multistep'][0]:.4f} ms, {bounds['multistep'][1]})")
+        res[key] = {"launches": got, "times": times, "bounds": bounds,
+                    "rate": rate, "plain_rate": p_rate, "k": kk,
+                    "physics": phys}
+    res["launches"] = launches
+    return res
+
+
+def stencil_kernel_lines(res, errs) -> list:
+    """The {"kernels": [...]} entries of the four stencil kernels: times
+    and bounds from the final state of the f32 run at the default
+    block_k, the f64 run's beside them; launches summed over the three
+    runs of each solver."""
+    out = []
+    for solver, src, lines, k32, k64 in (
+            ("gs", "gray_scott", (30, 130),
+             "gs 2048x2048 float32 K=16", "gs 2048x2048 float64 K=16"),
+            ("lbm", "lbm", (50, 158),
+             "lbm 2048x1024 float32 K=8", "lbm 2048x1024 float64 K=8")):
+        a, b = res[k32], res[k64]
+        for name, line in zip(("step", "multistep"), lines):
+            entry = {
+                "name": f"{src}_{name}", "route": "cuda",
+                "source": f"fluidsims_tpu_torch/csrc/{src}_{name}.cu",
+                "replaces": f"fluidsims_tpu/kernels/{src}_pallas.py:{line}",
+                "launches": res["launches"][solver][name],
+                "max_abs_err": errs[f"{solver}_{name}"],
+                "ms": a["times"][name],
+                "plain_ms": a["times"][name + "_plain"],
+                "bound_ms": a["bounds"][name][0],
+                "bound_by": a["bounds"][name][1], "library_ms": None,
+                "ms_f64": b["times"][name],
+                "plain_ms_f64": b["times"][name + "_plain"],
+                "bound_ms_f64": b["bounds"][name][0],
+                "bound_by_f64": b["bounds"][name][1]}
+            if name == "multistep":
+                entry["k"] = a["k"]
+            out.append(entry)
+    return out
+
+
 def main() -> int:
     smi = phase_device()
     from fluidsims_tpu_torch import interop, regression
     from fluidsims_tpu_torch.core.clock import cfl_dt
     from fluidsims_tpu_torch.io import fourspl
     from fluidsims_tpu_torch.kernels import _build
+    from fluidsims_tpu_torch.kernels import gray_scott_cuda as gk
     from fluidsims_tpu_torch.kernels import hypersonic2d_cuda as hk
     from fluidsims_tpu_torch.kernels import hypersonic3d_cuda as hk3
+    from fluidsims_tpu_torch.kernels import lbm_cuda as lk
     from fluidsims_tpu_torch.kernels import sph_cuda as sk
+    from fluidsims_tpu_torch.solvers import gray_scott as gs
     from fluidsims_tpu_torch.solvers import hypersonic2d as h2
     from fluidsims_tpu_torch.solvers import hypersonic3d as h3
+    from fluidsims_tpu_torch.solvers import lbm
     from fluidsims_tpu_torch.solvers import sph as ts
     from fluidsims_tpu_torch.solvers import th3cs
 
@@ -898,6 +1243,8 @@ def main() -> int:
     phase_build(hk, _build)
     sk.load()
     hk3.load()
+    gk.load()
+    lk.load()
     errs = phase_kernels(h2, hk, interop, cfl_dt, device)
     sk.reset_launches()
     main_res = phase_main(h2, hk, regression, cfl_dt, device, smi, errs)
@@ -918,6 +1265,15 @@ def main() -> int:
     if any(hk.LAUNCHES.values()) or any(sk.LAUNCHES.values()):
         raise AssertionError(f"the 3-D path launched other kernels: "
                              f"{hk.LAUNCHES} {sk.LAUNCHES}")
+    stencil_errs = phase_stencil_kernels(gs, lbm, gk, lk, device)
+    for m in (hk, sk, hk3):
+        m.reset_launches()
+    stencil_res = phase_stencil_main(gs, lbm, gk, lk, device, smi,
+                                     stencil_errs)
+    others = [dict(m.LAUNCHES) for m in (hk, sk, hk3)]
+    if any(any(o.values()) for o in others):
+        raise AssertionError(f"the stencil path launched other kernels: "
+                             f"{others}")
 
     t = main_res["times"]
     flag, ref = t["2048x2048 float32"], t["8192x1024 float64"]
@@ -997,6 +1353,8 @@ def main() -> int:
             "bound_ms_256": b3["bounds"][name][0],
             "bound_by_256": b3["bounds"][name][1]})
     kernels[-2]["max_rel_err"] = hyp3d_errs["rel"]
+    kernels.extend(stencil_kernel_lines(stencil_res, stencil_errs))
+    kernels[-1]["max_rel_err"] = stencil_errs["rel"]
     log(f"[hyp3d] steps/s: 64^3 f32 {a3['rate']:.2f} (plain "
         f"{a3['plain_rate']:.3f}), 256^3 f32 {b3['rate']:.2f} (plain "
         f"{b3['plain_rate']:.4f}); th3cs 64^3 "

@@ -13,8 +13,11 @@ as hand-written CUDA kernels on the GPU (`kernels.hypersonic2d_cuda`), and
 forces + integrate run as three more (`kernels.sph_cuda`), and the 3-D
 hypersonic solver (`solvers.hypersonic3d`, `ops.weno`) with its `.4spl`
 export (`solvers.th3cs`, `io.fourspl`), whose cell update and masked
-max-wavespeed reduction run as two more (`kernels.hypersonic3d_cuda`);
-the sources are in `csrc/`.  Kernels build with nvcc at first use; on
+max-wavespeed reduction run as two more (`kernels.hypersonic3d_cuda`),
+and Gray–Scott (`solvers.gray_scott`) and the D2Q9 LBM (`solvers.lbm`,
+`ops.shift`), each stepped by a one-step and a K-step kernel
+(`kernels.gray_scott_cuda`, `kernels.lbm_cuda`); the sources are in
+`csrc/`.  Kernels build with nvcc at first use; on
 CPU tensors every kernel wrapper takes its plain PyTorch version.  Entry points
 (`init`, `interop.*_from_numpy`) put their tensors on the GPU unless
 given a device.

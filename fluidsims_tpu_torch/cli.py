@@ -4,10 +4,12 @@
     python -m fluidsims_tpu_torch.cli sph --n 65536 --no-rain --steps 200
     python -m fluidsims_tpu_torch.cli hypersonic3d --n 64 --steps 400
     python -m fluidsims_tpu_torch.cli th3cs --n 64 --out vol.4spl
+    python -m fluidsims_tpu_torch.cli gray-scott --nx 2048 --ny 2048
+    python -m fluidsims_tpu_torch.cli lbm --nx 2048 --ny 1024 --steps 1000
 
-Ports of the `hypersonic2d`, `sph`, `hypersonic3d` and `th3cs` subcommands
-of fluidsims_tpu.cli with the same physics flags and defaults, headless.
-All run on `--device cuda` unless asked for the CPU.
+Ports of the `hypersonic2d`, `sph`, `hypersonic3d`, `th3cs`, `gray-scott`
+and `lbm` subcommands of fluidsims_tpu.cli with the same physics flags and
+defaults, headless.  All run on `--device cuda` unless asked for the CPU.
 
 hypersonic2d, hypersonic3d: `--impl cuda` (default) steps through the CUDA
 kernels and needs `--device cuda`; `--impl torch` steps through their
@@ -21,6 +23,14 @@ GPU, their plain versions on the CPU; the engine that ran is printed.
 sph: `--engine auto` resolves as solvers.sph.resolve_engine does (the CUDA
 kernels on a GPU unless --xsph, else the plain cell-dense engine); the
 engine that ran is printed beside the rate.
+
+gray-scott, lbm: `--engine auto` resolves as the solvers' resolve_engine
+does (the CUDA kernels on a GPU, `--block-k` steps a K-step launch; the
+plain torch step on the CPU; `cuda` on the CPU fails); they print the
+engine, steps/s and Mcell-steps/s (Gray–Scott) or MLUPS (LBM, cells x
+steps / s / 1e6 as tau_lbm.cu:291-294).  The whole run is one `run` call
+bracketed by synchronisation, after a warm-up of block_k + 1 steps that
+builds and loads the kernels.
 """
 
 from __future__ import annotations
@@ -180,6 +190,67 @@ def cmd_th3cs(args):
     print(f"wrote {args.out}")
 
 
+def _bench_run(run, state, steps: int, warmup: int, cells: int):
+    """core.stepper.benchmark of `run(state, n)` (n steps in one call, so
+    K-step engines fuse them): (final state of the timed run, rates)."""
+    from .core.stepper import benchmark
+
+    last = [state]
+
+    def run_fn(st, n):
+        last[0] = run(st, n)
+        return last[0]
+
+    res = benchmark(None, state, steps, warmup_steps=warmup, cells=cells,
+                    run_fn=run_fn)
+    return last[0], res
+
+
+def cmd_gray_scott(args):
+    from .core.device import resolve_device
+    from .solvers import gray_scott as gs
+
+    device = resolve_device(args.device)
+    cfg = gs.GrayScottConfig(
+        nx=args.nx, ny=args.ny, dx=args.dx, dt=args.dt, Du=args.Du,
+        Dv=args.Dv, feed=args.F, kill=args.k, seed=args.seed,
+        dtype=args.dtype, engine=args.engine, block_k=args.block_k)
+    engine = gs.resolve_engine(cfg, device)
+    out, res = _bench_run(lambda st, n: gs.run(cfg, st, n),
+                          gs.init(cfg, device), args.steps, cfg.block_k + 1,
+                          cfg.nx * cfg.ny)
+    print(f"gray-scott {cfg.nx}x{cfg.ny} {cfg.dtype} engine={engine} "
+          f"block_k={cfg.block_k} device={_device_name(device)}: "
+          f"{res['steps']} steps in {res['wall_s']:.3f}s -> "
+          f"{res['steps_per_sec']:.1f} steps/s, "
+          f"{res['mcells_per_sec']:.1f} Mcell-steps/s")
+    print(f"v: min {float(out.v.min()):.4f} max {float(out.v.max()):.4f}")
+    return out
+
+
+def cmd_lbm(args):
+    from .core.device import resolve_device
+    from .solvers import lbm
+
+    device = resolve_device(args.device)
+    cfg = lbm.LBMConfig(
+        nx=args.nx, ny=args.ny, tau=args.tau, drive=args.drive,
+        obstacle=not args.no_obstacle, obstacle_radius=args.radius,
+        dtype=args.dtype, engine=args.engine, block_k=args.block_k)
+    engine = lbm.resolve_engine(cfg, device)
+    out, res = _bench_run(lambda st, n: lbm.run(cfg, st, n),
+                          lbm.init(cfg, device), args.steps, cfg.block_k + 1,
+                          cfg.nx * cfg.ny)
+    print(f"lbm {cfg.nx}x{cfg.ny} {cfg.dtype} engine={engine} "
+          f"block_k={cfg.block_k} device={_device_name(device)}: "
+          f"{res['steps']} steps in {res['wall_s']:.3f}s -> "
+          f"{res['steps_per_sec']:.1f} steps/s, "
+          f"{res['mcells_per_sec']:.1f} MLUPS")
+    sp = lbm.speed_field(cfg, out)
+    print(f"max |u| = {float(sp.max()):.5f}")
+    return out
+
+
 def build_parser():
     ap = argparse.ArgumentParser(prog="fluidsims_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -265,6 +336,54 @@ def build_parser():
     p.add_argument("--device", default="cuda",
                    help="cuda, cuda:N or cpu; a missing GPU is an error")
     p.set_defaults(fn=cmd_th3cs)
+
+    p = sub.add_parser("gray-scott",
+                       help="reaction-diffusion (tau_gray_scott)")
+    p.add_argument("--nx", type=int, default=128)
+    p.add_argument("--ny", type=int, default=128)
+    p.add_argument("--dx", type=float, default=1.0)
+    p.add_argument("--dt", type=float, default=1.0)
+    p.add_argument("--Du", type=float, default=0.2)
+    p.add_argument("--Dv", type=float, default=0.1)
+    p.add_argument("--F", type=float, default=0.03)
+    p.add_argument("--k", type=float, default=0.06)
+    p.add_argument("--seed", type=int, default=1337)
+    p.add_argument("--engine", choices=("auto", "cuda", "torch"),
+                   default="auto",
+                   help="auto = the CUDA kernels on a GPU, the plain torch "
+                        "step on the CPU")
+    p.add_argument("--block-k", type=int, default=16, dest="block_k",
+                   help="steps per K-step kernel launch (cuda engine; 1 = "
+                        "the one-step kernel every step)")
+    p.add_argument("--steps", type=int, default=2000,
+                   help="number of physics steps")
+    p.add_argument("--dtype", default="float32",
+                   choices=("float32", "float64"))
+    p.add_argument("--device", default="cuda",
+                   help="cuda, cuda:N or cpu; a missing GPU is an error")
+    p.set_defaults(fn=cmd_gray_scott)
+
+    p = sub.add_parser("lbm", help="D2Q9 lattice Boltzmann (tau_lbm)")
+    p.add_argument("--nx", type=int, default=512)
+    p.add_argument("--ny", type=int, default=256)
+    p.add_argument("--tau", type=float, default=0.56)
+    p.add_argument("--drive", type=float, default=1e-6)
+    p.add_argument("--radius", type=float, default=32.0)
+    p.add_argument("--no-obstacle", action="store_true")
+    p.add_argument("--engine", choices=("auto", "cuda", "torch"),
+                   default="auto",
+                   help="auto = the CUDA kernels on a GPU, the plain torch "
+                        "step on the CPU")
+    p.add_argument("--block-k", type=int, default=8, dest="block_k",
+                   help="steps per K-step kernel launch (cuda engine; 1 = "
+                        "the one-step kernel every step)")
+    p.add_argument("--steps", type=int, default=1000,
+                   help="number of physics steps")
+    p.add_argument("--dtype", default="float32",
+                   choices=("float32", "float64"))
+    p.add_argument("--device", default="cuda",
+                   help="cuda, cuda:N or cpu; a missing GPU is an error")
+    p.set_defaults(fn=cmd_lbm)
     return ap
 
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "resolve_block_engine"]
 
 
 def resolve_device(name: str | torch.device) -> torch.device:
@@ -31,3 +31,22 @@ def resolve_device(name: str | torch.device) -> torch.device:
     elif dev.type != "cpu":
         raise RuntimeError(f"unsupported device {str(dev)!r}; use cpu or cuda")
     return dev
+
+
+def resolve_block_engine(engine: str, device, block_k: int,
+                         max_block_k: int) -> str:
+    """The engine ('cuda' or 'torch') of a solver whose 'cuda' engine runs
+    a K-step kernel of at most `max_block_k` steps a launch.  'auto' gives
+    'cuda' on a CUDA device and 'torch' on the CPU; 'cuda' on the CPU
+    raises, as does a `block_k` past `max_block_k` for the 'cuda' engine."""
+    if engine == "torch":
+        return "torch"
+    if torch.device(device).type != "cuda":
+        if engine == "cuda":
+            raise ValueError("engine='cuda' runs the CUDA kernels and needs "
+                             f"CUDA tensors, got {device}; use engine='torch'")
+        return "torch"
+    if block_k > max_block_k:
+        raise ValueError(f"block_k={block_k}: the CUDA K-step kernel takes "
+                         f"1 <= block_k <= {max_block_k}")
+    return "cuda"

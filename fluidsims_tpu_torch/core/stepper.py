@@ -15,7 +15,7 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["run_steps", "benchmark"]
+__all__ = ["run_steps", "run_split", "benchmark"]
 
 
 def run_steps(step_fn: Callable[[Any], Any], state: Any, n_steps: int):
@@ -23,6 +23,16 @@ def run_steps(step_fn: Callable[[Any], Any], state: Any, n_steps: int):
     for _ in range(n_steps):
         state = step_fn(state)
     return state
+
+
+def run_split(block_fn: Callable[[Any], Any], step_fn: Callable[[Any], Any],
+              k: int, state: Any, n_steps: int):
+    """`n_steps` steps as `n_steps // k` calls of `block_fn` (k steps each)
+    then `n_steps % k` calls of `step_fn` (one step each); with k = 1,
+    `step_fn` every step.  The split of the K-step engines (JAX's
+    run_multistep, with one-step calls for the remainder)."""
+    n_blocks, rem = divmod(n_steps, k) if k > 1 else (0, n_steps)
+    return run_steps(step_fn, run_steps(block_fn, state, n_blocks), rem)
 
 
 def _device_of(state: Any) -> torch.device:
@@ -43,11 +53,12 @@ def _sync(device: torch.device) -> None:
 
 
 def benchmark(
-    step_fn: Callable[[Any], Any],
+    step_fn: Callable[[Any], Any] | None,
     state: Any,
     steps: int,
     warmup_steps: int = 10,
     cells: int | None = None,
+    run_fn: Callable[[Any, int], Any] | None = None,
 ) -> dict:
     """Headless benchmark: run `steps` steps, report wall-clock rates.
 
@@ -55,14 +66,20 @@ def benchmark(
     warm-up (kernel build, first launches) is excluded, and the timed
     window is bracketed by device synchronisation so it measures the
     device's work, not the enqueue.  Returns the keys of the JAX twin.
+    `run_fn(state, n) -> state`, where given, runs the n steps in one call
+    in place of n calls of `step_fn` (engines that fuse steps, such as the
+    K-step kernels).  Warm-up and timed run both start from `state`.
     """
+    if run_fn is None:
+        def run_fn(st, n):
+            return run_steps(step_fn, st, n)
     device = _device_of(state)
-    warm = run_steps(step_fn, state, max(1, warmup_steps))
+    warm = run_fn(state, max(1, warmup_steps))
     _sync(device)
     del warm
 
     t0 = time.perf_counter()
-    out = run_steps(step_fn, state, steps)
+    out = run_fn(state, steps)
     _sync(device)
     dt = time.perf_counter() - t0
     del out

@@ -7,7 +7,8 @@ port's state as numpy arrays for any consumer.  `sph_state_from_numpy` /
 `sph_state_to_numpy` do the same for SPH, and `sph_config_from_dict` maps
 the fields of a JAX `SPHConfig` (its `asdict()`) to the port's, renaming
 the engines.  `hyp3d_state_from_numpy` / `hyp3d_state_to_numpy` and
-`hyp3d_config_from_dict` do the same for the 3-D hypersonic solver.
+`hyp3d_config_from_dict` do the same for the 3-D hypersonic solver, and
+the `gs_*` and `lbm_*` functions for Gray–Scott and the D2Q9 LBM.
 Nothing here imports the JAX package.
 
 Every `device=None` means the GPU, as for the solvers' `init`.
@@ -20,18 +21,22 @@ import torch
 
 from .core.device import resolve_device
 from .ops.euler2d import Cons
+from .solvers.gray_scott import GrayScottConfig, GrayScottState
 from .solvers.hypersonic2d import Hypersonic2DState
 from .solvers.hypersonic3d import Hypersonic3DConfig, Hypersonic3DState
+from .solvers.lbm import LBMConfig, LBMState
 from .solvers.sph import SPHConfig, SPHState
 
 __all__ = ["state_from_numpy", "state_to_numpy", "sph_state_from_numpy",
            "sph_state_to_numpy", "sph_config_from_dict",
            "hyp3d_state_from_numpy", "hyp3d_state_to_numpy",
-           "hyp3d_config_from_dict"]
+           "hyp3d_config_from_dict", "gs_state_from_numpy",
+           "gs_state_to_numpy", "gs_config_from_dict", "lbm_state_from_numpy",
+           "lbm_state_to_numpy", "lbm_config_from_dict"]
 
 # JAX engine name -> port engine name
-_SPH_ENGINES = {"auto": "auto", "pallas": "cuda", "xla": "torch",
-                "exact": "exact"}
+_ENGINES = {"auto": "auto", "pallas": "cuda", "xla": "torch",
+            "exact": "exact"}
 
 
 def _device(device):
@@ -91,7 +96,7 @@ def sph_config_from_dict(fields: dict) -> SPHConfig:
     """The port's SPHConfig for the fields of a JAX SPHConfig (`asdict()`):
     engine 'pallas' becomes 'cuda' and 'xla' becomes 'torch'."""
     fields = dict(fields)
-    fields["engine"] = _SPH_ENGINES[fields.get("engine", "auto")]
+    fields["engine"] = _ENGINES[fields.get("engine", "auto")]
     return SPHConfig(**fields)
 
 
@@ -127,3 +132,56 @@ def hyp3d_config_from_dict(fields: dict) -> Hypersonic3DConfig:
     """The port's Hypersonic3DConfig for the fields of a JAX
     Hypersonic3DConfig (`asdict()`): the same names and meanings."""
     return Hypersonic3DConfig(**fields)
+
+
+def gs_state_from_numpy(u, v, *, dtype: torch.dtype,
+                        device=None) -> GrayScottState:
+    """Build a Gray–Scott state from two (ny, nx) arrays.  The arrays are
+    copied."""
+    device = _device(device)
+    u = torch.tensor(np.asarray(u), dtype=dtype, device=device)
+    v = torch.tensor(np.asarray(v), dtype=dtype, device=device)
+    if u.ndim != 2 or u.shape != v.shape:
+        raise ValueError(f"u {tuple(u.shape)} and v {tuple(v.shape)} must "
+                         "both be (ny, nx)")
+    return GrayScottState(u=u, v=v)
+
+
+def gs_state_to_numpy(state: GrayScottState):
+    """(u, v) as numpy, copied to the host."""
+    return tuple(f.detach().cpu().numpy() for f in state)
+
+
+def gs_config_from_dict(fields: dict) -> GrayScottConfig:
+    """The port's GrayScottConfig for the fields of a JAX GrayScottConfig
+    (`asdict()`): engine 'pallas' becomes 'cuda' and 'xla' becomes
+    'torch'."""
+    fields = dict(fields)
+    fields["engine"] = _ENGINES[fields.get("engine", "auto")]
+    return GrayScottConfig(**fields)
+
+
+def lbm_state_from_numpy(f, solid, *, dtype: torch.dtype,
+                         device=None) -> LBMState:
+    """Build an LBM state from the (9, ny, nx) populations and the (ny, nx)
+    solid mask, taken as bool.  The arrays are copied."""
+    device = _device(device)
+    f = torch.tensor(np.asarray(f), dtype=dtype, device=device)
+    m = torch.tensor(np.asarray(solid, dtype=bool), device=device)
+    if m.ndim != 2 or tuple(f.shape) != (9, *m.shape):
+        raise ValueError(f"f {tuple(f.shape)} must be (9, ny, nx) and solid "
+                         f"{tuple(m.shape)} (ny, nx)")
+    return LBMState(f=f, solid=m)
+
+
+def lbm_state_to_numpy(state: LBMState):
+    """(f, solid) as numpy, copied to the host."""
+    return tuple(x.detach().cpu().numpy() for x in state)
+
+
+def lbm_config_from_dict(fields: dict) -> LBMConfig:
+    """The port's LBMConfig for the fields of a JAX LBMConfig (`asdict()`):
+    engine 'pallas' becomes 'cuda' and 'xla' becomes 'torch'."""
+    fields = dict(fields)
+    fields["engine"] = _ENGINES[fields.get("engine", "auto")]
+    return LBMConfig(**fields)

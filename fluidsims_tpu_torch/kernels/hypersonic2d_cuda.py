@@ -26,20 +26,15 @@ import torch
 from ..ops.euler2d import Cons
 from ..solvers import hypersonic2d as h2
 from . import _build
+from ._common import LaunchCounter, on_cpu
 
 __all__ = ["LAUNCHES", "reset_launches", "step_core", "step_core_plain",
            "inflow_wavespeed", "inflow_wavespeed_plain", "load"]
 
-# Launches of each kernel since the last reset_launches(): one per wrapper
-# call that launched on the GPU.
-LAUNCHES = {"step": 0, "wavespeed": 0}
+LAUNCHES = LaunchCounter("step", "wavespeed")
+reset_launches = LAUNCHES.reset
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 class _Params(ctypes.Structure):
@@ -82,14 +77,6 @@ def _params(cfg) -> _Params:
     infl = [float(v) for v in h2.inflow_cons(cfg, torch.device("cpu"))]
     return _Params(cfg.ny, cfg.nx, cfg.gamma, cfg.gamma - 1.0, cfg.visc_rho,
                    cfg.visc_nu, cfg.visc_e, (ctypes.c_double * 4)(*infl))
-
-
-def _on_cpu(mask: torch.Tensor) -> bool:
-    if mask.device.type == "cpu":
-        return True
-    if mask.device.type != "cuda":
-        raise ValueError(f"unsupported device {mask.device}; use cpu or cuda")
-    return False
 
 
 def _check(cfg, U: Cons, mask: torch.Tensor, *scalars: torch.Tensor) -> None:
@@ -136,7 +123,7 @@ def step_core_plain(cfg, U: Cons, mask, dt) -> Cons:
 def step_core(cfg, U: Cons, mask, dt) -> Cons:
     """pad_bc + step_core_padded: the step kernel on CUDA tensors, the
     plain version on CPU tensors."""
-    if _on_cpu(mask):
+    if on_cpu(mask):
         return step_core_plain(cfg, U, mask, dt)
     _check(cfg, U, mask, dt)
     lib = load()
@@ -163,7 +150,7 @@ def inflow_wavespeed(cfg, U: Cons, mask) -> torch.Tensor:
     """Write the inflow column into `U` (in place) and return the max
     wavespeed as a 0-d tensor on U's device: the kernel on CUDA tensors,
     the plain version on CPU tensors."""
-    if _on_cpu(mask):
+    if on_cpu(mask):
         return inflow_wavespeed_plain(cfg, U, mask)
     _check(cfg, U, mask)
     lib = load()

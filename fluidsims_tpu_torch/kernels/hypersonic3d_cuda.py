@@ -27,20 +27,15 @@ import torch
 from ..solvers import hypersonic3d as h3
 from ..solvers.hypersonic3d import HALO, PrimT
 from . import _build
+from ._common import LaunchCounter, on_cpu
 
 __all__ = ["LAUNCHES", "reset_launches", "step_core", "step_core_plain",
            "wavespeed", "wavespeed_plain", "load"]
 
-# Launches of each kernel since the last reset_launches(): one per wrapper
-# call that launched on the GPU.
-LAUNCHES = {"step": 0, "wavespeed": 0}
+LAUNCHES = LaunchCounter("step", "wavespeed")
+reset_launches = LAUNCHES.reset
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 class _Params(ctypes.Structure):
@@ -108,14 +103,6 @@ def _params(cfg, x0: int = 0) -> _Params:
         h3.evib_eq_py(cfg, tgtT))
 
 
-def _on_cpu(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError(f"unsupported device {t.device}; use cpu or cuda")
-    return False
-
-
 def _check_fields(cfg, q: PrimT, mask: torch.Tensor, shape, what: str,
                   scalars=()) -> None:
     dev = mask.device
@@ -165,7 +152,7 @@ def step_core(cfg, qp: PrimT, solid_pad, dt, gain, x0: int = 0) -> PrimT:
     """step_core_padded on halo-3 padded prims: the step kernel on CUDA
     tensors, the plain version on CPU tensors.  `dt` and `gain` are 0-d
     tensors; the kernel reads them from device memory."""
-    if _on_cpu(solid_pad):
+    if on_cpu(solid_pad):
         return step_core_plain(cfg, qp, solid_pad, dt, gain, x0)
     _check_fields(cfg, qp, solid_pad, _padded_shape(cfg), "qp",
                   (("dt", dt), ("gain", gain)))
@@ -194,7 +181,7 @@ def wavespeed_plain(cfg, q1: PrimT, solid) -> torch.Tensor:
 def wavespeed(cfg, q1: PrimT, solid) -> torch.Tensor:
     """The masked max wavespeed of `q1` as a 0-d tensor on its device: the
     kernel on CUDA tensors, the plain version on CPU tensors."""
-    if _on_cpu(solid):
+    if on_cpu(solid):
         return wavespeed_plain(cfg, q1, solid)
     _check_fields(cfg, q1, solid, (cfg.nz, cfg.ny, cfg.nx), "q1")
     lib = load()

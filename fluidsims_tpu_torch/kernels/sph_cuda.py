@@ -34,21 +34,16 @@ import torch
 from ..ops import cell_dense as cd
 from ..solvers import sph as sph_mod
 from . import _build
+from ._common import LaunchCounter, on_cpu
 
 __all__ = ["LAUNCHES", "reset_launches", "Binned", "binning", "binning_plain",
            "density", "density_plain", "forces", "forces_plain",
            "make_step_cuda", "load"]
 
-# Launches of each kernel since the last reset_launches(): one per wrapper
-# call that launched on the GPU.
-LAUNCHES = {"bin": 0, "density": 0, "forces": 0}
+LAUNCHES = LaunchCounter("bin", "density", "forces")
+reset_launches = LAUNCHES.reset
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 class Binned(NamedTuple):
@@ -109,14 +104,6 @@ def load() -> ctypes.CDLL:
     lib.fst_cuda_error_string.argtypes = [ctypes.c_int]
     lib.fst_cuda_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _on_cpu(x: torch.Tensor) -> bool:
-    if x.device.type == "cpu":
-        return True
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}; use cpu or cuda")
-    return False
 
 
 def _check(cfg, **tensors) -> None:
@@ -180,7 +167,7 @@ def binning_plain(cfg, pos, vel) -> Binned:
 def binning(cfg, pos, vel) -> Binned:
     """Rank-in-cell binning: the kernel on CUDA tensors, the plain version
     on CPU tensors."""
-    if _on_cpu(pos):
+    if on_cpu(pos):
         return binning_plain(cfg, pos, vel)
     n = cfg.n
     _check(cfg, pos=(pos, None, (n, 2)), vel=(vel, None, (n, 2)))
@@ -337,7 +324,7 @@ def forces_plain(cfg, b: Binned, rp, dt):
 def density(cfg, b: Binned) -> torch.Tensor:
     """(rho, p / rho^2) per sorted position: the kernel on CUDA tensors,
     the plain version on CPU tensors."""
-    if _on_cpu(b.fields):
+    if on_cpu(b.fields):
         return density_plain(cfg, b)
     _check(cfg, **_binned_specs(cfg, b))
     rp = torch.empty((cfg.n, 2), dtype=b.fields.dtype, device=b.fields.device)
@@ -350,7 +337,7 @@ def forces(cfg, b: Binned, rp, dt):
     """Pair forces, gravity and the integrate from the sorted state, `rp`
     and the 0-d `dt`, returned as (pos, vel) in particle order: the kernel
     on CUDA tensors, the plain version on CPU tensors."""
-    if _on_cpu(b.fields):
+    if on_cpu(b.fields):
         return forces_plain(cfg, b, rp, dt)
     n = cfg.n
     _check(cfg, rp=(rp, None, (n, 2)), dt=(dt, None, ()),

@@ -62,3 +62,24 @@ def test_snapshot_matches_jax_on_same_state():
                                   dtype=torch.float64,
                                   device=torch.device("cpu"))
     assert treg.compute_snapshot(tcfg, st, 5) == jreg.compute_snapshot(jcfg, s, 5)
+
+
+@pytest.mark.parametrize("cmd, unit", [("gray-scott", "Mcell-steps/s"),
+                                       ("lbm", "MLUPS")])
+@pytest.mark.parametrize("engine", ["torch", "auto"])
+def test_cli_stencils_cpu(capsys, cmd, unit, engine):
+    extra = ["--radius", "4"] if cmd == "lbm" else []
+    rc = cli.main([cmd, "--device", "cpu", "--engine", engine, "--nx", "32",
+                   "--ny", "32", "--steps", "2", *extra])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "engine=torch" in out and "steps/s" in out and unit in out
+
+
+@pytest.mark.parametrize("cmd", ["gray-scott", "lbm"])
+def test_cli_stencils_cuda_engine_needs_gpu(cmd):
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cli.main([cmd, "--device", "cpu", "--engine", "cuda", "--nx", "32",
+                  "--ny", "32", "--steps", "1"])
+    with pytest.raises(SystemExit):
+        cli.main([cmd, "--device", "cpu", "--engine", "xla"])

@@ -19,7 +19,7 @@ from fluidsims_tpu_torch.core import clock as tclock
 from fluidsims_tpu_torch.core.config import ConfigError as TConfigError
 from fluidsims_tpu_torch.core.config import torch_dtype_of
 from fluidsims_tpu_torch.core.device import resolve_device
-from fluidsims_tpu_torch.core.stepper import benchmark, run_steps
+from fluidsims_tpu_torch.core.stepper import benchmark, run_split, run_steps
 from fluidsims_tpu_torch.solvers import hypersonic2d as th2
 
 torch.set_num_threads(1)
@@ -141,3 +141,36 @@ def test_run_steps_and_benchmark_keys():
     assert set(res) == set(jres)
     assert res["steps"] == 4 and res["cells"] == 3 and res["wall_s"] > 0
     assert res["mcells_per_sec"] == 3 * 4 / res["wall_s"] / 1e6
+
+
+@pytest.mark.parametrize("n, k, want", [(23, 8, (2, 7)), (32, 16, (2, 0)),
+                                        (5, 16, (0, 5)), (7, 1, (0, 7)),
+                                        (0, 4, (0, 0))])
+def test_run_split(n, k, want):
+    """n // k block calls (k steps each), then n % k one-step calls."""
+    calls = []
+
+    def block(x):
+        calls.append("block")
+        return x + k
+
+    def one(x):
+        calls.append("step")
+        return x + 1
+
+    assert run_split(block, one, k, 0, n) == n
+    assert (calls.count("block"), calls.count("step")) == want
+    assert calls == sorted(calls)  # every block call before the steps
+
+
+def test_benchmark_run_fn_runs_the_steps_in_one_call():
+    calls = []
+
+    def run_fn(st, n):
+        calls.append(n)
+        return st + n
+
+    res = benchmark(None, torch.zeros(2), steps=6, warmup_steps=3, cells=2,
+                    run_fn=run_fn)
+    assert calls == [3, 6]
+    assert res["steps"] == 6 and res["mcells_per_sec"] > 0

@@ -55,9 +55,11 @@ def test_every_module_listed():
     assert "fluidsims_tpu_torch.kernels.sph_cuda" in MODULES
     assert "fluidsims_tpu_torch.solvers.sph" in MODULES
     for mod in ("ops.weno", "solvers.hypersonic3d", "solvers.th3cs",
-                "kernels.hypersonic3d_cuda", "io", "io.fourspl"):
+                "kernels.hypersonic3d_cuda", "io", "io.fourspl", "ops.shift",
+                "solvers.gray_scott", "solvers.lbm",
+                "kernels.gray_scott_cuda", "kernels.lbm_cuda"):
         assert f"fluidsims_tpu_torch.{mod}" in MODULES
-    assert len(MODULES) >= 26
+    assert len(MODULES) >= 31
 
 
 @pytest.mark.parametrize("mod", MODULES)

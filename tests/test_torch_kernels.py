@@ -31,7 +31,9 @@ def test_imports_without_cuda_and_counts_start_at_zero():
         _build.CSRC / f for f in (
             "hypersonic2d_step.cu", "hypersonic2d_wavespeed.cu",
             "hypersonic3d_step.cu", "hypersonic3d_wavespeed.cu",
-            "sph_bin.cu", "sph_density.cu", "sph_forces.cu")}
+            "sph_bin.cu", "sph_density.cu", "sph_forces.cu",
+            "gray_scott_step.cu", "gray_scott_multistep.cu", "lbm_step.cu",
+            "lbm_multistep.cu")}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
