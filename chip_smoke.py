@@ -84,6 +84,33 @@ failure of which ends the run with a non-zero exit:
              by 1.3e-8 a step), max |u| < 0.1, mean x velocity of the fluid
              above its start); then from each final state every kernel
              against its plain version at full shape and per-launch times.
+13. resident_kernels — the Burgers, shallow-water and GLM-MHD K-step
+             kernels (one cooperative launch of k whole steps) against their
+             plain PyTorch versions, f32 and f64, from init plus seeded
+             noise, on a ragged 200x75 and an aligned 256x128 grid: Burgers
+             plain, MUSCL, visc_substeps=2 and Cole–Hopf (ny=1); shallow
+             water with nu > 0 and nu = 0; MHD Brio–Wu and Orszag–Tang with
+             both flux signs; on 200x75 also a NaN cell (Burgers and shallow
+             water turn NaN everywhere, MHD reverts every cell, t NaN, as
+             the plain step).  k = 1 along three plain steps within 1e-5
+             (f32) / 1e-12 (f64) relative; k = 8 against 8 plain steps within
+             the JAX suite's resident-kernel bars (f64: 1e-10); k = 8
+             bitwise equal to 8 launches of k = 1; run(cfg, s, 23) at
+             block_k=8 makes exactly 2 + 7 launches.
+14. resident_main — solvers.burgers.run, solvers.shallow_water.run and
+             solvers.mhd.run with engine 'auto', which must resolve to
+             'cuda': bench.py's burgers_512x512, shallow_water_512x512 and
+             mhd_320x220 (Brio–Wu) f32 x 4000 at the default block_k (16,
+             8, 8) and at 1; Burgers and shallow water 4096^2 f32 x 200, MHD
+             Orszag–Tang 2048^2 f32 x 200; each reference size f64 x 1000;
+             launch counts n // K and n % K; steps/s beside the plain
+             'torch' engine's (100 steps, 5 at the large grids); physics
+             (Burgers finite, energy decayed after 4000 steps and below 3x
+             its start before, see BURGERS_ENERGY_GROWTH_MAX; shallow water h
+             > 0, mass within 3e-8 (f32) / 1e-15 (f64) a step, see
+             SW_MASS_DRIFT_PER_STEP; MHD finite, rho > 0, p > 0, t
+             advanced); then from each final state the kernel against its
+             plain version at full shape and per-launch times.
 
 Every kernel's line in {"kernels": [...]} carries bound_ms, the least time
 the card could take for its work at the main path's shape: the larger of
@@ -100,6 +127,7 @@ The line before the last is {"kernels": [...]}; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -1219,6 +1247,467 @@ def stencil_kernel_lines(res, errs) -> list:
             out.append(entry)
     return out
 
+# ------------------ Burgers, shallow water and GLM-MHD ----------------------
+#
+# One K-step kernel each (TPU kernels #7, instantiated twice, and #8).
+# `kmod` below is the wrapper module, `mod` the solver.
+
+RESIDENT = ("burgers", "sw", "mhd")
+
+
+def resident_mods(bg, swm, mhd, bk, swk, mk) -> dict:
+    """solver name -> (solver module, wrapper module, kernel fn, plain fn,
+    config class)."""
+    return {"burgers": (bg, bk, bk.burgers_multistep,
+                        bk.burgers_multistep_plain, bg.BurgersConfig),
+            "sw": (swm, swk, swk.sw_multistep, swk.sw_multistep_plain,
+                   swm.ShallowWaterConfig),
+            "mhd": (mhd, mk, mk.mhd_multistep, mk.mhd_multistep_plain,
+                    mhd.MHDConfig)}
+
+
+def resident_fields(s) -> list:
+    """(name, tensor) of a Burgers, shallow-water or MHD state, the clock
+    scalars included."""
+    if hasattr(s, "U"):
+        return list(zip(s.U._fields, s.U)) + [("t", s.t)]
+    return list(zip(s._fields, s))
+
+
+def resident_err(got, ref, what: str, bars: dict) -> tuple[float, float]:
+    """Field by field: non-finite values in the same places, and within
+    the bar of `bars` for the field's name (or "*"): ("rel", tol) for
+    max |err| / max(max |ref|, floor) <= tol, ("close", rtol, atol) for
+    |err| <= atol + rtol |ref| everywhere; tol 0 means bitwise.  Returns
+    (max |err| / max |ref|, max |err|) over the fields."""
+    rel = ab = 0.0
+    for (name, a), (_, b) in zip(resident_fields(got), resident_fields(ref)):
+        bar = bars.get(name, bars["*"])
+        if bar == ("rel", 0.0):
+            if not same(a, b):
+                raise AssertionError(f"{what}.{name}: not bitwise equal")
+            continue
+        fa, fb = torch.isfinite(a), torch.isfinite(b)
+        if not torch.equal(fa, fb):
+            raise AssertionError(f"{what}.{name}: non-finite cells differ "
+                                 f"({int((~fa).sum())} vs {int((~fb).sum())})")
+        if not bool(fb.any()):
+            continue
+        d = (a[fb] - b[fb]).abs()
+        dmax, scale = float(d.max()), float(b[fb].abs().max())
+        rel = max(rel, dmax / max(scale, 1e-300))
+        ab = max(ab, dmax)
+        if bar[0] == "rel":
+            floor = bar[2] if len(bar) > 2 else 1e-300
+            if not dmax / max(scale, floor) <= bar[1]:
+                raise AssertionError(f"{what}.{name}: max rel err "
+                                     f"{dmax / max(scale, floor):.3e} > "
+                                     f"{bar[1]:g}")
+        else:
+            excess = float((d - (bar[2] + bar[1] * b[fb].abs())).max())
+            if not excess <= 0.0:
+                raise AssertionError(f"{what}.{name}: beyond rtol {bar[1]:g} "
+                                     f"atol {bar[2]:g} by {excess:.3e} (max "
+                                     f"|err| {dmax:.3e})")
+    return rel, ab
+
+
+def step_bars(dtype) -> dict:
+    """One step, kernel vs plain: max |err| / max |ref| within STEP_TOL."""
+    return {"*": ("rel", STEP_TOL[dtype])}
+
+
+def k_bars(solver: str, dtype) -> dict:
+    """K steps, kernel vs plain: the JAX suite's bars for its resident
+    Pallas kernels against the XLA path at f32 (tests/test_burgers_sw_
+    stam.py:200-252, tests/test_mhd_stam3d.py:292-310); at f64 1e-10."""
+    if dtype == torch.float64:
+        return {"*": ("close", 1e-10, 1e-12)} if solver != "mhd" else \
+            {"*": ("rel", 1e-10, 1e-3)}
+    clock = {"t": ("close", 1e-6, 0.0), "tau": ("close", 1e-6, 0.0)}
+    if solver == "burgers":
+        return {"*": ("close", 1e-4, 1e-5), **clock}
+    if solver == "sw":
+        return {"*": ("close", 1e-5, 1e-6), "sigma": ("close", 1e-7, 1e-6),
+                **clock}
+    return {"*": ("rel", 5e-5, 1e-3), **clock}
+
+
+BITWISE = {"*": ("rel", 0.0)}
+
+
+def resident_state(mod, cfg, device, seed, nan: bool):
+    """init() plus seeded noise; with `nan`, one NaN cell."""
+    s = mod.init(cfg, torch.device("cpu"))
+    rng = np.random.default_rng(seed)
+
+    def noise(f, amp):
+        return f + torch.tensor(amp * rng.standard_normal(tuple(f.shape)),
+                                dtype=f.dtype)
+
+    y, x = cfg.ny // 2, cfg.nx // 3
+    if hasattr(s, "U"):
+        U = s.U
+        rho = U.rho * (1.0 + 0.02 * torch.tensor(
+            rng.uniform(-1, 1, tuple(U.rho.shape)), dtype=U.rho.dtype))
+        U = U._replace(rho=rho, mx=noise(U.mx, 0.02), my=noise(U.my, 0.02),
+                       By=noise(U.By, 0.02))
+        if nan:
+            U.rho[y, x] = float("nan")
+        s = s._replace(U=U)
+    elif hasattr(s, "sigma"):
+        s = s._replace(sigma=noise(s.sigma, 1e-3), u=noise(s.u, 0.5),
+                       v=noise(s.v, 0.5))
+        if nan:
+            s.u[y, x] = float("nan")
+    else:
+        s = s._replace(phi_u=noise(s.phi_u, 0.1), phi_v=noise(s.phi_v, 0.1))
+        if nan:
+            s.phi_u[y, x] = float("nan")
+    return type(s)(*(f.to(device) if not isinstance(f, tuple) else
+                     type(f)(*(g.to(device) for g in f)) for f in s))
+
+
+def check_resident_case(name, mods, cfg, s, key, errs) -> float:
+    """Phase 13's checks of one kernel on one state: k = 1 three times
+    along the plain trajectory within STEP_TOL, k = 8 against 8 plain steps
+    within the JAX bars, k = 8 bitwise equal to 8 launches of k = 1, and
+    run(23) at block_k = 8 = 2 + 7 launches within the same bars."""
+    mod, kmod, kern, plain, _ = mods[name]
+    dt = cfg.torch_dtype
+    worst, st = 0.0, s
+    for i in range(3):
+        rel, ab = resident_err(kern(cfg, st, 1), plain(cfg, st, 1),
+                               f"{key} k=1 step {i}", step_bars(dt))
+        worst, errs[name] = max(worst, rel), max(errs[name], ab)
+        st = plain(cfg, st, 1)
+    got8 = kern(cfg, s, 8)
+    rel, ab = resident_err(got8, plain(cfg, s, 8), f"{key} k=8",
+                           k_bars(name, dt))
+    worst, errs[name] = max(worst, rel), max(errs[name], ab)
+    one = s
+    for _ in range(8):
+        one = kern(cfg, one, 1)
+    resident_err(got8, one, f"{key} k=8 vs 8 x k=1", BITWISE)
+    c8 = cfg.replace(block_k=8)
+    kmod.reset_launches()
+    out = mod.run(c8, s, 23)
+    if kmod.LAUNCHES != {"step": 7, "multistep": 2}:
+        raise AssertionError(f"{key}: run(23) at block_k=8 launched "
+                             f"{kmod.LAUNCHES}, want step 7, multistep 2")
+    resident_err(out, plain(cfg, s, 23), f"{key} run(23)", k_bars(name, dt))
+    torch.cuda.synchronize()
+    return worst
+
+
+def resident_cases(bg, swm, mhd, nx, ny, dtype):
+    """(solver, config, NaN cell?) of phase 13 on one grid."""
+    cases = [("burgers", bg.BurgersConfig(nx=nx, ny=ny, dtype=dtype,
+                                          dtau=1e-2), False),
+             ("burgers", bg.BurgersConfig(nx=nx, ny=ny, dtype=dtype,
+                                          dtau=1e-2, muscl=True), False),
+             ("burgers", bg.BurgersConfig(nx=nx, ny=ny, dtype=dtype,
+                                          dtau=1e-2, visc_substeps=2), False),
+             ("burgers", bg.BurgersConfig(nx=nx, ny=1, dtype=dtype,
+                                          colehopf=True, dtau=1e-3), False),
+             ("sw", swm.ShallowWaterConfig(nx=nx, ny=ny, dtype=dtype,
+                                           dtau=1e-3), False),
+             ("sw", swm.ShallowWaterConfig(nx=nx, ny=ny, dtype=dtype,
+                                           dtau=1e-3, nu=0.0), False)]
+    for problem in ("briowu", "orszag-tang"):
+        for stable in (False, True):
+            cases.append(("mhd", mhd.MHDConfig(nx=nx, ny=ny, dtype=dtype,
+                                               problem=problem,
+                                               stable_hll=stable), False))
+    if (nx, ny) == (200, 75):
+        cases += [("burgers", bg.BurgersConfig(nx=nx, ny=ny, dtype=dtype),
+                   True),
+                  ("sw", swm.ShallowWaterConfig(nx=nx, ny=ny, dtype=dtype),
+                   True),
+                  ("mhd", mhd.MHDConfig(nx=nx, ny=ny, dtype=dtype), True)]
+    return cases
+
+
+def phase_resident_kernels(mods, bg, swm, mhd, device) -> dict:
+    errs = {name: 0.0 for name in RESIDENT}
+    errs["rel"] = {}
+    for dtype in ("float32", "float64"):
+        for nx, ny in ((200, 75), (256, 128)):
+            for name, cfg, nan in resident_cases(bg, swm, mhd, nx, ny, dtype):
+                mod = mods[name][0]
+                s = resident_state(mod, cfg, device, SEED, nan)
+                opts = {k: v for k, v in cfg.asdict().items() if k in (
+                    "muscl", "visc_substeps", "colehopf", "nu", "problem",
+                    "stable_hll") and v != mod_default(mods[name][4], k)}
+                key = (f"{name} {cfg.nx}x{cfg.ny} {dtype} {opts}"
+                       + (" NaN cell" if nan else ""))
+                worst = check_resident_case(name, mods, cfg, s, key, errs)
+                if nan:
+                    check_nan_case(name, mods, cfg, s, key)
+                errs["rel"][key] = worst
+                log(f"[resident] {key}: k=1 max rel err {worst:.3e} (tol "
+                    f"{STEP_TOL[cfg.torch_dtype]:g}), k=8 within the JAX "
+                    f"bars, k=8 bitwise equal to 8 x k=1, run(23) = 2 + 7 "
+                    f"launches")
+    return errs
+
+
+def mod_default(cls, field: str):
+    return {f.name: f.default for f in dataclasses.fields(cls)}[field]
+
+
+def check_nan_case(name, mods, cfg, s, key) -> None:
+    """The NaN max makes dt NaN: Burgers and shallow water turn NaN
+    everywhere; MHD reverts every cell and its t turns NaN."""
+    out = mods[name][2](cfg, s, 1)
+    if name == "mhd":
+        if not (torch.isnan(out.t) and all(same(a, b) for a, b in
+                                           zip(out.U, s.U))):
+            raise AssertionError(f"{key}: MHD did not revert every cell")
+    elif not all(bool(torch.isnan(f).all()) for _, f in
+                 resident_fields(out)[:-2]):
+        raise AssertionError(f"{key}: the NaN did not reach every cell")
+
+
+# The reference's Burgers is in conservative form ((u^2/2)_x + (uv)_y), which
+# adds u div(v) to the advective form: at its default field the kinetic
+# energy first grows, to 2.0x its start near step 1000 at 512^2, then
+# decays below the start by step ~3500 (the plain torch engine on the CPU,
+# f32; JAX's XLA step likewise).  So decay is required after 4000 steps
+# and, before, the energy must stay below this multiple of its start.
+BURGERS_ENERGY_GROWTH_MAX = 3.0
+
+# Relative shallow-water mass drift allowed per step.  The HLL update
+# conserves mass; what remains is the rounding of the exp/log round trip
+# of sigma each step, which CUDA's f32 expf/logf bias: 1.79e-8 a step over
+# 4000 steps at 512^2 on the H100 (the kernel and the plain step give the
+# same bits), 3.6e-10 a step on the CPU's libm.  f64: 1e-15 a step.
+SW_MASS_DRIFT_PER_STEP = {torch.float32: 3e-8, torch.float64: 1e-15}
+
+
+def resident_physics(name, mod, cfg, s0, out, key, steps, plain_out,
+                     plain_steps) -> dict:
+    """Burgers: finite, energy decayed after 4000 steps (bounded before);
+    shallow water: h > 0, mass within SW_MASS_DRIFT_PER_STEP a step (the
+    plain engine's run beside it); MHD: finite, rho > 0, p > 0, t
+    advanced."""
+    fields = [f for _, f in resident_fields(out)]
+    if name == "burgers":
+        if not all(bool(torch.isfinite(f).all()) for f in fields[:2]):
+            raise AssertionError(f"{key}: non-finite phi")
+        e0, e1 = (float(sum((f.double() ** 2).sum() for f in
+                            mod.velocities(cfg, x))) for x in (s0, out))
+        bar = e0 if steps >= 4000 else BURGERS_ENERGY_GROWTH_MAX * e0
+        if not e1 < bar:
+            raise AssertionError(f"{key}: energy {e0:.6g} -> {e1:.6g} (bar "
+                                 f"{bar:.6g})")
+        log(f"[physics] {key}: finite, energy {e0:.6g} -> {e1:.6g}, t "
+            f"{float(out.t):.6g}, tau {float(out.tau):.6g}")
+        return {"energy_start": e0, "energy_end": e1}
+    if name == "sw":
+        h0, h1 = mod.depth(s0).double(), mod.depth(out).double()
+
+        def drift(h):
+            return abs(float(h.sum()) - float(h0.sum())) / float(h0.sum())
+
+        d, d_plain = drift(h1), drift(mod.depth(plain_out).double())
+        bar = SW_MASS_DRIFT_PER_STEP[cfg.torch_dtype] * steps
+        if not (bool(torch.isfinite(h1).all()) and float(h1.min()) > 0
+                and d <= bar):
+            raise AssertionError(f"{key}: min h {float(h1.min())}, mass "
+                                 f"drift {d:.3e} (bar {bar:.1e})")
+        log(f"[physics] {key}: h in [{float(h1.min()):.6g}, "
+            f"{float(h1.max()):.6g}], mass drift {d:.3e} = {d / steps:.3e} "
+            f"a step (bar {bar:.1e}; the plain engine {d_plain:.3e} over "
+            f"{plain_steps} steps = {d_plain / plain_steps:.3e} a step), max "
+            f"|u| {float(out.u.abs().max()):.4g}")
+        return {"mass_drift": d, "mass_drift_per_step": d / steps,
+                "plain_mass_drift_per_step": d_plain / plain_steps,
+                "h_min": float(h1.min())}
+    # The pressure of cons_to_prim before its floor, in its order of
+    # operations: E - ek - em cancels, so at f32 another order can read
+    # a few 1e-7 below zero where this one reads just above EPS_P (the
+    # step's revert keeps this one above EPS_P in every cell).
+    U = out.U
+    rho = torch.clamp_min(U.rho, mod.EPS_RHO)
+    u, v = U.mx / rho, U.my / rho
+    raw_p = (cfg.gamma - 1.0) * (U.E - 0.5 * rho * (u * u + v * v)
+                                 - 0.5 * (U.Bx * U.Bx + U.By * U.By))
+    ok = (all(bool(torch.isfinite(f).all()) for f in U)
+          and float(U.rho.min()) > 0 and float(raw_p.min()) > 0
+          and float(out.t) > float(s0.t) and bool(torch.isfinite(out.t)))
+    if not ok:
+        raise AssertionError(f"{key}: rho min {float(U.rho.min())}, p min "
+                             f"{float(raw_p.min())}, t {float(out.t)}")
+    log(f"[physics] {key}: finite, rho in [{float(U.rho.min()):.4g}, "
+        f"{float(U.rho.max()):.4g}], min p {float(raw_p.min()):.4g}, t "
+        f"{float(out.t):.6g}")
+    return {"rho_min": float(U.rho.min()), "p_min": float(raw_p.min()),
+            "t": float(out.t)}
+
+
+# Operations a cell-step (each add, multiply, division, square root, exp,
+# log, sinh, asinh, hypot, min, max once), each face counted once (the work
+# of the plain step; the kernels solve each face from both its cells),
+# counted from the CUDA sources at the main path's options:
+# burgers_multistep.cu, no MUSCL, one viscosity substep: decode (4),
+# wavespeed (6), the x and y Rusanov faces (20 each), the convective
+# update (16), the viscosity (24), encode (4).
+BURGERS_OPS_PER_CELL = 4 + 6 + 2 * 20 + 16 + 24 + 4
+# shallow_water_multistep.cu, nu > 0: exp, sound speed and wavespeed (8),
+# the x and y HLL faces (~55 each: 2 sqrt, speeds, 6 fluxes, 3 mids and
+# selects), the update, floor, 2 divisions and log (27), viscosity (25).
+SW_OPS_PER_CELL = 8 + 2 * 55 + 27 + 25
+# mhd_multistep.cu: primitives, hypot and both fast speeds (45); per axis
+# 7 MC slopes (22 each), the face states (21), one HLL face (~172: 2
+# primitive decodes, 2 fast speeds, 2 GLM fluxes, 7 HLL mixes and
+# selects) and the band mask (7); the pair update, damping, the new
+# primitives, the revert test and select (76).
+MHD_OPS_PER_CELL = 45 + 2 * (7 * 22 + 21 + 172 + 7) + 76
+RESIDENT_OPS = {"burgers": BURGERS_OPS_PER_CELL, "sw": SW_OPS_PER_CELL,
+                "mhd": MHD_OPS_PER_CELL}
+RESIDENT_STATE_FIELDS = {"burgers": 2, "sw": 3, "mhd": 7}
+
+
+def resident_bound(name, cfg, k: int) -> tuple[float, str]:
+    """bound_ms of one launch of k steps: the state read and written once,
+    k x cells x the operations of a cell-step."""
+    cells = cfg.nx * cfg.ny
+    T = torch.finfo(cfg.torch_dtype).bits // 8
+    return bound(cells * 2 * RESIDENT_STATE_FIELDS[name] * T,
+                 k * cells * RESIDENT_OPS[name], cfg.torch_dtype)
+
+
+# (solver, config fields, steps, block_k, plain steps): bench.py's
+# reference sizes (burgers_512x512, shallow_water_512x512, mhd_320x220; 4000
+# steps) at the default block_k and at 1, one large grid each (f32 x 200),
+# and each reference size at f64 x 1000
+RESIDENT_RUNS = (
+    ("burgers", dict(nx=512, ny=512), 4000, 16, 100),
+    ("burgers", dict(nx=512, ny=512), 4000, 1, 100),
+    ("burgers", dict(nx=4096, ny=4096), 200, 16, 5),
+    ("burgers", dict(nx=512, ny=512, dtype="float64"), 1000, 16, 100),
+    ("sw", dict(nx=512, ny=512), 4000, 8, 100),
+    ("sw", dict(nx=512, ny=512), 4000, 1, 100),
+    ("sw", dict(nx=4096, ny=4096), 200, 8, 5),
+    ("sw", dict(nx=512, ny=512, dtype="float64"), 1000, 8, 100),
+    ("mhd", dict(nx=320, ny=220), 4000, 8, 100),
+    ("mhd", dict(nx=320, ny=220), 4000, 1, 100),
+    ("mhd", dict(nx=2048, ny=2048, problem="orszag-tang"), 200, 8, 5),
+    ("mhd", dict(nx=320, ny=220, dtype="float64"), 1000, 8, 100))
+
+
+def resident_key(name, cfg, k) -> str:
+    extra = f" {cfg.problem}" if name == "mhd" else ""
+    return f"{name} {cfg.nx}x{cfg.ny}{extra} {cfg.dtype} K={k}"
+
+
+def phase_resident_main(mods, device, smi, errs,
+                        runs=RESIDENT_RUNS) -> dict:
+    res = {"launches": {name: {"step": 0, "multistep": 0}
+                        for name in RESIDENT}}
+    for name, fields, steps, k, p_steps in runs:
+        mod, kmod, kern, plain, cls = mods[name]
+        cfg = cls(**fields, block_k=k)
+        key = resident_key(name, cfg, k)
+        engine = mod.resolve_engine(cfg, device)
+        if engine != "cuda":
+            raise AssertionError(f"{key}: engine auto resolved to {engine!r}")
+        s0 = mod.init(cfg, device)
+        mod.run(cfg, s0, k + 1)   # warm-up, not counted
+        kmod.reset_launches()
+        out, wall = run_timed(mod, cfg, s0, steps)
+        got = dict(kmod.LAUNCHES)
+        want = ({"step": steps % k, "multistep": steps // k} if k > 1
+                else {"step": steps, "multistep": 0})
+        if got != want:
+            raise AssertionError(f"{key}: launches {got}, want {want}")
+        for n in got:
+            res["launches"][name][n] += got[n]
+        p_out, p_wall = run_timed(mod, cfg.replace(engine="torch"), s0,
+                                  p_steps)
+        if kmod.LAUNCHES != got:
+            raise AssertionError(f"{key}: the plain engine launched a kernel")
+        cells = cfg.nx * cfg.ny
+        rate, p_rate = steps / wall, p_steps / p_wall
+        log(f"[resident] {key} on {smi}: cuda engine {steps} steps in "
+            f"{wall:.4f} s, {rate:.2f} steps/s {cells * rate / 1e6:.1f} "
+            f"Mcell-steps/s; plain torch engine {p_steps} steps "
+            f"{p_rate:.3f} steps/s; launches {got}")
+        phys = resident_physics(name, mod, cfg, s0, out, key, steps, p_out,
+                                p_steps)
+
+        # from the final state: the kernel vs its plain version at full
+        # shape (k = 1 and k = K, K = 2 for the K = 1 runs), then times a
+        # launch; none of these launches is counted above
+        kk = max(k, 2)
+        rel, ab = resident_err(kern(cfg, out, 1), plain(cfg, out, 1),
+                               f"{key} final state k=1",
+                               step_bars(cfg.torch_dtype))
+        rel_k, ab_k = resident_err(kern(cfg, out, kk), plain(cfg, out, kk),
+                                   f"{key} final state k={kk}",
+                                   k_bars(name, cfg.torch_dtype))
+        errs[name] = max(errs[name], ab, ab_k)
+        errs["rel"][f"{key} final state"] = rel
+        big = cells > 4_000_000
+        times = {"ms": time_launches(lambda: kern(cfg, out, kk),
+                                     5 if big else 50),
+                 "plain_ms": time_launches(lambda: plain(cfg, out, kk),
+                                           1 if big else 3)}
+        bnd = resident_bound(name, cfg, kk)
+        log(f"[resident] {key} final state: kernel vs plain max rel err "
+            f"k=1 {rel:.3e}, k={kk} {rel_k:.3e}; per launch of {kk} steps on "
+            f"{smi}: {times['ms']:.4f} ms vs plain {times['plain_ms']:.4f} ms "
+            f"(bound {bnd[0]:.4f} ms, {bnd[1]})")
+        res[key] = {"launches": got, "times": times, "bound": bnd,
+                    "rate": rate, "plain_rate": p_rate, "k": kk,
+                    "physics": phys}
+    return res
+
+
+def resident_kernel_lines(res, errs) -> list:
+    """The {"kernels": [...]} entries of the three K-step kernels: time
+    and bound a launch at the reference size f32 and default block_k, the
+    large grid's and f64's beside them; launches summed over each
+    solver's four runs."""
+    out = []
+    for name, src, replaces, ref, large, f64 in (
+            ("burgers", "burgers_multistep",
+             "fluidsims_tpu/kernels/resident_multistep.py:38",
+             "burgers 512x512 float32 K=16", "burgers 4096x4096 float32 K=16",
+             "burgers 512x512 float64 K=16"),
+            ("sw", "shallow_water_multistep",
+             "fluidsims_tpu/kernels/resident_multistep.py:38",
+             "sw 512x512 float32 K=8", "sw 4096x4096 float32 K=8",
+             "sw 512x512 float64 K=8"),
+            ("mhd", "mhd_multistep",
+             "fluidsims_tpu/kernels/mhd_resident_pallas.py:76",
+             "mhd 320x220 briowu float32 K=8",
+             "mhd 2048x2048 orszag-tang float32 K=8",
+             "mhd 320x220 briowu float64 K=8")):
+        a, b, c = res[ref], res[large], res[f64]
+        launches = res["launches"][name]
+        out.append({
+            "name": src, "route": "cuda",
+            "source": f"fluidsims_tpu_torch/csrc/{src}.cu",
+            "replaces": replaces,
+            "launches": launches["step"] + launches["multistep"],
+            "max_abs_err": errs[name],
+            "ms": a["times"]["ms"], "plain_ms": a["times"]["plain_ms"],
+            "bound_ms": a["bound"][0], "bound_by": a["bound"][1],
+            "library_ms": None, "k": a["k"],
+            "launches_k_steps": launches["multistep"],
+            "launches_one_step": launches["step"],
+            "ms_large": b["times"]["ms"],
+            "plain_ms_large": b["times"]["plain_ms"],
+            "bound_ms_large": b["bound"][0], "bound_by_large": b["bound"][1],
+            "ms_f64": c["times"]["ms"], "plain_ms_f64": c["times"]["plain_ms"],
+            "bound_ms_f64": c["bound"][0], "bound_by_f64": c["bound"][1],
+            "steps_per_s": {key: res[key]["rate"] for key in res
+                            if key.startswith(name + " ")}})
+    out[-1]["max_rel_err"] = errs["rel"]
+    return out
+
 
 def main() -> int:
     smi = phase_device()
@@ -1237,6 +1726,12 @@ def main() -> int:
     from fluidsims_tpu_torch.solvers import lbm
     from fluidsims_tpu_torch.solvers import sph as ts
     from fluidsims_tpu_torch.solvers import th3cs
+    from fluidsims_tpu_torch.kernels import burgers_cuda as bk
+    from fluidsims_tpu_torch.kernels import mhd_cuda as mk
+    from fluidsims_tpu_torch.kernels import shallow_water_cuda as swk
+    from fluidsims_tpu_torch.solvers import burgers as bg
+    from fluidsims_tpu_torch.solvers import mhd
+    from fluidsims_tpu_torch.solvers import shallow_water as swm
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -1245,6 +1740,9 @@ def main() -> int:
     hk3.load()
     gk.load()
     lk.load()
+    bk.load()
+    swk.load()
+    mk.load()
     errs = phase_kernels(h2, hk, interop, cfl_dt, device)
     sk.reset_launches()
     main_res = phase_main(h2, hk, regression, cfl_dt, device, smi, errs)
@@ -1270,9 +1768,18 @@ def main() -> int:
         m.reset_launches()
     stencil_res = phase_stencil_main(gs, lbm, gk, lk, device, smi,
                                      stencil_errs)
-    others = [dict(m.LAUNCHES) for m in (hk, sk, hk3)]
+    others = [dict(m.LAUNCHES) for m in (hk, sk, hk3, bk, swk, mk)]
     if any(any(o.values()) for o in others):
         raise AssertionError(f"the stencil path launched other kernels: "
+                             f"{others}")
+    mods = resident_mods(bg, swm, mhd, bk, swk, mk)
+    resident_errs = phase_resident_kernels(mods, bg, swm, mhd, device)
+    for m in (hk, sk, hk3, gk, lk):
+        m.reset_launches()
+    resident_res = phase_resident_main(mods, device, smi, resident_errs)
+    others = [dict(m.LAUNCHES) for m in (hk, sk, hk3, gk, lk)]
+    if any(any(o.values()) for o in others):
+        raise AssertionError(f"the resident path launched other kernels: "
                              f"{others}")
 
     t = main_res["times"]
@@ -1355,6 +1862,7 @@ def main() -> int:
     kernels[-2]["max_rel_err"] = hyp3d_errs["rel"]
     kernels.extend(stencil_kernel_lines(stencil_res, stencil_errs))
     kernels[-1]["max_rel_err"] = stencil_errs["rel"]
+    kernels.extend(resident_kernel_lines(resident_res, resident_errs))
     log(f"[hyp3d] steps/s: 64^3 f32 {a3['rate']:.2f} (plain "
         f"{a3['plain_rate']:.3f}), 256^3 f32 {b3['rate']:.2f} (plain "
         f"{b3['plain_rate']:.4f}); th3cs 64^3 "

@@ -6,10 +6,14 @@
     python -m fluidsims_tpu_torch.cli th3cs --n 64 --out vol.4spl
     python -m fluidsims_tpu_torch.cli gray-scott --nx 2048 --ny 2048
     python -m fluidsims_tpu_torch.cli lbm --nx 2048 --ny 1024 --steps 1000
+    python -m fluidsims_tpu_torch.cli burgers --steps 4000
+    python -m fluidsims_tpu_torch.cli shallow-water --steps 4000
+    python -m fluidsims_tpu_torch.cli mhd --case orszag-tang --steps 4000
 
-Ports of the `hypersonic2d`, `sph`, `hypersonic3d`, `th3cs`, `gray-scott`
-and `lbm` subcommands of fluidsims_tpu.cli with the same physics flags and
-defaults, headless.  All run on `--device cuda` unless asked for the CPU.
+Ports of the `hypersonic2d`, `sph`, `hypersonic3d`, `th3cs`, `gray-scott`,
+`lbm`, `burgers`, `shallow-water` and `mhd` subcommands of
+fluidsims_tpu.cli with the same physics flags and defaults, headless.  All
+run on `--device cuda` unless asked for the CPU.
 
 hypersonic2d, hypersonic3d: `--impl cuda` (default) steps through the CUDA
 kernels and needs `--device cuda`; `--impl torch` steps through their
@@ -31,6 +35,12 @@ engine, steps/s and Mcell-steps/s (Gray–Scott) or MLUPS (LBM, cells x
 steps / s / 1e6 as tau_lbm.cu:291-294).  The whole run is one `run` call
 bracketed by synchronisation, after a warm-up of block_k + 1 steps that
 builds and loads the kernels.
+
+burgers, shallow-water, mhd: the same engine rule and timing, `--block-k`
+steps a launch of the K-step kernel (its remainder in one-step launches);
+they print the engine, steps/s and Mcell-steps/s, and mhd the time t.
+Their `--block-k` defaults are the JAX CLI's (16 for all three), which for
+shallow water and MHD differ from the configs' (8).
 """
 
 from __future__ import annotations
@@ -251,6 +261,85 @@ def cmd_lbm(args):
     return out
 
 
+def _report(name, cfg, engine, device, res) -> None:
+    print(f"{name} {cfg.nx}x{cfg.ny} {cfg.dtype} engine={engine} "
+          f"block_k={cfg.block_k} device={_device_name(device)}: "
+          f"{res['steps']} steps in {res['wall_s']:.3f}s -> "
+          f"{res['steps_per_sec']:.1f} steps/s, "
+          f"{res['mcells_per_sec']:.1f} Mcell-steps/s")
+
+
+def cmd_burgers(args):
+    from .core.device import resolve_device
+    from .solvers import burgers as bg
+
+    device = resolve_device(args.device)
+    cfg = bg.BurgersConfig(
+        nx=args.nx, ny=args.ny, dx=args.dx, dy=args.dy, nu=args.nu,
+        u0=args.u0, amp=args.amp, bsig=args.bsig, swirl=args.swirl,
+        rc=args.rc, offx=args.offx, offy=args.offy, asym=args.asym,
+        cfl=args.CFL, tau0=args.tau0, t0=args.t0, dtau=args.dtau,
+        muscl=args.muscl, visc_substeps=args.visc_substeps,
+        colehopf=args.colehopf, ck=args.ck, ca=args.ca, dtype=args.dtype,
+        engine=args.engine, block_k=args.block_k)
+    engine = bg.resolve_engine(cfg, device)
+    out, res = _bench_run(lambda st, n: bg.run(cfg, st, n),
+                          bg.init(cfg, device), args.steps, cfg.block_k + 1,
+                          cfg.nx * cfg.ny)
+    _report("burgers", cfg, engine, device, res)
+    if cfg.colehopf:
+        print(f"Cole-Hopf rel L2 error {bg.cole_hopf_rel_l2(cfg, out):.4e}")
+    return out
+
+
+def cmd_shallow_water(args):
+    from .core.device import resolve_device
+    from .solvers import shallow_water as sw
+
+    device = resolve_device(args.device)
+    cfg = sw.ShallowWaterConfig(
+        nx=args.nx, ny=args.ny, dx=args.dx, dy=args.dy, g=args.g, f0=args.f0,
+        nu=args.nu, H0=args.H0, bump_amp=args.amp, bump_sigma=args.bsig,
+        offx=args.offx, offy=args.offy, asym=args.asym, swirl=args.swirl,
+        swirl_rc=args.rc, tau0=args.tau0, t0=args.t0, dtau=args.dtau,
+        dtype=args.dtype, engine=args.engine, block_k=args.block_k)
+    engine = sw.resolve_engine(cfg, device)
+    out, res = _bench_run(lambda st, n: sw.run(cfg, st, n),
+                          sw.init(cfg, device), args.steps, cfg.block_k + 1,
+                          cfg.nx * cfg.ny)
+    _report("shallow-water", cfg, engine, device, res)
+    h = sw.depth(out)
+    print(f"h: min {float(h.min()):.4f} max {float(h.max()):.4f}")
+    return out
+
+
+def cmd_mhd(args):
+    from .core.device import resolve_device
+    from .solvers import mhd
+
+    device = resolve_device(args.device)
+    cfg = mhd.MHDConfig(nx=args.nx, ny=args.ny, problem=args.case,
+                        stable_hll=args.stable_hll, dtype=args.dtype,
+                        engine=args.engine, block_k=args.block_k)
+    engine = mhd.resolve_engine(cfg, device)
+    out, res = _bench_run(lambda st, n: mhd.run(cfg, st, n),
+                          mhd.init(cfg, device), args.steps, cfg.block_k + 1,
+                          cfg.nx * cfg.ny)
+    _report(f"mhd {cfg.problem}", cfg, engine, device, res)
+    print(f"t = {float(out.t):.6f}")
+    return out
+
+
+def _engine_args(p, block_k: int) -> None:
+    p.add_argument("--engine", choices=("auto", "cuda", "torch"),
+                   default="auto",
+                   help="auto = the CUDA kernel on a GPU, the plain torch "
+                        "step on the CPU")
+    p.add_argument("--block-k", type=int, default=block_k, dest="block_k",
+                   help="steps per K-step kernel launch (cuda engine; the "
+                        "remainder runs one step a launch)")
+
+
 def build_parser():
     ap = argparse.ArgumentParser(prog="fluidsims_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -384,6 +473,82 @@ def build_parser():
     p.add_argument("--device", default="cuda",
                    help="cuda, cuda:N or cpu; a missing GPU is an error")
     p.set_defaults(fn=cmd_lbm)
+
+    p = sub.add_parser("burgers", help="2-D viscous Burgers (tau_burgers)")
+    p.add_argument("--nx", type=int, default=512)
+    p.add_argument("--ny", type=int, default=512)
+    p.add_argument("--dx", type=float, default=1.0)
+    p.add_argument("--dy", type=float, default=1.0)
+    p.add_argument("--nu", type=float, default=0.1)
+    p.add_argument("--u0", type=float, default=1.0)
+    p.add_argument("--amp", type=float, default=1.0)
+    p.add_argument("--bsig", type=float, default=16.0)
+    p.add_argument("--swirl", type=float, default=10.0)
+    p.add_argument("--rc", type=float, default=40.0)
+    p.add_argument("--offx", type=float, default=0.0)
+    p.add_argument("--offy", type=float, default=0.0)
+    p.add_argument("--asym", type=float, default=0.0)
+    p.add_argument("--CFL", type=float, default=0.45)
+    p.add_argument("--tau0", type=float, default=0.0)
+    p.add_argument("--t0", type=float, default=1.0)
+    p.add_argument("--dtau", type=float, default=1.0)
+    p.add_argument("--muscl", action="store_true")
+    p.add_argument("--visc_substeps", type=int, default=1)
+    p.add_argument("--colehopf", action="store_true")
+    p.add_argument("--ck", type=int, default=4)
+    p.add_argument("--ca", type=float, default=0.5)
+    _engine_args(p, 16)
+    p.add_argument("--steps", type=int, default=2000,
+                   help="number of physics steps")
+    p.add_argument("--dtype", default="float32",
+                   choices=("float32", "float64"))
+    p.add_argument("--device", default="cuda",
+                   help="cuda, cuda:N or cpu; a missing GPU is an error")
+    p.set_defaults(fn=cmd_burgers)
+
+    p = sub.add_parser("shallow-water",
+                       help="shallow water (tau_shallow_water)")
+    p.add_argument("--nx", type=int, default=512)
+    p.add_argument("--ny", type=int, default=512)
+    p.add_argument("--dx", type=float, default=1.0)
+    p.add_argument("--dy", type=float, default=1.0)
+    p.add_argument("--g", type=float, default=9.81)
+    p.add_argument("--f0", type=float, default=1.0)
+    p.add_argument("--nu", type=float, default=0.001)
+    p.add_argument("--H0", type=float, default=1000.0)
+    p.add_argument("--amp", type=float, default=1.0)
+    p.add_argument("--bsig", type=float, default=1.0)
+    p.add_argument("--offx", type=float, default=100.0)
+    p.add_argument("--offy", type=float, default=100.0)
+    p.add_argument("--asym", type=float, default=10.0)
+    p.add_argument("--swirl", type=float, default=1.0)
+    p.add_argument("--rc", type=float, default=100.0)
+    p.add_argument("--tau0", type=float, default=0.0)
+    p.add_argument("--t0", type=float, default=1.0)
+    p.add_argument("--dtau", type=float, default=1.0)
+    _engine_args(p, 16)
+    p.add_argument("--steps", type=int, default=2000,
+                   help="number of physics steps")
+    p.add_argument("--dtype", default="float32",
+                   choices=("float32", "float64"))
+    p.add_argument("--device", default="cuda",
+                   help="cuda, cuda:N or cpu; a missing GPU is an error")
+    p.set_defaults(fn=cmd_shallow_water)
+
+    p = sub.add_parser("mhd", help="ideal MHD + GLM cleaning (tau_mhd)")
+    p.add_argument("--nx", type=int, default=320)
+    p.add_argument("--ny", type=int, default=220)
+    p.add_argument("--case", default="briowu",
+                   choices=["briowu", "orszag-tang"])
+    p.add_argument("--stable-hll", action="store_true")
+    _engine_args(p, 16)
+    p.add_argument("--steps", type=int, default=200,
+                   help="number of physics steps")
+    p.add_argument("--dtype", default="float32",
+                   choices=("float32", "float64"))
+    p.add_argument("--device", default="cuda",
+                   help="cuda, cuda:N or cpu; a missing GPU is an error")
+    p.set_defaults(fn=cmd_mhd)
     return ap
 
 

@@ -1,0 +1,143 @@
+// What the three K-step τ-clock kernels share (burgers_multistep.cu,
+// shallow_water_multistep.cu, mhd_multistep.cu): NaN-propagating min and
+// max as torch.minimum / torch.maximum / torch.clamp_min compute them, the
+// exact grid-wide max of a step's wavespeeds, and the cooperative launch.
+//
+// The grid-wide max.  Every wavespeed is >= +0, and for non-negative IEEE
+// values the order of the bit patterns is the order of the values, so a
+// warp max followed by atomicMax on the bits (zero-extended to 64 bits for
+// float) is the exact max, whatever the order the atomics land in.  Bit
+// atomics drop NaN, so a flag beside the bits records whether any
+// wavespeed was NaN; the max read back is then NaN, as torch.max's is.
+// Each step uses its own slot of three: step s accumulates into slot s % 3
+// and one thread clears slot (s + 1) % 3, which nobody reads or writes
+// again until step s + 1 (between the last read of that slot, in step
+// s - 2, and the clear lie at least one grid sync).
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+#include <cmath>
+
+namespace fst {
+
+namespace cg = cooperative_groups;
+
+constexpr int kStepThreads = 256;  // threads a block of the K-step kernels
+constexpr int kMaxSlots = 3;
+
+// torch.maximum / clamp_min on CUDA: NaN if either is NaN, else ::max.
+template <typename T>
+__device__ __forceinline__ T nan_max(T a, T b) {
+  return a != a ? a : (b != b ? b : fmax(a, b));
+}
+
+template <typename T>
+__device__ __forceinline__ T nan_min(T a, T b) {
+  return a != a ? a : (b != b ? b : fmin(a, b));
+}
+
+__device__ __forceinline__ unsigned long long to_bits(float v) {
+  return (unsigned long long)__float_as_uint(v);
+}
+__device__ __forceinline__ unsigned long long to_bits(double v) {
+  return (unsigned long long)__double_as_longlong(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_bits(unsigned long long b);
+template <>
+__device__ __forceinline__ float from_bits<float>(unsigned long long b) {
+  return __uint_as_float((unsigned int)b);
+}
+template <>
+__device__ __forceinline__ double from_bits<double>(unsigned long long b) {
+  return __longlong_as_double((long long)b);
+}
+
+// A thread's running max of the wavespeeds it saw, and whether one was NaN.
+template <typename T>
+struct LocalMax {
+  T m = T(0);
+  bool nan = false;
+  __device__ __forceinline__ void add(T s) {
+    if (s != s)
+      nan = true;
+    else
+      m = fmax(m, s + T(0));  // + 0 makes a -0 wavespeed +0
+  }
+};
+
+// Folds every thread's LocalMax into slot `slot` (two words: bits, NaN
+// flag).  Called by every thread of the block.
+template <typename T>
+__device__ __forceinline__ void grid_max_add(unsigned long long* slots,
+                                             int slot, LocalMax<T> lm) {
+  T v = lm.m;
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmax(v, __shfl_xor_sync(0xffffffffu, v, o));
+  const bool nan = __any_sync(0xffffffffu, lm.nan);
+  if ((threadIdx.x & 31) == 0) {
+    atomicMax(slots + 2 * slot, to_bits(v));
+    if (nan) atomicExch(slots + 2 * slot + 1, 1ull);
+  }
+}
+
+// The max of slot `slot`, after the grid sync that ends its step's adds.
+template <typename T>
+__device__ __forceinline__ T grid_max_read(const unsigned long long* slots,
+                                           int slot) {
+  const volatile unsigned long long* p = slots + 2 * slot;
+  if (p[1]) return T(NAN);
+  return from_bits<T>(p[0]);
+}
+
+__device__ __forceinline__ void grid_max_clear(unsigned long long* slots,
+                                               int slot) {
+  slots[2 * slot] = 0ull;
+  slots[2 * slot + 1] = 0ull;
+}
+
+// Periodic index i mod n in [0, n), for the small offsets of a stencil
+// (one pass of each loop unless n is smaller than the offset).
+__device__ __forceinline__ int wrap1(int i, int n) {
+  while (i < 0) i += n;
+  while (i >= n) i -= n;
+  return i;
+}
+
+// Launches `kernel(args)` cooperatively on one block of kStepThreads
+// threads per kStepThreads cells, capped at the blocks that can be
+// resident at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs):
+// a cooperative launch past that is refused.  Returns the CUDA error code.
+template <typename Kernel, typename Args>
+int launch_cooperative(Kernel kernel, const Args& args, long long cells,
+                       int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  int coop = 0, sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  if (err != cudaSuccess) return (int)err;
+  if (!coop) return (int)cudaErrorNotSupported;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kStepThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long want = (cells + kStepThreads - 1) / kStepThreads;
+  const long long cap = (long long)per_sm * sms;
+  const int grid = (int)(want < cap ? want : cap);
+  void* params[] = {(void*)&args};
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
+                                    dim3(kStepThreads), params, 0,
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused launch also sets the last error
+    return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fst

@@ -8,7 +8,8 @@ port's state as numpy arrays for any consumer.  `sph_state_from_numpy` /
 the fields of a JAX `SPHConfig` (its `asdict()`) to the port's, renaming
 the engines.  `hyp3d_state_from_numpy` / `hyp3d_state_to_numpy` and
 `hyp3d_config_from_dict` do the same for the 3-D hypersonic solver, and
-the `gs_*` and `lbm_*` functions for Gray–Scott and the D2Q9 LBM.
+the `gs_*`, `lbm_*`, `burgers_*`, `sw_*` and `mhd_*` functions for
+Gray–Scott, the D2Q9 LBM, Burgers, shallow water and GLM-MHD.
 Nothing here imports the JAX package.
 
 Every `device=None` means the GPU, as for the solvers' `init`.
@@ -21,10 +22,13 @@ import torch
 
 from .core.device import resolve_device
 from .ops.euler2d import Cons
+from .solvers.burgers import BurgersConfig, BurgersState
 from .solvers.gray_scott import GrayScottConfig, GrayScottState
 from .solvers.hypersonic2d import Hypersonic2DState
 from .solvers.hypersonic3d import Hypersonic3DConfig, Hypersonic3DState
 from .solvers.lbm import LBMConfig, LBMState
+from .solvers.mhd import ConsM, MHDConfig, MHDState
+from .solvers.shallow_water import ShallowWaterConfig, ShallowWaterState
 from .solvers.sph import SPHConfig, SPHState
 
 __all__ = ["state_from_numpy", "state_to_numpy", "sph_state_from_numpy",
@@ -32,7 +36,11 @@ __all__ = ["state_from_numpy", "state_to_numpy", "sph_state_from_numpy",
            "hyp3d_state_from_numpy", "hyp3d_state_to_numpy",
            "hyp3d_config_from_dict", "gs_state_from_numpy",
            "gs_state_to_numpy", "gs_config_from_dict", "lbm_state_from_numpy",
-           "lbm_state_to_numpy", "lbm_config_from_dict"]
+           "lbm_state_to_numpy", "lbm_config_from_dict",
+           "burgers_state_from_numpy", "burgers_state_to_numpy",
+           "burgers_config_from_dict", "sw_state_from_numpy",
+           "sw_state_to_numpy", "sw_config_from_dict", "mhd_state_from_numpy",
+           "mhd_state_to_numpy", "mhd_config_from_dict"]
 
 # JAX engine name -> port engine name
 _ENGINES = {"auto": "auto", "pallas": "cuda", "xla": "torch",
@@ -41,6 +49,13 @@ _ENGINES = {"auto": "auto", "pallas": "cuda", "xla": "torch",
 
 def _device(device):
     return resolve_device("cuda") if device is None else device
+
+
+def _config(cls, fields: dict):
+    """cls(**fields) with the JAX engine name mapped to the port's."""
+    fields = dict(fields)
+    fields["engine"] = _ENGINES[fields.get("engine", "auto")]
+    return cls(**fields)
 
 
 def state_from_numpy(U_fields, mask, t, *, dtype: torch.dtype,
@@ -95,9 +110,7 @@ def sph_state_to_numpy(state: SPHState):
 def sph_config_from_dict(fields: dict) -> SPHConfig:
     """The port's SPHConfig for the fields of a JAX SPHConfig (`asdict()`):
     engine 'pallas' becomes 'cuda' and 'xla' becomes 'torch'."""
-    fields = dict(fields)
-    fields["engine"] = _ENGINES[fields.get("engine", "auto")]
-    return SPHConfig(**fields)
+    return _config(SPHConfig, fields)
 
 
 def hyp3d_state_from_numpy(xi, phix, phiy, phiz, lam, zet, solid, t, dtau, *,
@@ -156,9 +169,7 @@ def gs_config_from_dict(fields: dict) -> GrayScottConfig:
     """The port's GrayScottConfig for the fields of a JAX GrayScottConfig
     (`asdict()`): engine 'pallas' becomes 'cuda' and 'xla' becomes
     'torch'."""
-    fields = dict(fields)
-    fields["engine"] = _ENGINES[fields.get("engine", "auto")]
-    return GrayScottConfig(**fields)
+    return _config(GrayScottConfig, fields)
 
 
 def lbm_state_from_numpy(f, solid, *, dtype: torch.dtype,
@@ -182,6 +193,80 @@ def lbm_state_to_numpy(state: LBMState):
 def lbm_config_from_dict(fields: dict) -> LBMConfig:
     """The port's LBMConfig for the fields of a JAX LBMConfig (`asdict()`):
     engine 'pallas' becomes 'cuda' and 'xla' becomes 'torch'."""
-    fields = dict(fields)
-    fields["engine"] = _ENGINES[fields.get("engine", "auto")]
-    return LBMConfig(**fields)
+    return _config(LBMConfig, fields)
+
+
+def _fields_and_scalars(fields, scalars, names, dtype, device):
+    """Copies of equal-shaped 2-D arrays and 0-d scalars as tensors."""
+    device = _device(device)
+    ts = [torch.tensor(np.asarray(f), dtype=dtype, device=device)
+          for f in fields]
+    for name, f in zip(names, ts):
+        if f.ndim != 2 or f.shape != ts[0].shape:
+            raise ValueError(f"{name} has shape {tuple(f.shape)}; every "
+                             f"field must be (ny, nx) = {tuple(ts[0].shape)}")
+    return ts + [torch.tensor(np.asarray(x).item(), dtype=dtype,
+                              device=device) for x in scalars]
+
+
+def burgers_state_from_numpy(phi_u, phi_v, t, tau, *, dtype: torch.dtype,
+                             device=None) -> BurgersState:
+    """Build a Burgers state from two (ny, nx) arrays and the clock
+    scalars t and tau.  The arrays are copied."""
+    return BurgersState(*_fields_and_scalars(
+        (phi_u, phi_v), (t, tau), BurgersState._fields, dtype, device))
+
+
+def burgers_state_to_numpy(state: BurgersState):
+    """(phi_u, phi_v, t, tau) as numpy, copied to the host."""
+    return tuple(f.detach().cpu().numpy() for f in state)
+
+
+def burgers_config_from_dict(fields: dict) -> BurgersConfig:
+    """The port's BurgersConfig for the fields of a JAX BurgersConfig
+    (`asdict()`): engine 'pallas' becomes 'cuda' and 'xla' becomes
+    'torch'."""
+    return _config(BurgersConfig, fields)
+
+
+def sw_state_from_numpy(sigma, u, v, t, tau, *, dtype: torch.dtype,
+                        device=None) -> ShallowWaterState:
+    """Build a shallow-water state from three (ny, nx) arrays and the
+    clock scalars t and tau.  The arrays are copied."""
+    return ShallowWaterState(*_fields_and_scalars(
+        (sigma, u, v), (t, tau), ShallowWaterState._fields, dtype, device))
+
+
+def sw_state_to_numpy(state: ShallowWaterState):
+    """(sigma, u, v, t, tau) as numpy, copied to the host."""
+    return tuple(f.detach().cpu().numpy() for f in state)
+
+
+def sw_config_from_dict(fields: dict) -> ShallowWaterConfig:
+    """The port's ShallowWaterConfig for the fields of a JAX
+    ShallowWaterConfig (`asdict()`): engine 'pallas' becomes 'cuda' and
+    'xla' becomes 'torch'."""
+    return _config(ShallowWaterConfig, fields)
+
+
+def mhd_state_from_numpy(U_fields, t, *, dtype: torch.dtype,
+                         device=None) -> MHDState:
+    """Build an MHD state from the seven (ny, nx) conserved fields (rho,
+    mx, my, E, Bx, By, psi) and the scalar t.  The arrays are copied."""
+    if len(U_fields) != len(ConsM._fields):
+        raise ValueError(f"{len(U_fields)} fields, want "
+                         f"{len(ConsM._fields)}")
+    *U, t = _fields_and_scalars(U_fields, (t,), ConsM._fields, dtype, device)
+    return MHDState(U=ConsM(*U), t=t)
+
+
+def mhd_state_to_numpy(state: MHDState):
+    """(U_fields tuple of 7 arrays, t) as numpy, copied to the host."""
+    return (tuple(f.detach().cpu().numpy() for f in state.U),
+            state.t.detach().cpu().numpy())
+
+
+def mhd_config_from_dict(fields: dict) -> MHDConfig:
+    """The port's MHDConfig for the fields of a JAX MHDConfig (`asdict()`):
+    engine 'pallas' becomes 'cuda' and 'xla' becomes 'torch'."""
+    return _config(MHDConfig, fields)

@@ -44,6 +44,7 @@ from ..core.clock import dtau_feedback
 from ..core.config import BaseConfig
 from ..core.device import resolve_device
 from ..core.stepper import run_steps
+from ..ops.scalar import div, rdiv, scalar
 from ..ops.weno import weno5_lr_slab
 
 __all__ = [
@@ -152,20 +153,6 @@ class Hypersonic3DState(NamedTuple):
     dtau: torch.Tensor
 
 
-def _scalar(ref: torch.Tensor, c: float) -> torch.Tensor:
-    return torch.full((), c, dtype=ref.dtype, device=ref.device)
-
-
-def _div(a: torch.Tensor, c: float) -> torch.Tensor:
-    """a / c for a Python number c, correctly rounded as JAX divides."""
-    return torch.div(a, _scalar(a, c))
-
-
-def _rdiv(c: float, a: torch.Tensor) -> torch.Tensor:
-    """c / a for a Python number c, correctly rounded as JAX divides."""
-    return torch.div(_scalar(a, c), a)
-
-
 def _pmap(f, *qs):
     return type(qs[0])(*(f(*vals) for vals in zip(*qs)))
 
@@ -179,11 +166,11 @@ def _tv_newton(cfg, evib, Tseed):
     Tv = torch.clamp_min(torch.clamp_min(Tseed, NEWTON_TEMP_FLOOR), cfg.Twall)
     rth = cfg.R * cfg.theta_v
     for _ in range(3):
-        a = _rdiv(cfg.theta_v, torch.clamp_min(Tv, NEWTON_TEMP_FLOOR))
+        a = rdiv(cfg.theta_v, torch.clamp_min(Tv, NEWTON_TEMP_FLOOR))
         ea = torch.exp(a)
         denom = torch.clamp_min(ea - 1.0, NEWTON_TEMP_FLOOR)
-        f = _rdiv(rth, denom) - evib
-        df = rth * (ea * _rdiv(cfg.theta_v, Tv * Tv)) / (denom * denom)
+        f = rdiv(rth, denom) - evib
+        df = rth * (ea * rdiv(cfg.theta_v, Tv * Tv)) / (denom * denom)
         Tv = torch.clamp_min(Tv - f / torch.clamp_min(df, DENOM_EPS),
                              NEWTON_TEMP_FLOOR)
     return Tv
@@ -191,9 +178,9 @@ def _tv_newton(cfg, evib, Tseed):
 
 def evib_eq(cfg, T):
     """Equilibrium vibrational energy at temperature T (:206-211)."""
-    a = _rdiv(cfg.theta_v, torch.clamp_min(T, NEWTON_TEMP_FLOOR))
+    a = rdiv(cfg.theta_v, torch.clamp_min(T, NEWTON_TEMP_FLOOR))
     denom = torch.clamp_min(torch.exp(a) - 1.0, NEWTON_TEMP_FLOOR)
-    return _rdiv(cfg.R * cfg.theta_v, denom)
+    return rdiv(cfg.R * cfg.theta_v, denom)
 
 
 def tv_from_evib(cfg, evib, T):
@@ -370,11 +357,11 @@ def _pwall(cfg, q: PrimT) -> PrimT:
     """Isothermal no-slip wall ghost (apply_wall, :511-521)."""
     p_keep = torch.clamp_min(q.p, RHO_P_FLOOR)
     r = torch.clamp_min(
-        _div(p_keep, cfg.R * max(cfg.Twall, NEWTON_TEMP_FLOOR)), RHO_P_FLOOR)
+        div(p_keep, cfg.R * max(cfg.Twall, NEWTON_TEMP_FLOOR)), RHO_P_FLOOR)
     z = torch.zeros_like(q.u)
     # the wall temperature is one constant: its evib_eq is the same value
     # in every cell
-    ev = evib_eq(cfg, _scalar(q.p, cfg.Twall)).expand_as(q.p)
+    ev = evib_eq(cfg, scalar(q.p, cfg.Twall)).expand_as(q.p)
     return PrimT(r=r, u=z, v=z, w=z, p=p_keep, ev=ev)
 
 
@@ -426,9 +413,9 @@ def solid_pad_of(cfg, device) -> torch.Tensor:
 
 def _encode(cfg, q: PrimT):
     xi = torch.log(torch.clamp_min(q.r, RHO_P_FLOOR))
-    phix = torch.asinh(_div(q.u, cfg.u_ref))
-    phiy = torch.asinh(_div(q.v, cfg.u_ref))
-    phiz = torch.asinh(_div(q.w, cfg.u_ref))
+    phix = torch.asinh(div(q.u, cfg.u_ref))
+    phiy = torch.asinh(div(q.v, cfg.u_ref))
+    phiz = torch.asinh(div(q.w, cfg.u_ref))
     lam = torch.log(torch.clamp_min(q.p, RHO_P_FLOOR))
     zet = torch.log(torch.clamp_min(q.ev, RHO_P_FLOOR))
     return xi, phix, phiy, phiz, lam, zet
@@ -782,7 +769,7 @@ def step_core_padded(cfg: Hypersonic3DConfig, qp: PrimT, solid_pad,
     # Landau–Teller relaxation (:1290-1293)
     T1 = _temp(cfg, q1)
     ev_eq = evib_eq(cfg, T1)
-    relax = _div(dt, max(cfg.tau_vib, TAU_VIB_MIN))
+    relax = div(dt, max(cfg.tau_vib, TAU_VIB_MIN))
     q1 = q1._replace(ev=torch.clamp_min(q1.ev + (ev_eq - q1.ev) * relax, 0.0))
 
     # sponge layers (:1295-1344).  Each sponge transforms only its static
@@ -814,7 +801,7 @@ def step_core_padded(cfg: Hypersonic3DConfig, qp: PrimT, solid_pad,
     tgt_p = max(cfg.inflow_p, RHO_P_FLOOR)
     if cfg.sponge_n > 0:
         def sponge_in(sub, col_lo):
-            sramp = torch.clamp(1.0 - _div(xs_of(sub, col_lo), cfg.sponge_n),
+            sramp = torch.clamp(1.0 - div(xs_of(sub, col_lo), cfg.sponge_n),
                                 0.0, 1.0)
             k_in = cfg.sponge_strength * (sramp * sramp)
             tgt_u = inflow_gain * cfg.inflow_u
@@ -833,7 +820,7 @@ def step_core_padded(cfg: Hypersonic3DConfig, qp: PrimT, solid_pad,
     if cfg.sponge_out_n > 0:
         def sponge_out(sub, col_lo):
             xo = xs_of(sub, col_lo) - (cfg.nx - cfg.sponge_out_n)
-            oramp = torch.clamp(_div(xo, cfg.sponge_out_n), 0.0, 1.0) \
+            oramp = torch.clamp(div(xo, cfg.sponge_out_n), 0.0, 1.0) \
                 * (xo >= 0).to(dtype)
             k_out = cfg.sponge_out_strength * (oramp * oramp)
             return PrimT(
@@ -856,9 +843,9 @@ def max_wavespeed(cfg, q1: PrimT, solid) -> torch.Tensor:
     reduction of :1345-1351).  The plain version of the wavespeed kernel
     (csrc/hypersonic3d_wavespeed.cu)."""
     a1 = soundspeed(cfg, q1)
-    ssum = _div(torch.abs(q1.u) + a1, cfg.dx) \
-        + _div(torch.abs(q1.v) + a1, cfg.dy) \
-        + _div(torch.abs(q1.w) + a1, cfg.dz)
+    ssum = div(torch.abs(q1.u) + a1, cfg.dx) \
+        + div(torch.abs(q1.v) + a1, cfg.dy) \
+        + div(torch.abs(q1.w) + a1, cfg.dz)
     ssum = torch.where(torch.isfinite(ssum) & ~solid, ssum, 0.0)
     return torch.amax(ssum)
 
@@ -886,7 +873,7 @@ def step(cfg: Hypersonic3DConfig, s: Hypersonic3DState,
     # τ advance (pre-step, :1680-1683)
     t = s.t * torch.exp(s.dtau)
     dt = t * s.dtau
-    inflow_gain = torch.clamp(_div(t, 0.02), 0.0, 1.0)
+    inflow_gain = torch.clamp(div(t, 0.02), 0.0, 1.0)
     if gain_mul is not None:
         inflow_gain = inflow_gain * gain_mul
 
@@ -906,7 +893,7 @@ def step(cfg: Hypersonic3DConfig, s: Hypersonic3DState,
         maxs = wavespeed_reduce(maxs)
 
     # dτ feedback controller (:1697-1704), shared deadband helper
-    dt_cfl = _rdiv(cfg.cfl, torch.clamp_min(maxs, 1e-9))
+    dt_cfl = rdiv(cfg.cfl, torch.clamp_min(maxs, 1e-9))
     dtau = dtau_feedback(s.dtau, dt, dt_cfl)
 
     new = _encode(cfg, q1)

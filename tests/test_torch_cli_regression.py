@@ -83,3 +83,42 @@ def test_cli_stencils_cuda_engine_needs_gpu(cmd):
                   "--ny", "32", "--steps", "1"])
     with pytest.raises(SystemExit):
         cli.main([cmd, "--device", "cpu", "--engine", "xla"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["burgers", "--nx", "32", "--ny", "24"],
+    ["burgers", "--nx", "64", "--ny", "1", "--colehopf", "--dtau", "1e-3",
+     "--muscl", "--visc_substeps", "2"],
+    ["shallow-water", "--nx", "32", "--ny", "24"],
+    ["mhd", "--nx", "32", "--ny", "24", "--case", "orszag-tang",
+     "--stable-hll"]])
+@pytest.mark.parametrize("engine", ["torch", "auto"])
+def test_cli_resident_solvers_cpu(capsys, argv, engine):
+    rc = cli.main([*argv, "--device", "cpu", "--engine", engine, "--steps",
+                   "2", "--block-k", "4"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "engine=torch" in out and "steps/s" in out
+    assert "Mcell-steps/s" in out and "block_k=4" in out
+    if argv[0] == "mhd":
+        assert "t = " in out
+
+
+@pytest.mark.parametrize("cmd", ["burgers", "shallow-water", "mhd"])
+def test_cli_resident_solvers_cuda_engine_needs_gpu(cmd):
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cli.main([cmd, "--device", "cpu", "--engine", "cuda", "--nx", "32",
+                  "--ny", "24", "--steps", "1"])
+    with pytest.raises(SystemExit):
+        cli.main([cmd, "--device", "cpu", "--engine", "pallas"])
+
+
+def test_cli_resident_defaults_follow_the_jax_cli():
+    """--block-k defaults to 16 for all three, as fluidsims_tpu/cli.py has
+    it (the shallow-water and MHD configs say 8)."""
+    ap = cli.build_parser()
+    for cmd in ("burgers", "shallow-water", "mhd"):
+        assert ap.parse_args([cmd]).block_k == 16
+    args = ap.parse_args(["mhd"])
+    assert (args.nx, args.ny, args.case, args.steps) == (320, 220,
+                                                         "briowu", 200)

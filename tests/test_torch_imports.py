@@ -57,9 +57,12 @@ def test_every_module_listed():
     for mod in ("ops.weno", "solvers.hypersonic3d", "solvers.th3cs",
                 "kernels.hypersonic3d_cuda", "io", "io.fourspl", "ops.shift",
                 "solvers.gray_scott", "solvers.lbm",
-                "kernels.gray_scott_cuda", "kernels.lbm_cuda"):
+                "kernels.gray_scott_cuda", "kernels.lbm_cuda",
+                "solvers.burgers", "solvers.shallow_water", "solvers.mhd",
+                "kernels.burgers_cuda", "kernels.shallow_water_cuda",
+                "kernels.mhd_cuda", "ops.scalar"):
         assert f"fluidsims_tpu_torch.{mod}" in MODULES
-    assert len(MODULES) >= 31
+    assert len(MODULES) >= 38
 
 
 @pytest.mark.parametrize("mod", MODULES)

@@ -33,7 +33,8 @@ def test_imports_without_cuda_and_counts_start_at_zero():
             "hypersonic3d_step.cu", "hypersonic3d_wavespeed.cu",
             "sph_bin.cu", "sph_density.cu", "sph_forces.cu",
             "gray_scott_step.cu", "gray_scott_multistep.cu", "lbm_step.cu",
-            "lbm_multistep.cu")}
+            "lbm_multistep.cu", "burgers_multistep.cu",
+            "shallow_water_multistep.cu", "mhd_multistep.cu")}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])

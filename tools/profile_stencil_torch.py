@@ -1,13 +1,17 @@
 #!/usr/bin/env python
-"""Where the time of the port's Gray–Scott and LBM runs goes, on a GPU.
+"""Where the time of the port's stencil runs goes, on a GPU.
 
-    python tools/profile_stencil_torch.py [--out PATH]
+    python tools/profile_stencil_torch.py [--out PATH] [--solvers a,b,...]
 
-For the runs chip_smoke.py drives through fluidsims_tpu_torch.solvers.
-gray_scott.run and solvers.lbm.run with engine 'auto' (the CUDA kernels):
-Gray–Scott 2048^2 f32 x 2000 steps and LBM 2048x1024 f32 x 1000 steps
-(bench.py's sizes and step counts), each at the default block_k (16, 8)
-and at block_k = 1 (the one-step kernel every step), each from init:
+For the runs chip_smoke.py drives through the `run` of fluidsims_tpu_torch.
+solvers.gray_scott, lbm, burgers, shallow_water and mhd with engine 'auto'
+(the CUDA kernels): Gray–Scott 2048^2 f32 x 2000 steps and LBM 2048x1024
+f32 x 1000 steps, each at the default block_k (16, 8) and at block_k = 1
+(the one-step kernel every step); Burgers and shallow water 512^2 and MHD
+320x220 Brio–Wu f32 x 4000 steps (bench.py's sizes and step counts) at
+the default block_k (16, 8, 8) and at 1 (the K-step kernel with k = 1
+every step), and Burgers and shallow water 4096^2, MHD Orszag–Tang 2048^2
+f32 x 200 at the default block_k; each from init:
 
 * the step time on the host clock, unprofiled: the whole run bracketed by
   torch.cuda.synchronize(), after a warm-up of block_k + 1 steps from the
@@ -20,7 +24,9 @@ and at block_k = 1 (the one-step kernel every step), each from init:
   and n % block_k one-step; block_k = 1: n one-step), so that launches the
   profiler drops do not shrink it; the device busy share (union of the
   captured kernel intervals over the span from the first kernel's start
-  to the last one's end); and the idle share 1 - (device time per step) /
+  to the last one's end; Burgers, shallow water and MHD have one kernel,
+  launched n // block_k + n % block_k times); and the idle share 1 -
+  (device time per step) /
   (unprofiled step time).  An idle share near 1 means the run waits on
   the host (launch-bound); near 0, on the kernels.  A run whose captured
   launches differ from the expected ones is flagged on its line and in
@@ -44,15 +50,35 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+from fluidsims_tpu_torch.solvers import burgers as bg  # noqa: E402
 from fluidsims_tpu_torch.solvers import gray_scott as gs  # noqa: E402
 from fluidsims_tpu_torch.solvers import lbm  # noqa: E402
+from fluidsims_tpu_torch.solvers import mhd  # noqa: E402
+from fluidsims_tpu_torch.solvers import shallow_water as sw  # noqa: E402
 
 # (solver, config, steps)
 RUNS = (("gray_scott", gs.GrayScottConfig(nx=2048, ny=2048, block_k=16), 2000),
         ("gray_scott", gs.GrayScottConfig(nx=2048, ny=2048, block_k=1), 2000),
         ("lbm", lbm.LBMConfig(nx=2048, ny=1024, block_k=8), 1000),
-        ("lbm", lbm.LBMConfig(nx=2048, ny=1024, block_k=1), 1000))
-MODULES = {"gray_scott": gs, "lbm": lbm}
+        ("lbm", lbm.LBMConfig(nx=2048, ny=1024, block_k=1), 1000),
+        ("burgers", bg.BurgersConfig(nx=512, ny=512, block_k=16), 4000),
+        ("burgers", bg.BurgersConfig(nx=512, ny=512, block_k=1), 4000),
+        ("burgers", bg.BurgersConfig(nx=4096, ny=4096, block_k=16), 200),
+        ("shallow_water", sw.ShallowWaterConfig(nx=512, ny=512, block_k=8),
+         4000),
+        ("shallow_water", sw.ShallowWaterConfig(nx=512, ny=512, block_k=1),
+         4000),
+        ("shallow_water", sw.ShallowWaterConfig(nx=4096, ny=4096, block_k=8),
+         200),
+        ("mhd", mhd.MHDConfig(nx=320, ny=220, block_k=8), 4000),
+        ("mhd", mhd.MHDConfig(nx=320, ny=220, block_k=1), 4000),
+        ("mhd", mhd.MHDConfig(nx=2048, ny=2048, problem="orszag-tang",
+                              block_k=8), 200))
+MODULES = {"gray_scott": gs, "lbm": lbm, "burgers": bg, "shallow_water": sw,
+           "mhd": mhd}
+# solvers whose 'cuda' engine is one K-step kernel, launched with k = 1 for
+# the remainder (no separate one-step kernel)
+KSTEP_ONLY = ("burgers", "shallow_water", "mhd")
 
 
 def _group(name: str) -> str:
@@ -114,7 +140,8 @@ def profile_run(solver: str, cfg, steps: int) -> dict:
     window = max(e for _, e in spans) - min(s for s, _ in spans)
     bk = cfg.block_k
     n_k, n_1 = divmod(steps, bk) if bk > 1 else (0, steps)
-    expected = {"K-step kernel": n_k, "one-step kernel": n_1}
+    expected = ({"K-step kernel": n_k + n_1} if solver in KSTEP_ONLY
+                else {"K-step kernel": n_k, "one-step kernel": n_1})
     captured = {g: groups[g][1] if g in groups else 0 for g in expected}
     if any(captured[g] == 0 < expected[g] for g in expected):
         raise RuntimeError(f"no launch of a kernel captured: {captured}")
@@ -125,7 +152,9 @@ def profile_run(solver: str, cfg, steps: int) -> dict:
     dev_ms = sum(per_step.values()) / 1e3
     cells = cfg.nx * cfg.ny
     return {
-        "run": f"{solver} {cfg.nx}x{cfg.ny} {cfg.dtype} block_k={cfg.block_k}",
+        "run": (f"{solver} {cfg.nx}x{cfg.ny} {cfg.dtype} block_k="
+                f"{cfg.block_k}" + (f" {cfg.problem}" if solver == "mhd"
+                                    else "")),
         "steps": steps, "step_ms_unprofiled": step_ms,
         "step_ms_unprofiled_runs": walls,
         "steps_per_s": 1e3 / step_ms,
@@ -147,7 +176,10 @@ def profile_run(solver: str, cfg, steps: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/profile_stencil_torch.json")
+    ap.add_argument("--solvers", default=",".join(MODULES),
+                    help="comma-separated subset of " + ", ".join(MODULES))
     args = ap.parse_args(argv)
+    solvers = args.solvers.split(",")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA GPU")
 
@@ -157,6 +189,8 @@ def main(argv=None) -> int:
     res = {"card": smi, "torch": torch.__version__, "runs": []}
     print(f"card: {smi}; torch {torch.__version__}")
     for solver, cfg, steps in RUNS:
+        if solver not in solvers:
+            continue
         r = profile_run(solver, cfg, steps)
         res["runs"].append(r)
         runs = ", ".join(f"{w:.5f}" for w in r["step_ms_unprofiled_runs"])
