@@ -25,20 +25,25 @@ failure of which ends the run with a non-zero exit:
 6. sph_kernels — the three SPH kernels (bin, density, forces + integrate)
              against their plain PyTorch versions on the same inputs, f32
              and f64, on 4096 particles from init plus seeded velocity
-             noise and on 512 particles with cell_capacity=8 (particles
-             past a cell's K slots): the binning bitwise, density and
-             forces max|err| / max|ref| <= 1e-5 (f32) / 1e-12 (f64); then
-             5 steps of the cuda engine against the same steps through the
+             noise: the binning bitwise, density and forces max|err| /
+             max|ref| <= 1e-5 (f32) / 1e-12 (f64).  The kernels have no
+             cell capacity: on 512 particles with cell_capacity=8 (cells
+             holding more than K particles, which the 'torch' engine
+             drops) density and forces + integrate are held, at the same
+             bars, to the 'exact' engine's all-pairs functions.  Then 5
+             steps of the cuda engine against the same steps through the
              plain versions at f32 (atol 2e-6 pos, 2e-5 vel).
 7. sph_main — SPH through solvers.sph.run with engine 'auto', which must
              resolve to 'cuda': 65,536 particles f32 without rain x 200
              steps (bench.py's configuration) and 2^20 particles f32 with
              rain x 50 steps (256 x 256 cells); each kernel launched once
              per substep; M particle-steps/s beside the plain 'torch'
-             engine's; overflow reported; physics (finite, in the box,
-             mean height below the initial one, tau > 0); then, from each
-             run's final state, each kernel against its plain version at
-             that shape (same bars) and per-launch times.
+             engine's (which drops the particles past a cell's K slots);
+             overflow_count 0 (the cuda engine keeps every pair); physics
+             (finite, in the box, mean height below the initial one, tau
+             > 0); then, from each run's final state, each kernel against
+             its plain version at that shape (same bars), per-launch times
+             and the pair counts.
 8. hyp3d_kernels — the two 3-D hypersonic kernels (cell update, masked
              max wavespeed) against their plain PyTorch versions, f32 and
              f64, both outflow modes, on a non-cubic 24x40x56 (z, y, x) grid
@@ -111,6 +116,27 @@ failure of which ends the run with a non-zero exit:
              SW_MASS_DRIFT_PER_STEP; MHD finite, rho > 0, p > 0, t
              advanced); then from each final state the kernel against its
              plain version at full shape and per-launch times.
+15. stam3d_kernels — the three 3-D stable-fluids kernels (Jacobi sweep,
+             exact trilinear advection, set_bnd of four fields) against
+             their plain PyTorch versions, f32 and f64, on n=24 and a
+             ragged n=37, from init plus seeded noise on all eight fields,
+             rings included: one sweep and the ping-pong solve at
+             jacobi_iters 12 and 5 with the viscosity, diffusion and
+             projection coefficients bitwise; the advection within 1e-6
+             (f32) / 1e-13 (f64) relative at two velocity scales; set_bnd
+             bitwise; then 5 steps of the cuda engine against the 'torch'
+             engine at advect_k=0 within 1e-5 (f32) / 1e-12 (f64)
+             relative.
+16. stam3d_main — solvers.stam3d.run with engine 'auto', which must
+             resolve to 'cuda': Stam3DConfig() (192^3 f32, bench.py's
+             stam3d_192) x 100 steps and 192^3 f64 x 20; per step 6 x
+             jacobi_iters Jacobi, 4 advect and 6 set_bnd launches; steps/s
+             and Mcell-steps/s beside the plain 'torch' engine's (2 steps,
+             advect_k=0); physics (every field finite, min d >= 0, max d >
+             0) and advect_capped_count at advect_k=2 from the final state
+             (the cells JAX's default dense-shift advection would have
+             capped); then from each final state every kernel against its
+             plain version at full shape and per-launch times.
 
 Every kernel's line in {"kernels": [...]} carries bound_ms, the least time
 the card could take for its work at the main path's shape: the larger of
@@ -152,7 +178,7 @@ HYP2D_STEP_OPS_PER_FLUID_CELL = 1900
 # hypersonic2d_wavespeed.cu per fluid cell: one decode, sound speed, max.
 HYP2D_WAVESPEED_OPS_PER_FLUID_CELL = 17
 # sph_density.cu: per candidate pair the distance, sqrt, q and the sum
-# (9), per pair within 2h the spline (6 more); per stored particle the
+# (9), per pair within 2h the spline (6 more); per particle the
 # EOS and p/rho^2 (10).
 SPH_DENSITY_OPS = (9, 6, 10)
 # sph_forces.cu: per candidate pair the distance test (5), per pair
@@ -466,22 +492,18 @@ def hyp2d_bounds(cfg, mask) -> dict:
 # ---------------------------------- SPH ------------------------------------
 
 def sph_pairs(sk, cfg, b) -> dict:
-    """This binning's pair counts: candidates (stored receivers x stored
-    members of the 3x3 cells around them, self included) and those within
-    2h, self excluded; counted on the dense layout of the plain versions."""
+    """This binning's pair counts: candidates (every particle x every
+    member of the 3x3 cells around it, self included: what the pair
+    kernels walk) and those within 2h, self excluded."""
     p = sk._params(cfg)
-    slot, ok = sk._dense_slots(cfg, b)
-    occ = sk._to_dense(cfg, slot, ok[:, None])[..., 0]
-    dpos = sk._to_dense(cfg, slot, b.fields[:, :2])
-    occ_c = occ[..., :, None]
+    x, y = b.fields[:, 0], b.fields[:, 1]
     cand = near = 0
-    for ox, oy in ((ox, oy) for oy in (-1, 0, 1) for ox in (-1, 0, 1)):
-        _, nocc, _, _, r2 = sk._pairs(cfg, dpos, occ, oy, ox)
-        both = occ_c & nocc
-        cand += int(both.sum())
-        near += int((both & (r2 < p.four_h2) & (r2 > 1e-16)).sum())
-    stored = int(ok.sum())
-    return {"candidates": cand, "near": near, "stored": stored}
+    for recv, nbr in sk.pair_chunks(cfg, b):
+        cand += recv.numel()
+        dx, dy = x[recv] - x[nbr], y[recv] - y[nbr]
+        r2 = dx * dx + dy * dy
+        near += int(((recv != nbr) & (r2 < p.four_h2) & (r2 > 1e-16)).sum())
+    return {"candidates": cand, "near": near}
 
 
 def sph_bounds(sk, cfg, b) -> dict:
@@ -493,11 +515,11 @@ def sph_bounds(sk, cfg, b) -> dict:
     dc, dn, dp = SPH_DENSITY_OPS
     fc, fn, fp = SPH_FORCES_OPS
     return {
-        "bin": bound(n * 4 * T + n * (4 + 4 + 1 + 4 + 4 * T) + 4 * (M + 1),
+        "bin": bound(n * 4 * T + n * (4 + 4 + 4 + 4 * T) + 4 * (M + 1),
                      n * SPH_BIN_OPS_PER_PARTICLE, cfg.torch_dtype),
         "density": bound(n * 4 * T + 4 * (M + 1) + n * 2 * T,
-                         dc * pr["candidates"] + dn * pr["near"]
-                         + dp * pr["stored"], cfg.torch_dtype),
+                         dc * pr["candidates"] + dn * pr["near"] + dp * n,
+                         cfg.torch_dtype),
         "forces": bound(n * 6 * T + 4 * (M + 1) + 4 * n + T + n * 4 * T,
                         fc * pr["candidates"] + fn * pr["near"] + fp * n,
                         cfg.torch_dtype),
@@ -516,8 +538,9 @@ def rel_err(got, ref) -> tuple[float, float]:
 def check_sph_call(sk, cfg, pos, vel, what: str, errs: dict) -> dict:
     """The three SPH kernels against their plain versions on the same
     inputs: the binning bitwise, then density from the kernel's binning
-    and forces + integrate from the kernel's binning and density.  Folds
-    the absolute errors into `errs`; returns the max rel errors."""
+    and forces + integrate from the kernel's binning and density, all
+    pairs kept.  Folds the absolute errors into `errs`; returns the max
+    rel errors."""
     tol = STEP_TOL[cfg.torch_dtype]
     b = sk.binning(cfg, pos, vel)
     bp = sk.binning_plain(cfg, pos, vel)
@@ -541,9 +564,41 @@ def check_sph_call(sk, cfg, pos, vel, what: str, errs: dict) -> dict:
         if not out[k] <= tol:
             raise AssertionError(f"{k} {what}: max rel err {out[k]:.3e} > "
                                  f"{tol:g}")
-    stored = int(b.ok.sum())
-    log(f"[sph] {what}: bin bitwise equal ({cfg.n - stored} of {cfg.n} past "
-        f"K={cfg.grid().K}); density max rel err {out['density']:.3e}, "
+    past = int((b.rank >= cfg.grid().K).sum())
+    log(f"[sph] {what}: bin bitwise equal ({past} of {cfg.n} past the torch "
+        f"engine's K={cfg.grid().K}, all in the pair sums); density max rel "
+        f"err {out['density']:.3e}, forces+integrate {out['forces']:.3e} "
+        f"(tol {tol:g})")
+    return out
+
+
+def check_sph_exact(sk, ts, cfg, pos, vel, what: str, errs: dict) -> dict:
+    """Density and forces + integrate of the kernels against the 'exact'
+    engine's all-pairs functions on the same state (the kernels' density
+    is in sorted order).  Same bars as check_sph_call."""
+    tol = STEP_TOL[cfg.torch_dtype]
+    b = sk.binning(cfg, pos, vel)
+    order = b.order.long()
+    rp = sk.density(cfg, b)
+    _, rho, press = ts._exact_density(cfg, pos)
+    ref = torch.stack([rho, press / torch.clamp(rho, min=1e-30) ** 2],
+                      -1)[order]
+    out = {"density": max(rel_err(rp[:, k], ref[:, k])[0] for k in (0, 1))}
+    errs["density"] = max(errs["density"], float((rp - ref).abs().max()))
+    dt = torch.full((), 1e-3, dtype=pos.dtype, device=pos.device)
+    pk, vk = sk.forces(cfg, b, rp, dt)
+    acc = ts._exact_forces(cfg, pos, vel, rho, press)
+    pe, ve = ts._integrate(cfg, pos, vel, acc, dt)
+    (rp_, ap), (rv_, av) = rel_err(pk, pe), rel_err(vk, ve)
+    out["forces"] = max(rp_, rv_)
+    errs["forces"] = max(errs["forces"], ap, av)
+    for k in ("density", "forces"):
+        if not out[k] <= tol:
+            raise AssertionError(f"{k} {what} vs exact engine: max rel err "
+                                 f"{out[k]:.3e} > {tol:g}")
+    past = int((b.rank >= cfg.grid().K).sum())
+    log(f"[sph] {what}: {past} of {cfg.n} past K={cfg.grid().K}; kernels vs "
+        f"the exact engine: density max rel err {out['density']:.3e}, "
         f"forces+integrate {out['forces']:.3e} (tol {tol:g})")
     return out
 
@@ -566,8 +621,9 @@ def phase_sph_kernels(sk, ts, device) -> dict:
             vel = torch.tensor(0.5 * rng.standard_normal((n, 2)),
                                dtype=cfg.torch_dtype, device=device)
             key = f"n={n} K={cfg.grid().K} {dtype}"
-            errs["rel"][key] = check_sph_call(sk, cfg, st.pos, vel, key,
-                                              errs)
+            errs["rel"][key] = (
+                check_sph_exact(sk, ts, cfg, st.pos, vel, key, errs) if cap
+                else check_sph_call(sk, cfg, st.pos, vel, key, errs))
     cfg = ts.SPHConfig(n=4096, rain=True, dtau=1e-2)
     a = b = ts.init(cfg, device)
     plain = plain_sph_step(sk, ts, cfg)
@@ -600,11 +656,15 @@ def check_sph_physics(ts, cfg, st0, out) -> dict:
     if not float(out.tau) > 0:
         raise AssertionError(f"tau {float(out.tau)} not > 0")
     ov = int(ts.overflow_count(cfg, out))
+    if ov != 0:
+        raise AssertionError(f"overflow_count {ov}: the cuda engine drops "
+                             "no pair")
+    past = int(ts.overflow_count(cfg.replace(engine="torch"), out))
     log(f"[physics] sph n={cfg.n}: finite, all in the box, mean height "
         f"{y0:.6f} -> {y1:.6f}, tau {float(out.tau):.6f}, t {float(out.t):.6f}; "
-        f"overflow {ov} of {cfg.n} past K={cfg.grid().K} (reported, not "
-        f"asserted)")
-    return {"overflow": ov, "mean_y0": y0, "mean_y": y1}
+        f"overflow_count 0 (every pair kept; {past} of {cfg.n} particles are "
+        f"past the torch engine's K={cfg.grid().K})")
+    return {"overflow": ov, "past_k": past, "mean_y0": y0, "mean_y": y1}
 
 
 # (n, rain, steps): bench.py's configuration, and 2^20 with the CLI's rain
@@ -1709,6 +1769,236 @@ def resident_kernel_lines(res, errs) -> list:
     return out
 
 
+# ---------------------------- 3-D stable fluids -----------------------------
+#
+# Three kernels (TPU kernels #11-#13), kernels/stam3d_cuda.py; `sc` below is
+# the wrapper module, `s3` the solver.
+
+ADVECT_TOL = {torch.float32: 1e-6, torch.float64: 1e-13}
+# stam3d_jacobi.cu per interior cell: the 5 adds of sum6, a * sum, + x0,
+# / c.
+STAM3D_JACOBI_OPS_PER_CELL = 8
+# stam3d_advect.cu per interior cell: per axis the backtrace (2), the clamp
+# (2), floor, the conversion and the fraction (3); 7 lerps of 4 (a
+# subtraction, 2 multiplies, an add).
+STAM3D_ADVECT_OPS_PER_CELL = 3 * 7 + 7 * 4
+# stam3d_set_bnd.cu: a negation per reflected face cell (3 fields x 2
+# faces x n^2); the other face cells are copies.
+STAM3D_SET_BND_OPS_PER_FACE_CELL = 1
+# (n, dtype, steps): Stam3DConfig()'s 192^3 f32 (bench.py's stam3d_192)
+# and the same at f64
+STAM3D_RUNS = ((192, "float32", 100), (192, "float64", 20))
+
+
+def stam3d_state(s3, cfg, device, seed, amp=0.3):
+    """init() plus seeded noise on all eight fields, rings included."""
+    s = s3.init(cfg, device)
+    rng = np.random.default_rng(seed)
+    return s3.Stam3DState(*[
+        f + torch.tensor(amp * rng.standard_normal(tuple(f.shape)),
+                         dtype=f.dtype, device=device) for f in s[:8]],
+        s.step_idx)
+
+
+def stam3d_coeffs(cfg) -> tuple:
+    """(a, c) of the viscosity, diffusion and projection solves."""
+    out = []
+    for coeff in (cfg.visc, cfg.diff):
+        a = cfg.dt * coeff * cfg.n * cfg.n
+        out.append((a, 1.0 + 6.0 * a))
+    return (*out, (1.0, 6.0))
+
+
+def check_stam3d_call(sc, s3, cfg, s, what: str, errs: dict) -> float:
+    """The three kernels against their plain versions on the state's
+    fields: one Jacobi sweep and the ping-pong solve at jacobi_iters 12 and
+    5 with each solve's (a, c), bitwise; the advection at velocity scales
+    1 and 6 within ADVECT_TOL relative; set_bnd of the four fields
+    bitwise.  Folds the absolute errors into `errs`; returns the advection's
+    max rel error."""
+    for a, c in stam3d_coeffs(cfg):
+        got, ref = s.w0.clone(), s.w0.clone()
+        sc.jacobi(s.u, s.v, got, a, c)
+        sc.jacobi_plain(s.u, s.v, ref, a, c)
+        if not same(got, ref):
+            raise AssertionError(f"jacobi {what} (a={a:g}): differs from the "
+                                 "plain version")
+        for iters in (12, 5):
+            icfg = cfg.replace(jacobi_iters=iters)
+            if not same(sc.lin_solve(icfg, s.u0, s.u, a, c),
+                        s3._lin_solve(icfg, s.u0, s.u, a, c)):
+                raise AssertionError(f"jacobi {what} (a={a:g}, {iters} "
+                                     "sweeps): differs from the plain solve")
+    rel = 0.0
+    for scale in (1.0, 6.0):
+        vel = [f * scale for f in (s.u, s.v, s.w)]
+        r, ab = rel_err(sc.advect(cfg, s.d, *vel),
+                        sc.advect_plain(cfg, s.d, *vel))
+        rel = max(rel, r)
+        errs["advect"] = max(errs["advect"], ab)
+    tol = ADVECT_TOL[cfg.torch_dtype]
+    if not rel <= tol:
+        raise AssertionError(f"advect {what}: max rel err {rel:.3e} > {tol:g}")
+    got = [f.clone() for f in (s.u, s.v, s.w, s.d)]
+    ref = [f.clone() for f in got]
+    sc.set_bnd(*got)
+    sc.set_bnd_plain(*ref)
+    if not all(same(x, y) for x, y in zip(got, ref)):
+        raise AssertionError(f"set_bnd {what}: differs from the plain version")
+    log(f"[stam3d] {what}: jacobi sweep and solves (12 and 5 sweeps, 3 "
+        f"coefficient pairs) bitwise equal; advect max rel err {rel:.3e} (tol "
+        f"{tol:g}); set_bnd bitwise equal")
+    return rel
+
+
+def phase_stam3d_kernels(sc, s3, device) -> dict:
+    errs = {"jacobi": 0.0, "advect": 0.0, "set_bnd": 0.0, "rel": {}}
+    for dtype in ("float32", "float64"):
+        for n in (24, 37):
+            cfg = s3.Stam3DConfig(n=n, dtype=dtype)
+            key = f"n={n} {dtype}"
+            errs["rel"][key] = check_stam3d_call(
+                sc, s3, cfg, stam3d_state(s3, cfg, device, SEED + n), key,
+                errs)
+    fields = ("u", "v", "w", "u0", "v0", "w0", "d", "d0")
+    for dtype in ("float32", "float64"):
+        cfg = s3.Stam3DConfig(n=37, dtype=dtype, advect_k=0)
+        if s3.resolve_engine(cfg, device) != "cuda":
+            raise AssertionError("engine auto did not resolve to cuda")
+        a = b = stam3d_state(s3, cfg, device, SEED, amp=0.1)
+        pcfg = cfg.replace(engine="torch")
+        for _ in range(5):
+            a, b = s3.step(cfg, a), s3.step(pcfg, b)
+        rel = max(rel_err(getattr(a, f), getattr(b, f))[0] for f in fields)
+        tol = STEP_TOL[cfg.torch_dtype]
+        if not rel <= tol:
+            raise AssertionError(f"5 steps cuda vs torch {dtype}: max rel "
+                                 f"err {rel:.3e} > {tol:g}")
+        log(f"[stam3d] 5 steps n=37 {dtype}, cuda engine vs torch engine at "
+            f"advect_k=0: max rel err {rel:.3e} over the eight fields (tol "
+            f"{tol:g})")
+        errs["rel"][f"5 steps n=37 {dtype}"] = rel
+    return errs
+
+
+def check_stam3d_physics(s3, cfg, out) -> dict:
+    for name in ("u", "v", "w", "u0", "v0", "w0", "d", "d0"):
+        if not bool(torch.isfinite(getattr(out, name)).all()):
+            raise AssertionError(f"stam3d: non-finite {name}")
+    dmin, dmax = float(out.d.min()), float(out.d.max())
+    if not (dmin >= 0.0 and dmax > 0.0):
+        raise AssertionError(f"stam3d density min {dmin} max {dmax}")
+    capped = int(s3.advect_capped_count(
+        cfg.replace(engine="torch", advect_k=2), out))
+    log(f"[physics] stam3d {cfg.n}^3 {cfg.dtype}: every field finite, d in "
+        f"[{dmin:.6g}, {dmax:.6g}]; {capped} of {cfg.n ** 3} cells past 2 "
+        "cells of backtrace (JAX's default advect_k=2 would cap them)")
+    return {"d_min": dmin, "d_max": dmax, "capped_at_k2": capped}
+
+
+def stam3d_bounds(cfg) -> dict:
+    """bound_ms of the three kernels at cfg's shape: every input cell each
+    kernel must read once and every cell it writes."""
+    n, dtype = cfg.n, cfg.torch_dtype
+    T = torch.finfo(dtype).bits // 8
+    return {
+        "jacobi": bound((3 * n ** 3 + 6 * n ** 2) * T,
+                        STAM3D_JACOBI_OPS_PER_CELL * n ** 3, dtype),
+        "advect": bound((3 * n ** 3 + 2 * (n + 2) ** 3) * T,
+                        STAM3D_ADVECT_OPS_PER_CELL * n ** 3, dtype),
+        "set_bnd": bound(4 * 6 * n ** 2 * 2 * T,
+                         STAM3D_SET_BND_OPS_PER_FACE_CELL * 6 * n ** 2,
+                         dtype)}
+
+
+def phase_stam3d_main(sc, s3, device, smi, errs,
+                      runs=STAM3D_RUNS) -> dict:
+    res = {}
+    for n, dtype, steps in runs:
+        cfg = s3.Stam3DConfig(n=n, dtype=dtype)
+        engine = s3.resolve_engine(cfg, device)
+        if engine != "cuda":
+            raise AssertionError(f"engine auto resolved to {engine!r}")
+        st0 = s3.init(cfg, device)
+        s3.run(cfg, st0, 1)   # warm-up, not counted
+        sc.reset_launches()
+        out, wall = run_timed(s3, cfg, st0, steps)
+        launches = dict(sc.LAUNCHES)
+        want = {"jacobi": 6 * cfg.jacobi_iters * steps, "advect": 4 * steps,
+                "set_bnd": 6 * steps}
+        if launches != want:
+            raise AssertionError(f"launches {launches} in {steps} steps, "
+                                 f"want {want}")
+        pcfg = cfg.replace(engine="torch", advect_k=0)
+        p_steps = 2
+        _, p_wall = run_timed(s3, pcfg, st0, p_steps)
+        if dict(sc.LAUNCHES) != launches:
+            raise AssertionError("the plain engine launched a kernel")
+        rate, p_rate = steps / wall, p_steps / p_wall
+        cells = cfg.n ** 3
+        log(f"[stam3d] {cfg.n}^3 {dtype} engine={engine} on {smi}: {steps} "
+            f"steps in {wall:.3f} s, {rate:.2f} steps/s, "
+            f"{cells * rate / 1e6:.1f} Mcell-steps/s; plain torch engine "
+            f"(advect_k=0) {p_steps} steps {p_rate:.3f} steps/s, "
+            f"{cells * p_rate / 1e6:.2f} Mcell-steps/s; launches {launches}")
+        phys = check_stam3d_physics(s3, cfg, out)
+
+        key = f"{cfg.n}^3 {dtype} final state"
+        errs["rel"][key] = check_stam3d_call(sc, s3, cfg, out, key, errs)
+        a, c = stam3d_coeffs(cfg)[2]
+        buf = out.w0.clone()
+        bnd = [f.clone() for f in (out.u, out.v, out.w, out.d)]
+        times = {
+            "jacobi": time_launches(
+                lambda: sc.jacobi(out.u, out.v, buf, a, c), 50),
+            "jacobi_plain": time_launches(
+                lambda: sc.jacobi_plain(out.u, out.v, buf, a, c), 20),
+            "advect": time_launches(
+                lambda: sc.advect(cfg, out.d, out.u, out.v, out.w), 50),
+            "advect_plain": time_launches(
+                lambda: sc.advect_plain(cfg, out.d, out.u, out.v, out.w), 10),
+            "set_bnd": time_launches(lambda: sc.set_bnd(*bnd), 50),
+            "set_bnd_plain": time_launches(lambda: sc.set_bnd_plain(*bnd),
+                                           20),
+        }
+        bounds = stam3d_bounds(cfg)
+        log(f"[stam3d] per launch at {cfg.n}^3 {dtype} on {smi}: " + ", ".join(
+            f"{k} {times[k]:.4f} ms vs plain {times[k + '_plain']:.4f} ms "
+            f"(bound {bounds[k][0]:.4f} ms, {bounds[k][1]})"
+            for k in ("jacobi", "advect", "set_bnd")))
+        res[dtype] = {"launches": launches, "times": times, "bounds": bounds,
+                      "rate": rate, "plain_rate": p_rate,
+                      "mcells": cells * rate / 1e6,
+                      "plain_mcells": cells * p_rate / 1e6, "physics": phys}
+    return res
+
+
+def stam3d_kernel_lines(res, errs) -> list:
+    """The {"kernels": [...]} entries of the three stam3d kernels: times
+    and bounds from the final state of the 192^3 f32 run, the f64 run's
+    beside them; launches summed over both runs."""
+    a, b = res["float32"], res["float64"]
+    out = []
+    for name, line in (("jacobi", 74), ("advect", 247), ("set_bnd", 296)):
+        out.append({
+            "name": f"stam3d_{name}", "route": "cuda",
+            "source": f"fluidsims_tpu_torch/csrc/stam3d_{name}.cu",
+            "replaces": f"fluidsims_tpu/kernels/stam3d_pallas.py:{line}",
+            "launches": a["launches"][name] + b["launches"][name],
+            "max_abs_err": errs[name],
+            "ms": a["times"][name], "plain_ms": a["times"][name + "_plain"],
+            "bound_ms": a["bounds"][name][0], "bound_by": a["bounds"][name][1],
+            "library_ms": None,
+            "launches_f32": a["launches"][name],
+            "launches_f64": b["launches"][name],
+            "ms_f64": b["times"][name],
+            "plain_ms_f64": b["times"][name + "_plain"],
+            "bound_ms_f64": b["bounds"][name][0],
+            "bound_by_f64": b["bounds"][name][1]})
+    out[-1]["max_rel_err"] = errs["rel"]
+    return out
+
+
 def main() -> int:
     smi = phase_device()
     from fluidsims_tpu_torch import interop, regression
@@ -1732,6 +2022,8 @@ def main() -> int:
     from fluidsims_tpu_torch.solvers import burgers as bg
     from fluidsims_tpu_torch.solvers import mhd
     from fluidsims_tpu_torch.solvers import shallow_water as swm
+    from fluidsims_tpu_torch.kernels import stam3d_cuda as sc
+    from fluidsims_tpu_torch.solvers import stam3d as s3
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -1743,6 +2035,7 @@ def main() -> int:
     bk.load()
     swk.load()
     mk.load()
+    sc.load()
     errs = phase_kernels(h2, hk, interop, cfl_dt, device)
     sk.reset_launches()
     main_res = phase_main(h2, hk, regression, cfl_dt, device, smi, errs)
@@ -1777,9 +2070,17 @@ def main() -> int:
     for m in (hk, sk, hk3, gk, lk):
         m.reset_launches()
     resident_res = phase_resident_main(mods, device, smi, resident_errs)
-    others = [dict(m.LAUNCHES) for m in (hk, sk, hk3, gk, lk)]
+    others = [dict(m.LAUNCHES) for m in (hk, sk, hk3, gk, lk, sc)]
     if any(any(o.values()) for o in others):
         raise AssertionError(f"the resident path launched other kernels: "
+                             f"{others}")
+    stam3d_errs = phase_stam3d_kernels(sc, s3, device)
+    for m in (hk, sk, hk3, gk, lk, bk, swk, mk):
+        m.reset_launches()
+    stam3d_res = phase_stam3d_main(sc, s3, device, smi, stam3d_errs)
+    others = [dict(m.LAUNCHES) for m in (hk, sk, hk3, gk, lk, bk, swk, mk)]
+    if any(any(o.values()) for o in others):
+        raise AssertionError(f"the stam3d path launched other kernels: "
                              f"{others}")
 
     t = main_res["times"]
@@ -1863,10 +2164,15 @@ def main() -> int:
     kernels.extend(stencil_kernel_lines(stencil_res, stencil_errs))
     kernels[-1]["max_rel_err"] = stencil_errs["rel"]
     kernels.extend(resident_kernel_lines(resident_res, resident_errs))
+    kernels.extend(stam3d_kernel_lines(stam3d_res, stam3d_errs))
     log(f"[hyp3d] steps/s: 64^3 f32 {a3['rate']:.2f} (plain "
         f"{a3['plain_rate']:.3f}), 256^3 f32 {b3['rate']:.2f} (plain "
         f"{b3['plain_rate']:.4f}); th3cs 64^3 "
         f"{th3cs_res['frames_per_s']:.2f} frames/s")
+    f32, f64 = stam3d_res["float32"], stam3d_res["float64"]
+    log(f"[stam3d] steps/s: 192^3 f32 {f32['rate']:.2f} (plain "
+        f"{f32['plain_rate']:.4f}), 192^3 f64 {f64['rate']:.2f} (plain "
+        f"{f64['plain_rate']:.4f})")
     log(f"[sph] M particle-steps/s: n=65536 {a['rate']:.3f} (plain "
         f"{a['plain_rate']:.4f}), n=1048576 {b['rate']:.3f} (plain "
         f"{b['plain_rate']:.4f}); pairs {a['bounds']['pairs']} / "

@@ -16,7 +16,11 @@ export (`solvers.th3cs`, `io.fourspl`), whose cell update and masked
 max-wavespeed reduction run as two more (`kernels.hypersonic3d_cuda`),
 and Gray–Scott (`solvers.gray_scott`) and the D2Q9 LBM (`solvers.lbm`,
 `ops.shift`), each stepped by a one-step and a K-step kernel
-(`kernels.gray_scott_cuda`, `kernels.lbm_cuda`); the sources are in
+(`kernels.gray_scott_cuda`, `kernels.lbm_cuda`), Burgers, shallow water
+and GLM-MHD (`solvers.burgers`, `solvers.shallow_water`, `solvers.mhd`),
+each stepped by a cooperative K-step kernel, and the 3-D stable fluids
+(`solvers.stam3d`, `ops.gather`), whose Jacobi sweep, advection and
+set_bnd run as three more (`kernels.stam3d_cuda`); the sources are in
 `csrc/`.  Kernels build with nvcc at first use; on
 CPU tensors every kernel wrapper takes its plain PyTorch version.  Entry points
 (`init`, `interop.*_from_numpy`) put their tensors on the GPU unless

@@ -9,9 +9,10 @@
     python -m fluidsims_tpu_torch.cli burgers --steps 4000
     python -m fluidsims_tpu_torch.cli shallow-water --steps 4000
     python -m fluidsims_tpu_torch.cli mhd --case orszag-tang --steps 4000
+    python -m fluidsims_tpu_torch.cli stam3d --n 192 --steps 100
 
 Ports of the `hypersonic2d`, `sph`, `hypersonic3d`, `th3cs`, `gray-scott`,
-`lbm`, `burgers`, `shallow-water` and `mhd` subcommands of
+`lbm`, `burgers`, `shallow-water`, `mhd` and `stam3d` subcommands of
 fluidsims_tpu.cli with the same physics flags and defaults, headless.  All
 run on `--device cuda` unless asked for the CPU.
 
@@ -41,6 +42,11 @@ steps a launch of the K-step kernel (its remainder in one-step launches);
 they print the engine, steps/s and Mcell-steps/s, and mhd the time t.
 Their `--block-k` defaults are the JAX CLI's (16 for all three), which for
 shallow water and MHD differ from the configs' (8).
+
+stam3d: the same engine rule (the three CUDA kernels on a GPU, the plain
+torch step on the CPU); it prints the engine, steps/s and Mcell-steps/s
+(n^3 cells), and for the torch engine at `--advect-k` >= 1 the cells its
+dense-shift advection capped on the final frame.  The warm-up is one step.
 """
 
 from __future__ import annotations
@@ -330,6 +336,32 @@ def cmd_mhd(args):
     return out
 
 
+def cmd_stam3d(args):
+    from .core.device import resolve_device
+    from .solvers import stam3d
+
+    device = resolve_device(args.device)
+    cfg = stam3d.Stam3DConfig(
+        n=args.n, dt=args.dt, visc=args.visc, diff=args.diff,
+        decay=args.decay, src_gain=args.src_gain, src_freq=args.src_freq,
+        seed_amp=args.amp, seed_noise=args.noise, seed_dens_amp=args.dens_amp,
+        seed_sigma=args.sigma, jacobi_iters=args.jacobi, seed=args.seed,
+        dtype=args.dtype, advect_k=args.advect_k, engine=args.engine)
+    engine = stam3d.resolve_engine(cfg, device)
+    out, res = _bench_run(lambda st, n: stam3d.run(cfg, st, n),
+                          stam3d.init(cfg, device), args.steps, 1, cfg.n ** 3)
+    print(f"stam3d {cfg.n}^3 {cfg.dtype} engine={engine} "
+          f"advect_k={cfg.advect_k} device={_device_name(device)}: "
+          f"{res['steps']} steps in {res['wall_s']:.3f}s -> "
+          f"{res['steps_per_sec']:.2f} steps/s, "
+          f"{res['mcells_per_sec']:.1f} Mcell-steps/s")
+    if engine == "torch" and cfg.advect_k >= 1:
+        capped = int(stam3d.advect_capped_count(cfg, out))
+        print(f"advect capped: {capped} cells past advect_k={cfg.advect_k} "
+              "on the final frame (--advect-k 0 gathers exactly)")
+    return out
+
+
 def _engine_args(p, block_k: int) -> None:
     p.add_argument("--engine", choices=("auto", "cuda", "torch"),
                    default="auto",
@@ -549,6 +581,39 @@ def build_parser():
     p.add_argument("--device", default="cuda",
                    help="cuda, cuda:N or cpu; a missing GPU is an error")
     p.set_defaults(fn=cmd_mhd)
+
+    p = sub.add_parser("stam3d", help="3-D stable fluids (js_cuda3d)")
+    p.add_argument("--n", type=int, default=192)
+    # physics / seeding (js_cuda3d.cu getopt)
+    p.add_argument("--dt", type=float, default=1.0)
+    p.add_argument("--visc", type=float, default=1e-5)
+    p.add_argument("--diff", type=float, default=1e-6)
+    p.add_argument("--decay", type=float, default=0.9)
+    p.add_argument("--amp", type=float, default=1.2,
+                   help="ABC-flow seed amplitude")
+    p.add_argument("--noise", type=float, default=0.25)
+    p.add_argument("--dens-amp", type=float, default=0.8, dest="dens_amp")
+    p.add_argument("--sigma", type=float, default=0.12)
+    p.add_argument("--src-gain", type=float, default=0.25, dest="src_gain")
+    p.add_argument("--src-freq", type=float, default=0.02, dest="src_freq")
+    p.add_argument("--jacobi", type=int, default=12)
+    p.add_argument("--seed", type=int, default=1337)
+    p.add_argument("--advect-k", type=int, default=2, dest="advect_k",
+                   help="torch engine: 0 = exact gather advection; K >= 1 "
+                        "= dense-shift advection, exact for backtraces <= "
+                        "K cells (capped cells are reported); the cuda "
+                        "engine always gathers")
+    p.add_argument("--engine", choices=("auto", "cuda", "torch"),
+                   default="auto",
+                   help="auto = the CUDA kernels on a GPU, the plain torch "
+                        "step on the CPU")
+    p.add_argument("--steps", type=int, default=20,
+                   help="number of physics steps")
+    p.add_argument("--dtype", default="float32",
+                   choices=("float32", "float64"))
+    p.add_argument("--device", default="cuda",
+                   help="cuda, cuda:N or cpu; a missing GPU is an error")
+    p.set_defaults(fn=cmd_stam3d)
     return ap
 
 

@@ -5,10 +5,12 @@
 //
 // Layout.  The bin kernel sorts the particles by cell, and inside a cell by
 // particle index, into `fields` (n, 4) = (x, y, vx, vy); `starts` (M + 1)
-// holds each cell's first position in that order.  A cell's first
-// min(count, K) members are its stored particles: the neighbours of every
-// pair sum and the receivers of the pair kernels.  A particle's position
-// in the sorted order minus its cell's start is its rank in the cell.
+// holds each cell's first position in that order.  Every member of a cell
+// is a neighbour in the pair sums of the particles of the 3x3 cells around
+// it: there is no cell capacity, so no pair is dropped however full a cell
+// gets, as in the reference's linked lists (tau_sph.cu:165-176).  A
+// particle's position in the sorted order minus its cell's start is its
+// rank in the cell.
 //
 // Rules that keep the kernels equal to the plain versions (as in
 // euler2d.cuh): literals cast to T before they meet a T value; constants
@@ -18,13 +20,12 @@
 #pragma once
 
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 namespace fst {
 
 // Host-side parameters, in double, formed by kernels/sph_cuda.py::_params.
 struct SPHParams {
-  int n, Gx, Gy, K;
+  int n, Gx, Gy;
   int use_visc, use_grav, gamma_is_one;
   double cell;        // cell side (2h)
   double inv_h;       // 1 / h
@@ -71,15 +72,14 @@ __device__ __forceinline__ int cell_of(T x, T y, const SPHParams& p) {
   return gy * p.Gx + gx;
 }
 
-// The stored members of cell (gx, gy): [*b, *e).  False outside the grid.
-__device__ __forceinline__ bool stored_range(const int* __restrict__ starts,
-                                             int gx, int gy,
-                                             const SPHParams& p, int* b,
-                                             int* e) {
+// The members of cell (gx, gy): [*b, *e).  False outside the grid.
+__device__ __forceinline__ bool cell_range(const int* __restrict__ starts,
+                                           int gx, int gy, const SPHParams& p,
+                                           int* b, int* e) {
   if (gx < 0 || gx >= p.Gx || gy < 0 || gy >= p.Gy) return false;
   const int c = gy * p.Gx + gx;
   *b = __ldg(starts + c);
-  *e = min(__ldg(starts + c + 1), *b + p.K);
+  *e = __ldg(starts + c + 1);
   return true;
 }
 

@@ -21,11 +21,11 @@
 //     too.  Cells are not assumed small: at the reference defaults the
 //     pool piles up to ~1,000 particles a cell.
 //
-// Outputs: cid and rank and ok = rank < K in particle order; starts; the
-// sorted order (particle index per position) and fields (n, 4).
+// Outputs: cid and rank in particle order; starts; the sorted order
+// (particle index per position) and fields (n, 4).
 //
 // What bounds it on an H100: bytes and latency.  It reads pos and vel
-// (4 T a particle) and writes 4 ints, a byte and 4 T a particle, tens of
+// (4 T a particle) and writes 4 ints and 4 T a particle, tens of
 // microseconds of traffic at 2^20 particles.  The rank step does count^2
 // comparisons a cell: small while cells hold tens of particles, and the
 // bin's largest cost where the reference defaults pile ~1,000 particles
@@ -110,7 +110,7 @@ rank_kernel(const T* __restrict__ pos, const T* __restrict__ vel,
             const int* __restrict__ cid, const int* __restrict__ starts,
             const int* __restrict__ bucket, SPHParams p,
             int* __restrict__ order, int* __restrict__ rank,
-            uint8_t* __restrict__ ok, V4<T>* __restrict__ fields) {
+            V4<T>* __restrict__ fields) {
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= p.n) return;
   const int idx = bucket[q];
@@ -120,7 +120,6 @@ rank_kernel(const T* __restrict__ pos, const T* __restrict__ vel,
   for (int j = b; j < e; ++j) r += __ldg(bucket + j) < idx;
   order[b + r] = idx;
   rank[idx] = r;
-  ok[idx] = r < p.K;
   fields[b + r] = {pos[2 * idx], pos[2 * idx + 1], vel[2 * idx],
                    vel[2 * idx + 1]};
 }
@@ -128,7 +127,7 @@ rank_kernel(const T* __restrict__ pos, const T* __restrict__ vel,
 template <typename T>
 int launch_bin(const T* pos, const T* vel, const SPHParams* p, int* cid,
                int* counts, int* starts, int* bucket, int* order, int* rank,
-               uint8_t* ok, T* fields, int device, void* stream) {
+               T* fields, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
@@ -140,7 +139,7 @@ int launch_bin(const T* pos, const T* vel, const SPHParams* p, int* cid,
   scan_kernel<<<1, kScanThreads, 0, s>>>(counts, starts, M);
   fill_kernel<<<blocks, kThreads, 0, s>>>(cid, starts, counts, bucket, p->n);
   rank_kernel<T><<<blocks, kThreads, 0, s>>>(
-      pos, vel, cid, starts, bucket, *p, order, rank, ok,
+      pos, vel, cid, starts, bucket, *p, order, rank,
       reinterpret_cast<V4<T>*>(fields));
   return (int)cudaGetLastError();
 }
@@ -153,17 +152,17 @@ extern "C" {
 int fst_sph_bin_f32(const float* pos, const float* vel,
                     const fst::SPHParams* p, int* cid, int* counts,
                     int* starts, int* bucket, int* order, int* rank,
-                    uint8_t* ok, float* fields, int device, void* stream) {
+                    float* fields, int device, void* stream) {
   return fst::launch_bin<float>(pos, vel, p, cid, counts, starts, bucket,
-                                order, rank, ok, fields, device, stream);
+                                order, rank, fields, device, stream);
 }
 
 int fst_sph_bin_f64(const double* pos, const double* vel,
                     const fst::SPHParams* p, int* cid, int* counts,
                     int* starts, int* bucket, int* order, int* rank,
-                    uint8_t* ok, double* fields, int device, void* stream) {
+                    double* fields, int device, void* stream) {
   return fst::launch_bin<double>(pos, vel, p, cid, counts, starts, bucket,
-                                 order, rank, ok, fields, device, stream);
+                                 order, rank, fields, device, stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,4 @@
-// SPH density + log-density Tait EOS per stored particle, for float and
-// double.
+// SPH density + log-density Tait EOS per particle, for float and double.
 //
 // Replaces the TPU kernel fluidsims_tpu/kernels/sph_pallas.py::
 // _density_kernel (pallas_call at :257).  That kernel held the particles of
@@ -7,19 +6,19 @@
 // sentinel positions in empty slots and whole halo blocks on both sides, and
 // summed dense (K, K) pair blocks.  Here the particles are already sorted
 // by cell (sph_bin.cu), so there is no dense layout, no sentinel and no
-// halo: one thread per sorted position walks the first min(count, K)
-// members of the 3x3 neighbour cells (the self pair included, as in the
-// reference) and sums m W(r).  Then, per particle, as sph_pallas.py:
+// halo, and no cell capacity K: one thread per sorted position walks every
+// member of the 3x3 neighbour cells (the self pair included, as in the
+// reference's linked lists, tau_sph.cu:165-176) and sums m W(r).  Then, per particle, as sph_pallas.py:
 // 103-118 does: s = log(max(rho, 1e-6)), rho = exp(s), the Tait pressure
 // (the gamma_eos == 1 branch skips the power), and p / rho^2, which the
 // forces kernel adds per pair.  Output rp (n, 2) = (rho, p / rho^2) in
-// sorted order; positions with rank >= K (not stored) get (0, 0).
+// sorted order, for every particle.
 //
 // What bounds it on an H100: the pair arithmetic, ~20 operations a
 // candidate pair, and the latency of the neighbour loads.  The candidate
-// pairs depend on the data: sum over cells of min(count, K) times the sum
-// of min(count, K) over the 3x3 cells around it (~10^7 at 65,536
-// particles, ~10^8 at 2^20).  Threads of one warp sit mostly in one cell
+// pairs depend on the data: the sum over cells of count times the sum of
+// count over the 3x3 cells around it (~10^8 at 65,536 particles piled at
+// the floor of the box, ~10^8 at 2^20).  Threads of one warp sit mostly in one cell
 // and walk the same neighbours in step, so each neighbour load is one
 // broadcast; the per-particle bytes (4 T in, 2 T out) are small beside it.
 #include "sph.cuh"
@@ -38,10 +37,6 @@ density_kernel(const V4<T>* __restrict__ fields,
   if (s >= p.n) return;
   const V4<T> me = fields[s];
   const int c = cell_of(me.x, me.y, p);
-  if (s - __ldg(starts + c) >= p.K) {
-    rp[s] = {T(0), T(0)};
-    return;
-  }
   const int gx = c % p.Gx, gy = c / p.Gx;
   const T inv_h = T(p.inv_h), alpha = T(p.alpha), alpha_q = T(p.alpha_q);
 
@@ -49,7 +44,7 @@ density_kernel(const V4<T>* __restrict__ fields,
   for (int oy = -1; oy <= 1; ++oy) {
     for (int ox = -1; ox <= 1; ++ox) {
       int b, e;
-      if (!stored_range(starts, gx + ox, gy + oy, p, &b, &e)) continue;
+      if (!cell_range(starts, gx + ox, gy + oy, p, &b, &e)) continue;
       T part = T(0);
       for (int j = b; j < e; ++j) {
         const V4<T> o = fields[j];

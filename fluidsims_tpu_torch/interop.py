@@ -8,8 +8,9 @@ port's state as numpy arrays for any consumer.  `sph_state_from_numpy` /
 the fields of a JAX `SPHConfig` (its `asdict()`) to the port's, renaming
 the engines.  `hyp3d_state_from_numpy` / `hyp3d_state_to_numpy` and
 `hyp3d_config_from_dict` do the same for the 3-D hypersonic solver, and
-the `gs_*`, `lbm_*`, `burgers_*`, `sw_*` and `mhd_*` functions for
-Gray–Scott, the D2Q9 LBM, Burgers, shallow water and GLM-MHD.
+the `gs_*`, `lbm_*`, `burgers_*`, `sw_*`, `mhd_*` and `stam3d_*` functions
+for Gray–Scott, the D2Q9 LBM, Burgers, shallow water, GLM-MHD and the 3-D
+stable fluids.
 Nothing here imports the JAX package.
 
 Every `device=None` means the GPU, as for the solvers' `init`.
@@ -30,6 +31,7 @@ from .solvers.lbm import LBMConfig, LBMState
 from .solvers.mhd import ConsM, MHDConfig, MHDState
 from .solvers.shallow_water import ShallowWaterConfig, ShallowWaterState
 from .solvers.sph import SPHConfig, SPHState
+from .solvers.stam3d import Stam3DConfig, Stam3DState
 
 __all__ = ["state_from_numpy", "state_to_numpy", "sph_state_from_numpy",
            "sph_state_to_numpy", "sph_config_from_dict",
@@ -40,7 +42,9 @@ __all__ = ["state_from_numpy", "state_to_numpy", "sph_state_from_numpy",
            "burgers_state_from_numpy", "burgers_state_to_numpy",
            "burgers_config_from_dict", "sw_state_from_numpy",
            "sw_state_to_numpy", "sw_config_from_dict", "mhd_state_from_numpy",
-           "mhd_state_to_numpy", "mhd_config_from_dict"]
+           "mhd_state_to_numpy", "mhd_config_from_dict",
+           "stam3d_state_from_numpy", "stam3d_state_to_numpy",
+           "stam3d_config_from_dict"]
 
 # JAX engine name -> port engine name
 _ENGINES = {"auto": "auto", "pallas": "cuda", "xla": "torch",
@@ -270,3 +274,32 @@ def mhd_config_from_dict(fields: dict) -> MHDConfig:
     """The port's MHDConfig for the fields of a JAX MHDConfig (`asdict()`):
     engine 'pallas' becomes 'cuda' and 'xla' becomes 'torch'."""
     return _config(MHDConfig, fields)
+
+
+def stam3d_state_from_numpy(u, v, w, u0, v0, w0, d, d0, step_idx, *,
+                            dtype: torch.dtype, device=None) -> Stam3DState:
+    """Build a 3-D stable-fluids state from eight equal (n+2)^3 arrays,
+    ghost rings included, and the step index.  The arrays are copied."""
+    device = _device(device)
+    fields = [torch.tensor(np.asarray(f), dtype=dtype, device=device)
+              for f in (u, v, w, u0, v0, w0, d, d0)]
+    shape = tuple(fields[0].shape)
+    if len(shape) != 3 or len(set(shape)) != 1 or any(
+            tuple(f.shape) != shape for f in fields):
+        raise ValueError("the eight fields must all be (n+2, n+2, n+2), got "
+                         f"{[tuple(f.shape) for f in fields]}")
+    return Stam3DState(*fields, step_idx=torch.tensor(
+        int(np.asarray(step_idx)), dtype=torch.int32, device=device))
+
+
+def stam3d_state_to_numpy(state: Stam3DState):
+    """(u, v, w, u0, v0, w0, d, d0, step_idx) as numpy, copied to the
+    host."""
+    return tuple(f.detach().cpu().numpy() for f in state)
+
+
+def stam3d_config_from_dict(fields: dict) -> Stam3DConfig:
+    """The port's Stam3DConfig for the fields of a JAX Stam3DConfig
+    (`asdict()`): engine 'pallas' becomes 'cuda' and 'xla' becomes
+    'torch'."""
+    return _config(Stam3DConfig, fields)

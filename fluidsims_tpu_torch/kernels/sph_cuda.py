@@ -12,9 +12,13 @@ versions, and the 'cuda' engine built on them.
   replaces sph_pallas.py::_forces_kernel: pair forces, gravity and the
   integrate, back in particle order.  Plain version: `forces_plain`.
 
-The plain versions compute each kernel's function on the cell-dense layout
-(ops/cell_dense.py) with the arithmetic of the TPU kernels, term by term,
-so a kernel and its plain version differ only in the order of their sums.
+Neither the kernels nor their plain versions have a cell capacity: every
+member of the 3x3 cells around a particle enters its pair sums, as in the
+reference's linked lists (tau_sph.cu:165-176), so the 'cuda' engine keeps
+every pair the 'exact' engine keeps.  The plain versions walk the same
+cell ranges as a pair list, chunked, summed with `index_add_`, with the
+kernels' arithmetic term by term: a kernel and its plain version differ
+only in the order of their sums, and their cost scales with the pairs.
 
 The wrappers take the plain version for CPU tensors only.  For CUDA
 tensors they check device, dtype, shape and contiguity, launch on the
@@ -37,7 +41,7 @@ from . import _build
 from ._common import LaunchCounter, on_cpu
 
 __all__ = ["LAUNCHES", "reset_launches", "Binned", "binning", "binning_plain",
-           "density", "density_plain", "forces", "forces_plain",
+           "pair_chunks", "density", "density_plain", "forces", "forces_plain",
            "make_step_cuda", "load"]
 
 LAUNCHES = LaunchCounter("bin", "density", "forces")
@@ -51,7 +55,6 @@ class Binned(NamedTuple):
 
     cid: torch.Tensor     # (n,) int32 flat cell id, particle order
     rank: torch.Tensor    # (n,) int32 rank in the cell, particle order
-    ok: torch.Tensor      # (n,) bool rank < K: stored, particle order
     starts: torch.Tensor  # (M + 1,) int32 first sorted position of each cell
     order: torch.Tensor   # (n,) int32 particle index at each sorted position
     fields: torch.Tensor  # (n, 4) (x, y, vx, vy) at each sorted position
@@ -61,7 +64,7 @@ class _Params(ctypes.Structure):
     """Mirror of fst::SPHParams (csrc/sph.cuh)."""
 
     _fields_ = [(name, ctypes.c_int) for name in
-                ("n", "Gx", "Gy", "K", "use_visc", "use_grav", "gamma_is_one")
+                ("n", "Gx", "Gy", "use_visc", "use_grav", "gamma_is_one")
                 ] + [(name, ctypes.c_double) for name in
                      ("cell", "inv_h", "alpha", "alpha_q", "mass", "inv_rho0",
                       "c0sq_rho0", "gamma_eos", "four_h2", "two_h",
@@ -76,7 +79,7 @@ def _params(cfg) -> _Params:
     h = cfg.h
     alpha = 10.0 / (7.0 * math.pi * h * h)
     return _Params(
-        n=cfg.n, Gx=g.Gx, Gy=g.Gy, K=g.K, use_visc=int(cfg.use_visc),
+        n=cfg.n, Gx=g.Gx, Gy=g.Gy, use_visc=int(cfg.use_visc),
         use_grav=int(cfg.use_grav), gamma_is_one=int(cfg.gamma_eos == 1.0),
         cell=g.cell, inv_h=1.0 / h, alpha=alpha, alpha_q=alpha * 0.25,
         mass=cfg.mass, inv_rho0=1.0 / cfg.rho0,
@@ -95,7 +98,7 @@ def load() -> ctypes.CDLL:
     tail = [ctypes.POINTER(_Params)]
     for sfx in _SUFFIX.values():
         for name, argtypes in (
-                ("bin", [P, P] + tail + [P] * 8),
+                ("bin", [P, P] + tail + [P] * 7),
                 ("density", [P, P] + tail + [P]),
                 ("forces", [P] * 5 + tail + [P, P])):
             fn = getattr(lib, f"fst_sph_{name}_{sfx}")
@@ -128,7 +131,6 @@ def _binned_specs(cfg, b: Binned) -> dict:
     n = cfg.n
     i32 = torch.int32
     return {"cid": (b.cid, i32, (n,)), "rank": (b.rank, i32, (n,)),
-            "ok": (b.ok, torch.bool, (n,)),
             "starts": (b.starts, i32, (g.Gx * g.Gy + 1,)),
             "order": (b.order, i32, (n,)), "fields": (b.fields, None, (n, 4))}
 
@@ -159,7 +161,7 @@ def binning_plain(cfg, pos, vel) -> Binned:
     rank = torch.empty_like(slot)
     rank[order] = slot
     i32 = torch.int32
-    return Binned(cid=cid.to(i32), rank=rank.to(i32), ok=rank < g.K,
+    return Binned(cid=cid.to(i32), rank=rank.to(i32),
                   starts=starts.to(i32), order=order.to(i32),
                   fields=torch.cat([pos, vel], 1)[order])
 
@@ -175,7 +177,6 @@ def binning(cfg, pos, vel) -> Binned:
     M = g.Gx * g.Gy
     i32 = {"dtype": torch.int32, "device": pos.device}
     out = Binned(cid=torch.empty(n, **i32), rank=torch.empty(n, **i32),
-                 ok=torch.empty(n, dtype=torch.bool, device=pos.device),
                  starts=torch.empty(M + 1, **i32),
                  order=torch.empty(n, **i32),
                  fields=torch.empty((n, 4), dtype=pos.dtype, device=pos.device))
@@ -184,71 +185,68 @@ def binning(cfg, pos, vel) -> Binned:
     _launch("bin", pos.dtype, pos.device, pos.data_ptr(), vel.data_ptr(),
             ctypes.byref(_params(cfg)), out.cid.data_ptr(), counts.data_ptr(),
             out.starts.data_ptr(), bucket.data_ptr(), out.order.data_ptr(),
-            out.rank.data_ptr(), out.ok.data_ptr(), out.fields.data_ptr())
+            out.rank.data_ptr(), out.fields.data_ptr())
     return out
 
 
-# --------------------- plain pair passes on the dense layout -----------------
+# ------------------ plain pair passes over the cell ranges -------------------
+
+# Pairs a chunk of the plain pair passes holds at most (its receivers keep
+# all their pairs in one chunk): ~2 GB of temporaries at float64.
+CHUNK_PAIRS = 1 << 24
 
 
-def _dense_slots(cfg, b: Binned):
-    """Dense slot (cell * K + rank) of each sorted position, M*K where the
-    rank is >= K (not stored), and the stored mask."""
+def pair_chunks(cfg, b: Binned):
+    """Every pair the pair kernels walk, as (receiver, neighbour) sorted
+    positions: for each sorted position, every member of the 3x3 cells
+    around its cell (itself included), receiver by receiver, in chunks of
+    whole receivers with at most CHUNK_PAIRS pairs (or one receiver).
+    Yields int64 (recv, nbr) tensors."""
     g = cfg.grid()
-    M, K = g.Gx * g.Gy, g.K
-    sc = b.cid[b.order.long()].long()
+    dev = b.fields.device
     starts = b.starts.long()
-    rank = torch.arange(cfg.n, device=sc.device) - starts[sc]
-    ok = rank < K
-    return torch.where(ok, sc * K + rank, M * K), ok
+    sc = b.cid.long()[b.order.long()]
+    off = torch.tensor(cd.NEIGHBOR_OFFSETS_2D, device=dev)
+    ngx = (sc % g.Gx)[:, None] + off[:, 0]
+    ngy = (sc // g.Gx)[:, None] + off[:, 1]
+    inside = (ngx >= 0) & (ngx < g.Gx) & (ngy >= 0) & (ngy < g.Gy)
+    nc = ngy.clamp(0, g.Gy - 1) * g.Gx + ngx.clamp(0, g.Gx - 1)
+    beg = starts[nc]                                          # (n, 9)
+    cnt = torch.where(inside, starts[nc + 1] - beg, 0)
+    per_recv = cnt.sum(1)
+    ends = torch.cumsum(per_recv, 0)
+    lo = 0
+    while lo < cfg.n:
+        done = int(ends[lo - 1]) if lo else 0
+        hi = int(torch.searchsorted(ends, done + CHUNK_PAIRS, right=True))
+        hi = min(max(hi, lo + 1), cfg.n)
+        c = cnt[lo:hi].reshape(-1)
+        total = int(ends[hi - 1]) - done
+        first = torch.cumsum(c, 0) - c
+        recv = torch.arange(lo, hi, device=dev).repeat_interleave(
+            per_recv[lo:hi])
+        nbr = (beg[lo:hi].reshape(-1) - first).repeat_interleave(
+            c, output_size=total) + torch.arange(total, device=dev)
+        yield recv, nbr
+        lo = hi
 
 
-def _to_dense(cfg, slot, x):
-    """(n, c) in sorted order -> (Gy, Gx, K, c); empty slots zero."""
-    g = cfg.grid()
-    M, K = g.Gx * g.Gy, g.K
-    d = torch.zeros((M * K + 1, x.shape[1]), dtype=x.dtype, device=x.device)
-    d[slot] = x   # not stored: into the spare slot M*K, dropped below
-    return d[:M * K].reshape(g.Gy, g.Gx, K, x.shape[1])
-
-
-def _from_dense(cfg, slot, ok, d):
-    """(Gy, Gx, K, c) -> (n, c) in sorted order; not stored: zero."""
-    g = cfg.grid()
-    flat = d.reshape(g.Gx * g.Gy * g.K, d.shape[-1])
-    vals = flat[slot.clamp(max=flat.shape[0] - 1)]
-    return torch.where(ok[:, None], vals, torch.zeros((), dtype=d.dtype,
-                                                      device=d.device))
-
-
-def _pairs(cfg, dense, occ, oy, ox):
-    """Centre-slot x neighbour-slot geometry of one 3x3 offset:
-    (neighbour dense block, neighbour occupancy (.., 1, K), dx, dy, r2)."""
-    nb = cd.shift_cells(dense, oy, ox)
-    nocc = cd.shift_cells(occ, oy, ox)[..., None, :]
-    dx = dense[..., :, None, 0] - nb[..., None, :, 0]
-    dy = dense[..., :, None, 1] - nb[..., None, :, 1]
-    return nb, nocc, dx, dy, dx * dx + dy * dy
-
-
-def density_plain(cfg, b: Binned) -> torch.Tensor:
-    """Plain PyTorch version of the density kernel:
-    (rho, p / rho^2) per sorted position, (n, 2); (0, 0) where not stored."""
+def density_plain(cfg, b: Binned):
+    """Plain PyTorch version of the density kernel: (rho, p / rho^2) per
+    sorted position, (n, 2)."""
     p = _params(cfg)
-    slot, ok = _dense_slots(cfg, b)
-    occ = _to_dense(cfg, slot, ok[:, None])[..., 0]
-    dpos = _to_dense(cfg, slot, b.fields[:, :2])
-    zero = torch.zeros((), dtype=dpos.dtype, device=dpos.device)
-
-    rho = torch.zeros(dpos.shape[:3], dtype=dpos.dtype, device=dpos.device)
-    for ox, oy in cd.NEIGHBOR_OFFSETS_2D:
-        _, nocc, _, _, r2 = _pairs(cfg, dpos, occ, oy, ox)
-        q = torch.sqrt(r2) * p.inv_h
+    x, y = b.fields[:, 0], b.fields[:, 1]
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    rho = torch.zeros_like(x)
+    for recv, nbr in pair_chunks(cfg, b):
+        dx = x[recv] - x[nbr]
+        dy = y[recv] - y[nbr]
+        q = torch.sqrt(dx * dx + dy * dy) * p.inv_h
         q2 = q * q
         t = 2.0 - q
         w = torch.where(q < 1.0, p.alpha * (1.0 - 1.5 * q2 + 0.75 * q2 * q),
                         torch.where(q < 2.0, p.alpha_q * t * t * t, zero))
-        rho = rho + torch.sum(torch.where(nocc, w, zero), dim=-1)
+        rho.index_add_(0, recv, w)
     rho = p.mass * rho
 
     rho = torch.exp(torch.log(torch.clamp(rho, min=1e-6)))
@@ -258,31 +256,23 @@ def density_plain(cfg, b: Binned) -> torch.Tensor:
                         / torch.full((), p.gamma_eos, dtype=rho.dtype,
                                      device=rho.device), min=0.0)
     rs = torch.clamp(rho, min=1e-30)
-    return _from_dense(cfg, slot, ok, torch.stack([rho, press / (rs * rs)], -1))
+    return torch.stack([rho, press / (rs * rs)], -1)
 
 
 def forces_plain(cfg, b: Binned, rp, dt):
     """Plain PyTorch version of the forces + integrate kernel: (pos, vel)
     in particle order."""
     p = _params(cfg)
-    K = p.K
-    slot, ok = _dense_slots(cfg, b)
-    occ = _to_dense(cfg, slot, ok[:, None])[..., 0]
-    dst = _to_dense(cfg, slot, b.fields)
-    drp = _to_dense(cfg, slot, rp)
-    zero = torch.zeros((), dtype=dst.dtype, device=dst.device)
-    not_self = ~torch.eye(K, dtype=torch.bool, device=dst.device)
-
-    rho_i = torch.clamp(drp[..., 0], min=1e-30)[..., :, None]
-    pt_i = drp[..., 1][..., :, None]
-    ax = torch.zeros(dst.shape[:3], dtype=dst.dtype, device=dst.device)
-    ay = torch.zeros_like(ax)
-    for ox, oy in cd.NEIGHBOR_OFFSETS_2D:
-        nb, nocc, dx, dy, r2 = _pairs(cfg, dst, occ, oy, ox)
-        nrp = cd.shift_cells(drp, oy, ox)
-        valid = nocc & (r2 < p.four_h2) & (r2 > 1e-16)
-        if ox == 0 and oy == 0:
-            valid = valid & not_self
+    f = b.fields
+    zero = torch.zeros((), dtype=f.dtype, device=f.device)
+    rho = torch.clamp(rp[:, 0], min=1e-30)
+    acc = torch.zeros((cfg.n, 2), dtype=f.dtype, device=f.device)
+    for recv, nbr in pair_chunks(cfg, b):
+        fi, fj = f[recv], f[nbr]
+        dx = fi[:, 0] - fj[:, 0]
+        dy = fi[:, 1] - fj[:, 1]
+        r2 = dx * dx + dy * dy
+        valid = (recv != nbr) & (r2 < p.four_h2) & (r2 > 1e-16)
         r2s = torch.clamp(r2, min=1e-30)
         inv_r = 1.0 / torch.sqrt(r2s)
         r = r2s * inv_r
@@ -292,25 +282,21 @@ def forces_plain(cfg, b: Binned, rp, dt):
                            p.alpha * (-0.75 * (t * t)))
         scale = torch.where((r > 1e-8) & (r < p.two_h),
                             dwdq * p.inv_h * inv_r, zero)
-        common = -p.mass * (pt_i + nrp[..., None, :, 1])
+        common = -p.mass * (rp[recv, 1] + rp[nbr, 1])
         if p.use_visc:
-            dot = ((dst[..., :, None, 2] - nb[..., None, :, 2]) * dx
-                   + (dst[..., :, None, 3] - nb[..., None, :, 3]) * dy)
-            rho_bar = 0.5 * (rho_i + torch.clamp(nrp[..., None, :, 0], min=1e-30))
+            dot = (fi[:, 2] - fj[:, 2]) * dx + (fi[:, 3] - fj[:, 3]) * dy
+            rho_bar = 0.5 * (rho[recv] + rho[nbr])
             pi = torch.where(dot < 0.0,
                              p.visc_coef * dot / ((r2 + p.eps_h2) * rho_bar),
                              zero)
             common = common - p.mass * pi
         c = torch.where(valid, common * scale, zero)
-        ax = ax + torch.sum(c * dx, dim=-1)
-        ay = ay + torch.sum(c * dy, dim=-1)
+        acc.index_add_(0, recv, torch.stack([c * dx, c * dy], -1))
 
-    acc = _from_dense(cfg, slot, ok, torch.stack([ax, ay], -1))
     if p.use_grav:
         acc = acc - torch.tensor([0.0, p.gravity], dtype=acc.dtype,
                                  device=acc.device)
-    pos_s, vel_s = sph_mod._integrate(cfg, b.fields[:, :2], b.fields[:, 2:],
-                                      acc, dt)
+    pos_s, vel_s = sph_mod._integrate(cfg, f[:, :2], f[:, 2:], acc, dt)
     order = b.order.long()
     pos, vel = torch.empty_like(pos_s), torch.empty_like(vel_s)
     pos[order] = pos_s
@@ -352,9 +338,8 @@ def forces(cfg, b: Binned, rp, dt):
 
 def make_step_cuda(cfg):
     """Frame step (state, dtau=None) -> state on the three kernels: per
-    substep bin -> density -> forces + integrate (which also integrates the
-    particles past a cell's K slots with gravity alone), then rain and the
-    τ bookkeeping, as fluidsims_tpu/kernels/sph_pallas.py::make_step_pallas
+    substep bin -> density -> forces + integrate, every pair kept, then
+    rain and the τ bookkeeping, as fluidsims_tpu/kernels/sph_pallas.py::make_step_pallas
     does.  No value is read back to the host."""
     if cfg.use_xsph:
         raise ValueError("the cuda SPH engine does not implement XSPH")

@@ -14,19 +14,22 @@ Engines (`resolve_engine`):
 
 * 'cuda' — three hand-written CUDA kernels per substep (binning by
   rank-in-cell, density + EOS, forces + integrate; kernels/sph_cuda.py).
-  The default on a CUDA device when XSPH is off.  On CPU tensors the same
-  engine runs the kernels' plain PyTorch versions.
+  They walk every member of the 3x3 cells around a particle, with no cell
+  capacity, so they keep every pair, as the reference's linked lists do
+  (tau_sph.cu:165-176).  The default on a CUDA device when XSPH is off.
+  On CPU tensors the same engine runs the kernels' plain PyTorch versions.
 * 'torch' — the cell-dense dataflow below, written as the JAX module's XLA
   engine writes it: particles binned into a (Gy, Gx, K) array of cells,
   the 3x3 neighbour passes as shifted (Gy, Gx, K, K) pair blocks.  The
   default on the CPU and wherever XSPH is on.
 * 'exact' — chunked all pairs, O(n^2) but correct at any occupancy.
 
-The first two store at most K particles per cell; particles beyond it are
+'cuda' and 'exact' keep every pair.  'torch' stores at most K particles per
+cell (`cfg.cell_capacity`, which only it reads); particles beyond it are
 left out of every pair sum and counted by `overflow_count`.  At the
 reference defaults (c0=1, gamma_eos=1, g=9.81) the pool compresses under
-gravity to ~430 particles per cell, past the auto K, so long runs drop
-pairs there: 'exact' is the engine that never drops.
+gravity to hundreds of particles per cell, past the auto K, so long runs
+of 'torch' drop pairs there.
 """
 
 from __future__ import annotations
@@ -404,7 +407,8 @@ def resolve_engine(cfg: SPHConfig, device) -> str:
     taken as asked.  The CUDA kernels do not implement XSPH, so 'cuda'
     with XSPH raises; 'auto' gives 'cuda' on a CUDA device without XSPH
     and 'torch' otherwise, as the JAX module's 'auto' gives 'xla' where
-    its Pallas kernels are not eligible."""
+    its Pallas kernels are not eligible.  'cuda' and 'exact' keep every
+    pair; 'torch' drops the particles past a cell's K slots."""
     if cfg.engine in ("torch", "exact"):
         return cfg.engine
     if cfg.engine == "cuda":
@@ -591,9 +595,10 @@ def run(cfg: SPHConfig, st: SPHState, n_steps: int, dtau=None) -> SPHState:
 
 def overflow_count(cfg: SPHConfig, st: SPHState) -> torch.Tensor:
     """Particles currently beyond their cell's K capacity (left out of the
-    pair sums by the 'cuda' and 'torch' engines), as a 0-d tensor on the
-    state's device; 0 for 'exact'.  Diagnostic only: reading it syncs."""
-    if resolve_engine(cfg, st.pos.device) == "exact":
+    pair sums by the 'torch' engine), as a 0-d tensor on the state's
+    device; 0 for 'cuda' and 'exact', which keep every pair.  Diagnostic
+    only: reading it syncs."""
+    if resolve_engine(cfg, st.pos.device) in ("cuda", "exact"):
         return torch.zeros((), dtype=torch.int64, device=st.pos.device)
     return cd.bin_rank(cfg.grid(), st.pos)[2]
 

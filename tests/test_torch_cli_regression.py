@@ -122,3 +122,23 @@ def test_cli_resident_defaults_follow_the_jax_cli():
     args = ap.parse_args(["mhd"])
     assert (args.nx, args.ny, args.case, args.steps) == (320, 220,
                                                          "briowu", 200)
+
+
+@pytest.mark.parametrize("engine", ["torch", "auto"])
+def test_cli_stam3d_cpu(capsys, engine):
+    assert cli.main(["stam3d", "--device", "cpu", "--engine", engine, "--n",
+                     "16", "--steps", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "stam3d 16^3 float32 engine=torch advect_k=2" in out
+    assert "steps/s" in out and "Mcell-steps/s" in out
+    assert "advect capped:" in out
+
+
+def test_cli_stam3d_cuda_engine_needs_gpu():
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cli.main(["stam3d", "--device", "cpu", "--engine", "cuda", "--n",
+                  "16", "--steps", "1"])
+    with pytest.raises(SystemExit):
+        cli.main(["stam3d", "--device", "cpu", "--engine", "pallas"])
+    args = cli.build_parser().parse_args(["stam3d"])
+    assert (args.n, args.steps, args.jacobi, args.advect_k) == (192, 20, 12, 2)

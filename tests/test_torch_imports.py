@@ -60,9 +60,10 @@ def test_every_module_listed():
                 "kernels.gray_scott_cuda", "kernels.lbm_cuda",
                 "solvers.burgers", "solvers.shallow_water", "solvers.mhd",
                 "kernels.burgers_cuda", "kernels.shallow_water_cuda",
-                "kernels.mhd_cuda", "ops.scalar"):
+                "kernels.mhd_cuda", "ops.scalar", "ops.gather",
+                "solvers.stam3d", "kernels.stam3d_cuda"):
         assert f"fluidsims_tpu_torch.{mod}" in MODULES
-    assert len(MODULES) >= 38
+    assert len(MODULES) >= 41
 
 
 @pytest.mark.parametrize("mod", MODULES)

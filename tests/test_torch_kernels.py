@@ -34,7 +34,8 @@ def test_imports_without_cuda_and_counts_start_at_zero():
             "sph_bin.cu", "sph_density.cu", "sph_forces.cu",
             "gray_scott_step.cu", "gray_scott_multistep.cu", "lbm_step.cu",
             "lbm_multistep.cu", "burgers_multistep.cu",
-            "shallow_water_multistep.cu", "mhd_multistep.cu")}
+            "shallow_water_multistep.cu", "mhd_multistep.cu",
+            "stam3d_jacobi.cu", "stam3d_advect.cu", "stam3d_set_bnd.cu")}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])

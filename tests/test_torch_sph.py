@@ -4,8 +4,10 @@ The same initial state (bitwise equal: both packages draw it with the same
 numpy generator) goes through the JAX engines and their ports: the 'torch'
 engine against JAX's XLA engine, the 'cuda' engine (on CPU tensors its
 kernels' plain versions) against JAX's Pallas engine as the JAX tests run
-it (interpret mode), and the 'exact' engine against JAX's exact engine and
-the float64 all-pairs oracle.  Tolerances are the JAX suite's own
+it (interpret mode) where no cell overflows and, since it keeps every
+pair, against the exact engines and the float64 all-pairs oracle where
+cells hold more than K particles, and the 'exact' engine against JAX's
+exact engine and the oracle.  Tolerances are the JAX suite's own
 (tests/test_sph.py).
 """
 
@@ -143,13 +145,45 @@ def test_cuda_engine_plain_matches_pallas_interpret():
 
 
 def test_cuda_engine_overflow_fallback_matches_pallas():
+    """A pool with cells past K (cell_capacity=8): JAX's Pallas engine
+    drops those particles from the pair sums and integrates them with
+    gravity alone, the port's 'cuda' engine keeps every pair, so it
+    matches JAX's exact engine instead, and reports no overflow."""
     jc, tc, sj, st = both(n=512, rain=False, seed=3, cell_capacity=8,
                           engine="pallas")
-    assert int(ts.overflow_count(tc, st)) == int(js.overflow_count(jc, sj)) > 0
-    a = jsp.make_step_pallas(jc, interpret=True)(sj)
+    n_past = int(ts.overflow_count(tc.replace(engine="torch"), st))
+    assert n_past == int(js.overflow_count(jc, sj)) > 0
+    assert int(ts.overflow_count(tc, st)) == 0
+    a = js.step(jc.replace(engine="exact"), sj)
     b = ts.step(tc, st)
     np.testing.assert_allclose(b.pos.numpy(), np.asarray(a.pos), atol=2e-6)
     np.testing.assert_allclose(b.vel.numpy(), np.asarray(a.vel), atol=2e-5)
+    capped = jsp.make_step_pallas(jc, interpret=True)(sj)
+    assert np.abs(np.asarray(capped.vel) - b.vel.numpy()).max() > 1e-3
+
+
+def test_cuda_engine_keeps_every_pair_f64():
+    """The 'cuda' engine (its kernels' plain versions on CPU tensors) on a
+    pool with cells past K equals the port's and JAX's exact engines and
+    the float64 all-pairs oracle within 1e-12 over 2 steps."""
+    kw = dict(n=512, rain=False, seed=3, cell_capacity=8, visc_substeps=2,
+              dtype="float64")
+    jc, tc, sj, st = both(engine="exact", **kw)
+    cc = tc.replace(engine="cuda")
+    assert int(ts.overflow_count(cc.replace(engine="torch"), st)) > 0
+    orc = SPHOracle(jc, np.asarray(sj.pos), np.asarray(sj.vel),
+                    float(sj.t), float(sj.tau))
+    jstep = jax.jit(lambda s: js.step(jc, s))
+    se = st
+    for _ in range(2):
+        sj, st, se = jstep(sj), ts.step(cc, st), ts.step(tc, se)
+        orc.step()
+    for ref in (se.pos.numpy(), np.asarray(sj.pos), orc.pos):
+        assert np.abs(st.pos.numpy() - ref).max() < 1e-12
+    for ref in (se.vel.numpy(), np.asarray(sj.vel), orc.vel):
+        assert np.abs(st.vel.numpy() - ref).max() < 1e-12
+    np.testing.assert_allclose(float(st.tau), orc.tau, rtol=1e-12)
+    assert int(ts.overflow_count(cc, st)) == 0
 
 
 def test_exact_engine_matches_jax_and_oracle_f64():
@@ -199,6 +233,15 @@ def test_resolve_engine_mirrors_jax():
         assert ts.resolve_engine(ts.SPHConfig(n=1024, dtype=d), cuda) == "cuda"
     assert ts.resolve_engine(ts.SPHConfig(n=1024, use_xsph=True), cuda) == "torch"
     assert ts.resolve_engine(ts.SPHConfig(n=1024, engine="cuda"), CPU) == "cuda"
+    # the cuda engine keeps every pair: no overflow, with or without a card
+    pool = ts.init(ts.SPHConfig(n=512, cell_capacity=8), CPU)
+    for dev in (CPU, cuda):
+        assert ts.resolve_engine(ts.SPHConfig(n=512, cell_capacity=8), dev) \
+            == ("cuda" if dev is cuda else "torch")
+    assert int(ts.overflow_count(ts.SPHConfig(n=512, cell_capacity=8,
+                                              engine="cuda"), pool)) == 0
+    assert int(ts.overflow_count(ts.SPHConfig(n=512, cell_capacity=8,
+                                              engine="torch"), pool)) > 0
     with pytest.raises(ValueError, match="XSPH"):
         ts.resolve_engine(ts.SPHConfig(n=1024, engine="cuda", use_xsph=True),
                           CPU)

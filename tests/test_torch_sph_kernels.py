@@ -5,10 +5,12 @@ The plain versions (kernels/sph_cuda.py) are what chip_smoke.py holds the
 CUDA kernels to on the card, which has no JAX; here they are held to JAX:
 the binning bitwise to the TPU rank kernel (interpret mode) and to
 bin_rank, density and forces + integrate at float64 to 1e-12 of the
-array's largest value against JAX's density / forces / _integrate on the
-same state.  Without CUDA the wrappers take the plain versions for CPU
-tensors, count no launch, check what they are given, and the build raises
-when nvcc is absent.
+array's largest value against JAX's exact (all-pairs) density / forces /
+_integrate on the same state, and against the port's exact engine, also
+on a pool whose cells hold more than K particles: the kernels keep every
+pair.  Without CUDA the wrappers take the plain versions for CPU tensors,
+count no launch, check what they are given, and the build raises when
+nvcc is absent.
 """
 
 import jax
@@ -61,7 +63,6 @@ def test_rank_matches_tpu_rank_kernel_interpret():
                                jnp.zeros((n, 2), jnp.float32),
                                cid=jnp.asarray(cid))
     np.testing.assert_array_equal(b.rank.numpy(), np.asarray(jrank))
-    np.testing.assert_array_equal(b.ok.numpy(), want < g.K)
 
 
 @pytest.mark.parametrize("cap", [0, 8])
@@ -82,34 +83,81 @@ def test_binning_plain_layout(cap):
                                   (torch.arange(n) - b.starts.long()[sc]).numpy())
     np.testing.assert_array_equal(b.fields.numpy(),
                                   torch.cat([p, v], 1)[order].numpy())
-    assert int((~b.ok).sum()) == int(ts.overflow_count(tc, ts.SPHState(
+    past_k = b.rank >= g.K
+    assert int(past_k.sum()) == int(ts.overflow_count(tc, ts.SPHState(
         p, v, *[torch.zeros(())] * 3, torch.zeros((), dtype=torch.int32))))
-    assert (cap == 8) == bool((~b.ok).any())
+    assert (cap == 8) == bool(past_k.any())
 
 
 @pytest.mark.parametrize("cap", [0, 8])
 def test_density_and_forces_plain_match_jax_f64(cap):
+    """Against JAX's all-pairs density and forces: cap=8 puts particles
+    past K, which the plain versions, like the kernels, keep."""
     jc, tc, pos, vel = stirred(512, cell_capacity=cap)
     p, v = torch.tensor(pos), torch.tensor(vel)
     b = sk.binning_plain(tc, p, v)
-    order, ok_s = b.order.long().numpy(), b.ok.numpy()[b.order.long().numpy()]
+    assert (cap == 8) == bool((b.rank >= tc.grid().K).any())
+    order = b.order.long().numpy()
 
-    s, rho, press, cl, grid = js.density(jc, jnp.asarray(pos))
+    _, rho, press = js._exact_density(jc, jnp.asarray(pos))
     rp = sk.density_plain(tc, b).numpy()
     rho_j = np.asarray(rho)[order]
     pt_j = (np.asarray(press) / np.maximum(np.asarray(rho), 1e-30) ** 2)[order]
     for got, ref in ((rp[:, 0], rho_j), (rp[:, 1], pt_j)):
-        assert np.abs(got[ok_s] - ref[ok_s]).max() <= 1e-12 * np.abs(ref).max()
-        assert (got[~ok_s] == 0).all()
+        assert np.abs(got - ref).max() <= 1e-12 * np.abs(ref).max()
 
     dt = 2e-3
-    acc = js.forces(jc, jnp.asarray(pos), jnp.asarray(vel), s, press, grid, cl)
+    acc = js._exact_forces(jc, jnp.asarray(pos), jnp.asarray(vel), rho, press)
     jp, jv = js._integrate(jc, jnp.asarray(pos), jnp.asarray(vel), acc, dt)
     tp, tv = sk.forces_plain(tc, b, torch.tensor(rp),
                              torch.tensor(dt, dtype=torch.float64))
     for got, ref in ((tp, jp), (tv, jv)):
         ref = np.asarray(ref)
         assert np.abs(got.numpy() - ref).max() <= 1e-12 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("cap", [0, 8])
+def test_density_and_forces_plain_match_exact_engine_f64(cap):
+    """The port's exact engine (all pairs, chunked) on the same state."""
+    _, tc, pos, vel = stirred(512, cell_capacity=cap)
+    p, v = torch.tensor(pos), torch.tensor(vel)
+    b = sk.binning_plain(tc, p, v)
+    order = b.order.long()
+    _, rho, press = ts._exact_density(tc, p, chunk=100)
+    rp = sk.density_plain(tc, b)
+    ref = torch.stack([rho, press / torch.clamp(rho, min=1e-30) ** 2], -1)[order]
+    assert float((rp - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+    dt = torch.tensor(2e-3, dtype=torch.float64)
+    acc = ts._exact_forces(tc, p, v, rho, press, chunk=100)
+    want = ts._integrate(tc, p, v, acc, dt)
+    for got, ref in zip(sk.forces_plain(tc, b, rp, dt), want):
+        assert float((got - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+
+
+def test_pair_chunks_walk_every_neighbour_cell_member(monkeypatch):
+    """The pair list is exactly the pairs of sorted positions whose cells
+    are 3x3 neighbours, self pairs included, whatever the chunk size; a
+    chunked sum equals the one-chunk sum bitwise (each receiver keeps its
+    pairs in one chunk, summed in the same order)."""
+    _, tc, pos, vel = stirred(300, cell_capacity=8)
+    b = sk.binning_plain(tc, torch.tensor(pos), torch.tensor(vel))
+    g = tc.grid()
+    sc = b.cid.long()[b.order.long()]
+    gx, gy = sc % g.Gx, sc // g.Gx
+    near = (((gx[:, None] - gx[None, :]).abs() <= 1)
+            & ((gy[:, None] - gy[None, :]).abs() <= 1))
+    want = near.nonzero().tolist()
+    rp = sk.density_plain(tc, b)
+    dt = torch.tensor(1e-3, dtype=torch.float64)
+    one_chunk = sk.forces_plain(tc, b, rp, dt)
+    assert len(list(sk.pair_chunks(tc, b))) == 1
+    for chunk in (1, 97):
+        monkeypatch.setattr(sk, "CHUNK_PAIRS", chunk)
+        got = [torch.stack(rn, 1) for rn in sk.pair_chunks(tc, b)]
+        assert len(got) > 1 and torch.cat(got).tolist() == want
+        assert torch.equal(sk.density_plain(tc, b), rp)
+        for x, y in zip(sk.forces_plain(tc, b, rp, dt), one_chunk):
+            assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
@@ -155,7 +203,8 @@ def test_params_are_the_python_constants():
     cfg = ts.SPHConfig(n=4096, gamma_eos=7.0, visc_alpha=0.3)
     p = sk._params(cfg)
     g = cfg.grid()
-    assert (p.n, p.Gx, p.Gy, p.K) == (4096, g.Gx, g.Gy, g.K)
+    assert (p.n, p.Gx, p.Gy) == (4096, g.Gx, g.Gy)
+    assert not hasattr(p, "K")   # no cell capacity in the kernels
     assert p.cell == g.cell and p.inv_h == 1.0 / cfg.h
     assert p.gamma_is_one == 0 and p.gamma_eos == 7.0
     assert p.visc_coef == -0.3 * cfg.c0 * cfg.h
