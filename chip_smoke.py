@@ -7,7 +7,7 @@ Needs one CUDA GPU and nvcc (found through $CUDA_HOME, $PATH or
 failure of which ends the run with a non-zero exit:
 
 1. device  — a CUDA device is present; print its name and power limit.
-2. build   — build both kernels from fluidsims_tpu_torch/csrc; print the
+2. build   — build every kernel from fluidsims_tpu_torch/csrc; print the
              seconds and ptxas' register/spill report.
 3. kernels — each kernel against its plain PyTorch version on the same
              inputs, f32 and f64, on a block-aligned (256x128) and a ragged
@@ -137,6 +137,29 @@ failure of which ends the run with a non-zero exit:
              (the cells JAX's default dense-shift advection would have
              capped); then from each final state every kernel against its
              plain version at full shape and per-launch times.
+17. stam2d_kernels — the two 2-D stable-fluids kernels (the whole
+             Jacobi solve in one cooperative launch, the exact bilinear
+             advection of one or two fields) against their plain PyTorch
+             versions, f32 and f64, at n=512, 200 and 37 on seeded fields:
+             the solve at 40 and 7 sweeps with (a, c) = (1, 4) and
+             (0.26, 2.04), x unchanged, within 1e-5 (f32) / 1e-12 (f64)
+             relative; the advection of one field, two fields and the
+             velocity pair (u0, v0 advected by themselves) at two velocity
+             scales, the larger carrying back-traces past 16 rows and past
+             the grid edge, within 1e-6 / 1e-13; bitwise cases counted;
+             then 5 steps of the cuda engine against the 'torch' engine at
+             n=128 within 1e-5 / 1e-12.
+18. stam2d_main — solvers.stam2d.run with engine 'auto', which must
+             resolve to 'cuda': Stam2DConfig() (512^2 f32, bench.py's
+             stam2d_512x512 size and its 400 steps) and 512^2 f64 x 400
+             (js_cuda's precision); exactly 5 solve and 2 advection
+             launches a step; steps/s beside the plain 'torch' engine's
+             (20 steps); physics (every field finite, min d >= -1e-5, ovf
+             0) and advect_overflow_count of the final state (the cells
+             JAX's banded TPU advection would clamp); then from each final
+             state both kernels against their plain versions at full
+             shape with the main path's arguments, per-launch times and
+             bounds.
 
 Every kernel's line in {"kernels": [...]} carries bound_ms, the least time
 the card could take for its work at the main path's shape: the larger of
@@ -1999,6 +2022,291 @@ def stam3d_kernel_lines(res, errs) -> list:
     return out
 
 
+# ---------------------------- 2-D stable fluids -----------------------------
+#
+# Two kernels (TPU kernels #9-#10), kernels/stam2d_cuda.py; `s2k` below is
+# the wrapper module, `s2` the solver.
+
+STAM2D_SOLVE_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# stam2d_lin_solve.cu per cell and sweep: the 3 adds of sum4, a * sum,
+# + b, / c.
+STAM2D_SOLVE_OPS_PER_CELL_SWEEP = 6
+# stam2d_advect.cu per cell: per axis the back-trace (3), the shift and
+# scale to cells (3), the clamp (2), floor, the conversion and the
+# fraction (3); s0 and t0 (2); per field the blend (6 multiplies, 3 adds).
+STAM2D_ADVECT_OPS = (2 * 11 + 2, 9)
+# (dtype, steps, plain steps): Stam2DConfig() = 512^2 f32 (bench.py's
+# stam2d_512x512 size and steps) and the same at f64 (js_cuda's precision)
+STAM2D_RUNS = (("float32", 400, 20), ("float64", 400, 20))
+
+
+def stam2d_fields(n, dtype, device, seed, k):
+    """k seeded (n, n) fields: uniform in [0, 1)."""
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.random((n, n)), dtype=dtype, device=device)
+            for _ in range(k)]
+
+
+def stam2d_coeffs(cfg) -> tuple:
+    """(a, c) of the viscosity, diffusion and pressure solves."""
+    out = []
+    for coeff in (cfg.visc, cfg.diff):
+        a = cfg.dt * coeff * cfg.n * cfg.n
+        out.append((a, 1.0 + 4.0 * a))
+    return (*out, (1.0, 4.0))
+
+
+def check_stam2d_solve(s2k, x, b, a, c, iters, what, errs) -> tuple:
+    """The solve kernel against its plain version from the same x and b,
+    within STAM2D_SOLVE_TOL relative, x unchanged: (max rel err, bitwise
+    equal)."""
+    keep = x.clone()
+    got = s2k.lin_solve(x, b, a, c, iters)
+    ref = s2k.lin_solve_plain(x, b, a, c, iters)
+    if not torch.equal(x, keep):
+        raise AssertionError(f"lin_solve {what}: the kernel wrote x")
+    rel, ab = rel_err(got, ref)
+    errs["lin_solve"] = max(errs["lin_solve"], ab)
+    tol = STAM2D_SOLVE_TOL[x.dtype]
+    if not rel <= tol:
+        raise AssertionError(f"lin_solve {what} (a={a:g}, c={c:g}, {iters} "
+                             f"sweeps): max rel err {rel:.3e} > {tol:g}")
+    return rel, same(got, ref)
+
+
+def check_stam2d_advect(s2k, cfg, qs, uu, vv, what, errs) -> tuple:
+    """The advection kernel against its plain version on the same fields
+    (one or two), within ADVECT_TOL relative: (max rel err, bitwise
+    equal)."""
+    got = s2k.advect(cfg, qs, uu, vv)
+    ref = s2k.advect_plain(cfg, qs, uu, vv)
+    worst, bit = 0.0, True
+    for g, r in zip(got, ref):
+        rel, ab = rel_err(g, r)
+        errs["advect"] = max(errs["advect"], ab)
+        worst = max(worst, rel)
+        bit = bit and same(g, r)
+    tol = ADVECT_TOL[cfg.torch_dtype]
+    if not worst <= tol:
+        raise AssertionError(f"advect {what} ({len(qs)} fields): max rel "
+                             f"err {worst:.3e} > {tol:g}")
+    return worst, bit
+
+
+def stam2d_reach(s2, cfg, vv) -> tuple[int, int]:
+    """(cells whose back-trace moves past 16 rows, cells whose back-trace
+    leaves the grid before the clamp) for row velocity vv."""
+    m = s2.metric(cfg, vv)
+    t = (m.eta[:, None] - cfg.dt * vv / m.yp[:, None]
+         - cfg.eta_min) / s2._deta(cfg) + 0.5
+    rows = torch.arange(1, cfg.n + 1, dtype=vv.dtype,
+                        device=vv.device)[:, None]
+    return (int((torch.floor(t) - rows).abs().gt(16).sum()),
+            int(((t < 0.5) | (t > cfg.n + 0.5)).sum()))
+
+
+def phase_stam2d_kernels(s2k, s2, device) -> dict:
+    errs = {"lin_solve": 0.0, "advect": 0.0, "rel": {}}
+    for dtype in ("float32", "float64"):
+        for n in (512, 200, 37):
+            cfg = s2.Stam2DConfig(n=n, dtype=dtype)
+            key = f"n={n} {dtype}"
+            x, b, q, q2 = stam2d_fields(n, cfg.torch_dtype, device,
+                                        SEED + n, 4)
+            solves = [check_stam2d_solve(s2k, x, b, a, c, iters, key, errs)
+                      for iters in (40, 7)
+                      for a, c in ((1.0, 4.0), (0.26, 2.04))]
+            advects, reach = [], []
+            for scale in (0.05, 2.0):
+                uu, vv = (scale * (2.0 * f - 1.0) for f in stam2d_fields(
+                    n, cfg.torch_dtype, device, SEED + n + 1, 2))
+                reach.append(stam2d_reach(s2, cfg, vv))
+                advects += [check_stam2d_advect(s2k, cfg, qs, uu, vv, key,
+                                                errs)
+                            for qs in ((q,), (q, q2), (uu, vv))]
+            if not (reach[1][0] > 0 and reach[1][1] > 0):
+                raise AssertionError(f"stam2d advect {key}: no back-trace "
+                                     f"past 16 rows and the edge: {reach}")
+            rel_s = max(r for r, _ in solves)
+            rel_a = max(r for r, _ in advects)
+            bits = sum(bit for _, bit in solves + advects)
+            cases = len(solves) + len(advects)
+            errs["rel"][key] = {"lin_solve": rel_s, "advect": rel_a}
+            log(f"[stam2d] {key}: lin_solve (40 and 7 sweeps, (a, c) = "
+                f"(1, 4) and (0.26, 2.04)) and advect (1, 2 fields and the "
+                f"velocity pair; back-traces past 16 rows / past the edge "
+                f"{reach[0]} at scale 0.05, {reach[1]} at 2.0) vs plain: "
+                f"{bits} of {cases} cases bitwise; max rel err lin_solve "
+                f"{rel_s:.3e} (tol {STAM2D_SOLVE_TOL[cfg.torch_dtype]:g}), "
+                f"advect {rel_a:.3e} (tol {ADVECT_TOL[cfg.torch_dtype]:g}); "
+                "x unchanged")
+    for dtype in ("float32", "float64"):
+        cfg = s2.Stam2DConfig(n=128, dtype=dtype)
+        if s2.resolve_engine(cfg, device) != "cuda":
+            raise AssertionError("engine auto did not resolve to cuda")
+        a = b = s2.init(cfg, device)
+        pcfg = cfg.replace(engine="torch")
+        for _ in range(5):
+            a, b = s2.step(cfg, a), s2.step(pcfg, b)
+        rel = max(rel_err(getattr(a, f), getattr(b, f))[0]
+                  for f in ("u", "v", "u0", "v0", "d", "d0"))
+        bit = all(same(x, y) for x, y in zip(a[:6], b[:6]))
+        tol = STEP_TOL[cfg.torch_dtype]
+        if not rel <= tol:
+            raise AssertionError(f"stam2d 5 steps cuda vs torch {dtype}: max "
+                                 f"rel err {rel:.3e} > {tol:g}")
+        log(f"[stam2d] 5 steps n=128 {dtype}, cuda engine vs torch engine: "
+            f"max rel err {rel:.3e} over the six fields (tol {tol:g})"
+            f"{', bitwise equal' if bit else ''}")
+        errs["rel"][f"5 steps n=128 {dtype}"] = rel
+    return errs
+
+
+def check_stam2d_physics(s2, cfg, out) -> dict:
+    for name in ("u", "v", "u0", "v0", "d", "d0"):
+        if not bool(torch.isfinite(getattr(out, name)).all()):
+            raise AssertionError(f"stam2d: non-finite {name}")
+    dmin, dmax = float(out.d.min()), float(out.d.max())
+    if not (dmin >= -1e-5 and dmax > 0.0):
+        raise AssertionError(f"stam2d density min {dmin} max {dmax}")
+    if int(out.ovf) != 0:
+        raise AssertionError(f"stam2d ovf {int(out.ovf)}, want 0")
+    over = int(s2.advect_overflow_count(cfg, out))
+    log(f"[physics] stam2d {cfg.n}^2 {cfg.dtype}: every field finite, d in "
+        f"[{dmin:.6g}, {dmax:.6g}], ovf 0; advect_overflow_count {over} of "
+        f"{cfg.n ** 2} cells (back-traces past advect_band="
+        f"{cfg.advect_band} rows that JAX's banded engine would clamp)")
+    return {"d_min": dmin, "d_max": dmax, "advect_overflow_count": over}
+
+
+def stam2d_bounds(cfg) -> dict:
+    """bound_ms of both kernels at cfg's shape: a solve reads x and b and
+    writes its result, with jacobi_iters sweeps of operations; an
+    advection reads its distinct inputs (the velocity pair: u0 and v0,
+    which are also its sources; the density: u, v and d0) and the three
+    1-D axes, and writes its fields."""
+    n, dtype = cfg.n, cfg.torch_dtype
+    T = torch.finfo(dtype).bits // 8
+    ops0, ops_field = STAM2D_ADVECT_OPS
+    return {
+        "lin_solve": bound(3 * n * n * T, STAM2D_SOLVE_OPS_PER_CELL_SWEEP
+                           * cfg.jacobi_iters * n * n, dtype),
+        "advect": bound((4 * n * n + 3 * n) * T,
+                        (ops0 + 2 * ops_field) * n * n, dtype),
+        "advect1": bound((4 * n * n + 3 * n) * T,
+                         (ops0 + ops_field) * n * n, dtype)}
+
+
+def phase_stam2d_main(s2k, s2, device, smi, errs,
+                      runs=STAM2D_RUNS) -> dict:
+    res = {}
+    for dtype, steps, p_steps in runs:
+        cfg = s2.Stam2DConfig(dtype=dtype)
+        engine = s2.resolve_engine(cfg, device)
+        if engine != "cuda":
+            raise AssertionError(f"engine auto resolved to {engine!r}")
+        st0 = s2.init(cfg, device)
+        s2.run(cfg, st0, 1)   # warm-up, not counted
+        s2k.reset_launches()
+        out, wall = run_timed(s2, cfg, st0, steps)
+        launches = dict(s2k.LAUNCHES)
+        want = {"lin_solve": 5 * steps, "advect": 2 * steps}
+        if launches != want:
+            raise AssertionError(f"launches {launches} in {steps} steps, "
+                                 f"want {want}")
+        _, p_wall = run_timed(s2, cfg.replace(engine="torch"), st0, p_steps)
+        if dict(s2k.LAUNCHES) != launches:
+            raise AssertionError("the plain engine launched a kernel")
+        rate, p_rate = steps / wall, p_steps / p_wall
+        cells = cfg.n ** 2
+        log(f"[stam2d] {cfg.n}^2 {dtype} engine={engine} on {smi}: {steps} "
+            f"steps in {wall:.3f} s, {rate:.2f} steps/s, "
+            f"{cells * rate / 1e6:.1f} Mcell-steps/s; plain torch engine "
+            f"{p_steps} steps {p_rate:.2f} steps/s; launches {launches}; "
+            f"a solve is {s2k._grid(cfg.n, cfg.torch_dtype, device.index)} "
+            f"blocks of 256 threads")
+        phys = check_stam2d_physics(s2, cfg, out)
+
+        # both kernels against their plain versions at the main path's
+        # shapes and arguments, from the final state
+        key = f"{cfg.n}^2 {dtype} final state"
+        solves = [check_stam2d_solve(s2k, x, b_, a, c, cfg.jacobi_iters, key,
+                                     errs)
+                  for (a, c), x, b_ in zip(stam2d_coeffs(cfg),
+                                           (out.u0, out.d0, out.u),
+                                           (out.u, out.d, out.v))]
+        advects = [check_stam2d_advect(s2k, cfg, (out.u0, out.v0), out.u0,
+                                       out.v0, key, errs),
+                   check_stam2d_advect(s2k, cfg, (out.d0,), out.u, out.v,
+                                       key, errs)]
+        errs["rel"][key] = {"lin_solve": max(r for r, _ in solves),
+                            "advect": max(r for r, _ in advects)}
+        bits = sum(bit for _, bit in solves + advects)
+        log(f"[stam2d] {key}: the 3 solves' (a, c) at {cfg.jacobi_iters} "
+            f"sweeps and both advections vs plain: {bits} of 5 bitwise, max "
+            f"rel err {errs['rel'][key]}")
+
+        a, c = stam2d_coeffs(cfg)[2]
+        it = cfg.jacobi_iters
+        times = {
+            "lin_solve": time_launches(
+                lambda: s2k.lin_solve(out.u, out.v, a, c, it), 50),
+            "lin_solve_plain": time_launches(
+                lambda: s2k.lin_solve_plain(out.u, out.v, a, c, it), 5),
+            "advect": time_launches(lambda: s2k.advect(
+                cfg, (out.u0, out.v0), out.u0, out.v0), 100),
+            "advect_plain": time_launches(lambda: s2k.advect_plain(
+                cfg, (out.u0, out.v0), out.u0, out.v0), 20),
+            "advect1": time_launches(lambda: s2k.advect(
+                cfg, (out.d0,), out.u, out.v), 100),
+            "advect1_plain": time_launches(lambda: s2k.advect_plain(
+                cfg, (out.d0,), out.u, out.v), 20),
+        }
+        bounds = stam2d_bounds(cfg)
+        log(f"[stam2d] per launch at {cfg.n}^2 {dtype} on {smi}: " + ", ".join(
+            f"{k} {times[k]:.4f} ms vs plain {times[k + '_plain']:.4f} ms "
+            f"(bound {bounds[k][0]:.5f} ms, {bounds[k][1]})"
+            for k in ("lin_solve", "advect", "advect1"))
+            + " (advect: the velocity pair; advect1: the density)")
+        res[dtype] = {"launches": launches, "times": times, "bounds": bounds,
+                      "rate": rate, "plain_rate": p_rate,
+                      "mcells": cells * rate / 1e6, "physics": phys}
+    return res
+
+
+def stam2d_kernel_lines(res, errs) -> list:
+    """The {"kernels": [...]} entries of the two stam2d kernels: times and
+    bounds from the final state of the 512^2 f32 run (the advection's: the
+    velocity pair), the f64 run's beside them; launches summed over both
+    runs."""
+    a, b = res["float32"], res["float64"]
+    out = []
+    for name, src, line in (("lin_solve", "stam2d_lin_solve.cu", 59),
+                            ("advect", "stam2d_advect.cu", 118)):
+        out.append({
+            "name": f"stam2d_{name}", "route": "cuda",
+            "source": f"fluidsims_tpu_torch/csrc/{src}",
+            "replaces": f"fluidsims_tpu/kernels/stam2d_pallas.py:{line}",
+            "launches": a["launches"][name] + b["launches"][name],
+            "max_abs_err": errs[name],
+            "ms": a["times"][name], "plain_ms": a["times"][name + "_plain"],
+            "bound_ms": a["bounds"][name][0], "bound_by": a["bounds"][name][1],
+            "library_ms": None,
+            "launches_f32": a["launches"][name],
+            "launches_f64": b["launches"][name],
+            "ms_f64": b["times"][name],
+            "plain_ms_f64": b["times"][name + "_plain"],
+            "bound_ms_f64": b["bounds"][name][0],
+            "bound_by_f64": b["bounds"][name][1]})
+    adv = out[-1]
+    for k, r in (("f32", a), ("f64", b)):
+        adv[f"ms_density_{k}"] = r["times"]["advect1"]
+        adv[f"plain_ms_density_{k}"] = r["times"]["advect1_plain"]
+        adv[f"bound_ms_density_{k}"] = r["bounds"]["advect1"][0]
+    adv["max_rel_err"] = errs["rel"]
+    return out
+
+
 def main() -> int:
     smi = phase_device()
     from fluidsims_tpu_torch import interop, regression
@@ -2024,6 +2332,8 @@ def main() -> int:
     from fluidsims_tpu_torch.solvers import shallow_water as swm
     from fluidsims_tpu_torch.kernels import stam3d_cuda as sc
     from fluidsims_tpu_torch.solvers import stam3d as s3
+    from fluidsims_tpu_torch.kernels import stam2d_cuda as s2k
+    from fluidsims_tpu_torch.solvers import stam2d as s2
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -2036,32 +2346,33 @@ def main() -> int:
     swk.load()
     mk.load()
     sc.load()
+    s2k.load()
     errs = phase_kernels(h2, hk, interop, cfl_dt, device)
     sk.reset_launches()
     main_res = phase_main(h2, hk, regression, cfl_dt, device, smi, errs)
-    if any(sk.LAUNCHES.values()):
-        raise AssertionError(f"the hypersonic path launched SPH kernels: "
-                             f"{sk.LAUNCHES}")
+    if any(sk.LAUNCHES.values()) or any(s2k.LAUNCHES.values()):
+        raise AssertionError(f"the hypersonic path launched other kernels: "
+                             f"{sk.LAUNCHES} {s2k.LAUNCHES}")
     sph_errs = phase_sph_kernels(sk, ts, device)
     hk.reset_launches()
     sph_res = phase_sph_main(sk, ts, device, smi, sph_errs)
-    if any(hk.LAUNCHES.values()):
-        raise AssertionError(f"the SPH path launched hypersonic kernels: "
-                             f"{hk.LAUNCHES}")
+    if any(hk.LAUNCHES.values()) or any(s2k.LAUNCHES.values()):
+        raise AssertionError(f"the SPH path launched other kernels: "
+                             f"{hk.LAUNCHES} {s2k.LAUNCHES}")
     hyp3d_errs = phase_hyp3d_kernels(h3, hk3, interop, device)
     hk.reset_launches()
     sk.reset_launches()
     hyp3d_res = phase_hyp3d_main(h3, hk3, device, smi, hyp3d_errs)
     th3cs_res = phase_th3cs(h3, hk3, th3cs, fourspl, device, smi)
-    if any(hk.LAUNCHES.values()) or any(sk.LAUNCHES.values()):
+    if any(any(m.LAUNCHES.values()) for m in (hk, sk, s2k)):
         raise AssertionError(f"the 3-D path launched other kernels: "
-                             f"{hk.LAUNCHES} {sk.LAUNCHES}")
+                             f"{hk.LAUNCHES} {sk.LAUNCHES} {s2k.LAUNCHES}")
     stencil_errs = phase_stencil_kernels(gs, lbm, gk, lk, device)
     for m in (hk, sk, hk3):
         m.reset_launches()
     stencil_res = phase_stencil_main(gs, lbm, gk, lk, device, smi,
                                      stencil_errs)
-    others = [dict(m.LAUNCHES) for m in (hk, sk, hk3, bk, swk, mk)]
+    others = [dict(m.LAUNCHES) for m in (hk, sk, hk3, bk, swk, mk, s2k)]
     if any(any(o.values()) for o in others):
         raise AssertionError(f"the stencil path launched other kernels: "
                              f"{others}")
@@ -2070,7 +2381,7 @@ def main() -> int:
     for m in (hk, sk, hk3, gk, lk):
         m.reset_launches()
     resident_res = phase_resident_main(mods, device, smi, resident_errs)
-    others = [dict(m.LAUNCHES) for m in (hk, sk, hk3, gk, lk, sc)]
+    others = [dict(m.LAUNCHES) for m in (hk, sk, hk3, gk, lk, sc, s2k)]
     if any(any(o.values()) for o in others):
         raise AssertionError(f"the resident path launched other kernels: "
                              f"{others}")
@@ -2078,9 +2389,19 @@ def main() -> int:
     for m in (hk, sk, hk3, gk, lk, bk, swk, mk):
         m.reset_launches()
     stam3d_res = phase_stam3d_main(sc, s3, device, smi, stam3d_errs)
-    others = [dict(m.LAUNCHES) for m in (hk, sk, hk3, gk, lk, bk, swk, mk)]
+    others = [dict(m.LAUNCHES) for m in (hk, sk, hk3, gk, lk, bk, swk, mk,
+                                         s2k)]
     if any(any(o.values()) for o in others):
         raise AssertionError(f"the stam3d path launched other kernels: "
+                             f"{others}")
+    stam2d_errs = phase_stam2d_kernels(s2k, s2, device)
+    for m in (hk, sk, hk3, gk, lk, bk, swk, mk, sc):
+        m.reset_launches()
+    stam2d_res = phase_stam2d_main(s2k, s2, device, smi, stam2d_errs)
+    others = [dict(m.LAUNCHES) for m in (hk, sk, hk3, gk, lk, bk, swk, mk,
+                                         sc)]
+    if any(any(o.values()) for o in others):
+        raise AssertionError(f"the stam2d path launched other kernels: "
                              f"{others}")
 
     t = main_res["times"]
@@ -2165,6 +2486,9 @@ def main() -> int:
     kernels[-1]["max_rel_err"] = stencil_errs["rel"]
     kernels.extend(resident_kernel_lines(resident_res, resident_errs))
     kernels.extend(stam3d_kernel_lines(stam3d_res, stam3d_errs))
+    kernels.extend(stam2d_kernel_lines(stam2d_res, stam2d_errs))
+    if len(kernels) != 19:
+        raise AssertionError(f"{len(kernels)} kernel lines, want 19")
     log(f"[hyp3d] steps/s: 64^3 f32 {a3['rate']:.2f} (plain "
         f"{a3['plain_rate']:.3f}), 256^3 f32 {b3['rate']:.2f} (plain "
         f"{b3['plain_rate']:.4f}); th3cs 64^3 "
@@ -2173,6 +2497,10 @@ def main() -> int:
     log(f"[stam3d] steps/s: 192^3 f32 {f32['rate']:.2f} (plain "
         f"{f32['plain_rate']:.4f}), 192^3 f64 {f64['rate']:.2f} (plain "
         f"{f64['plain_rate']:.4f})")
+    f32, f64 = stam2d_res["float32"], stam2d_res["float64"]
+    log(f"[stam2d] steps/s: 512^2 f32 {f32['rate']:.2f} (plain "
+        f"{f32['plain_rate']:.2f}), 512^2 f64 {f64['rate']:.2f} (plain "
+        f"{f64['plain_rate']:.2f})")
     log(f"[sph] M particle-steps/s: n=65536 {a['rate']:.3f} (plain "
         f"{a['plain_rate']:.4f}), n=1048576 {b['rate']:.3f} (plain "
         f"{b['plain_rate']:.4f}); pairs {a['bounds']['pairs']} / "

@@ -10,11 +10,12 @@
     python -m fluidsims_tpu_torch.cli shallow-water --steps 4000
     python -m fluidsims_tpu_torch.cli mhd --case orszag-tang --steps 4000
     python -m fluidsims_tpu_torch.cli stam3d --n 192 --steps 100
+    python -m fluidsims_tpu_torch.cli stam2d --n 512 --steps 400
 
 Ports of the `hypersonic2d`, `sph`, `hypersonic3d`, `th3cs`, `gray-scott`,
-`lbm`, `burgers`, `shallow-water`, `mhd` and `stam3d` subcommands of
-fluidsims_tpu.cli with the same physics flags and defaults, headless.  All
-run on `--device cuda` unless asked for the CPU.
+`lbm`, `burgers`, `shallow-water`, `mhd`, `stam3d` and `stam2d`
+subcommands of fluidsims_tpu.cli with the same physics flags and
+defaults, headless.  All run on `--device cuda` unless asked for the CPU.
 
 hypersonic2d, hypersonic3d: `--impl cuda` (default) steps through the CUDA
 kernels and needs `--device cuda`; `--impl torch` steps through their
@@ -47,6 +48,13 @@ stam3d: the same engine rule (the three CUDA kernels on a GPU, the plain
 torch step on the CPU); it prints the engine, steps/s and Mcell-steps/s
 (n^3 cells), and for the torch engine at `--advect-k` >= 1 the cells its
 dense-shift advection capped on the final frame.  The warm-up is one step.
+
+stam2d: the same engine rule (the two CUDA kernels on a GPU, the plain
+torch step on the CPU); it prints the engine, steps/s and Mcell-steps/s
+(n^2 cells), and `advect_overflow_count` of the final state: the
+back-traces past `--advect-band` rows that JAX's banded TPU engine would
+have clamped there.  A diagnostic only: no engine of the port clamps.
+The warm-up is one step.
 """
 
 from __future__ import annotations
@@ -362,6 +370,28 @@ def cmd_stam3d(args):
     return out
 
 
+def cmd_stam2d(args):
+    from .core.device import resolve_device
+    from .solvers import stam2d
+
+    device = resolve_device(args.device)
+    cfg = stam2d.Stam2DConfig(n=args.n, dtype=args.dtype, engine=args.engine,
+                              advect_band=args.advect_band)
+    engine = stam2d.resolve_engine(cfg, device)
+    out, res = _bench_run(lambda st, n: stam2d.run(cfg, st, n),
+                          stam2d.init(cfg, device), args.steps, 1, cfg.n ** 2)
+    print(f"stam2d {cfg.n}^2 {cfg.dtype} engine={engine} "
+          f"device={_device_name(device)}: "
+          f"{res['steps']} steps in {res['wall_s']:.3f}s -> "
+          f"{res['steps_per_sec']:.2f} steps/s, "
+          f"{res['mcells_per_sec']:.1f} Mcell-steps/s")
+    over = int(stam2d.advect_overflow_count(cfg, out))
+    print(f"advect_overflow_count: {over} cells of the final state trace "
+          f"past advect_band={cfg.advect_band} rows (JAX's banded TPU "
+          f"engine would clamp them; engine={engine} traces them exactly)")
+    return out
+
+
 def _engine_args(p, block_k: int) -> None:
     p.add_argument("--engine", choices=("auto", "cuda", "torch"),
                    default="auto",
@@ -614,6 +644,24 @@ def build_parser():
     p.add_argument("--device", default="cuda",
                    help="cuda, cuda:N or cpu; a missing GPU is an error")
     p.set_defaults(fn=cmd_stam3d)
+
+    p = sub.add_parser("stam2d", help="stable fluids log-eta grid (js_cuda)")
+    p.add_argument("--n", type=int, default=512)
+    p.add_argument("--engine", choices=("auto", "cuda", "torch"),
+                   default="auto",
+                   help="auto = the CUDA kernels on a GPU, the plain torch "
+                        "step on the CPU; both trace every cell exactly")
+    p.add_argument("--advect-band", type=int, default=16,
+                   dest="advect_band",
+                   help="row band of JAX's TPU advection kernel, in cells: "
+                        "only the advect_overflow_count diagnostic reads it")
+    p.add_argument("--steps", type=int, default=100,
+                   help="number of physics steps")
+    p.add_argument("--dtype", default="float32",
+                   choices=("float32", "float64"))
+    p.add_argument("--device", default="cuda",
+                   help="cuda, cuda:N or cpu; a missing GPU is an error")
+    p.set_defaults(fn=cmd_stam2d)
     return ap
 
 

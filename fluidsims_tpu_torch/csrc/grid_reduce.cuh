@@ -1,7 +1,9 @@
 // What the three K-step τ-clock kernels share (burgers_multistep.cu,
 // shallow_water_multistep.cu, mhd_multistep.cu): NaN-propagating min and
 // max as torch.minimum / torch.maximum / torch.clamp_min compute them, the
-// exact grid-wide max of a step's wavespeeds, and the cooperative launch.
+// exact grid-wide max of a step's wavespeeds, and the cooperative launch,
+// which the 2-D stable fluids' whole-solve Jacobi kernel
+// (stam2d_lin_solve.cu) uses too, its grid asked once and kept.
 //
 // The grid-wide max.  Every wavespeed is >= +0, and for non-negative IEEE
 // values the order of the bit patterns is the order of the values, so a
@@ -107,13 +109,12 @@ __device__ __forceinline__ int wrap1(int i, int n) {
   return i;
 }
 
-// Launches `kernel(args)` cooperatively on one block of kStepThreads
+// The grid of a cooperative launch of `kernel`: one block of kStepThreads
 // threads per kStepThreads cells, capped at the blocks that can be
 // resident at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs):
 // a cooperative launch past that is refused.  Returns the CUDA error code.
-template <typename Kernel, typename Args>
-int launch_cooperative(Kernel kernel, const Args& args, long long cells,
-                       int device, void* stream) {
+template <typename Kernel>
+int cooperative_grid(Kernel kernel, long long cells, int device, int* grid) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   int coop = 0, sms = 0, per_sm = 0;
@@ -128,7 +129,17 @@ int launch_cooperative(Kernel kernel, const Args& args, long long cells,
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const long long want = (cells + kStepThreads - 1) / kStepThreads;
   const long long cap = (long long)per_sm * sms;
-  const int grid = (int)(want < cap ? want : cap);
+  *grid = (int)(want < cap ? want : cap);
+  return 0;
+}
+
+// Launches `kernel(args)` cooperatively on `grid` blocks of kStepThreads
+// threads (a grid from cooperative_grid).  Returns the CUDA error code.
+template <typename Kernel, typename Args>
+int launch_cooperative_on(Kernel kernel, const Args& args, int grid,
+                          int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
   void* params[] = {(void*)&args};
   err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
                                     dim3(kStepThreads), params, 0,
@@ -138,6 +149,17 @@ int launch_cooperative(Kernel kernel, const Args& args, long long cells,
     return (int)err;
   }
   return (int)cudaGetLastError();
+}
+
+// Launches `kernel(args)` cooperatively on the grid cooperative_grid gives
+// for `cells`.  Returns the CUDA error code.
+template <typename Kernel, typename Args>
+int launch_cooperative(Kernel kernel, const Args& args, long long cells,
+                       int device, void* stream) {
+  int grid = 0;
+  const int err = cooperative_grid(kernel, cells, device, &grid);
+  if (err != 0) return err;
+  return launch_cooperative_on(kernel, args, grid, device, stream);
 }
 
 }  // namespace fst

@@ -8,9 +8,9 @@ port's state as numpy arrays for any consumer.  `sph_state_from_numpy` /
 the fields of a JAX `SPHConfig` (its `asdict()`) to the port's, renaming
 the engines.  `hyp3d_state_from_numpy` / `hyp3d_state_to_numpy` and
 `hyp3d_config_from_dict` do the same for the 3-D hypersonic solver, and
-the `gs_*`, `lbm_*`, `burgers_*`, `sw_*`, `mhd_*` and `stam3d_*` functions
-for Gray–Scott, the D2Q9 LBM, Burgers, shallow water, GLM-MHD and the 3-D
-stable fluids.
+the `gs_*`, `lbm_*`, `burgers_*`, `sw_*`, `mhd_*`, `stam3d_*` and
+`stam2d_*` functions for Gray–Scott, the D2Q9 LBM, Burgers, shallow water,
+GLM-MHD and the 3-D and 2-D stable fluids.
 Nothing here imports the JAX package.
 
 Every `device=None` means the GPU, as for the solvers' `init`.
@@ -31,6 +31,7 @@ from .solvers.lbm import LBMConfig, LBMState
 from .solvers.mhd import ConsM, MHDConfig, MHDState
 from .solvers.shallow_water import ShallowWaterConfig, ShallowWaterState
 from .solvers.sph import SPHConfig, SPHState
+from .solvers.stam2d import Stam2DConfig, Stam2DState
 from .solvers.stam3d import Stam3DConfig, Stam3DState
 
 __all__ = ["state_from_numpy", "state_to_numpy", "sph_state_from_numpy",
@@ -44,11 +45,12 @@ __all__ = ["state_from_numpy", "state_to_numpy", "sph_state_from_numpy",
            "sw_state_to_numpy", "sw_config_from_dict", "mhd_state_from_numpy",
            "mhd_state_to_numpy", "mhd_config_from_dict",
            "stam3d_state_from_numpy", "stam3d_state_to_numpy",
-           "stam3d_config_from_dict"]
+           "stam3d_config_from_dict", "stam2d_state_from_numpy",
+           "stam2d_state_to_numpy", "stam2d_config_from_dict"]
 
 # JAX engine name -> port engine name
-_ENGINES = {"auto": "auto", "pallas": "cuda", "xla": "torch",
-            "exact": "exact"}
+_ENGINES = {"auto": "auto", "pallas": "cuda", "hybrid": "cuda",
+            "xla": "torch", "exact": "exact"}
 
 
 def _device(device):
@@ -303,3 +305,41 @@ def stam3d_config_from_dict(fields: dict) -> Stam3DConfig:
     (`asdict()`): engine 'pallas' becomes 'cuda' and 'xla' becomes
     'torch'."""
     return _config(Stam3DConfig, fields)
+
+
+def stam2d_state_from_numpy(u, v, u0, v0, d, d0, step_idx, ovf, *,
+                            dtype: torch.dtype, device=None) -> Stam2DState:
+    """Build a 2-D stable-fluids state from six equal (n, n) interior
+    arrays, the step index and the clamped-cell count.  The arrays are
+    copied."""
+    device = _device(device)
+    fields = [torch.tensor(np.asarray(f), dtype=dtype, device=device)
+              for f in (u, v, u0, v0, d, d0)]
+    shape = tuple(fields[0].shape)
+    if len(shape) != 2 or shape[0] != shape[1] or any(
+            tuple(f.shape) != shape for f in fields):
+        raise ValueError("the six fields must all be (n, n), got "
+                         f"{[tuple(f.shape) for f in fields]}")
+
+    def scalar(x):
+        return torch.tensor(int(np.asarray(x)), dtype=torch.int32,
+                            device=device)
+
+    return Stam2DState(*fields, step_idx=scalar(step_idx), ovf=scalar(ovf))
+
+
+def stam2d_state_to_numpy(state: Stam2DState):
+    """(u, v, u0, v0, d, d0, step_idx, ovf) as numpy, copied to the host."""
+    return tuple(f.detach().cpu().numpy() for f in state)
+
+
+def stam2d_config_from_dict(fields: dict) -> Stam2DConfig:
+    """The port's Stam2DConfig for the fields of a JAX Stam2DConfig
+    (`asdict()`): engine 'xla' becomes 'torch', 'pallas' and 'hybrid'
+    become 'cuda', and `repair_window` (read only by JAX's hybrid repair)
+    is dropped.  The results differ where JAX's engine does: JAX's
+    'pallas' clamps the back-traces past `advect_band` rows, while the
+    port's 'cuda' engine traces every cell exactly, as JAX's 'xla' does."""
+    fields = dict(fields)
+    fields.pop("repair_window", None)
+    return _config(Stam2DConfig, fields)

@@ -142,3 +142,25 @@ def test_cli_stam3d_cuda_engine_needs_gpu():
         cli.main(["stam3d", "--device", "cpu", "--engine", "pallas"])
     args = cli.build_parser().parse_args(["stam3d"])
     assert (args.n, args.steps, args.jacobi, args.advect_k) == (192, 20, 12, 2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_cli_stam2d_cpu(capsys, dtype):
+    assert cli.main(["stam2d", "--device", "cpu", "--n", "16", "--steps", "2",
+                     "--dtype", dtype]) == 0
+    out = capsys.readouterr().out
+    assert f"stam2d 16^2 {dtype} engine=torch" in out
+    assert "steps/s" in out and "Mcell-steps/s" in out
+    assert "advect_overflow_count: " in out and "advect_band=16" in out
+
+
+def test_cli_stam2d_engines_and_defaults():
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cli.main(["stam2d", "--device", "cpu", "--engine", "cuda", "--n",
+                  "16", "--steps", "1"])
+    for engine in ("pallas", "hybrid", "xla"):
+        with pytest.raises(SystemExit):
+            cli.main(["stam2d", "--device", "cpu", "--engine", engine])
+    args = cli.build_parser().parse_args(["stam2d"])
+    assert (args.n, args.steps, args.engine, args.advect_band, args.dtype,
+            args.device) == (512, 100, "auto", 16, "float32", "cuda")

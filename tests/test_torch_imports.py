@@ -61,9 +61,10 @@ def test_every_module_listed():
                 "solvers.burgers", "solvers.shallow_water", "solvers.mhd",
                 "kernels.burgers_cuda", "kernels.shallow_water_cuda",
                 "kernels.mhd_cuda", "ops.scalar", "ops.gather",
-                "solvers.stam3d", "kernels.stam3d_cuda"):
+                "solvers.stam3d", "kernels.stam3d_cuda", "solvers.stam2d",
+                "kernels.stam2d_cuda"):
         assert f"fluidsims_tpu_torch.{mod}" in MODULES
-    assert len(MODULES) >= 41
+    assert len(MODULES) >= 43
 
 
 @pytest.mark.parametrize("mod", MODULES)
