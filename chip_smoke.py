@@ -160,6 +160,34 @@ failure of which ends the run with a non-zero exit:
              state both kernels against their plain versions at full
              shape with the main path's arguments, per-launch times and
              bounds.
+19. flip_kernels — the three FLIP/APIC kernels (atomic P2G, the whole
+             grid phase in one cooperative launch, G2P with the density
+             raster) against their plain PyTorch versions, f32 and f64, at
+             n=128, 37 and 512 with 4 n^2 seeded particles (eight on the
+             walls and corners), jacobi 48 and 7, the config's blend and
+             the overrides flip=0.5, apic=0.3: P2G within 1e-5 (f32) /
+             1e-12 (f64) relative to each grid's max (atomics add in no
+             fixed order); the grid phase on the kernel's P2G grids and G2P
+             on the kernel's fields, same bars, bitwise cases counted; the
+             raster equal to the plain version's and counting every
+             particle; then 5 steps of the cuda engine against the
+             'scatter' engine at FlipApicConfig() within 5e-4 (f32) / 1e-10
+             (f64) relative (FLIP_TRAJ_TOL), the raster equal to the plain
+             raster of the cuda positions (and to the scatter engine's
+             where the positions are bitwise equal).
+20. flip_main — solvers.flip_apic.run with engine 'auto', which must
+             resolve to 'cuda': FlipApicConfig() (65,536 particles, 128^2,
+             bench.py's flip_65536_mpsps and the CLI default) f32 x 1000
+             and f64 x 200, and 2^20 particles on 512^2 f32 x 200; exactly
+             one launch of each kernel a step; steps/s and M
+             particle-steps/s beside the plain 'scatter' engine's (20
+             steps); physics (finite, positions in [0.01, 0.99], the raster
+             equal to the plain raster of the positions and summing to the
+             particle count, mean y below its start, max |v| <
+             50, overflow_count 0); then from each final state the kernels
+             against their plain versions at full shape, per-launch times
+             and bounds (FLIP_*_OPS; the P2G's nonzero offsets counted from
+             the state).
 
 Every kernel's line in {"kernels": [...]} carries bound_ms, the least time
 the card could take for its work at the main path's shape: the larger of
@@ -2307,6 +2335,313 @@ def stam2d_kernel_lines(res, errs) -> list:
     return out
 
 
+# --------------------------------- FLIP/APIC --------------------------------
+#
+# Three kernels (TPU kernels #16-#18), kernels/flip_cuda.py; `fk` below is
+# the wrapper module, `fa` the solver.
+
+# flip_p2g.cu: per particle the scaled coordinates and floors (4) and per
+# row of offsets gy - j, the hat weight and ry (6, 3 rows); per offset gx -
+# i, the hat weight and wt (5, 9 offsets); per offset of nonzero weight rx
+# (2), the two APIC velocities (10), the two momenta (2) and three atomic
+# adds (3).  The nonzero offsets are counted from this run's particles.
+FLIP_P2G_OPS = (4 + 3 * 6, 5, 17)
+# flip_grid.cu: per cell the normalize, gravity and clamps (5); per
+# interior cell the divergence (4), each Jacobi sweep (5) and the
+# projection of both components (8).
+FLIP_GRID_OPS = (5, 4, 5, 8)
+# flip_g2p.cu per particle: six two-field samples (30 each: the scaled,
+# clipped coordinates, floors, fractions, 9 per field blend), the +-h
+# coordinates (4), the FLIP/PIC blend (10), the affine terms (12), the
+# advection (4), the walls (10), the raster index (2) and its atomic add.
+FLIP_G2P_OPS_PER_PARTICLE = 6 * 30 + 4 + 10 + 12 + 4 + 10 + 2 + 1
+# 5 cuda steps against 5 scatter steps: the atomics' order reaches every
+# field through the grid, so the trajectories agree to rounding carried
+# through 5 steps, not bitwise; f32 at the port's f32 bar against JAX.
+FLIP_TRAJ_TOL = {torch.float32: 5e-4, torch.float64: 1e-10}
+# (particles, grid, dtype, steps, plain steps): FlipApicConfig() (bench.py's
+# flip_65536_mpsps, the CLI default) in f32 and f64, and 2^20 particles on
+# 512^2 (4 a cell as at the default; the 64 MiB particle state is past L2)
+FLIP_RUNS = ((65536, 128, "float32", 1000, 20),
+             (65536, 128, "float64", 200, 20),
+             (1 << 20, 512, "float32", 200, 20))
+
+
+def flip_particles(n_p, dtype, device, seed):
+    """Seeded (pos, vel, affine_x, affine_y): positions uniform in [0,
+    1]^2 with the first eight on the walls, corners and the walls of the
+    advection's clip, velocities and affine matrices standard normal."""
+    rng = np.random.default_rng(seed)
+    pos = rng.random((n_p, 2))
+    pos[:8] = [[0, 0], [1, 1], [0, 1], [1, 0], [0.01, 0.99], [0.99, 0.01],
+               [0.5, 0], [1, 0.5]]
+    return [torch.tensor(a, dtype=dtype, device=device) for a in
+            (pos, *(rng.standard_normal((n_p, 2)) for _ in range(3)))]
+
+
+def flip_rel(got, ref, what: str, tol: float, errs: dict, name: str):
+    """max |err| / max |ref| of each float pair within tol, each int32 pair
+    (the raster) equal; errs[name] keeps the largest max |err|.  Returns
+    (max rel err, all bitwise equal)."""
+    worst, bit = 0.0, True
+    for g, r in zip(got, ref):
+        if g.dtype == torch.int32:
+            if not torch.equal(g, r):
+                raise AssertionError(
+                    f"flip {name} {what}: {int((g != r).sum())} raster cells "
+                    f"differ from the plain version's")
+            continue
+        rel, ab = rel_err(g, r)
+        errs[name] = max(errs[name], ab)
+        worst = max(worst, rel)
+        bit = bit and same(g, r)
+    if not worst <= tol:
+        raise AssertionError(f"flip {name} {what}: max rel err {worst:.3e} "
+                             f"> {tol:g}")
+    return worst, bit
+
+
+def check_flip_call(fk, cfg, parts, what, errs, flip=None, apic=None):
+    """The three kernels against their plain versions: P2G on the
+    particles; the grid phase on the kernel's P2G grids; G2P on the
+    kernel's grid-phase fields; each within STEP_TOL relative, the raster
+    equal.  Returns {kernel: (rel, bitwise)} and the kernel's grids."""
+    pos, vel, ax, ay = parts
+    tol = STEP_TOL[pos.dtype]
+    out = {}
+    grids = fk.p2g(cfg, pos, vel, ax, ay, apic)
+    out["p2g"] = flip_rel(grids, fk.p2g_plain(cfg, pos, vel, ax, ay, apic),
+                          what, tol, errs, "p2g")
+    fields = fk.grid_phase(cfg, *grids)
+    out["grid"] = flip_rel(fields, fk.grid_phase_plain(cfg, *grids), what,
+                           tol, errs, "grid")
+    got = fk.g2p(cfg, pos, vel, *fields, flip)
+    ref = fk.g2p_plain(cfg, pos, vel, *fields, flip)
+    out["g2p"] = flip_rel(got, ref, what, tol, errs, "g2p")
+    if int(got[4].sum()) != pos.shape[0]:
+        raise AssertionError(f"flip g2p {what}: the raster counts "
+                             f"{int(got[4].sum())} of {pos.shape[0]}")
+    return out, grids
+
+
+def phase_flip_kernels(fk, fa, device) -> dict:
+    errs = {"p2g": 0.0, "grid": 0.0, "g2p": 0.0, "rel": {}}
+    for dtype in ("float32", "float64"):
+        for n in (128, 37, 512):
+            cfg = fa.FlipApicConfig(particles=4 * n * n, grid=n, dtype=dtype)
+            parts = flip_particles(cfg.particles, cfg.torch_dtype, device,
+                                   SEED + n)
+            key = f"n={n} {dtype}"
+            cases = [check_flip_call(fk, cfg.replace(jacobi=jac), parts,
+                                     key, errs, flip, apic)[0]
+                     for jac in (48, 7)
+                     for flip, apic in ((None, None), (0.5, 0.3))]
+            worst = {k: max(c[k][0] for c in cases) for k in cases[0]}
+            bits = {k: sum(c[k][1] for c in cases) for k in cases[0]}
+            errs["rel"][key] = worst
+            log(f"[flip] {key}, {cfg.particles} particles (8 on the walls), "
+                f"jacobi 48 and 7, blend (config) and (flip 0.5, apic 0.3): "
+                f"kernels vs plain max rel err {worst} (tol "
+                f"{STEP_TOL[cfg.torch_dtype]:g}); bitwise cases of "
+                f"{len(cases)}: {bits}")
+    for dtype in ("float32", "float64"):
+        cfg = fa.FlipApicConfig(dtype=dtype)
+        if fa.resolve_engine(cfg, device) != "cuda":
+            raise AssertionError("engine auto did not resolve to cuda")
+        a = b = fa.init(cfg, device)
+        pcfg = cfg.replace(engine="scatter")
+        for _ in range(5):
+            a, b = fa.step(cfg, a), fa.step(pcfg, b)
+        rel = max(rel_err(x, y)[0] for x, y in zip(a[:4], b[:4]))
+        tol = FLIP_TRAJ_TOL[cfg.torch_dtype]
+        if not rel <= tol:
+            raise AssertionError(f"flip 5 steps cuda vs scatter {dtype}: max "
+                                 f"rel err {rel:.3e} > {tol:g}")
+        # The kernel's raster is exactly the plain raster of its own
+        # positions, and the scatter engine's where the positions agree.
+        own = fa._raster(cfg.grid, a.pos[:, 0], a.pos[:, 1])
+        if not torch.equal(a.density, own):
+            raise AssertionError(
+                f"flip 5 cuda steps {dtype}: {int((a.density != own).sum())} "
+                f"raster cells differ from the raster of the cuda positions")
+        cells = int((a.density != b.density).sum())
+        if same(a.pos, b.pos) and cells:
+            raise AssertionError(f"flip 5 steps {dtype}: equal positions, "
+                                 f"{cells} raster cells differ")
+        log(f"[flip] 5 steps n=128 {dtype}, cuda engine vs scatter engine: "
+            f"max rel err {rel:.3e} over pos, vel, affine_x, affine_y (tol "
+            f"{tol:g}); raster equal to the plain raster of the cuda "
+            f"positions; positions bitwise {same(a.pos, b.pos)}, {cells} "
+            f"raster cells differ from the scatter engine's")
+        errs["rel"][f"5 steps n=128 {dtype}"] = rel
+    return errs
+
+
+def flip_nonzero_offsets(cfg, pos) -> int:
+    """(particle, offset) pairs of nonzero hat weight: the P2G's atomic
+    transfers for these positions."""
+    n = cfg.grid
+    g = pos * (n - 1)
+    base = torch.floor(g).long()
+    w = []
+    for axis in (0, 1):
+        w.append(torch.stack([
+            (1 - (g[:, axis] - (base[:, axis] + o).clamp(0, n - 1)).abs())
+            .clamp_min(0) for o in (-1, 0, 1)], 1))
+    return int(((w[1][:, :, None] * w[0][:, None, :]) > 0).sum())
+
+
+def flip_bounds(cfg, pos) -> dict:
+    """bound_ms of the three kernels at cfg's shape: P2G reads the four
+    particle fields and writes three grids; the grid phase reads three
+    grids and writes four, its operations for cfg.jacobi sweeps; G2P reads
+    pos, vel and the four grids and writes four particle fields and the
+    int32 raster."""
+    n, n_p, dtype = cfg.grid, cfg.particles, cfg.torch_dtype
+    T = torch.finfo(dtype).bits // 8
+    cells, inner = n * n, (n - 2) ** 2
+    p0, p1, p2 = FLIP_P2G_OPS
+    g0, g1, g2, g3 = FLIP_GRID_OPS
+    nz = flip_nonzero_offsets(cfg, pos)
+    return {
+        "p2g": bound(8 * n_p * T + 3 * cells * T,
+                     p0 * n_p + p1 * 9 * n_p + p2 * nz, dtype),
+        "grid": bound(7 * cells * T,
+                      g0 * cells + (g1 + g2 * cfg.jacobi + g3) * inner,
+                      dtype),
+        "g2p": bound(12 * n_p * T + 4 * cells * T + 4 * cells,
+                     FLIP_G2P_OPS_PER_PARTICLE * n_p, dtype),
+        "nonzero_offsets": nz}
+
+
+def check_flip_physics(fa, cfg, st0, out) -> dict:
+    """Finite; positions within the walls' clip; the raster equal to the
+    plain raster of the final positions (every particle in it once); the
+    blob lower than at the start; max |v| < 50; overflow_count 0."""
+    for name in ("pos", "vel", "affine_x", "affine_y"):
+        if not bool(torch.isfinite(getattr(out, name)).all()):
+            raise AssertionError(f"flip: non-finite {name}")
+    lo = torch.tensor(0.01, dtype=out.pos.dtype)
+    hi = torch.tensor(0.99, dtype=out.pos.dtype)
+    pmin, pmax = float(out.pos.min()), float(out.pos.max())
+    if not (pmin >= float(lo) and pmax <= float(hi)):
+        raise AssertionError(f"flip: positions in [{pmin}, {pmax}]")
+    own = fa._raster(cfg.grid, out.pos[:, 0], out.pos[:, 1])
+    if not torch.equal(out.density, own):
+        raise AssertionError(f"flip: {int((out.density != own).sum())} raster "
+                             "cells differ from the raster of the positions")
+    count = int(out.density.sum())
+    y0, y1 = float(st0.pos[:, 1].mean()), float(out.pos[:, 1].mean())
+    vmax = float(out.vel.abs().max())
+    over = int(fa.overflow_count(cfg, out))
+    if count != cfg.particles or not y1 < y0 or not vmax < 50.0 or over:
+        raise AssertionError(f"flip physics: raster {count} of "
+                             f"{cfg.particles}, mean y {y0} -> {y1}, max |v| "
+                             f"{vmax}, overflow {over}")
+    occupied = int((out.density > 0).sum())
+    log(f"[physics] flip {cfg.particles} on {cfg.grid}^2 {cfg.dtype}: all "
+        f"finite, pos in [{pmin:.6g}, {pmax:.6g}], raster equal to the "
+        f"plain raster of the positions, raster sum {count}, mean "
+        f"y {y0:.6f} -> {y1:.6f}, max |v| {vmax:.4f}, overflow_count 0, "
+        f"occupied {occupied}, peak_cell {int(out.density.max())}")
+    return {"mean_y": [y0, y1], "max_abs_v": vmax, "occupied": occupied}
+
+
+def phase_flip_main(fk, fa, device, smi, errs, runs=FLIP_RUNS) -> dict:
+    res = {}
+    for n_p, n, dtype, steps, p_steps in runs:
+        cfg = fa.FlipApicConfig(particles=n_p, grid=n, dtype=dtype)
+        engine = fa.resolve_engine(cfg, device)
+        if engine != "cuda":
+            raise AssertionError(f"engine auto resolved to {engine!r}")
+        st0 = fa.init(cfg, device)
+        fa.run(cfg, st0, 1)   # warm-up, not counted
+        fk.reset_launches()
+        out, wall = run_timed(fa, cfg, st0, steps)
+        launches = dict(fk.LAUNCHES)
+        want = {"p2g": steps, "grid": steps, "g2p": steps}
+        if launches != want:
+            raise AssertionError(f"launches {launches} in {steps} steps, "
+                                 f"want {want}")
+        _, p_wall = run_timed(fa, cfg.replace(engine="scatter"), st0, p_steps)
+        if dict(fk.LAUNCHES) != launches:
+            raise AssertionError("the plain engine launched a kernel")
+        rate, p_rate = steps / wall, p_steps / p_wall
+        key = f"{n_p} {n}^2 {dtype}"
+        log(f"[flip] {key} engine={engine} on {smi}: {steps} steps in "
+            f"{wall:.3f} s, {rate:.2f} steps/s, {n_p * rate / 1e6:.3f} M "
+            f"particle-steps/s; plain scatter engine {p_steps} steps "
+            f"{p_rate:.2f} steps/s ({n_p * p_rate / 1e6:.3f} M); launches "
+            f"{launches}; the grid phase is "
+            f"{fk._grid(n, cfg.torch_dtype, device.index)} blocks of 256 "
+            "threads")
+        phys = check_flip_physics(fa, cfg, st0, out)
+
+        # the kernels against their plain versions from the final state
+        parts = (out.pos, out.vel, out.affine_x, out.affine_y)
+        checks, grids = check_flip_call(fk, cfg, parts, key + " final state",
+                                        errs)
+        errs["rel"][key + " final state"] = {k: v[0]
+                                             for k, v in checks.items()}
+        log(f"[flip] {key} final state: kernels vs plain (rel err, "
+            f"bitwise) {checks}")
+
+        fields = fk.grid_phase(cfg, *grids)
+        times = {
+            "p2g": time_launches(lambda: fk.p2g(cfg, *parts), 100),
+            "p2g_plain": time_launches(lambda: fk.p2g_plain(cfg, *parts), 5),
+            "grid": time_launches(lambda: fk.grid_phase(cfg, *grids), 50),
+            "grid_plain": time_launches(
+                lambda: fk.grid_phase_plain(cfg, *grids), 3),
+            "g2p": time_launches(lambda: fk.g2p(cfg, out.pos, out.vel,
+                                                *fields), 100),
+            "g2p_plain": time_launches(lambda: fk.g2p_plain(
+                cfg, out.pos, out.vel, *fields), 5),
+        }
+        bounds = flip_bounds(cfg, out.pos)
+        log(f"[flip] per launch at {key} on {smi}: " + ", ".join(
+            f"{k} {times[k]:.4f} ms vs plain {times[k + '_plain']:.4f} ms "
+            f"(bound {bounds[k][0]:.5f} ms, {bounds[k][1]})"
+            for k in ("p2g", "grid", "g2p"))
+            + f"; {bounds['nonzero_offsets']} nonzero P2G offsets")
+        res[key] = {"launches": launches, "times": times, "bounds": bounds,
+                    "rate": rate, "plain_rate": p_rate,
+                    "mpsteps": n_p * rate / 1e6,
+                    "plain_mpsteps": n_p * p_rate / 1e6, "physics": phys}
+    return res
+
+
+def flip_kernel_lines(res, errs) -> list:
+    """The {"kernels": [...]} entries of the three FLIP kernels: times and
+    bounds from the final state of the 65,536 f32 run, those of the f64
+    and 2^20 runs beside them; launches summed over the three runs."""
+    keys = [f"{n_p} {n}^2 {dtype}" for n_p, n, dtype, _, _ in FLIP_RUNS]
+    a = res[keys[0]]
+    out = []
+    for name, src, line in (("p2g", "flip_p2g.cu", 82),
+                            ("grid", "flip_grid.cu", 126),
+                            ("g2p", "flip_g2p.cu", 171)):
+        entry = {
+            "name": f"flip_{name}", "route": "cuda",
+            "source": f"fluidsims_tpu_torch/csrc/{src}",
+            "replaces": f"fluidsims_tpu/kernels/flip_pallas.py:{line}",
+            "launches": sum(res[k]["launches"][name] for k in keys),
+            "max_abs_err": errs[name],
+            "ms": a["times"][name], "plain_ms": a["times"][name + "_plain"],
+            "bound_ms": a["bounds"][name][0], "bound_by": a["bounds"][name][1],
+            "library_ms": None}
+        for k, tag in zip(keys[1:], ("f64", "1048576")):
+            r = res[k]
+            entry.update({f"launches_{tag}": r["launches"][name],
+                          f"ms_{tag}": r["times"][name],
+                          f"plain_ms_{tag}": r["times"][name + "_plain"],
+                          f"bound_ms_{tag}": r["bounds"][name][0],
+                          f"bound_by_{tag}": r["bounds"][name][1]})
+        out.append(entry)
+    out[-1]["max_rel_err"] = errs["rel"]
+    return out
+
+
 def main() -> int:
     smi = phase_device()
     from fluidsims_tpu_torch import interop, regression
@@ -2334,6 +2669,8 @@ def main() -> int:
     from fluidsims_tpu_torch.solvers import stam3d as s3
     from fluidsims_tpu_torch.kernels import stam2d_cuda as s2k
     from fluidsims_tpu_torch.solvers import stam2d as s2
+    from fluidsims_tpu_torch.kernels import flip_cuda as fk
+    from fluidsims_tpu_torch.solvers import flip_apic as fa
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -2347,32 +2684,34 @@ def main() -> int:
     mk.load()
     sc.load()
     s2k.load()
+    fk.load()
     errs = phase_kernels(h2, hk, interop, cfl_dt, device)
     sk.reset_launches()
     main_res = phase_main(h2, hk, regression, cfl_dt, device, smi, errs)
-    if any(sk.LAUNCHES.values()) or any(s2k.LAUNCHES.values()):
+    if any(any(m.LAUNCHES.values()) for m in (sk, s2k, fk)):
         raise AssertionError(f"the hypersonic path launched other kernels: "
-                             f"{sk.LAUNCHES} {s2k.LAUNCHES}")
+                             f"{sk.LAUNCHES} {s2k.LAUNCHES} {fk.LAUNCHES}")
     sph_errs = phase_sph_kernels(sk, ts, device)
     hk.reset_launches()
     sph_res = phase_sph_main(sk, ts, device, smi, sph_errs)
-    if any(hk.LAUNCHES.values()) or any(s2k.LAUNCHES.values()):
+    if any(any(m.LAUNCHES.values()) for m in (hk, s2k, fk)):
         raise AssertionError(f"the SPH path launched other kernels: "
-                             f"{hk.LAUNCHES} {s2k.LAUNCHES}")
+                             f"{hk.LAUNCHES} {s2k.LAUNCHES} {fk.LAUNCHES}")
     hyp3d_errs = phase_hyp3d_kernels(h3, hk3, interop, device)
     hk.reset_launches()
     sk.reset_launches()
     hyp3d_res = phase_hyp3d_main(h3, hk3, device, smi, hyp3d_errs)
     th3cs_res = phase_th3cs(h3, hk3, th3cs, fourspl, device, smi)
-    if any(any(m.LAUNCHES.values()) for m in (hk, sk, s2k)):
+    if any(any(m.LAUNCHES.values()) for m in (hk, sk, s2k, fk)):
         raise AssertionError(f"the 3-D path launched other kernels: "
-                             f"{hk.LAUNCHES} {sk.LAUNCHES} {s2k.LAUNCHES}")
+                             f"{hk.LAUNCHES} {sk.LAUNCHES} {s2k.LAUNCHES} "
+                             f"{fk.LAUNCHES}")
     stencil_errs = phase_stencil_kernels(gs, lbm, gk, lk, device)
     for m in (hk, sk, hk3):
         m.reset_launches()
     stencil_res = phase_stencil_main(gs, lbm, gk, lk, device, smi,
                                      stencil_errs)
-    others = [dict(m.LAUNCHES) for m in (hk, sk, hk3, bk, swk, mk, s2k)]
+    others = [dict(m.LAUNCHES) for m in (hk, sk, hk3, bk, swk, mk, s2k, fk)]
     if any(any(o.values()) for o in others):
         raise AssertionError(f"the stencil path launched other kernels: "
                              f"{others}")
@@ -2381,7 +2720,7 @@ def main() -> int:
     for m in (hk, sk, hk3, gk, lk):
         m.reset_launches()
     resident_res = phase_resident_main(mods, device, smi, resident_errs)
-    others = [dict(m.LAUNCHES) for m in (hk, sk, hk3, gk, lk, sc, s2k)]
+    others = [dict(m.LAUNCHES) for m in (hk, sk, hk3, gk, lk, sc, s2k, fk)]
     if any(any(o.values()) for o in others):
         raise AssertionError(f"the resident path launched other kernels: "
                              f"{others}")
@@ -2390,7 +2729,7 @@ def main() -> int:
         m.reset_launches()
     stam3d_res = phase_stam3d_main(sc, s3, device, smi, stam3d_errs)
     others = [dict(m.LAUNCHES) for m in (hk, sk, hk3, gk, lk, bk, swk, mk,
-                                         s2k)]
+                                         s2k, fk)]
     if any(any(o.values()) for o in others):
         raise AssertionError(f"the stam3d path launched other kernels: "
                              f"{others}")
@@ -2399,9 +2738,18 @@ def main() -> int:
         m.reset_launches()
     stam2d_res = phase_stam2d_main(s2k, s2, device, smi, stam2d_errs)
     others = [dict(m.LAUNCHES) for m in (hk, sk, hk3, gk, lk, bk, swk, mk,
-                                         sc)]
+                                         sc, fk)]
     if any(any(o.values()) for o in others):
         raise AssertionError(f"the stam2d path launched other kernels: "
+                             f"{others}")
+    flip_errs = phase_flip_kernels(fk, fa, device)
+    for m in (hk, sk, hk3, gk, lk, bk, swk, mk, sc, s2k):
+        m.reset_launches()
+    flip_res = phase_flip_main(fk, fa, device, smi, flip_errs)
+    others = [dict(m.LAUNCHES) for m in (hk, sk, hk3, gk, lk, bk, swk, mk,
+                                         sc, s2k)]
+    if any(any(o.values()) for o in others):
+        raise AssertionError(f"the flip path launched other kernels: "
                              f"{others}")
 
     t = main_res["times"]
@@ -2487,8 +2835,9 @@ def main() -> int:
     kernels.extend(resident_kernel_lines(resident_res, resident_errs))
     kernels.extend(stam3d_kernel_lines(stam3d_res, stam3d_errs))
     kernels.extend(stam2d_kernel_lines(stam2d_res, stam2d_errs))
-    if len(kernels) != 19:
-        raise AssertionError(f"{len(kernels)} kernel lines, want 19")
+    kernels.extend(flip_kernel_lines(flip_res, flip_errs))
+    if len(kernels) != 22:
+        raise AssertionError(f"{len(kernels)} kernel lines, want 22")
     log(f"[hyp3d] steps/s: 64^3 f32 {a3['rate']:.2f} (plain "
         f"{a3['plain_rate']:.3f}), 256^3 f32 {b3['rate']:.2f} (plain "
         f"{b3['plain_rate']:.4f}); th3cs 64^3 "
@@ -2501,6 +2850,9 @@ def main() -> int:
     log(f"[stam2d] steps/s: 512^2 f32 {f32['rate']:.2f} (plain "
         f"{f32['plain_rate']:.2f}), 512^2 f64 {f64['rate']:.2f} (plain "
         f"{f64['plain_rate']:.2f})")
+    log("[flip] M particle-steps/s: " + ", ".join(
+        f"{k} {r['mpsteps']:.3f} (plain {r['plain_mpsteps']:.4f})"
+        for k, r in flip_res.items()))
     log(f"[sph] M particle-steps/s: n=65536 {a['rate']:.3f} (plain "
         f"{a['plain_rate']:.4f}), n=1048576 {b['rate']:.3f} (plain "
         f"{b['plain_rate']:.4f}); pairs {a['bounds']['pairs']} / "

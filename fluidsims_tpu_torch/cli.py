@@ -11,9 +11,10 @@
     python -m fluidsims_tpu_torch.cli mhd --case orszag-tang --steps 4000
     python -m fluidsims_tpu_torch.cli stam3d --n 192 --steps 100
     python -m fluidsims_tpu_torch.cli stam2d --n 512 --steps 400
+    python -m fluidsims_tpu_torch.cli flip --particles 65536 --steps 200
 
 Ports of the `hypersonic2d`, `sph`, `hypersonic3d`, `th3cs`, `gray-scott`,
-`lbm`, `burgers`, `shallow-water`, `mhd`, `stam3d` and `stam2d`
+`lbm`, `burgers`, `shallow-water`, `mhd`, `stam3d`, `stam2d` and `flip`
 subcommands of fluidsims_tpu.cli with the same physics flags and
 defaults, headless.  All run on `--device cuda` unless asked for the CPU.
 
@@ -55,6 +56,15 @@ torch step on the CPU); it prints the engine, steps/s and Mcell-steps/s
 back-traces past `--advect-band` rows that JAX's banded TPU engine would
 have clamped there.  A diagnostic only: no engine of the port clamps.
 The warm-up is one step.
+
+flip: `--engine auto` (the default here; JAX's CLI defaults to dense)
+resolves as solvers.flip_apic.resolve_engine does (the three CUDA kernels
+on a GPU, the cell-dense `dense` engine on the CPU; `cuda` on the CPU
+fails; `scatter` is the exact engine anywhere); it prints the engine,
+steps/s and M particle-steps/s, then `occupied` and `peak_cell` of the
+final density raster and the overflow count (particles past a cell's
+`--bin-capacity` slots, which only `dense` drops).  The warm-up is one
+step.
 """
 
 from __future__ import annotations
@@ -392,6 +402,37 @@ def cmd_stam2d(args):
     return out
 
 
+def cmd_flip(args):
+    from .core.device import resolve_device
+    from .solvers import flip_apic as fa
+
+    device = resolve_device(args.device)
+    cfg = fa.FlipApicConfig(particles=args.particles, grid=args.grid,
+                            jacobi=args.jacobi, dt=args.dt,
+                            gravity=args.gravity, flip=args.flip,
+                            apic=args.apic, engine=args.engine,
+                            bin_capacity=args.bin_capacity, dtype=args.dtype)
+    engine = fa.resolve_engine(cfg, device)
+    out, res = _bench_run(lambda st, n: fa.run(cfg, st, n),
+                          fa.init(cfg, device), args.steps, 1, cfg.particles)
+    print(f"flip-apic n={cfg.particles} grid={cfg.grid}^2 {cfg.dtype} "
+          f"engine={engine} device={_device_name(device)}: "
+          f"{res['steps']} steps in {res['wall_s']:.3f}s -> "
+          f"{res['steps_per_sec']:.1f} steps/s, "
+          f"{res['mcells_per_sec']:.2f}M particle-steps/s")
+    dens = out.density
+    print(f"occupied={int((dens > 0).sum())} peak_cell={int(dens.max())}")
+    n_dropped = int(fa.overflow_count(cfg, out))
+    print(f"overflow: {n_dropped} particles beyond the cell capacity "
+          f"K={cfg.capacity}")
+    if n_dropped > 0:
+        print(f"WARNING: {n_dropped}/{cfg.particles} particles exceed the "
+              "cell-dense bin capacity and are excluded from the transfers "
+              "this frame; raise --bin-capacity or use --engine scatter "
+              "for exact physics", file=sys.stderr)
+    return out
+
+
 def _engine_args(p, block_k: int) -> None:
     p.add_argument("--engine", choices=("auto", "cuda", "torch"),
                    default="auto",
@@ -662,6 +703,30 @@ def build_parser():
     p.add_argument("--device", default="cuda",
                    help="cuda, cuda:N or cpu; a missing GPU is an error")
     p.set_defaults(fn=cmd_stam2d)
+
+    p = sub.add_parser("flip", help="FLIP/APIC hybrid fluid (tau_flip_apic)")
+    p.add_argument("--particles", type=int, default=1 << 16)
+    p.add_argument("--grid", type=int, default=128)
+    p.add_argument("--jacobi", type=int, default=48)
+    p.add_argument("--dt", type=float, default=0.004)
+    p.add_argument("--gravity", type=float, default=7.5)
+    p.add_argument("--flip", type=float, default=0.97)
+    p.add_argument("--apic", type=float, default=0.85)
+    p.add_argument("--engine", choices=("auto", "cuda", "dense", "scatter"),
+                   default="auto",
+                   help="auto = the CUDA kernels on a GPU, the cell-dense "
+                        "engine on the CPU; cuda and scatter are exact, "
+                        "dense drops particles past --bin-capacity")
+    p.add_argument("--bin-capacity", type=int, default=0, dest="bin_capacity",
+                   help="cell-dense slots per cell (0 = auto); particles "
+                        "beyond it are dropped and reported")
+    p.add_argument("--steps", type=int, default=200,
+                   help="number of physics steps")
+    p.add_argument("--dtype", default="float32",
+                   choices=("float32", "float64"))
+    p.add_argument("--device", default="cuda",
+                   help="cuda, cuda:N or cpu; a missing GPU is an error")
+    p.set_defaults(fn=cmd_flip)
     return ap
 
 

@@ -10,7 +10,8 @@ the engines.  `hyp3d_state_from_numpy` / `hyp3d_state_to_numpy` and
 `hyp3d_config_from_dict` do the same for the 3-D hypersonic solver, and
 the `gs_*`, `lbm_*`, `burgers_*`, `sw_*`, `mhd_*`, `stam3d_*` and
 `stam2d_*` functions for Gray–Scott, the D2Q9 LBM, Burgers, shallow water,
-GLM-MHD and the 3-D and 2-D stable fluids.
+GLM-MHD and the 3-D and 2-D stable fluids, and the `flip_*` functions for
+FLIP/APIC.
 Nothing here imports the JAX package.
 
 Every `device=None` means the GPU, as for the solvers' `init`.
@@ -24,6 +25,7 @@ import torch
 from .core.device import resolve_device
 from .ops.euler2d import Cons
 from .solvers.burgers import BurgersConfig, BurgersState
+from .solvers.flip_apic import FlipApicConfig, FlipApicState
 from .solvers.gray_scott import GrayScottConfig, GrayScottState
 from .solvers.hypersonic2d import Hypersonic2DState
 from .solvers.hypersonic3d import Hypersonic3DConfig, Hypersonic3DState
@@ -46,11 +48,14 @@ __all__ = ["state_from_numpy", "state_to_numpy", "sph_state_from_numpy",
            "mhd_state_to_numpy", "mhd_config_from_dict",
            "stam3d_state_from_numpy", "stam3d_state_to_numpy",
            "stam3d_config_from_dict", "stam2d_state_from_numpy",
-           "stam2d_state_to_numpy", "stam2d_config_from_dict"]
+           "stam2d_state_to_numpy", "stam2d_config_from_dict",
+           "flip_state_from_numpy", "flip_state_to_numpy",
+           "flip_config_from_dict"]
 
 # JAX engine name -> port engine name
 _ENGINES = {"auto": "auto", "pallas": "cuda", "hybrid": "cuda",
-            "xla": "torch", "exact": "exact"}
+            "xla": "torch", "exact": "exact", "dense": "dense",
+            "scatter": "scatter"}
 
 
 def _device(device):
@@ -343,3 +348,35 @@ def stam2d_config_from_dict(fields: dict) -> Stam2DConfig:
     fields = dict(fields)
     fields.pop("repair_window", None)
     return _config(Stam2DConfig, fields)
+
+
+def flip_state_from_numpy(pos, vel, affine_x, affine_y, density, *,
+                          dtype: torch.dtype, device=None) -> FlipApicState:
+    """Build a FLIP/APIC state from four (np, 2) particle arrays and the
+    (n, n) density raster, taken as int32.  The arrays are copied."""
+    device = _device(device)
+    parts = [torch.tensor(np.asarray(f), dtype=dtype, device=device)
+             for f in (pos, vel, affine_x, affine_y)]
+    dens = torch.tensor(np.asarray(density, dtype=np.int32), device=device)
+    if parts[0].ndim != 2 or parts[0].shape[1] != 2 or any(
+            f.shape != parts[0].shape for f in parts):
+        raise ValueError("pos, vel, affine_x and affine_y must all be "
+                         f"(np, 2), got {[tuple(f.shape) for f in parts]}")
+    if dens.ndim != 2 or dens.shape[0] != dens.shape[1]:
+        raise ValueError(f"density must be (n, n), got {tuple(dens.shape)}")
+    return FlipApicState(*parts, density=dens)
+
+
+def flip_state_to_numpy(state: FlipApicState):
+    """(pos, vel, affine_x, affine_y, density) as numpy, copied to the
+    host."""
+    return tuple(f.detach().cpu().numpy() for f in state)
+
+
+def flip_config_from_dict(fields: dict) -> FlipApicConfig:
+    """The port's FlipApicConfig for the fields of a JAX FlipApicConfig
+    (`asdict()`): engine 'pallas' becomes 'cuda'; 'dense' and 'scatter'
+    keep their names.  JAX's 'pallas' is its cell-dense engine in VMEM,
+    which drops the particles past a cell's K slots; the port's 'cuda'
+    engine has the 'scatter' semantics and drops none."""
+    return _config(FlipApicConfig, fields)

@@ -1,0 +1,240 @@
+"""CUDA kernels of the FLIP/APIC step, with their wrappers and plain PyTorch
+versions, and the 'cuda' engine's step built on them.
+
+* `p2g(cfg, pos, vel, ax, ay, apic)` — csrc/flip_p2g.cu, which replaces the
+  TPU kernel fluidsims_tpu/kernels/flip_pallas.py::_p2g_kernel: the
+  hat-weight transfer of mass and APIC momentum over each particle's 3x3
+  nodes by atomicAdd, into three zeroed (n, n) grids.  Plain version:
+  `p2g_plain` (solvers/flip_apic.py::_p2g, `index_add_`).
+* `grid_phase(cfg, mass, u, v)` — csrc/flip_grid.cu, which replaces
+  flip_pallas.py::_grid_kernel: normalize, gravity, wall clamps,
+  divergence, every Jacobi sweep and the projection in one cooperative
+  launch.  Plain version: `grid_phase_plain` (solvers/flip_apic.py::
+  _grid_phase).
+* `g2p(cfg, pos, vel, u_prev, v_prev, u_proj, v_proj, flip)` —
+  csrc/flip_g2p.cu, which replaces flip_pallas.py::_g2p_kernel: per
+  particle the samples, the FLIP/PIC blend, the APIC affine matrix, the
+  advection with restitution walls and the density raster.  Plain
+  version: `g2p_plain` (solvers/flip_apic.py::_g2p).
+* `make_step_cuda(cfg)` — the 'cuda' engine's step: solvers/flip_apic.py::
+  _step on the three kernels, one launch of each a step; around them only
+  the memsets of the P2G grids and of the raster.
+
+The plain versions are the 'scatter' engine's functions, so that engine is
+their composition.  The grid phase and G2P are bitwise equal to their
+plain versions for equal inputs (same operation order, true divisions,
+the library built with -fmad=false); P2G's atomics add in no fixed order,
+so it matches its plain version to rounding.  The blend factors flip and
+apic are launch arguments: an override runs the same kernels.
+
+The wrappers take the plain version for CPU tensors only, uncounted.  For
+CUDA tensors they check device, dtype, shape and contiguity, launch on the
+current stream, count the launch in `LAUNCHES`, and raise if the launch
+fails; nothing falls back.  The grid phase's cooperative grid is asked of
+the card once per (n, dtype, device), and its scratch (divergence and the
+pressure ping-pong, 3 (n, n) fields) is kept per (n, dtype, device,
+stream): it is free again once the launch has run, as the next launch on
+that stream runs after it.  Nothing writes the tensors it is given.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..solvers import flip_apic as fa
+from . import _build
+from ._common import LaunchCounter, check_tensors, on_cpu
+
+__all__ = ["LAUNCHES", "reset_launches", "p2g", "p2g_plain", "grid_phase",
+           "grid_phase_plain", "g2p", "g2p_plain", "make_step_cuda", "load"]
+
+LAUNCHES = LaunchCounter("p2g", "grid", "g2p")
+reset_launches = LAUNCHES.reset
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """Build (first use) and load the kernel library, with typed entry
+    points."""
+    lib = _build.load_library()
+    P, I, L, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_double
+    for sfx in _SUFFIX.values():
+        fn = getattr(lib, f"fst_flip_p2g_{sfx}")
+        fn.argtypes = [P] * 7 + [L, I, D, I, P]
+        fn.restype = I
+        fn = getattr(lib, f"fst_flip_grid_blocks_{sfx}")
+        fn.argtypes = [I, I, ctypes.POINTER(I)]
+        fn.restype = I
+        fn = getattr(lib, f"fst_flip_grid_{sfx}")
+        fn.argtypes = [P] * 8 + [I, I, D, I, I, P]
+        fn.restype = I
+        fn = getattr(lib, f"fst_flip_g2p_{sfx}")
+        fn.argtypes = [P] * 11 + [L, I, D, D, I, P]
+        fn.restype = I
+    lib.fst_cuda_error_string.argtypes = [I]
+    lib.fst_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _dtype_of(ref: torch.Tensor) -> torch.dtype:
+    if ref.dtype not in _SUFFIX:
+        raise TypeError(f"no kernel for dtype {ref.dtype}")
+    return ref.dtype
+
+
+def _check_particles(**fields) -> int:
+    """np of the (np, 2) particle fields; raises unless all lie on one
+    device with one dtype that has a kernel, and are equal and
+    contiguous."""
+    ref = next(iter(fields.values()))
+    shape = tuple(ref.shape)
+    if len(shape) != 2 or shape[1] != 2 or shape[0] < 1:
+        raise ValueError(f"particle fields must be (np, 2), got {shape}")
+    check_tensors(fields, shape, _dtype_of(ref), ref.device)
+    return shape[0]
+
+
+def _check_grids(cfg, **fields) -> None:
+    """Raise unless every field is a contiguous (n, n) grid of cfg's n, on
+    the first field's device with its dtype."""
+    ref = next(iter(fields.values()))
+    check_tensors(fields, (cfg.grid, cfg.grid), _dtype_of(ref), ref.device)
+
+
+def _raise_if(code: int, lib, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(
+            f"flip {what} failed: CUDA error {code} "
+            f"({lib.fst_cuda_error_string(code).decode()})")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+# ------------------------------------ P2G ------------------------------------
+
+
+def p2g_plain(cfg, pos, vel, ax, ay, apic=None):
+    """Plain PyTorch version of the P2G kernel: (mass, mom_u, mom_v)."""
+    return fa._p2g(cfg, pos, vel, ax, ay, apic)
+
+
+def p2g(cfg, pos, vel, ax, ay, apic=None):
+    """(mass, mom_u, mom_v), each (n, n), of the particles' hat-weighted
+    transfer: the kernel on CUDA tensors, the plain version on CPU
+    tensors.  `apic` overrides cfg.apic."""
+    if on_cpu(pos):
+        return p2g_plain(cfg, pos, vel, ax, ay, apic)
+    n_p = _check_particles(pos=pos, vel=vel, affine_x=ax, affine_y=ay)
+    n = cfg.grid
+    apic = float(cfg.apic if apic is None else apic)
+    dev = pos.device
+    grids = torch.zeros((3, n, n), dtype=pos.dtype, device=dev)
+    lib = load()
+    code = getattr(lib, f"fst_flip_p2g_{_SUFFIX[pos.dtype]}")(
+        pos.data_ptr(), vel.data_ptr(), ax.data_ptr(), ay.data_ptr(),
+        grids[0].data_ptr(), grids[1].data_ptr(), grids[2].data_ptr(), n_p,
+        n, apic, dev.index, _stream(dev))
+    _raise_if(code, lib, "p2g kernel launch")
+    LAUNCHES["p2g"] += 1
+    return grids[0], grids[1], grids[2]
+
+
+# --------------------------------- grid phase --------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _grid(n: int, dtype: torch.dtype, index: int) -> int:
+    """Blocks of the grid phase's cooperative launch on an (n, n) grid."""
+    lib = load()
+    grid = ctypes.c_int(0)
+    code = getattr(lib, f"fst_flip_grid_blocks_{_SUFFIX[dtype]}")(
+        n, index, ctypes.byref(grid))
+    _raise_if(code, lib, "grid phase occupancy query")
+    return grid.value
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch(n: int, dtype: torch.dtype, device: torch.device,
+             stream: int) -> torch.Tensor:
+    return torch.empty((3, n, n), dtype=dtype, device=device)
+
+
+def grid_phase_plain(cfg, mass, u, v):
+    """Plain PyTorch version of the grid-phase kernel: (u_prev, v_prev,
+    u_proj, v_proj)."""
+    return fa._grid_phase(cfg, mass, u, v)
+
+
+def grid_phase(cfg, mass, u, v):
+    """(u_prev, v_prev, u_proj, v_proj) from the P2G grids: the kernel on
+    CUDA tensors, the plain version on CPU tensors."""
+    if on_cpu(mass):
+        return grid_phase_plain(cfg, mass, u, v)
+    _check_grids(cfg, mass=mass, mom_u=u, mom_v=v)
+    n, dev = cfg.grid, mass.device
+    lib = load()
+    blocks = _grid(n, mass.dtype, dev.index)
+    out = torch.empty((4, n, n), dtype=mass.dtype, device=dev)
+    stream = _stream(dev)
+    scratch = _scratch(n, mass.dtype, dev, stream)
+    code = getattr(lib, f"fst_flip_grid_{_SUFFIX[mass.dtype]}")(
+        mass.data_ptr(), u.data_ptr(), v.data_ptr(),
+        *(out[k].data_ptr() for k in range(4)), scratch.data_ptr(), n,
+        cfg.jacobi, float(cfg.gravity * cfg.dt), blocks, dev.index, stream)
+    _raise_if(code, lib, "grid phase kernel launch")
+    LAUNCHES["grid"] += 1
+    return out[0], out[1], out[2], out[3]
+
+
+# ------------------------------------ G2P ------------------------------------
+
+
+def g2p_plain(cfg, pos, vel, u_prev, v_prev, u_proj, v_proj, flip=None):
+    """Plain PyTorch version of the G2P kernel: (pos, vel, affine_x,
+    affine_y, density)."""
+    return fa._g2p(cfg, pos, vel, u_prev, v_prev, u_proj, v_proj, flip)
+
+
+def g2p(cfg, pos, vel, u_prev, v_prev, u_proj, v_proj, flip=None):
+    """The particles' new (pos, vel, affine_x, affine_y) and the density
+    raster (n, n) int32: the kernel on CUDA tensors, the plain version on
+    CPU tensors.  `flip` overrides cfg.flip."""
+    if on_cpu(pos):
+        return g2p_plain(cfg, pos, vel, u_prev, v_prev, u_proj, v_proj, flip)
+    n_p = _check_particles(pos=pos, vel=vel)
+    _check_grids(cfg, u_prev=u_prev, v_prev=v_prev, u_proj=u_proj,
+                 v_proj=v_proj)
+    if u_prev.dtype != pos.dtype or u_prev.device != pos.device:
+        raise TypeError(f"grids are {u_prev.dtype} on {u_prev.device}, "
+                        f"particles {pos.dtype} on {pos.device}")
+    n, dev = cfg.grid, pos.device
+    flip = float(cfg.flip if flip is None else flip)
+    parts = torch.empty((4, n_p, 2), dtype=pos.dtype, device=dev)
+    density = torch.zeros((n, n), dtype=torch.int32, device=dev)
+    lib = load()
+    code = getattr(lib, f"fst_flip_g2p_{_SUFFIX[pos.dtype]}")(
+        pos.data_ptr(), vel.data_ptr(), u_prev.data_ptr(), v_prev.data_ptr(),
+        u_proj.data_ptr(), v_proj.data_ptr(),
+        *(parts[k].data_ptr() for k in range(4)), density.data_ptr(), n_p, n,
+        flip, float(cfg.dt), dev.index, _stream(dev))
+    _raise_if(code, lib, "g2p kernel launch")
+    LAUNCHES["g2p"] += 1
+    return parts[0], parts[1], parts[2], parts[3], density
+
+
+def make_step_cuda(cfg):
+    """Step (state, grid_reduce, flip, apic) -> state on the three kernels:
+    solvers/flip_apic.py::_step with `p2g`, `grid_phase` and `g2p`, one
+    launch of each."""
+    return lambda s, grid_reduce=None, flip=None, apic=None: fa._step(
+        cfg, s, functools.partial(p2g, cfg),
+        functools.partial(grid_phase, cfg), functools.partial(g2p, cfg),
+        grid_reduce, flip, apic)

@@ -164,3 +164,36 @@ def test_cli_stam2d_engines_and_defaults():
     args = cli.build_parser().parse_args(["stam2d"])
     assert (args.n, args.steps, args.engine, args.advect_band, args.dtype,
             args.device) == (512, 100, "auto", 16, "float32", "cuda")
+
+
+@pytest.mark.parametrize("engine", ["scatter", "dense", "auto"])
+def test_cli_flip_cpu(capsys, engine):
+    assert cli.main(["flip", "--device", "cpu", "--engine", engine,
+                     "--particles", "256", "--grid", "32", "--steps",
+                     "2"]) == 0
+    out = capsys.readouterr().out
+    ran = "dense" if engine == "auto" else engine
+    assert f"flip-apic n=256 grid=32^2 float32 engine={ran}" in out
+    assert "steps/s" in out and "M particle-steps/s" in out
+    assert "occupied=" in out and "peak_cell=" in out
+    assert "overflow: 0 particles beyond the cell capacity K=32" in out
+
+
+def test_cli_flip_engines_overflow_and_defaults(capsys):
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cli.main(["flip", "--device", "cpu", "--engine", "cuda",
+                  "--particles", "64", "--grid", "16", "--steps", "1"])
+    with pytest.raises(SystemExit):
+        cli.main(["flip", "--device", "cpu", "--engine", "pallas"])
+    assert cli.main(["flip", "--device", "cpu", "--engine", "dense",
+                     "--particles", "2048", "--grid", "16", "--bin-capacity",
+                     "2", "--steps", "1", "--dtype", "float64"]) == 0
+    captured = capsys.readouterr()
+    dropped = int(captured.out.split("overflow: ")[1].split()[0])
+    assert dropped > 0 and "WARNING" in captured.err
+    args = cli.build_parser().parse_args(["flip"])
+    assert (args.particles, args.grid, args.jacobi, args.dt, args.gravity,
+            args.flip, args.apic, args.engine, args.bin_capacity, args.steps,
+            args.dtype, args.device) == (
+        65536, 128, 48, 0.004, 7.5, 0.97, 0.85, "auto", 0, 200, "float32",
+        "cuda")

@@ -62,9 +62,10 @@ def test_every_module_listed():
                 "kernels.burgers_cuda", "kernels.shallow_water_cuda",
                 "kernels.mhd_cuda", "ops.scalar", "ops.gather",
                 "solvers.stam3d", "kernels.stam3d_cuda", "solvers.stam2d",
-                "kernels.stam2d_cuda"):
+                "kernels.stam2d_cuda", "solvers.flip_apic",
+                "kernels.flip_cuda"):
         assert f"fluidsims_tpu_torch.{mod}" in MODULES
-    assert len(MODULES) >= 43
+    assert len(MODULES) >= 45
 
 
 @pytest.mark.parametrize("mod", MODULES)

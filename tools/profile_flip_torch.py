@@ -1,0 +1,52 @@
+#!/usr/bin/env python
+"""Where the time of the port's FLIP/APIC step goes, on a GPU.
+
+    python tools/profile_flip_torch.py [--out PATH]
+
+For two of the runs chip_smoke.py drives through fluidsims_tpu_torch.
+solvers.flip_apic.run with engine 'auto' (the CUDA kernels):
+FlipApicConfig() (65,536 particles on 128^2, f32) x 1000 steps and 2^20
+particles on 512^2 f32 x 200 steps, each from init: the unprofiled step
+time and M particle-steps/s, and under torch.profiler the device time of
+each kernel (the atomic P2G, the cooperative grid phase, G2P) and of the
+torch ops around them (the zero fills of the P2G grids and the density
+raster), the busy and idle shares (tools/profile_torch_common.py says how
+each is read).
+
+Imports torch and the port only.  Writes JSON to `--out` (default
+build/profile_flip_torch.json).
+"""
+
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from fluidsims_tpu_torch.solvers import flip_apic as fa  # noqa: E402
+from profile_torch_common import Run, main  # noqa: E402
+
+RUNS = ((65536, 128, "float32", 1000), (1 << 20, 512, "float32", 200))
+GROUPS = ("p2g_kernel", "grid_kernel", "g2p_kernel")
+
+
+def _make_go(n_p: int, n: int, dtype: str):
+    def make_go():
+        cfg = fa.FlipApicConfig(particles=n_p, grid=n, dtype=dtype)
+        dev = torch.device("cuda")
+        if fa.resolve_engine(cfg, dev) != "cuda":
+            raise RuntimeError("engine auto did not resolve to cuda")
+        st0 = fa.init(cfg, dev)
+        return lambda k: fa.run(cfg, st0, k)
+    return make_go
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:], doc=__doc__,
+                  default_out="build/profile_flip_torch.json", groups=GROUPS,
+                  runs=[Run(f"{n_p} particles {n}^2 {dtype}", steps,
+                            _make_go(n_p, n, dtype), n_p)
+                        for n_p, n, dtype, steps in RUNS]))
