@@ -188,6 +188,30 @@ failure of which ends the run with a non-zero exit:
              against their plain versions at full shape, per-launch times
              and bounds (FLIP_*_OPS; the P2G's nonzero offsets counted from
              the state).
+21. mpm_kernels — the three MLS-MPM kernels (atomic P2G, the grid
+             update, G2P) against their plain PyTorch versions, f32 and f64,
+             on 96^2, 37x53 (Gx != Gy) and 512^2 with 4 Gx Gy seeded
+             particles over the grid (eight on its walls and corners, whose
+             targets reach past it), F = I + 0.05 N, Jp in [0.5, 1.5], for
+             mud, snow and sand: P2G within 1e-5 (f32) / 1e-12 (f64)
+             relative to each grid's max (atomics add in no fixed order);
+             the grid update on the kernel's P2G grids and G2P on the
+             kernel's node velocities bitwise equal or the script fails,
+             bitwise cases counted; then 5 steps of the cuda engine against
+             the 'scatter' engine at MPMConfig() within 5e-4 (f32) / 1e-10
+             (f64) relative (MPM_TRAJ_TOL).
+22. mpm_main — solvers.mpm.run with engine 'auto', which must resolve to
+             'cuda': MPMConfig() (32,768 snow particles on 96^2, bench.py's
+             mpm_32768_mpsps and the CLI default) f32 x 1000 and f64 x 200,
+             and 2^20 particles on 512^2 f32 x 200; exactly one launch of
+             each kernel a step; steps/s and M particle-steps/s beside the
+             plain 'scatter' engine's (20 steps); physics (finite, positions
+             in [2dx, (G-3)dx], Jp in [0.05, 20], mean y below its start,
+             the P2G mass n * particle_mass within 1e-5 relative,
+             overflow_count 0); then from each final state the kernels
+             against their plain versions at full shape (same bars),
+             per-launch times and bounds (MPM_*_OPS; the P2G's targets
+             inside the grid counted from the state).
 
 Every kernel's line in {"kernels": [...]} carries bound_ms, the least time
 the card could take for its work at the main path's shape: the larger of
@@ -2379,25 +2403,27 @@ def flip_particles(n_p, dtype, device, seed):
             (pos, *(rng.standard_normal((n_p, 2)) for _ in range(3)))]
 
 
-def flip_rel(got, ref, what: str, tol: float, errs: dict, name: str):
-    """max |err| / max |ref| of each float pair within tol, each int32 pair
-    (the raster) equal; errs[name] keeps the largest max |err|.  Returns
-    (max rel err, all bitwise equal)."""
+def transfer_rel(got, ref, what: str, tol: float, errs: dict, name: str,
+                 bitwise: bool = False):
+    """max |err| / max |ref| of each float pair within tol, and every pair
+    equal where `bitwise`; each int32 pair (FLIP's raster) equal;
+    errs[name] keeps the largest max |err|.  `what` names the solver and
+    the case.  Returns (max rel err, all bitwise equal)."""
     worst, bit = 0.0, True
     for g, r in zip(got, ref):
         if g.dtype == torch.int32:
             if not torch.equal(g, r):
                 raise AssertionError(
-                    f"flip {name} {what}: {int((g != r).sum())} raster cells "
+                    f"{what} {name}: {int((g != r).sum())} raster cells "
                     f"differ from the plain version's")
             continue
         rel, ab = rel_err(g, r)
         errs[name] = max(errs[name], ab)
         worst = max(worst, rel)
         bit = bit and same(g, r)
-    if not worst <= tol:
-        raise AssertionError(f"flip {name} {what}: max rel err {worst:.3e} "
-                             f"> {tol:g}")
+    if not worst <= tol or (bitwise and not bit):
+        raise AssertionError(f"{what} {name}: max rel err {worst:.3e} (tol "
+                             f"{tol:g}), bitwise {bit} (required {bitwise})")
     return worst, bit
 
 
@@ -2408,16 +2434,18 @@ def check_flip_call(fk, cfg, parts, what, errs, flip=None, apic=None):
     equal.  Returns {kernel: (rel, bitwise)} and the kernel's grids."""
     pos, vel, ax, ay = parts
     tol = STEP_TOL[pos.dtype]
+    label = f"flip {what}"
     out = {}
     grids = fk.p2g(cfg, pos, vel, ax, ay, apic)
-    out["p2g"] = flip_rel(grids, fk.p2g_plain(cfg, pos, vel, ax, ay, apic),
-                          what, tol, errs, "p2g")
+    out["p2g"] = transfer_rel(grids,
+                              fk.p2g_plain(cfg, pos, vel, ax, ay, apic),
+                              label, tol, errs, "p2g")
     fields = fk.grid_phase(cfg, *grids)
-    out["grid"] = flip_rel(fields, fk.grid_phase_plain(cfg, *grids), what,
-                           tol, errs, "grid")
+    out["grid"] = transfer_rel(fields, fk.grid_phase_plain(cfg, *grids),
+                               label, tol, errs, "grid")
     got = fk.g2p(cfg, pos, vel, *fields, flip)
     ref = fk.g2p_plain(cfg, pos, vel, *fields, flip)
-    out["g2p"] = flip_rel(got, ref, what, tol, errs, "g2p")
+    out["g2p"] = transfer_rel(got, ref, label, tol, errs, "g2p")
     if int(got[4].sum()) != pos.shape[0]:
         raise AssertionError(f"flip g2p {what}: the raster counts "
                              f"{int(got[4].sum())} of {pos.shape[0]}")
@@ -2611,20 +2639,21 @@ def phase_flip_main(fk, fa, device, smi, errs, runs=FLIP_RUNS) -> dict:
     return res
 
 
-def flip_kernel_lines(res, errs) -> list:
-    """The {"kernels": [...]} entries of the three FLIP kernels: times and
-    bounds from the final state of the 65,536 f32 run, those of the f64
-    and 2^20 runs beside them; launches summed over the three runs."""
-    keys = [f"{n_p} {n}^2 {dtype}" for n_p, n, dtype, _, _ in FLIP_RUNS]
+def transfer_kernel_lines(solver: str, runs, lines: dict, res,
+                          errs) -> list:
+    """The {"kernels": [...]} entries of a particle solver's three kernels
+    (csrc/{solver}_{kernel}.cu): times and bounds from the final state of
+    its first run (f32 at the default size), those of the f64 and 2^20
+    runs beside them; launches summed over the three runs.  `lines` gives
+    each kernel's line in fluidsims_tpu/kernels/{solver}_pallas.py."""
+    keys = [f"{n_p} {n}^2 {dtype}" for n_p, n, dtype, _, _ in runs]
     a = res[keys[0]]
     out = []
-    for name, src, line in (("p2g", "flip_p2g.cu", 82),
-                            ("grid", "flip_grid.cu", 126),
-                            ("g2p", "flip_g2p.cu", 171)):
+    for name, line in lines.items():
         entry = {
-            "name": f"flip_{name}", "route": "cuda",
-            "source": f"fluidsims_tpu_torch/csrc/{src}",
-            "replaces": f"fluidsims_tpu/kernels/flip_pallas.py:{line}",
+            "name": f"{solver}_{name}", "route": "cuda",
+            "source": f"fluidsims_tpu_torch/csrc/{solver}_{name}.cu",
+            "replaces": f"fluidsims_tpu/kernels/{solver}_pallas.py:{line}",
             "launches": sum(res[k]["launches"][name] for k in keys),
             "max_abs_err": errs[name],
             "ms": a["times"][name], "plain_ms": a["times"][name + "_plain"],
@@ -2640,6 +2669,249 @@ def flip_kernel_lines(res, errs) -> list:
         out.append(entry)
     out[-1]["max_rel_err"] = errs["rel"]
     return out
+
+
+# Three kernels (TPU kernels #19-#21), kernels/mpm_cuda.py; `mk` below is
+# the wrapper module, `mp` the solver.
+
+# mpm_p2g.cu: per particle the two base nodes and fractions (8), the two
+# weight triples (18), snow's clamp of Fe (6), the stress (33: det and its
+# floor, the hardening exp, mu and lambda with the material's factor, the
+# log term, Fe Fe^T and the scale), the two momenta (2) and the three
+# x offsets (6); per offset inside the grid w, dposy, the force (6), the
+# three weighted values (5) and three atomic adds (3).  The offsets inside
+# the grid are counted from this run's particles.
+MPM_P2G_OPS = (8 + 18 + 6 + 33 + 2 + 6, 17)
+# mpm_grid.cu: per node the mass test (1); per node with mass the floor,
+# two divisions, gravity and the two sticky-band tests (8).
+MPM_GRID_OPS = (1, 8)
+# mpm_g2p.cu per particle: base nodes and fractions (8), weights (18), the
+# x offsets (6), per offset (9) w, dposy, w g (2), v (2) and C (12), then
+# Fe (6), I + dt C (6), the new F (12), oldJ and newJ (8), mud's shear (2),
+# Jp (4) and the two clipped positions (8).
+MPM_G2P_OPS_PER_PARTICLE = 8 + 18 + 6 + 9 * 19 + 6 + 6 + 12 + 8 + 2 + 4 + 8
+# 5 cuda steps against 5 scatter steps: the atomics' order reaches every
+# field through the grid, so the trajectories agree to rounding carried
+# through 5 steps, not bitwise; f32 at the port's f32 bar against JAX.
+MPM_TRAJ_TOL = {torch.float32: 5e-4, torch.float64: 1e-10}
+MPM_MASS_TOL = 1e-5
+# (particles, grid, dtype, steps, plain steps): MPMConfig() (32,768 snow
+# particles on 96^2, bench.py's mpm_32768_mpsps and the CLI default) in
+# f32 and f64, and 2^20 particles on 512^2 f32 (~19 a cell as at 96^2; the
+# 36 MiB particle state read and written each step is past L2)
+MPM_RUNS = ((32768, 96, "float32", 1000, 20),
+            (32768, 96, "float64", 200, 20),
+            (1 << 20, 512, "float32", 200, 20))
+
+
+def mpm_particles(cfg, device, seed):
+    """Seeded (pos, vel, F, Jp): positions uniform over the grid's extent
+    [0, (Gx-1)dx] x [0, (Gy-1)dx], the first eight on its walls and corners
+    and at the box's corner (their 3x3 targets reach past the grid),
+    velocities standard normal, F = I + 0.05 N, Jp in [0.5, 1.5]."""
+    rng = np.random.default_rng(seed)
+    n = cfg.n
+    X, Y = (cfg.gx - 1) * cfg.dx, (cfg.gy - 1) * cfg.dx
+    pos = rng.random((n, 2)) * [X, Y]
+    pos[:8] = [[0, 0], [X, Y], [0, Y], [X, 0], [0, 0.5 * Y], [X, 0.5 * Y],
+               [0.5 * X, 0], [cfg.box_x, cfg.box_y]]
+    F = np.eye(2) + 0.05 * rng.standard_normal((n, 2, 2))
+    return [torch.tensor(a, dtype=cfg.torch_dtype, device=device) for a in
+            (pos, rng.standard_normal((n, 2)), F, rng.uniform(0.5, 1.5, n))]
+
+
+def check_mpm_call(mk, cfg, parts, what, errs):
+    """The three kernels against their plain versions: P2G on the
+    particles within STEP_TOL relative to each grid's max; the grid update
+    on the kernel's P2G grids and G2P on the kernel's node velocities,
+    both bitwise.  Returns {kernel: (rel, bitwise)} and the kernel's P2G
+    grids."""
+    pos, vel, F, Jp = parts
+    tol = STEP_TOL[pos.dtype]
+    label = f"mpm {what}"
+    out = {}
+    grids = mk.p2g(cfg, pos, vel, F, Jp)
+    out["p2g"] = transfer_rel(grids, mk.p2g_plain(cfg, pos, vel, F, Jp),
+                              label, tol, errs, "p2g")
+    vels = mk.grid_update(cfg, *grids)
+    out["grid"] = transfer_rel(vels, mk.grid_update_plain(cfg, *grids),
+                               label, tol, errs, "grid", bitwise=True)
+    out["g2p"] = transfer_rel(mk.g2p(cfg, pos, F, Jp, *vels),
+                              mk.g2p_plain(cfg, pos, F, Jp, *vels), label,
+                              tol, errs, "g2p", bitwise=True)
+    return out, grids
+
+
+def phase_mpm_kernels(mk, mp, device) -> dict:
+    errs = {"p2g": 0.0, "grid": 0.0, "g2p": 0.0, "rel": {}}
+    for dtype in ("float32", "float64"):
+        for gx, gy in ((96, 96), (37, 53), (512, 512)):
+            cases = []
+            for material in ("mud", "snow", "sand"):
+                cfg = mp.MPMConfig(n=4 * gx * gy, gx=gx, gy=gy,
+                                   material=material, dtype=dtype)
+                parts = mpm_particles(cfg, device, SEED + gx + gy)
+                cases.append(check_mpm_call(mk, cfg, parts,
+                                            f"{gx}x{gy} {material} {dtype}",
+                                            errs)[0])
+            key = f"{gx}x{gy} {dtype}"
+            worst = {k: max(c[k][0] for c in cases) for k in cases[0]}
+            bits = {k: sum(c[k][1] for c in cases) for k in cases[0]}
+            errs["rel"][key] = worst
+            log(f"[mpm] {key}, {4 * gx * gy} particles (8 on the walls), "
+                f"mud, snow and sand: kernels vs plain max rel err {worst} "
+                f"(tol {STEP_TOL[cfg.torch_dtype]:g}; grid update and G2P "
+                f"bitwise required); bitwise cases of {len(cases)}: {bits}")
+    for dtype in ("float32", "float64"):
+        cfg = mp.MPMConfig(dtype=dtype)
+        if mp.resolve_engine(cfg, device) != "cuda":
+            raise AssertionError("engine auto did not resolve to cuda")
+        a = b = mp.init(cfg, device)
+        pcfg = cfg.replace(engine="scatter")
+        for _ in range(5):
+            a, b = mp.step(cfg, a), mp.step(pcfg, b)
+        rel = max(rel_err(x, y)[0] for x, y in zip(a, b))
+        tol = MPM_TRAJ_TOL[cfg.torch_dtype]
+        if not rel <= tol:
+            raise AssertionError(f"mpm 5 steps cuda vs scatter {dtype}: max "
+                                 f"rel err {rel:.3e} > {tol:g}")
+        log(f"[mpm] 5 steps MPMConfig() {dtype}, cuda engine vs scatter "
+            f"engine: max rel err {rel:.3e} over pos, vel, F, Jp (tol "
+            f"{tol:g}); positions bitwise {same(a.pos, b.pos)}")
+        errs["rel"][f"5 steps 96^2 {dtype}"] = rel
+    return errs
+
+
+def mpm_offsets_in_grid(cfg, pos) -> int:
+    """(particle, offset) pairs whose target lies inside the grid: the
+    P2G's atomic transfers for these positions."""
+    base = torch.floor(pos * (1.0 / cfg.dx) - 0.5).long()
+    counts = []
+    for axis, g in ((0, cfg.gx), (1, cfg.gy)):
+        t = base[:, axis:axis + 1] + torch.arange(3, device=pos.device)
+        counts.append(((t >= 0) & (t < g)).sum(1))
+    return int((counts[0] * counts[1]).sum())
+
+
+def mpm_bounds(cfg, pos, mass) -> dict:
+    """bound_ms of the three kernels at cfg's shape: P2G reads pos, vel, F
+    and Jp and writes three grids; the grid update reads three grids and
+    writes two; G2P reads pos, F, Jp and two grids and writes pos, vel, F
+    and Jp."""
+    n_p, dtype = pos.shape[0], cfg.torch_dtype
+    T = torch.finfo(dtype).bits // 8
+    cells = cfg.gx * cfg.gy
+    nz = mpm_offsets_in_grid(cfg, pos)
+    p0, p1 = MPM_P2G_OPS
+    g0, g1 = MPM_GRID_OPS
+    massive = int((mass > 0).sum())
+    return {
+        "p2g": bound(9 * n_p * T + 3 * cells * T, p0 * n_p + p1 * nz, dtype),
+        "grid": bound(5 * cells * T, g0 * cells + g1 * massive, dtype),
+        "g2p": bound(16 * n_p * T + 2 * cells * T,
+                     MPM_G2P_OPS_PER_PARTICLE * n_p, dtype),
+        "offsets_in_grid": nz, "nodes_with_mass": massive}
+
+
+def check_mpm_physics(mk, mp, cfg, st0, out) -> dict:
+    """Finite; positions within [2dx, (G-3)dx]; Jp within [0.05, 20]; the
+    block lower than at the start; the P2G mass n * particle_mass (every
+    target inside the grid once positions are clipped); overflow_count
+    0."""
+    for name in ("pos", "vel", "F", "Jp"):
+        if not bool(torch.isfinite(getattr(out, name)).all()):
+            raise AssertionError(f"mpm: non-finite {name}")
+    dt = out.pos.dtype
+    lo = torch.tensor(2.0 * cfg.dx, dtype=dt).item()
+    hx = torch.tensor((cfg.gx - 3.0) * cfg.dx, dtype=dt).item()
+    hy = torch.tensor((cfg.gy - 3.0) * cfg.dx, dtype=dt).item()
+    pmin = float(out.pos.min())
+    xmax, ymax = float(out.pos[:, 0].max()), float(out.pos[:, 1].max())
+    if not (pmin >= lo and xmax <= hx and ymax <= hy):
+        raise AssertionError(f"mpm: positions min {pmin}, max x {xmax}, max "
+                             f"y {ymax} outside [{lo}, {hx} / {hy}]")
+    jmin, jmax = float(out.Jp.min()), float(out.Jp.max())
+    if not (jmin >= torch.tensor(0.05, dtype=dt).item() and jmax <= 20.0):
+        raise AssertionError(f"mpm: Jp in [{jmin}, {jmax}]")
+    mass = mk.p2g(cfg, out.pos, out.vel, out.F, out.Jp)[0]
+    total = float(mass.double().sum())
+    want = cfg.n * cfg.particle_mass
+    y0, y1 = float(st0.pos[:, 1].mean()), float(out.pos[:, 1].mean())
+    over = int(mp.overflow_count(cfg, out))
+    vmax = float(out.vel.abs().max())
+    if not abs(total - want) <= MPM_MASS_TOL * want or not y1 < y0 or over:
+        raise AssertionError(f"mpm physics: P2G mass {total} of {want}, mean "
+                             f"y {y0} -> {y1}, overflow {over}")
+    log(f"[physics] mpm {cfg.n} on {cfg.gx}^2 {cfg.material} {cfg.dtype}: "
+        f"all finite, pos in [{pmin:.6g}, {max(xmax, ymax):.6g}], Jp in "
+        f"[{jmin:.6g}, {jmax:.6g}], P2G mass {total:.9g} of {want:g} "
+        f"(rel {abs(total - want) / want:.3e}), mean y {y0:.6f} -> "
+        f"{y1:.6f}, max |v| {vmax:.4f}, overflow_count 0")
+    return {"mean_y": [y0, y1], "jp": [jmin, jmax], "max_abs_v": vmax,
+            "mass_rel_err": abs(total - want) / want}
+
+
+def phase_mpm_main(mk, mp, device, smi, errs, runs=MPM_RUNS) -> dict:
+    res = {}
+    for n_p, g, dtype, steps, p_steps in runs:
+        cfg = mp.MPMConfig(n=n_p, gx=g, gy=g, dtype=dtype)
+        engine = mp.resolve_engine(cfg, device)
+        if engine != "cuda":
+            raise AssertionError(f"engine auto resolved to {engine!r}")
+        st0 = mp.init(cfg, device)
+        mp.run(cfg, st0, 1)   # warm-up, not counted
+        mk.reset_launches()
+        out, wall = run_timed(mp, cfg, st0, steps)
+        launches = dict(mk.LAUNCHES)
+        want = {"p2g": steps, "grid": steps, "g2p": steps}
+        if launches != want:
+            raise AssertionError(f"launches {launches} in {steps} steps, "
+                                 f"want {want}")
+        _, p_wall = run_timed(mp, cfg.replace(engine="scatter"), st0, p_steps)
+        if dict(mk.LAUNCHES) != launches:
+            raise AssertionError("the plain engine launched a kernel")
+        rate, p_rate = steps / wall, p_steps / p_wall
+        key = f"{n_p} {g}^2 {dtype}"
+        log(f"[mpm] {key} snow engine={engine} on {smi}: {steps} steps in "
+            f"{wall:.3f} s, {rate:.2f} steps/s, {n_p * rate / 1e6:.3f} M "
+            f"particle-steps/s; plain scatter engine {p_steps} steps "
+            f"{p_rate:.2f} steps/s ({n_p * p_rate / 1e6:.3f} M); launches "
+            f"{launches}")
+        phys = check_mpm_physics(mk, mp, cfg, st0, out)
+
+        # the kernels against their plain versions from the final state
+        parts = (out.pos, out.vel, out.F, out.Jp)
+        checks, grids = check_mpm_call(mk, cfg, parts, key + " final state",
+                                       errs)
+        errs["rel"][key + " final state"] = {k: v[0]
+                                             for k, v in checks.items()}
+        log(f"[mpm] {key} final state: kernels vs plain (rel err, bitwise) "
+            f"{checks}")
+
+        vels = mk.grid_update(cfg, *grids)
+        g2p_in = (out.pos, out.F, out.Jp, *vels)
+        times = {
+            "p2g": time_launches(lambda: mk.p2g(cfg, *parts), 100),
+            "p2g_plain": time_launches(lambda: mk.p2g_plain(cfg, *parts), 5),
+            "grid": time_launches(lambda: mk.grid_update(cfg, *grids), 100),
+            "grid_plain": time_launches(
+                lambda: mk.grid_update_plain(cfg, *grids), 5),
+            "g2p": time_launches(lambda: mk.g2p(cfg, *g2p_in), 100),
+            "g2p_plain": time_launches(lambda: mk.g2p_plain(cfg, *g2p_in),
+                                       5),
+        }
+        bounds = mpm_bounds(cfg, out.pos, grids[0])
+        log(f"[mpm] per launch at {key} on {smi}: " + ", ".join(
+            f"{k} {times[k]:.4f} ms vs plain {times[k + '_plain']:.4f} ms "
+            f"(bound {bounds[k][0]:.5f} ms, {bounds[k][1]})"
+            for k in ("p2g", "grid", "g2p"))
+            + f"; {bounds['offsets_in_grid']} P2G offsets inside the grid, "
+            f"{bounds['nodes_with_mass']} nodes with mass")
+        res[key] = {"launches": launches, "times": times, "bounds": bounds,
+                    "rate": rate, "plain_rate": p_rate,
+                    "mpsteps": n_p * rate / 1e6,
+                    "plain_mpsteps": n_p * p_rate / 1e6, "physics": phys}
+    return res
 
 
 def main() -> int:
@@ -2671,6 +2943,8 @@ def main() -> int:
     from fluidsims_tpu_torch.solvers import stam2d as s2
     from fluidsims_tpu_torch.kernels import flip_cuda as fk
     from fluidsims_tpu_torch.solvers import flip_apic as fa
+    from fluidsims_tpu_torch.kernels import mpm_cuda as mpk
+    from fluidsims_tpu_torch.solvers import mpm as mp
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -2685,6 +2959,7 @@ def main() -> int:
     sc.load()
     s2k.load()
     fk.load()
+    mpk.load()
     errs = phase_kernels(h2, hk, interop, cfl_dt, device)
     sk.reset_launches()
     main_res = phase_main(h2, hk, regression, cfl_dt, device, smi, errs)
@@ -2750,6 +3025,15 @@ def main() -> int:
                                          sc, s2k)]
     if any(any(o.values()) for o in others):
         raise AssertionError(f"the flip path launched other kernels: "
+                             f"{others}")
+    mpm_errs = phase_mpm_kernels(mpk, mp, device)
+    for m in (hk, sk, hk3, gk, lk, bk, swk, mk, sc, s2k, fk):
+        m.reset_launches()
+    mpm_res = phase_mpm_main(mpk, mp, device, smi, mpm_errs)
+    others = [dict(m.LAUNCHES) for m in (hk, sk, hk3, gk, lk, bk, swk, mk,
+                                         sc, s2k, fk)]
+    if any(any(o.values()) for o in others):
+        raise AssertionError(f"the mpm path launched other kernels: "
                              f"{others}")
 
     t = main_res["times"]
@@ -2835,9 +3119,14 @@ def main() -> int:
     kernels.extend(resident_kernel_lines(resident_res, resident_errs))
     kernels.extend(stam3d_kernel_lines(stam3d_res, stam3d_errs))
     kernels.extend(stam2d_kernel_lines(stam2d_res, stam2d_errs))
-    kernels.extend(flip_kernel_lines(flip_res, flip_errs))
-    if len(kernels) != 22:
-        raise AssertionError(f"{len(kernels)} kernel lines, want 22")
+    kernels.extend(transfer_kernel_lines(
+        "flip", FLIP_RUNS, {"p2g": 82, "grid": 126, "g2p": 171}, flip_res,
+        flip_errs))
+    kernels.extend(transfer_kernel_lines(
+        "mpm", MPM_RUNS, {"p2g": 42, "grid": 78, "g2p": 101}, mpm_res,
+        mpm_errs))
+    if len(kernels) != 25:
+        raise AssertionError(f"{len(kernels)} kernel lines, want 25")
     log(f"[hyp3d] steps/s: 64^3 f32 {a3['rate']:.2f} (plain "
         f"{a3['plain_rate']:.3f}), 256^3 f32 {b3['rate']:.2f} (plain "
         f"{b3['plain_rate']:.4f}); th3cs 64^3 "
@@ -2853,6 +3142,9 @@ def main() -> int:
     log("[flip] M particle-steps/s: " + ", ".join(
         f"{k} {r['mpsteps']:.3f} (plain {r['plain_mpsteps']:.4f})"
         for k, r in flip_res.items()))
+    log("[mpm] M particle-steps/s: " + ", ".join(
+        f"{k} {r['mpsteps']:.3f} (plain {r['plain_mpsteps']:.4f})"
+        for k, r in mpm_res.items()))
     log(f"[sph] M particle-steps/s: n=65536 {a['rate']:.3f} (plain "
         f"{a['plain_rate']:.4f}), n=1048576 {b['rate']:.3f} (plain "
         f"{b['plain_rate']:.4f}); pairs {a['bounds']['pairs']} / "

@@ -24,7 +24,9 @@ set_bnd run as three more (`kernels.stam3d_cuda`), and the 2-D stable
 fluids (`solvers.stam2d`), whose whole Jacobi solve and exact advection
 run as two more (`kernels.stam2d_cuda`), and FLIP/APIC
 (`solvers.flip_apic`), whose atomic P2G, grid phase and G2P run as three
-more (`kernels.flip_cuda`); the sources are in `csrc/`.  Kernels build
+more (`kernels.flip_cuda`), and MLS-MPM (`solvers.mpm`), whose atomic P2G,
+grid update and G2P run as three more (`kernels.mpm_cuda`); the sources
+are in `csrc/`.  Kernels build
 with nvcc at first use; on
 CPU tensors every kernel wrapper takes its plain PyTorch version.  Entry points
 (`init`, `interop.*_from_numpy`) put their tensors on the GPU unless

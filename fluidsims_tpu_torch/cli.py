@@ -12,10 +12,11 @@
     python -m fluidsims_tpu_torch.cli stam3d --n 192 --steps 100
     python -m fluidsims_tpu_torch.cli stam2d --n 512 --steps 400
     python -m fluidsims_tpu_torch.cli flip --particles 65536 --steps 200
+    python -m fluidsims_tpu_torch.cli mpm --n 32768 --material snow --steps 500
 
 Ports of the `hypersonic2d`, `sph`, `hypersonic3d`, `th3cs`, `gray-scott`,
-`lbm`, `burgers`, `shallow-water`, `mhd`, `stam3d`, `stam2d` and `flip`
-subcommands of fluidsims_tpu.cli with the same physics flags and
+`lbm`, `burgers`, `shallow-water`, `mhd`, `stam3d`, `stam2d`, `flip` and
+`mpm` subcommands of fluidsims_tpu.cli with the same physics flags and
 defaults, headless.  All run on `--device cuda` unless asked for the CPU.
 
 hypersonic2d, hypersonic3d: `--impl cuda` (default) steps through the CUDA
@@ -65,6 +66,14 @@ steps/s and M particle-steps/s, then `occupied` and `peak_cell` of the
 final density raster and the overflow count (particles past a cell's
 `--bin-capacity` slots, which only `dense` drops).  The warm-up is one
 step.
+
+mpm: the same engine rule as flip (the three CUDA kernels on a GPU, the
+cell-dense `dense` engine on the CPU; `cuda` on the CPU fails; `scatter`
+is the exact engine anywhere; `--engine auto` is the default here, JAX's
+CLI defaults to dense); it prints the engine, steps/s and M
+particle-steps/s, the mean height of the final state and the overflow
+count.  JAX's `--cols`/`--rows` only size its terminal frames, which are
+not ported.  The warm-up is one step.
 """
 
 from __future__ import annotations
@@ -433,6 +442,35 @@ def cmd_flip(args):
     return out
 
 
+def cmd_mpm(args):
+    from .core.device import resolve_device
+    from .solvers import mpm
+
+    device = resolve_device(args.device)
+    cfg = mpm.MPMConfig(n=args.n, gx=args.gx, gy=args.gy, dt=args.dt,
+                        gravity=args.gravity, seed=args.seed,
+                        material=args.material, engine=args.engine,
+                        bin_capacity=args.bin_capacity, dtype=args.dtype)
+    engine = mpm.resolve_engine(cfg, device)
+    out, res = _bench_run(lambda st, n: mpm.run(cfg, st, n),
+                          mpm.init(cfg, device), args.steps, 1, cfg.n)
+    print(f"mpm n={cfg.n} grid={cfg.gx}x{cfg.gy} {cfg.material} {cfg.dtype} "
+          f"engine={engine} device={_device_name(device)}: "
+          f"{res['steps']} steps in {res['wall_s']:.3f}s -> "
+          f"{res['steps_per_sec']:.1f} steps/s, "
+          f"{res['mcells_per_sec']:.2f}M particle-steps/s")
+    print(f"mean y {float(out.pos[:, 1].mean()):.6f}")
+    n_dropped = int(mpm.overflow_count(cfg, out))
+    print(f"overflow: {n_dropped} particles beyond the cell capacity "
+          f"K={cfg.capacity}")
+    if n_dropped > 0:
+        print(f"WARNING: {n_dropped}/{cfg.n} particles exceed the "
+              "cell-dense bin capacity and are excluded from the transfers "
+              "this frame; raise --bin-capacity or use --engine scatter "
+              "for exact physics", file=sys.stderr)
+    return out
+
+
 def _engine_args(p, block_k: int) -> None:
     p.add_argument("--engine", choices=("auto", "cuda", "torch"),
                    default="auto",
@@ -727,6 +765,31 @@ def build_parser():
     p.add_argument("--device", default="cuda",
                    help="cuda, cuda:N or cpu; a missing GPU is an error")
     p.set_defaults(fn=cmd_flip)
+
+    p = sub.add_parser("mpm", help="MLS-MPM elastoplastic (tau_mpm)")
+    p.add_argument("--n", type=int, default=1 << 15)
+    p.add_argument("--gx", type=int, default=96)
+    p.add_argument("--gy", type=int, default=96)
+    p.add_argument("--dt", type=float, default=8e-5)
+    p.add_argument("--gravity", type=float, default=9.81)
+    p.add_argument("--seed", type=int, default=2026)
+    p.add_argument("--material", default="snow",
+                   choices=["mud", "snow", "sand"])
+    p.add_argument("--engine", choices=("auto", "cuda", "dense", "scatter"),
+                   default="auto",
+                   help="auto = the CUDA kernels on a GPU, the cell-dense "
+                        "engine on the CPU; cuda and scatter are exact, "
+                        "dense drops particles past --bin-capacity")
+    p.add_argument("--bin-capacity", type=int, default=0, dest="bin_capacity",
+                   help="cell-dense slots per cell (0 = auto); particles "
+                        "beyond it are dropped and reported")
+    p.add_argument("--steps", type=int, default=500,
+                   help="number of physics steps")
+    p.add_argument("--dtype", default="float32",
+                   choices=("float32", "float64"))
+    p.add_argument("--device", default="cuda",
+                   help="cuda, cuda:N or cpu; a missing GPU is an error")
+    p.set_defaults(fn=cmd_mpm)
     return ap
 
 

@@ -10,8 +10,8 @@ the engines.  `hyp3d_state_from_numpy` / `hyp3d_state_to_numpy` and
 `hyp3d_config_from_dict` do the same for the 3-D hypersonic solver, and
 the `gs_*`, `lbm_*`, `burgers_*`, `sw_*`, `mhd_*`, `stam3d_*` and
 `stam2d_*` functions for Gray–Scott, the D2Q9 LBM, Burgers, shallow water,
-GLM-MHD and the 3-D and 2-D stable fluids, and the `flip_*` functions for
-FLIP/APIC.
+GLM-MHD and the 3-D and 2-D stable fluids, the `flip_*` functions for
+FLIP/APIC and the `mpm_*` functions for MLS-MPM.
 Nothing here imports the JAX package.
 
 Every `device=None` means the GPU, as for the solvers' `init`.
@@ -31,6 +31,7 @@ from .solvers.hypersonic2d import Hypersonic2DState
 from .solvers.hypersonic3d import Hypersonic3DConfig, Hypersonic3DState
 from .solvers.lbm import LBMConfig, LBMState
 from .solvers.mhd import ConsM, MHDConfig, MHDState
+from .solvers.mpm import MPMConfig, MPMState
 from .solvers.shallow_water import ShallowWaterConfig, ShallowWaterState
 from .solvers.sph import SPHConfig, SPHState
 from .solvers.stam2d import Stam2DConfig, Stam2DState
@@ -50,7 +51,8 @@ __all__ = ["state_from_numpy", "state_to_numpy", "sph_state_from_numpy",
            "stam3d_config_from_dict", "stam2d_state_from_numpy",
            "stam2d_state_to_numpy", "stam2d_config_from_dict",
            "flip_state_from_numpy", "flip_state_to_numpy",
-           "flip_config_from_dict"]
+           "flip_config_from_dict", "mpm_state_from_numpy",
+           "mpm_state_to_numpy", "mpm_config_from_dict"]
 
 # JAX engine name -> port engine name
 _ENGINES = {"auto": "auto", "pallas": "cuda", "hybrid": "cuda",
@@ -380,3 +382,35 @@ def flip_config_from_dict(fields: dict) -> FlipApicConfig:
     which drops the particles past a cell's K slots; the port's 'cuda'
     engine has the 'scatter' semantics and drops none."""
     return _config(FlipApicConfig, fields)
+
+
+def mpm_state_from_numpy(pos, vel, F, Jp, *, dtype: torch.dtype,
+                         device=None) -> MPMState:
+    """Build an MLS-MPM state from (np, 2) pos and vel, (np, 2, 2) F and
+    (np,) Jp.  The arrays are copied into contiguous tensors (JAX's init
+    makes F a broadcast view)."""
+    device = _device(device)
+    pos, vel, F, Jp = (torch.tensor(np.ascontiguousarray(f), dtype=dtype,
+                                    device=device)
+                       for f in (pos, vel, F, Jp))
+    n = pos.shape[0]
+    if (pos.shape != (n, 2) or vel.shape != (n, 2) or F.shape != (n, 2, 2)
+            or Jp.shape != (n,)):
+        raise ValueError("pos, vel, F and Jp must be (np, 2), (np, 2), "
+                         "(np, 2, 2) and (np,), got "
+                         f"{[tuple(f.shape) for f in (pos, vel, F, Jp)]}")
+    return MPMState(pos=pos, vel=vel, F=F, Jp=Jp)
+
+
+def mpm_state_to_numpy(state: MPMState):
+    """(pos, vel, F, Jp) as numpy, copied to the host."""
+    return tuple(f.detach().cpu().numpy() for f in state)
+
+
+def mpm_config_from_dict(fields: dict) -> MPMConfig:
+    """The port's MPMConfig for the fields of a JAX MPMConfig (`asdict()`):
+    engine 'pallas' becomes 'cuda'; 'dense' and 'scatter' keep their names.
+    JAX's 'pallas' is its cell-dense engine in VMEM, which drops the
+    particles past a cell's K slots; the port's 'cuda' engine has the
+    'scatter' semantics and drops none."""
+    return _config(MPMConfig, fields)

@@ -1,0 +1,237 @@
+"""CUDA kernels of the MLS-MPM step, with their wrappers and plain PyTorch
+versions, and the 'cuda' engine's step built on them.
+
+* `p2g(cfg, pos, vel, F, Jp)` — csrc/mpm_p2g.cu, which replaces the TPU
+  kernel fluidsims_tpu/kernels/mpm_pallas.py::_p2g_kernel: the quadratic
+  B-spline transfer of mass and of momentum plus the stress force over
+  each particle's 3x3 nodes by atomicAdd, into three zeroed (Gy, Gx)
+  grids; out-of-grid targets are skipped.  Plain version: `p2g_plain`
+  (solvers/mpm.py::_p2g, `index_add_`).
+* `grid_update(cfg, mass, mom_x, mom_y)` — csrc/mpm_grid.cu, which
+  replaces mpm_pallas.py::_grid_kernel: normalize, gravity, the sticky
+  bands, one thread a node.  Plain version: `grid_update_plain`
+  (solvers/mpm.py::_grid_update).
+* `g2p(cfg, pos, F, Jp, gu, gv)` — csrc/mpm_g2p.cu, which replaces
+  mpm_pallas.py::_g2p_kernel: per particle the gathered velocity and C,
+  the F, Jp and position updates.  Plain version: `g2p_plain`
+  (solvers/mpm.py::_g2p).
+* `make_step_cuda(cfg)` — the 'cuda' engine's step: solvers/mpm.py::_step
+  on the three kernels, one launch of each a step; around them only the
+  zero fill of the P2G grids.
+
+The plain versions are the 'scatter' engine's functions, so that engine is
+their composition.  The grid update and G2P are bitwise equal to their
+plain versions for equal inputs (same operation order, true divisions,
+the library built with -fmad=false); P2G's atomics add in no fixed order
+and it calls CUDA's exp and log, so it matches its plain version to
+rounding.  Every constant the kernels take (inv_dx, the stress scale,
+gravity*dt, the clip bounds) is formed in Python doubles as JAX forms it
+and rounded once to the dtype.
+
+The wrappers take the plain version for CPU tensors only, uncounted.  For
+CUDA tensors they check device, dtype, shape and contiguity, launch on the
+current stream, count the launch in `LAUNCHES`, and raise if the launch
+fails; nothing falls back.  Nothing writes the tensors it is given.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..solvers import mpm
+from . import _build
+from ._common import LaunchCounter, check_tensors, on_cpu
+
+__all__ = ["LAUNCHES", "reset_launches", "p2g", "p2g_plain", "grid_update",
+           "grid_update_plain", "g2p", "g2p_plain", "make_step_cuda", "load"]
+
+LAUNCHES = LaunchCounter("p2g", "grid", "g2p")
+reset_launches = LAUNCHES.reset
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _consts_struct(ctype):
+    """ctypes twin of csrc/mpm.cuh's MPMConsts<T>."""
+    names = ("inv_dx", "dx", "pm", "fe_lo", "fe_hi", "hardening", "mu0",
+             "lambda0", "stress_c", "c4", "dt", "x_lo", "x_hi", "y_hi")
+    return type(f"MPMConsts_{ctype.__name__}", (ctypes.Structure,), {
+        "_fields_": [("gx", ctypes.c_int), ("gy", ctypes.c_int),
+                     ("material", ctypes.c_int)]
+        + [(name, ctype) for name in names]})
+
+
+_CONSTS = {torch.float32: _consts_struct(ctypes.c_float),
+           torch.float64: _consts_struct(ctypes.c_double)}
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """Build (first use) and load the kernel library, with typed entry
+    points."""
+    lib = _build.load_library()
+    P, I, L, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_double
+    for dtype, sfx in _SUFFIX.items():
+        C = ctypes.POINTER(_CONSTS[dtype])
+        fn = getattr(lib, f"fst_mpm_p2g_{sfx}")
+        fn.argtypes = [P] * 7 + [L, C, I, P]
+        fn.restype = I
+        fn = getattr(lib, f"fst_mpm_grid_{sfx}")
+        fn.argtypes = [P] * 5 + [I, I, D, I, P]
+        fn.restype = I
+        fn = getattr(lib, f"fst_mpm_g2p_{sfx}")
+        fn.argtypes = [P] * 9 + [L, C, I, P]
+        fn.restype = I
+    lib.fst_cuda_error_string.argtypes = [I]
+    lib.fst_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def consts(cfg: mpm.MPMConfig, dtype: torch.dtype):
+    """The kernels' MPMConsts for cfg: each constant a Python double formed
+    as JAX forms it, rounded to the dtype by ctypes."""
+    dx = cfg.dx
+    inv_dx = 1.0 / dx
+    return _CONSTS[dtype](
+        gx=cfg.gx, gy=cfg.gy, material=mpm.MATERIALS[cfg.material],
+        inv_dx=inv_dx, dx=dx, pm=cfg.particle_mass,
+        fe_lo=1.0 - cfg.critical_compression,
+        fe_hi=1.0 + cfg.critical_stretch, hardening=cfg.hardening,
+        mu0=cfg.mu0, lambda0=cfg.lambda0,
+        stress_c=-4.0 * inv_dx * inv_dx * cfg.dt * cfg.volume,
+        c4=4.0 * inv_dx, dt=cfg.dt, x_lo=2.0 * dx,
+        x_hi=(cfg.gx - 3.0) * dx, y_hi=(cfg.gy - 3.0) * dx)
+
+
+def _dtype_of(ref: torch.Tensor) -> torch.dtype:
+    if ref.dtype not in _SUFFIX:
+        raise TypeError(f"no kernel for dtype {ref.dtype}")
+    return ref.dtype
+
+
+def _check_particles(pos, F, Jp, **pairs) -> int:
+    """np of the particle fields: pos and every other (np, 2) field, F
+    (np, 2, 2) and Jp (np,); raises unless all lie on pos' device with one
+    dtype that has a kernel, and are contiguous."""
+    shape = tuple(pos.shape)
+    if len(shape) != 2 or shape[1] != 2 or shape[0] < 1:
+        raise ValueError(f"pos must be (np, 2), got {shape}")
+    dtype, dev = _dtype_of(pos), pos.device
+    check_tensors({"pos": pos, **pairs}, shape, dtype, dev)
+    check_tensors({"F": F}, (shape[0], 2, 2), dtype, dev)
+    check_tensors({"Jp": Jp}, (shape[0],), dtype, dev)
+    return shape[0]
+
+
+def _check_grids(cfg, ref, **fields) -> None:
+    """Raise unless every field is a contiguous (Gy, Gx) grid of cfg's
+    shape, on ref's device with its dtype."""
+    check_tensors(fields, (cfg.gy, cfg.gx), _dtype_of(ref), ref.device)
+
+
+def _raise_if(code: int, lib, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(
+            f"mpm {what} failed: CUDA error {code} "
+            f"({lib.fst_cuda_error_string(code).decode()})")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+# ------------------------------------ P2G ------------------------------------
+
+
+def p2g_plain(cfg, pos, vel, F, Jp):
+    """Plain PyTorch version of the P2G kernel: (mass, mom_x, mom_y)."""
+    return mpm._p2g(cfg, pos, vel, F, Jp)
+
+
+def p2g(cfg, pos, vel, F, Jp):
+    """(mass, mom_x, mom_y), each (Gy, Gx), of the particles' transfer:
+    the kernel on CUDA tensors, the plain version on CPU tensors."""
+    if on_cpu(pos):
+        return p2g_plain(cfg, pos, vel, F, Jp)
+    n_p = _check_particles(pos, F, Jp, vel=vel)
+    dev = pos.device
+    grids = torch.zeros((3, cfg.gy, cfg.gx), dtype=pos.dtype, device=dev)
+    lib = load()
+    code = getattr(lib, f"fst_mpm_p2g_{_SUFFIX[pos.dtype]}")(
+        pos.data_ptr(), vel.data_ptr(), F.data_ptr(), Jp.data_ptr(),
+        grids[0].data_ptr(), grids[1].data_ptr(), grids[2].data_ptr(), n_p,
+        ctypes.byref(consts(cfg, pos.dtype)), dev.index, _stream(dev))
+    _raise_if(code, lib, "p2g kernel launch")
+    LAUNCHES["p2g"] += 1
+    return grids[0], grids[1], grids[2]
+
+
+# -------------------------------- grid update --------------------------------
+
+
+def grid_update_plain(cfg, mass, mom_x, mom_y):
+    """Plain PyTorch version of the grid-update kernel: (gu, gv)."""
+    return mpm._grid_update(cfg, mass, mom_x, mom_y)
+
+
+def grid_update(cfg, mass, mom_x, mom_y):
+    """(gu, gv), each (Gy, Gx), from the P2G grids: the kernel on CUDA
+    tensors, the plain version on CPU tensors."""
+    if on_cpu(mass):
+        return grid_update_plain(cfg, mass, mom_x, mom_y)
+    _check_grids(cfg, mass, mass=mass, mom_x=mom_x, mom_y=mom_y)
+    dev = mass.device
+    out = torch.empty((2, cfg.gy, cfg.gx), dtype=mass.dtype, device=dev)
+    lib = load()
+    code = getattr(lib, f"fst_mpm_grid_{_SUFFIX[mass.dtype]}")(
+        mass.data_ptr(), mom_x.data_ptr(), mom_y.data_ptr(),
+        out[0].data_ptr(), out[1].data_ptr(), cfg.gx, cfg.gy,
+        float(cfg.gravity * cfg.dt), dev.index, _stream(dev))
+    _raise_if(code, lib, "grid update kernel launch")
+    LAUNCHES["grid"] += 1
+    return out[0], out[1]
+
+
+# ------------------------------------ G2P ------------------------------------
+
+
+def g2p_plain(cfg, pos, F, Jp, gu, gv):
+    """Plain PyTorch version of the G2P kernel: (pos, vel, F, Jp)."""
+    return mpm._g2p(cfg, pos, F, Jp, gu, gv)
+
+
+def g2p(cfg, pos, F, Jp, gu, gv):
+    """The particles' new (pos, vel, F, Jp) from the node velocities: the
+    kernel on CUDA tensors, the plain version on CPU tensors.  The outputs
+    are views of one fresh buffer, each contiguous."""
+    if on_cpu(pos):
+        return g2p_plain(cfg, pos, F, Jp, gu, gv)
+    n_p = _check_particles(pos, F, Jp)
+    _check_grids(cfg, pos, gu=gu, gv=gv)
+    dev = pos.device
+    buf = torch.empty(9 * n_p, dtype=pos.dtype, device=dev)
+    out = (buf[:2 * n_p].view(n_p, 2), buf[2 * n_p:4 * n_p].view(n_p, 2),
+           buf[4 * n_p:8 * n_p].view(n_p, 2, 2), buf[8 * n_p:])
+    lib = load()
+    code = getattr(lib, f"fst_mpm_g2p_{_SUFFIX[pos.dtype]}")(
+        pos.data_ptr(), F.data_ptr(), Jp.data_ptr(), gu.data_ptr(),
+        gv.data_ptr(), *(o.data_ptr() for o in out), n_p,
+        ctypes.byref(consts(cfg, pos.dtype)), dev.index, _stream(dev))
+    _raise_if(code, lib, "g2p kernel launch")
+    LAUNCHES["g2p"] += 1
+    return out
+
+
+def make_step_cuda(cfg):
+    """Step (state, grid_reduce) -> state on the three kernels:
+    solvers/mpm.py::_step with `p2g`, `grid_update` and `g2p`, one launch
+    of each."""
+    return lambda s, grid_reduce=None: mpm._step(
+        cfg, s, functools.partial(p2g, cfg),
+        functools.partial(grid_update, cfg), functools.partial(g2p, cfg),
+        grid_reduce)

@@ -63,9 +63,9 @@ def test_every_module_listed():
                 "kernels.mhd_cuda", "ops.scalar", "ops.gather",
                 "solvers.stam3d", "kernels.stam3d_cuda", "solvers.stam2d",
                 "kernels.stam2d_cuda", "solvers.flip_apic",
-                "kernels.flip_cuda"):
+                "kernels.flip_cuda", "solvers.mpm", "kernels.mpm_cuda"):
         assert f"fluidsims_tpu_torch.{mod}" in MODULES
-    assert len(MODULES) >= 45
+    assert len(MODULES) >= 47
 
 
 @pytest.mark.parametrize("mod", MODULES)
