@@ -93,15 +93,20 @@ failure of which ends the run with a non-zero exit:
              kernels (one cooperative launch of k whole steps) against their
              plain PyTorch versions, f32 and f64, from init plus seeded
              noise, on a ragged 200x75 and an aligned 256x128 grid: Burgers
-             plain, MUSCL, visc_substeps=2 and Cole–Hopf (ny=1); shallow
-             water with nu > 0 and nu = 0; MHD Brio–Wu and Orszag–Tang with
-             both flux signs; on 200x75 also a NaN cell (Burgers and shallow
+             plain, MUSCL, visc_substeps=2 and 3, MUSCL with 9 (two passes)
+             and Cole–Hopf (ny=1); shallow water with nu > 0 and nu = 0;
+             MHD Brio–Wu and Orszag–Tang with both flux signs; the Burgers
+             and shallow-water cases also on 5x3, a grid narrower than the
+             tiles' halos; on 200x75 also a NaN cell (Burgers and shallow
              water turn NaN everywhere, MHD reverts every cell, t NaN, as
              the plain step).  k = 1 along three plain steps within 1e-5
              (f32) / 1e-12 (f64) relative; k = 8 against 8 plain steps within
              the JAX suite's resident-kernel bars (f64: 1e-10); k = 8
              bitwise equal to 8 launches of k = 1; run(cfg, s, 23) at
-             block_k=8 makes exactly 2 + 7 launches.
+             block_k=8 makes exactly 2 + 7 launches; the Burgers and
+             shallow-water launches of k = 8 and k = 1 make K + 1 grid
+             syncs (Burgers: K more for each pass past the first) as the
+             kernel counts them.
 14. resident_main — solvers.burgers.run, solvers.shallow_water.run and
              solvers.mhd.run with engine 'auto', which must resolve to
              'cuda': bench.py's burgers_512x512, shallow_water_512x512 and
@@ -140,15 +145,19 @@ failure of which ends the run with a non-zero exit:
 17. stam2d_kernels — the two 2-D stable-fluids kernels (the whole
              Jacobi solve in one cooperative launch, the exact bilinear
              advection of one or two fields) against their plain PyTorch
-             versions, f32 and f64, at n=512, 200 and 37 on seeded fields:
-             the solve at 40 and 7 sweeps with (a, c) = (1, 4) and
-             (0.26, 2.04), x unchanged, within 1e-5 (f32) / 1e-12 (f64)
-             relative; the advection of one field, two fields and the
-             velocity pair (u0, v0 advected by themselves) at two velocity
-             scales, the larger carrying back-traces past 16 rows and past
-             the grid edge, within 1e-6 / 1e-13; bitwise cases counted;
-             then 5 steps of the cuda engine against the 'torch' engine at
-             n=128 within 1e-5 / 1e-12.
+             versions, f32 and f64, at n=512, 200 and 37 on seeded fields
+             (the solve also at n=1 and 65): the solve at 40, 7, 1, h and
+             h + 1 sweeps (h: sweeps a grid sync) with (a, c) = (1, 4) and
+             (0.26, 2.04), x unchanged, bitwise equal and with
+             ceil(sweeps / h) - 1 grid syncs as the kernel counts them, or
+             the script fails (here and from phase 18's final states); the
+             advection of one
+             field, two fields and the velocity pair (u0, v0 advected by
+             themselves) at two velocity scales, the larger carrying
+             back-traces past 16 rows and past the grid edge, within 1e-6
+             / 1e-13, bitwise cases counted; then 5 steps of the cuda
+             engine against the 'torch' engine at n=128 within 1e-5 /
+             1e-12.
 18. stam2d_main — solvers.stam2d.run with engine 'auto', which must
              resolve to 'cuda': Stam2DConfig() (512^2 f32, bench.py's
              stam2d_512x512 size and its 400 steps) and 512^2 f64 x 400
@@ -220,7 +229,13 @@ the bytes it must move (inputs read once, outputs written once) over
 the peaks of an H100 SXM at 700 W; bound_by says which.  Operation counts
 per cell or pair are counted from the CUDA sources (see *_OPS below);
 where the work depends on the data (SPH pairs), this run's pairs are
-counted.
+counted.  The lines of the tiled kernels (#7: Burgers and shallow water;
+#9: the stam2d solve) also carry `tiling` at the main runs' configs, per
+dtype: the blocks, threads a block, tile, halo and dynamic shared memory
+that the library's grid query reports, the grid syncs of one launch as
+the kernel counted them, and ptxas's registers, static shared memory,
+stack and spills of each instantiation; #7's lines carry `ms_one_step`, a
+k = 1 launch back to back (the host's cost a call included).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -1517,12 +1532,16 @@ def check_resident_case(name, mods, cfg, s, key, errs) -> float:
         worst, errs[name] = max(worst, rel), max(errs[name], ab)
         st = plain(cfg, st, 1)
     got8 = kern(cfg, s, 8)
+    if name in TILED:
+        check_tiled_syncs(name, kmod, cfg, s, 8, key)
     rel, ab = resident_err(got8, plain(cfg, s, 8), f"{key} k=8",
                            k_bars(name, dt))
     worst, errs[name] = max(worst, rel), max(errs[name], ab)
     one = s
     for _ in range(8):
         one = kern(cfg, one, 1)
+    if name in TILED:
+        check_tiled_syncs(name, kmod, cfg, s, 1, key)
     resident_err(got8, one, f"{key} k=8 vs 8 x k=1", BITWISE)
     c8 = cfg.replace(block_k=8)
     kmod.reset_launches()
@@ -1535,20 +1554,51 @@ def check_resident_case(name, mods, cfg, s, key, errs) -> float:
     return worst
 
 
+# The tiled K-step kernels (#7), which count their grid syncs.
+TILED = ("burgers", "sw")
+
+
+def tiled_syncs_want(name, kmod, cfg, k: int) -> int:
+    """The grid syncs a launch of k steps makes by the sources' notes: K +
+    1, and for Burgers K more for each pass past the first."""
+    extra = len(kmod.plan(cfg)[2]) - 1 if name == "burgers" else 0
+    return k + 1 + extra * k
+
+
+def check_tiled_syncs(name, kmod, cfg, s, k: int, key: str) -> int:
+    """The grid syncs of the launch of k steps just made on s's device, as
+    the kernel counted them: tiled_syncs_want's, or the script fails."""
+    got = kmod.grid_syncs(cfg, s[0].device)
+    want = tiled_syncs_want(name, kmod, cfg, k)
+    if got != want:
+        raise AssertionError(f"{key} k={k}: the kernel made {got} grid "
+                             f"syncs, want {want}")
+    return got
+
+
 def resident_cases(bg, swm, mhd, nx, ny, dtype):
-    """(solver, config, NaN cell?) of phase 13 on one grid."""
+    """(solver, config, NaN cell?) of phase 13 on one grid.  On 5x3, a grid
+    narrower than every tile's halo, Burgers and shallow water only."""
     cases = [("burgers", bg.BurgersConfig(nx=nx, ny=ny, dtype=dtype,
                                           dtau=1e-2), False),
              ("burgers", bg.BurgersConfig(nx=nx, ny=ny, dtype=dtype,
                                           dtau=1e-2, muscl=True), False),
              ("burgers", bg.BurgersConfig(nx=nx, ny=ny, dtype=dtype,
                                           dtau=1e-2, visc_substeps=2), False),
+             ("burgers", bg.BurgersConfig(nx=nx, ny=ny, dtype=dtype,
+                                          dtau=1e-2, visc_substeps=3), False),
+             # MUSCL with 9 substeps: halo 8, a second pass of 3 substeps
+             ("burgers", bg.BurgersConfig(nx=nx, ny=ny, dtype=dtype,
+                                          dtau=1e-2, muscl=True,
+                                          visc_substeps=9), False),
              ("burgers", bg.BurgersConfig(nx=nx, ny=1, dtype=dtype,
                                           colehopf=True, dtau=1e-3), False),
              ("sw", swm.ShallowWaterConfig(nx=nx, ny=ny, dtype=dtype,
                                            dtau=1e-3), False),
              ("sw", swm.ShallowWaterConfig(nx=nx, ny=ny, dtype=dtype,
                                            dtau=1e-3, nu=0.0), False)]
+    if (nx, ny) == (5, 3):
+        return cases
     for problem in ("briowu", "orszag-tang"):
         for stable in (False, True):
             cases.append(("mhd", mhd.MHDConfig(nx=nx, ny=ny, dtype=dtype,
@@ -1567,7 +1617,7 @@ def phase_resident_kernels(mods, bg, swm, mhd, device) -> dict:
     errs = {name: 0.0 for name in RESIDENT}
     errs["rel"] = {}
     for dtype in ("float32", "float64"):
-        for nx, ny in ((200, 75), (256, 128)):
+        for nx, ny in ((200, 75), (256, 128), (5, 3)):
             for name, cfg, nan in resident_cases(bg, swm, mhd, nx, ny, dtype):
                 mod = mods[name][0]
                 s = resident_state(mod, cfg, device, SEED, nan)
@@ -1580,10 +1630,14 @@ def phase_resident_kernels(mods, bg, swm, mhd, device) -> dict:
                 if nan:
                     check_nan_case(name, mods, cfg, s, key)
                 errs["rel"][key] = worst
+                syncs = "" if name not in TILED else (
+                    ", grid syncs as the kernel counted them " + " and ".join(
+                        f"{tiled_syncs_want(name, mods[name][1], cfg, k)} "
+                        f"(k={k})" for k in (8, 1)))
                 log(f"[resident] {key}: k=1 max rel err {worst:.3e} (tol "
                     f"{STEP_TOL[cfg.torch_dtype]:g}), k=8 within the JAX "
                     f"bars, k=8 bitwise equal to 8 x k=1, run(23) = 2 + 7 "
-                    f"launches")
+                    f"launches{syncs}")
     return errs
 
 
@@ -1789,6 +1843,9 @@ def phase_resident_main(mods, device, smi, errs,
                                      5 if big else 50),
                  "plain_ms": time_launches(lambda: plain(cfg, out, kk),
                                            1 if big else 3)}
+        if k == 1:  # back to back, so the host's cost a call shows too
+            times["ms_one_step"] = time_launches(lambda: kern(cfg, out, 1),
+                                                 200)
         bnd = resident_bound(name, cfg, kk)
         log(f"[resident] {key} final state: kernel vs plain max rel err "
             f"k=1 {rel:.3e}, k={kk} {rel_k:.3e}; per launch of {kk} steps on "
@@ -1800,7 +1857,45 @@ def phase_resident_main(mods, device, smi, errs,
     return res
 
 
-def resident_kernel_lines(res, errs) -> list:
+def tiled_design(bk, swk, s2k, bg, swm, build, device) -> dict:
+    """The tiling of the redesigned kernels at the main runs' configs
+    (Burgers 512^2 at block_k 16, shallow water 512^2 at 8, the stam2d
+    solve at 512^2 and 40 sweeps), per dtype, as this run's library
+    reports it: the grid query's blocks (`grid`), threads a block, tile,
+    halo and dynamic shared memory a block (the launch's own make_args);
+    the grid syncs of one launch as the kernel counted them (held to K + 1
+    and ceil(40 / h) - 1); and ptxas's registers, static shared memory,
+    stack and spills of each instantiation in this run's build."""
+    out = {}
+    for name, kname in (("burgers", "burgers_multistep_kernel"),
+                        ("sw", "sw_multistep_kernel"),
+                        ("lin_solve", "lin_solve_kernel")):
+        d = {"ptxas": build.ptxas_usage(kname)}
+        for dtype in ("float32", "float64"):
+            if name == "lin_solve":
+                dt = torch.float32 if dtype == "float32" else torch.float64
+                shape = s2k.solve_launch(512, dt, device.index)
+                x, b = stam2d_fields(512, dt, device, SEED, 2)
+                s2k.lin_solve(x, b, 1.0, 4.0, 40)
+                syncs = check_solve_syncs(s2k, x, 40, f"512^2 {dtype}")
+            else:
+                mod, kmod, kern = ((bg, bk, bk.burgers_multistep)
+                                   if name == "burgers" else
+                                   (swm, swk, swk.sw_multistep))
+                cfg = (mod.BurgersConfig if name == "burgers" else
+                       mod.ShallowWaterConfig)(nx=512, ny=512, dtype=dtype)
+                shape = kmod.launch_shape(cfg, device.index)
+                s = mod.init(cfg, device)
+                kern(cfg, s, cfg.block_k)
+                syncs = check_tiled_syncs(name, kmod, cfg, s, cfg.block_k,
+                                          f"{name} 512^2 {dtype}")
+            d[dtype] = {**shape.asdict(), "grid_syncs_per_launch": syncs}
+        out[name] = d
+        log(f"[build] {name} tiling: {d}")
+    return out
+
+
+def resident_kernel_lines(res, errs, design) -> list:
     """The {"kernels": [...]} entries of the three K-step kernels: time
     and bound a launch at the reference size f32 and default block_k, the
     large grid's and f64's beside them; launches summed over each
@@ -1839,7 +1934,10 @@ def resident_kernel_lines(res, errs) -> list:
             "ms_f64": c["times"]["ms"], "plain_ms_f64": c["times"]["plain_ms"],
             "bound_ms_f64": c["bound"][0], "bound_by_f64": c["bound"][1],
             "steps_per_s": {key: res[key]["rate"] for key in res
-                            if key.startswith(name + " ")}})
+                            if key.startswith(name + " ")},
+            **({"ms_one_step": res[ref.split(" K=")[0] + " K=1"]["times"]
+                ["ms_one_step"], "tiling": design[name]}
+               if name in design else {})})
     out[-1]["max_rel_err"] = errs["rel"]
     return out
 
@@ -2079,7 +2177,6 @@ def stam3d_kernel_lines(res, errs) -> list:
 # Two kernels (TPU kernels #9-#10), kernels/stam2d_cuda.py; `s2k` below is
 # the wrapper module, `s2` the solver.
 
-STAM2D_SOLVE_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 # stam2d_lin_solve.cu per cell and sweep: the 3 adds of sum4, a * sum,
 # + b, / c.
 STAM2D_SOLVE_OPS_PER_CELL_SWEEP = 6
@@ -2109,21 +2206,36 @@ def stam2d_coeffs(cfg) -> tuple:
 
 
 def check_stam2d_solve(s2k, x, b, a, c, iters, what, errs) -> tuple:
-    """The solve kernel against its plain version from the same x and b,
-    within STAM2D_SOLVE_TOL relative, x unchanged: (max rel err, bitwise
-    equal)."""
+    """The solve kernel against its plain version from the same x and b:
+    bitwise equal (the kernel runs the plain version's operations in its
+    order), x unchanged: (max rel err, bitwise equal)."""
     keep = x.clone()
     got = s2k.lin_solve(x, b, a, c, iters)
+    check_solve_syncs(s2k, x, iters, what)
     ref = s2k.lin_solve_plain(x, b, a, c, iters)
     if not torch.equal(x, keep):
         raise AssertionError(f"lin_solve {what}: the kernel wrote x")
     rel, ab = rel_err(got, ref)
     errs["lin_solve"] = max(errs["lin_solve"], ab)
-    tol = STAM2D_SOLVE_TOL[x.dtype]
-    if not rel <= tol:
+    if not same(got, ref):
         raise AssertionError(f"lin_solve {what} (a={a:g}, c={c:g}, {iters} "
-                             f"sweeps): max rel err {rel:.3e} > {tol:g}")
-    return rel, same(got, ref)
+                             f"sweeps): not bitwise equal to the plain "
+                             f"version (max rel err {rel:.3e})")
+    return rel, True
+
+
+def check_solve_syncs(s2k, x, iters: int, what: str) -> int:
+    """The grid syncs of the solve just launched on x's shape, as the
+    kernel counted them: ceil(iters / h) - 1 for h sweeps a sync (the grid
+    query's halo), or the script fails."""
+    n = x.shape[0]
+    h = s2k.solve_launch(n, x.dtype, x.device.index).halo
+    got = s2k.solve_grid_syncs(n, x.dtype, x.device)
+    if got != -(-iters // h) - 1:
+        raise AssertionError(f"lin_solve {what}, {iters} sweeps, {h} a "
+                             f"sync: the kernel made {got} grid syncs, want "
+                             f"{-(-iters // h) - 1}")
+    return got
 
 
 def check_stam2d_advect(s2k, cfg, qs, uu, vv, what, errs) -> tuple:
@@ -2160,13 +2272,30 @@ def stam2d_reach(s2, cfg, vv) -> tuple[int, int]:
 def phase_stam2d_kernels(s2k, s2, device) -> dict:
     errs = {"lin_solve": 0.0, "advect": 0.0, "rel": {}}
     for dtype in ("float32", "float64"):
+        # the solve alone on a 1-cell field and on a ragged 65^2 one (more
+        # tiles than a block row), at 1, h and h + 1 sweeps (h: sweeps a
+        # grid sync) and the default 40: a phase shorter than h, exactly
+        # h, and one more phase of a single sweep
+        h = s2k.solve_launch(1, s2.Stam2DConfig(dtype=dtype).torch_dtype,
+                             device.index).halo
+        for n in (1, 65):
+            x, b = stam2d_fields(n, s2.Stam2DConfig(n=n, dtype=dtype)
+                                 .torch_dtype, device, SEED + n, 2)
+            for iters in (1, h, h + 1, 40):
+                for a, c in ((1.0, 4.0), (0.26, 2.04)):
+                    check_stam2d_solve(s2k, x, b, a, c, iters,
+                                       f"n={n} {dtype}", errs)
+        log(f"[stam2d] lin_solve n=1 and 65 {dtype} at 1, {h}, {h + 1} and "
+            "40 sweeps, (a, c) = (1, 4) and (0.26, 2.04): bitwise equal to "
+            "the plain version, x unchanged, ceil(sweeps / h) - 1 grid "
+            "syncs as the kernel counted them")
         for n in (512, 200, 37):
             cfg = s2.Stam2DConfig(n=n, dtype=dtype)
             key = f"n={n} {dtype}"
             x, b, q, q2 = stam2d_fields(n, cfg.torch_dtype, device,
                                         SEED + n, 4)
             solves = [check_stam2d_solve(s2k, x, b, a, c, iters, key, errs)
-                      for iters in (40, 7)
+                      for iters in (40, 7, 1, h, h + 1)
                       for a, c in ((1.0, 4.0), (0.26, 2.04))]
             advects, reach = [], []
             for scale in (0.05, 2.0):
@@ -2184,14 +2313,14 @@ def phase_stam2d_kernels(s2k, s2, device) -> dict:
             bits = sum(bit for _, bit in solves + advects)
             cases = len(solves) + len(advects)
             errs["rel"][key] = {"lin_solve": rel_s, "advect": rel_a}
-            log(f"[stam2d] {key}: lin_solve (40 and 7 sweeps, (a, c) = "
-                f"(1, 4) and (0.26, 2.04)) and advect (1, 2 fields and the "
+            log(f"[stam2d] {key}: lin_solve (40, 7, 1, {h} and {h + 1} "
+                f"sweeps, (a, c) = (1, 4) and (0.26, 2.04); each bitwise or "
+                f"the script fails) and advect (1, 2 fields and the "
                 f"velocity pair; back-traces past 16 rows / past the edge "
                 f"{reach[0]} at scale 0.05, {reach[1]} at 2.0) vs plain: "
                 f"{bits} of {cases} cases bitwise; max rel err lin_solve "
-                f"{rel_s:.3e} (tol {STAM2D_SOLVE_TOL[cfg.torch_dtype]:g}), "
-                f"advect {rel_a:.3e} (tol {ADVECT_TOL[cfg.torch_dtype]:g}); "
-                "x unchanged")
+                f"{rel_s:.3e}, advect {rel_a:.3e} (tol "
+                f"{ADVECT_TOL[cfg.torch_dtype]:g}); x unchanged")
     for dtype in ("float32", "float64"):
         cfg = s2.Stam2DConfig(n=128, dtype=dtype)
         if s2.resolve_engine(cfg, device) != "cuda":
@@ -2271,12 +2400,12 @@ def phase_stam2d_main(s2k, s2, device, smi, errs,
             raise AssertionError("the plain engine launched a kernel")
         rate, p_rate = steps / wall, p_steps / p_wall
         cells = cfg.n ** 2
+        shape = s2k.solve_launch(cfg.n, cfg.torch_dtype, device.index)
         log(f"[stam2d] {cfg.n}^2 {dtype} engine={engine} on {smi}: {steps} "
             f"steps in {wall:.3f} s, {rate:.2f} steps/s, "
             f"{cells * rate / 1e6:.1f} Mcell-steps/s; plain torch engine "
             f"{p_steps} steps {p_rate:.2f} steps/s; launches {launches}; "
-            f"a solve is {s2k._grid(cfg.n, cfg.torch_dtype, device.index)} "
-            f"blocks of 256 threads")
+            f"a solve's launch {shape.asdict()}")
         phys = check_stam2d_physics(s2, cfg, out)
 
         # both kernels against their plain versions at the main path's
@@ -2326,7 +2455,7 @@ def phase_stam2d_main(s2k, s2, device, smi, errs,
     return res
 
 
-def stam2d_kernel_lines(res, errs) -> list:
+def stam2d_kernel_lines(res, errs, design) -> list:
     """The {"kernels": [...]} entries of the two stam2d kernels: times and
     bounds from the final state of the 512^2 f32 run (the advection's: the
     velocity pair), the f64 run's beside them; launches summed over both
@@ -2350,6 +2479,7 @@ def stam2d_kernel_lines(res, errs) -> list:
             "plain_ms_f64": b["times"][name + "_plain"],
             "bound_ms_f64": b["bounds"][name][0],
             "bound_by_f64": b["bounds"][name][1]})
+    out[0]["tiling"] = design["lin_solve"]
     adv = out[-1]
     for k, r in (("f32", a), ("f64", b)):
         adv[f"ms_density_{k}"] = r["times"]["advect1"]
@@ -3116,9 +3246,10 @@ def main() -> int:
     kernels[-2]["max_rel_err"] = hyp3d_errs["rel"]
     kernels.extend(stencil_kernel_lines(stencil_res, stencil_errs))
     kernels[-1]["max_rel_err"] = stencil_errs["rel"]
-    kernels.extend(resident_kernel_lines(resident_res, resident_errs))
+    design = tiled_design(bk, swk, s2k, bg, swm, _build, device)
+    kernels.extend(resident_kernel_lines(resident_res, resident_errs, design))
     kernels.extend(stam3d_kernel_lines(stam3d_res, stam3d_errs))
-    kernels.extend(stam2d_kernel_lines(stam2d_res, stam2d_errs))
+    kernels.extend(stam2d_kernel_lines(stam2d_res, stam2d_errs, design))
     kernels.extend(transfer_kernel_lines(
         "flip", FLIP_RUNS, {"p2g": 82, "grid": 126, "g2p": 171}, flip_res,
         flip_errs))

@@ -3,7 +3,8 @@
 // max as torch.minimum / torch.maximum / torch.clamp_min compute them, the
 // exact grid-wide max of a step's wavespeeds, and the cooperative launch,
 // which the 2-D stable fluids' whole-solve Jacobi kernel
-// (stam2d_lin_solve.cu) uses too, its grid asked once and kept.
+// (stam2d_lin_solve.cu) and FLIP's grid phase (flip_grid.cu) use too,
+// their grids asked once and kept.
 //
 // The grid-wide max.  Every wavespeed is >= +0, and for non-negative IEEE
 // values the order of the bit patterns is the order of the values, so a
@@ -11,10 +12,13 @@
 // float) is the exact max, whatever the order the atomics land in.  Bit
 // atomics drop NaN, so a flag beside the bits records whether any
 // wavespeed was NaN; the max read back is then NaN, as torch.max's is.
-// Each step uses its own slot of three: step s accumulates into slot s % 3
-// and one thread clears slot (s + 1) % 3, which nobody reads or writes
-// again until step s + 1 (between the last read of that slot, in step
-// s - 2, and the clear lie at least one grid sync).
+// Each step uses its own slot of three: in mhd_multistep.cu step s
+// accumulates into slot s % 3 and one thread clears slot (s + 1) % 3,
+// which nobody reads or writes again until step s + 1 (between the last
+// read of that slot, in step s - 2, and the clear lie at least one grid
+// sync); the tiled kernels rotate the slots one step ahead (their notes
+// say how) and fold and read them with tiles.cuh's block_max_add and
+// slot_max_read.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -109,40 +113,81 @@ __device__ __forceinline__ int wrap1(int i, int n) {
   return i;
 }
 
-// The grid of a cooperative launch of `kernel`: one block of kStepThreads
-// threads per kStepThreads cells, capped at the blocks that can be
-// resident at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs):
-// a cooperative launch past that is refused.  Returns the CUDA error code.
+// The blocks of a cooperative launch of `kernel` with `threads` threads and
+// `smem` bytes of dynamic shared memory a block: `want` blocks, capped at
+// the blocks that can be resident at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs, asked with the same
+// `threads` and `smem`): a cooperative launch past that is refused.
+// Returns the CUDA error code; a failed query leaves no error behind for the
+// next launch's check.
 template <typename Kernel>
-int cooperative_grid(Kernel kernel, long long cells, int device, int* grid) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+int cooperative_blocks(Kernel kernel, long long want, int device, int* grid,
+                       size_t smem = 0, int threads = kStepThreads) {
   int coop = 0, sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-  if (err != cudaSuccess) return (int)err;
-  if (!coop) return (int)cudaErrorNotSupported;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kStepThreads, 0);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  if (err == cudaSuccess && !coop) return (int)cudaErrorNotSupported;
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  // With shared memory, ask for the largest shared-memory carveout, so that
+  // the launch gets the carveout the occupancy query counted on (left to
+  // the CUDA runtime, a later launch may get a smaller one and hold fewer
+  // blocks an SM than the grid needs); above 48 KB, allow the device's
+  // largest block (less the kernel's static shared memory), once, so that
+  // no query lowers what another launch of the kernel needs.
+  if (err == cudaSuccess && smem > 0)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  int optin = 0;
+  cudaFuncAttributes fa{};
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 device);
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncGetAttributes(&fa, kernel);
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin - (int)fa.sharedSizeBytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long want = (cells + kStepThreads - 1) / kStepThreads;
   const long long cap = (long long)per_sm * sms;
   *grid = (int)(want < cap ? want : cap);
   return 0;
 }
 
-// Launches `kernel(args)` cooperatively on `grid` blocks of kStepThreads
-// threads (a grid from cooperative_grid).  Returns the CUDA error code.
+// The grid of a cooperative launch of `kernel` that walks `cells` cells in
+// grid-stride loops: one block of kStepThreads threads per kStepThreads
+// cells, capped as cooperative_blocks caps it.
+template <typename Kernel>
+int cooperative_grid(Kernel kernel, long long cells, int device, int* grid) {
+  return cooperative_blocks(kernel, (cells + kStepThreads - 1) / kStepThreads,
+                            device, grid);
+}
+
+// Launches `kernel(args)` cooperatively on `grid` blocks of `threads`
+// threads with `smem` bytes of dynamic shared memory a block (a grid from
+// cooperative_blocks or cooperative_grid, asked with the same `threads` and
+// `smem`).  Returns the CUDA error code.
 template <typename Kernel, typename Args>
 int launch_cooperative_on(Kernel kernel, const Args& args, int grid,
-                          int device, void* stream) {
+                          int device, void* stream, size_t smem = 0,
+                          int threads = kStepThreads) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   void* params[] = {(void*)&args};
   err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
-                                    dim3(kStepThreads), params, 0,
+                                    dim3(threads), params, smem,
                                     (cudaStream_t)stream);
   if (err != cudaSuccess) {
     cudaGetLastError();  // a refused launch also sets the last error

@@ -4,85 +4,198 @@
 //
 // Replaces the TPU kernel fluidsims_tpu/kernels/stam2d_pallas.py::
 // _lin_solve_kernel (pallas_call at :80), which held x and b in VMEM and
-// ran every sweep there, so that only x, b and the result crossed HBM.  A
-// block of an H100 cannot hold a 512^2 field, so the sweeps are spread
-// over the whole card and separated by grid syncs: one cooperative launch
-// (csrc/grid_reduce.cuh) per solve, grid-stride loops over the cells.  The
-// sweeps ping-pong between out and one scratch field, the first reading
-// x, with the parity chosen so that the last sweep writes out: any count,
-// odd too, and x, the state's warm start, is never written.  a and c are
-// launch arguments, as the Pallas kernel's SMEM scalars are, so the
-// diffusion and pressure solves share one build.  sum4 is summed in the
-// plain version's order (rows j-1, j+1, then columns i-1, i+1, zeros
-// added where the ring is; solvers/stam2d.py::_sum4) and c divides truly,
-// so with -fmad=false the result is bitwise that of the plain version.
+// ran every sweep there, so that only x, b and the result crossed HBM.
 //
-// What bounds it on an H100: bytes, once.  A launch must read x and b and
-// write out (3 MiB at 512^2 f32, ~0.94 us at 3.35 TB/s); the sweeps between
-// read and write the 1 MiB fields in L2 (50 MB).  What sets its pace is
-// the grid sync between sweeps, `iters - 1` a launch: a first, correct
-// kernel; several sweeps a sync (halos in shared memory) is later work.
-// Fields written during the launch are read with plain loads, not __ldg:
-// the read-only cache is not coherent with other blocks' writes.
+// What bounds it on an H100.  The bytes a solve must move are few: x and b
+// read and the result written (3 MiB at 512^2 f32, ~0.94 us at 3.35
+// TB/s); 40 sweeps are ~10 M operations.  What the first design lost: a
+// block of an H100 cannot hold a 512^2 field, so it spread each sweep
+// over the card as a grid-stride loop and separated the sweeps by grid
+// syncs, iters - 1 a solve (39 at 40 sweeps, ~3.9 us each: 155.59 us a
+// solve, 166x the bound), each sweep reading its neighbours from L2.
+//
+// The design: temporal blocking.  Each block owns tiles of tile_x x
+// tile_y cells (a persistent cooperative grid, grid_reduce.cuh, walks
+// them when there are more tiles than resident blocks).  A phase of `h`
+// sweeps loads the tile and a halo of h cells of x (the previous phase's
+// result) and b into shared memory, once; runs the h sweeps there,
+// separated by __syncthreads, the valid region shrinking by one cell a
+// sweep (sweep j is right on the window less a ring of j cells: a cell's
+// update reads its four neighbours); and writes the tile.  One grid sync
+// separates two phases: ceil(iters / h) - 1 syncs a solve (4 at the
+// default 40 sweeps with h = 8).  The last phase runs the sweeps left
+// (iters - h (phases - 1), also when iters < h).  The tile, h and the
+// threads a block are constants (kSolveTileX x kSolveTileY = 64 x 32
+// clipped to the field, h = kSolveSweeps = 8, 512 threads; the grid query
+// reports them), one value for float and double, from the measurements of
+// tools/tune_tiles_torch.py.  The kernel counts its grid syncs (tiles.cuh
+// CountedGrid), which chip_smoke.py reads back and holds to ceil(iters /
+// h) - 1.  What bounds it now:
+// the sweeps' own work in shared memory, ~1.5x the cells of the tiles
+// (the halos shrink sweep by sweep) with a true division a cell, ~11 us a
+// phase at 512^2, against ~1.5 us a grid sync.  Window cells outside
+// [0, n)^2 are the zero ring: they are loaded as 0, set to 0 by every
+// sweep, and never written.
+//
+// The phases ping-pong between out and one scratch field, the first
+// reading x, with the parity chosen so that the last phase writes out: x,
+// the state's warm start, is never written.  A phase writes the buffer the
+// phase before it did not, and reads the one it did, across the grid sync
+// between them.  a and c are launch arguments, as the Pallas kernel's SMEM
+// scalars are, so the diffusion and pressure solves share one build.
+// sum4 is summed in the plain version's order (rows j-1, j+1, then columns
+// i-1, i+1, zeros added where the ring is; solvers/stam2d.py::_sum4) and c
+// divides truly, so with -fmad=false every cell is computed by the plain
+// version's operations on the plain version's inputs: the result is
+// bitwise that of the plain version.  Fields written during the launch
+// are read with plain loads, not __ldg: the read-only cache is not
+// coherent with other blocks' writes.
 #include <cuda_runtime.h>
 
-#include "grid_reduce.cuh"
+#include "tiles.cuh"
 
 namespace fst {
 namespace {
 
+// The solve's tile, sweeps a phase (its halo) and threads a block: one
+// value for float and double, from the sweep of tools/tune_tiles_torch.py
+// (which builds variants with -DFST_SOLVE_TILE_X=... and so on).
+#ifndef FST_SOLVE_TILE_X
+#define FST_SOLVE_TILE_X 64
+#endif
+#ifndef FST_SOLVE_TILE_Y
+#define FST_SOLVE_TILE_Y 32
+#endif
+#ifndef FST_SOLVE_SWEEPS
+#define FST_SOLVE_SWEEPS 8
+#endif
+#ifndef FST_SOLVE_THREADS
+#define FST_SOLVE_THREADS 512
+#endif
+constexpr int kSolveTileX = FST_SOLVE_TILE_X;
+constexpr int kSolveTileY = FST_SOLVE_TILE_Y;
+constexpr int kSolveSweeps = FST_SOLVE_SWEEPS;
+constexpr int kSolveThreads = FST_SOLVE_THREADS;
+
 template <typename T>
 struct LinSolveArgs {
-  const T* x;     // warm start, read by the first sweep only
+  const T* x;     // warm start, read by the first phase only
   const T* b;
   T* out;
-  T* scratch;     // the other ping-pong field (unused when iters == 1)
+  T* scratch;     // the other ping-pong field (unused with one phase)
+  unsigned long long* words;  // kTileWords; the last takes the sync count
   int n;
   int iters;
+  int tile_x, tile_y;  // the tile, clipped to the field
+  int tiles_x, tiles, window;
   T a;
   T c;
 };
 
 template <typename T>
-__global__ void __launch_bounds__(kStepThreads)
+__global__ void __launch_bounds__(kSolveThreads)
 lin_solve_kernel(LinSolveArgs<T> p) {
-  cg::grid_group grid = cg::this_grid();
+  CountedGrid grid = counted_grid();
+  extern __shared__ __align__(16) unsigned char fst_smem[];
+  T* sB = reinterpret_cast<T*>(fst_smem);
+  T* sX[2] = {sB + p.window, sB + 2 * p.window};
   const int n = p.n;
-  const long long cells = (long long)n * n;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const T zero = T(0);
+  const int phases = (p.iters + kSolveSweeps - 1) / kSolveSweeps;
   const T* src = p.x;
-  for (int k = 0; k < p.iters; ++k) {
-    T* dst = ((p.iters - 1 - k) % 2 == 0) ? p.out : p.scratch;
-    for (long long s = first; s < cells; s += stride) {
-      const int j = (int)(s / n);
-      const int i = (int)(s - (long long)j * n);
-      const T up = j > 0 ? src[s - n] : zero;
-      const T dn = j < n - 1 ? src[s + n] : zero;
-      const T lf = i > 0 ? src[s - 1] : zero;
-      const T rt = i < n - 1 ? src[s + 1] : zero;
-      const T sum = up + dn + lf + rt;
-      dst[s] = (__ldg(p.b + s) + p.a * sum) / p.c;
+  for (int ph = 0; ph < phases; ++ph) {
+    const int count = p.iters - ph * kSolveSweeps < kSolveSweeps
+                          ? p.iters - ph * kSolveSweeps
+                          : kSolveSweeps;
+    T* dst = ((phases - 1 - ph) % 2 == 0) ? p.out : p.scratch;
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      const Window w = window_of(tile, p.tiles_x, p.tile_x, p.tile_y, count);
+      const int wx = w.wx;
+      {
+        const T* const g[2] = {src, p.b};
+        T* const sd[2] = {sX[0], sB};
+        load_window<2>(w.wy, wx, [&](int ly, int lx) {
+          const int j = w.oy + ly, i = w.ox + lx;
+          return j >= 0 && j < n && i >= 0 && i < n ? (long long)j * n + i
+                                                    : -1ll;
+        }, g, sd);
+      }
+      __syncthreads();
+      for (int k = 1; k <= count; ++k) {
+        const T* xs = sX[(k - 1) & 1];
+        T* xd = sX[k & 1];
+        const bool last = k == count;
+        for_region(k, w.wy - k, k, wx - k, wx, [&](int ly, int lx, int c) {
+          const int j = w.oy + ly, i = w.ox + lx;
+          const bool in = j >= 0 && j < n && i >= 0 && i < n;
+          if (last) {  // the tile: write its cells inside the grid
+            if (in)
+              dst[(long long)j * n + i] =
+                  (sB[c] + p.a * (xs[c - wx] + xs[c + wx] + xs[c - 1] +
+                                  xs[c + 1])) / p.c;
+            return;
+          }
+          xd[c] = in ? (sB[c] + p.a * (xs[c - wx] + xs[c + wx] + xs[c - 1] +
+                                       xs[c + 1])) / p.c
+                     : T(0);
+        });
+        __syncthreads();
+      }
     }
-    if (k + 1 < p.iters) grid.sync();
+    if (ph + 1 < phases) grid.sync();
     src = dst;
   }
+  grid.write_syncs(p.words);
+}
+
+// The kernel's args (pointers aside) and dynamic shared memory;
+// cudaErrorInvalidValue for a field it does not take.
+template <typename T>
+int make_args(int n, LinSolveArgs<T>* a, size_t* smem) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  a->n = n;
+  a->tile_x = tile_of(kSolveTileX, n);
+  a->tile_y = tile_of(kSolveTileY, n);
+  a->tiles_x = (n + a->tile_x - 1) / a->tile_x;
+  a->tiles = a->tiles_x * ((n + a->tile_y - 1) / a->tile_y);
+  a->window = (a->tile_x + 2 * kSolveSweeps) * (a->tile_y + 2 * kSolveSweeps);
+  *smem = (size_t)3 * a->window * sizeof(T);
+  return 0;
+}
+
+// The launch of a solve on an (n, n) field: make_args's tile and shared
+// memory, the sweeps a phase as the halo, and the blocks of kSolveThreads.
+template <typename T>
+int lin_solve_grid(int n, int device, TileLaunch* out) {
+  LinSolveArgs<T> a{};
+  size_t smem = 0;
+  const int err = make_args(n, &a, &smem);
+  if (err != 0) return err;
+  *out = {0, kSolveThreads, a.tile_x, a.tile_y, kSolveSweeps, (int)smem};
+  return cooperative_blocks(lin_solve_kernel<T>, a.tiles, device, &out->grid,
+                            smem, kSolveThreads);
 }
 
 template <typename T>
-int lin_solve_grid(int n, int device, int* grid) {
-  return cooperative_grid(lin_solve_kernel<T>, (long long)n * n, device,
-                          grid);
-}
-
-template <typename T>
-int launch_lin_solve(const T* x, const T* b, T* out, T* scratch, int n,
-                     double a, double c, int iters, int grid, int device,
-                     void* stream) {
-  const LinSolveArgs<T> args{x, b, out, scratch, n, iters, T(a), T(c)};
-  return launch_cooperative_on(lin_solve_kernel<T>, args, grid, device,
-                               stream);
+int launch_lin_solve(const T* x, const T* b, T* out, T* scratch,
+                     unsigned long long* words, int n, double a, double c,
+                     int iters, int grid, int device, void* stream) {
+  LinSolveArgs<T> args{};
+  size_t smem = 0;
+  const int err = make_args(n, &args, &smem);
+  if (err != 0) return err;
+  if (iters < 1) return (int)cudaErrorInvalidValue;
+  args.x = x;
+  args.b = b;
+  args.out = out;
+  args.scratch = scratch;
+  args.words = words;
+  args.iters = iters;
+  args.a = T(a);
+  args.c = T(c);
+  return on_device(device, [&] {
+    return launch_cooperative_on(lin_solve_kernel<T>, args, grid, device,
+                                 stream, smem, kSolveThreads);
+  });
 }
 
 }  // namespace
@@ -90,28 +203,33 @@ int launch_lin_solve(const T* x, const T* b, T* out, T* scratch, int n,
 
 extern "C" {
 
-// The grid (blocks) of a solve on an (n, n) field: the wrapper asks once
-// per (n, dtype, device) and passes it to every launch.
-int fst_stam2d_lin_solve_grid_f32(int n, int device, int* grid) {
-  return fst::lin_solve_grid<float>(n, device, grid);
+// The launch of a solve on an (n, n) field on `device` (fst::TileLaunch):
+// the wrapper asks once per (n, dtype, device) and passes the grid to
+// every launch.
+int fst_stam2d_lin_solve_grid_f32(int n, int device, fst::TileLaunch* out) {
+  return fst::lin_solve_grid<float>(n, device, out);
 }
 
-int fst_stam2d_lin_solve_grid_f64(int n, int device, int* grid) {
-  return fst::lin_solve_grid<double>(n, device, grid);
+int fst_stam2d_lin_solve_grid_f64(int n, int device, fst::TileLaunch* out) {
+  return fst::lin_solve_grid<double>(n, device, out);
 }
 
+// `words`: kTileWords words; the launch leaves the count of its grid syncs
+// in the last.
 int fst_stam2d_lin_solve_f32(const float* x, const float* b, float* out,
-                             float* scratch, int n, double a, double c,
-                             int iters, int grid, int device, void* stream) {
-  return fst::launch_lin_solve<float>(x, b, out, scratch, n, a, c, iters,
-                                      grid, device, stream);
+                             float* scratch, unsigned long long* words, int n,
+                             double a, double c, int iters, int grid,
+                             int device, void* stream) {
+  return fst::launch_lin_solve<float>(x, b, out, scratch, words, n, a, c,
+                                      iters, grid, device, stream);
 }
 
 int fst_stam2d_lin_solve_f64(const double* x, const double* b, double* out,
-                             double* scratch, int n, double a, double c,
-                             int iters, int grid, int device, void* stream) {
-  return fst::launch_lin_solve<double>(x, b, out, scratch, n, a, c, iters,
-                                       grid, device, stream);
+                             double* scratch, unsigned long long* words,
+                             int n, double a, double c, int iters, int grid,
+                             int device, void* stream) {
+  return fst::launch_lin_solve<double>(x, b, out, scratch, words, n, a, c,
+                                       iters, grid, device, stream);
 }
 
 }  // extern "C"

@@ -26,13 +26,14 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
 
 __all__ = ["KernelBuildError", "NVCC_FLAGS", "build_dir", "find_nvcc",
-           "load_library", "build_log"]
+           "load_library", "build_log", "ptxas_usage"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -128,3 +129,29 @@ def build_log() -> str:
     """nvcc's output (ptxas register and spill report) for the loaded build."""
     path = _lib_path(find_nvcc()).with_suffix(".log")
     return path.read_text() if path.is_file() else ""
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
+
+
+def ptxas_usage(fragment: str, log: str | None = None) -> list[dict]:
+    """ptxas's report (build_log, or `log`) for every kernel whose mangled
+    name holds `fragment`: its registers a thread, static shared memory,
+    stack frame and spill stores and loads, in bytes."""
+    out, cur, spill = [], None, (0, 0, 0)
+    for line in (build_log() if log is None else log).splitlines():
+        if m := _ENTRY.search(line):
+            cur, spill = m.group(1), (0, 0, 0)
+        elif m := _SPILL.search(line):
+            spill = tuple(int(g) for g in m.groups())
+        elif (m := _REGS.search(line)) and cur is not None:
+            if fragment in cur:
+                out.append({"kernel": cur, "registers": int(m.group(1)),
+                            "static_smem": int(m.group(2) or 0),
+                            "stack": spill[0], "spill_stores": spill[1],
+                            "spill_loads": spill[2]})
+            cur = None
+    return out

@@ -1,16 +1,25 @@
 """What every kernel wrapper module shares: its launch counter, the
-device test that sends CPU tensors to the plain PyTorch versions, and the
-checks of the tensors a wrapper hands to its kernel."""
+device test that sends CPU tensors to the plain PyTorch versions, the
+checks of the tensors a wrapper hands to its kernel, and the launch report
+and scratch of the tiled cooperative kernels (csrc/tiles.cuh)."""
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
-__all__ = ["LaunchCounter", "on_cpu", "check_tensors", "GRID_MAX_WORDS"]
+__all__ = ["LaunchCounter", "on_cpu", "check_tensors", "GRID_MAX_WORDS",
+           "TILE_WORDS", "TileLaunch", "tile_launch", "tile_scratch",
+           "grid_syncs", "raise_if"]
 
 # Words of the grid-max scratch of the K-step τ-clock kernels
 # (csrc/grid_reduce.cuh): 3 slots of (bits, NaN flag).
 GRID_MAX_WORDS = 6
+# Words of a tiled kernel's slots (csrc/tiles.cuh kTileWords): the grid-max
+# slots, then the count of grid syncs the last launch made.
+TILE_WORDS = GRID_MAX_WORDS + 1
 
 
 class LaunchCounter(dict):
@@ -50,3 +59,50 @@ def check_tensors(tensors: dict, shape: tuple, dtype: torch.dtype,
                              f"says {tuple(shape)}")
         if not f.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+class TileLaunch(ctypes.Structure):
+    """Mirror of fst::TileLaunch (csrc/tiles.cuh): what a tiled kernel's
+    grid query reports of a launch, as the launch computes it."""
+
+    _fields_ = [(name, ctypes.c_int) for name in
+                ("grid", "threads", "tile_x", "tile_y", "halo",
+                 "smem_bytes")]
+
+    def asdict(self) -> dict:
+        return {name: getattr(self, name) for name, _ in self._fields_}
+
+
+def raise_if(code: int, lib, what: str) -> None:
+    """Raise RuntimeError naming `what` and the CUDA error, unless `code` is
+    0."""
+    if code:
+        raise RuntimeError(
+            f"{what} failed: CUDA error {code} "
+            f"({lib.fst_cuda_error_string(code).decode()})")
+
+
+def tile_launch(lib, query: str, *args) -> TileLaunch:
+    """The TileLaunch that the library's grid query `query` reports for
+    `args` (its arguments before the report); raises if the query fails."""
+    out = TileLaunch()
+    raise_if(getattr(lib, query)(*args, ctypes.byref(out)), lib, query)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def tile_scratch(kernel: str, numel: int, dtype: torch.dtype,
+                 device: torch.device, stream: int) -> tuple:
+    """(scratch of `numel` elements, TILE_WORDS slot words) of the tiled
+    kernel `kernel`'s launches on one stream: a launch uses them only while
+    it runs, and the next launch on that stream starts after it ends, so
+    one stream never has two launches on them at once; another stream gets
+    its own."""
+    return (torch.empty(numel, dtype=dtype, device=device),
+            torch.empty(TILE_WORDS, dtype=torch.int64, device=device))
+
+
+def grid_syncs(words: torch.Tensor) -> int:
+    """The grid syncs that the last launch on these slot words made, as
+    the kernel counted them (waits for the launch)."""
+    return int(words[TILE_WORDS - 1])

@@ -14,6 +14,12 @@ PyTorch version, and the 'cuda' engine's run built on it.
 k > 1, "step" for k = 1.  The wrapper takes the plain version for CPU
 tensors only; for CUDA tensors it checks, launches on the current stream,
 counts, and raises if the launch fails; nothing falls back.
+
+A call allocates only the state and the clock it returns.  The launch's
+grid and threads a block are asked of the card once per (config, device)
+(`launch_shape`), and its scratch (the state ping-pong copy) and slot
+words are kept per (shape, dtype, device, stream)
+(`_common.tile_scratch`, which says why that is safe).
 """
 
 from __future__ import annotations
@@ -26,10 +32,13 @@ import torch
 from ..core.stepper import run_split
 from ..solvers import shallow_water as sw
 from . import _build
-from ._common import GRID_MAX_WORDS, LaunchCounter, check_tensors, on_cpu
+from ._common import (LaunchCounter, TileLaunch, check_tensors, on_cpu,
+                      raise_if, tile_launch, tile_scratch)
+from ._common import grid_syncs as _grid_syncs
 
 __all__ = ["LAUNCHES", "MAX_BLOCK_K", "reset_launches", "sw_multistep",
-           "sw_multistep_plain", "run_kernels", "load"]
+           "sw_multistep_plain", "run_kernels", "load", "halo",
+           "launch_shape", "grid_syncs"]
 
 LAUNCHES = LaunchCounter("step", "multistep")
 reset_launches = LAUNCHES.reset
@@ -55,28 +64,69 @@ def load() -> ctypes.CDLL:
     """Build (first use) and load the kernel library, with typed entry
     points."""
     lib = _build.load_library()
-    P = ctypes.c_void_p
+    P, I = ctypes.c_void_p, ctypes.c_int
     for sfx in _SUFFIX.values():
+        fn = getattr(lib, f"fst_sw_multistep_grid_{sfx}")
+        fn.argtypes = [ctypes.POINTER(_Params), I, ctypes.POINTER(TileLaunch)]
+        fn.restype = I
         fn = getattr(lib, f"fst_sw_multistep_{sfx}")
-        fn.argtypes = [P] * 12 + [ctypes.POINTER(_Params), ctypes.c_int, P]
-        fn.restype = ctypes.c_int
-    lib.fst_cuda_error_string.argtypes = [ctypes.c_int]
+        fn.argtypes = [P] * 12 + [ctypes.POINTER(_Params), I, I, I, P]
+        fn.restype = I
+    lib.fst_cuda_error_string.argtypes = [I]
     lib.fst_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def halo(cfg) -> int:
+    """Cells of halo of the kernel's tiles: 1 for the HLL faces on both
+    sides of a cell, plus 1 for the viscosity's Laplacian when nu > 0."""
+    return 1 + int(cfg.nu > 0.0)
+
+
+@functools.lru_cache(maxsize=None)
 def _params(cfg, k: int) -> _Params:
-    """The constants of `step_fields`, as Python forms them."""
+    """The constants of `step_fields`, as Python forms them; one struct
+    per (config, k)."""
     inv_dx, inv_dy = 1.0 / cfg.dx, 1.0 / cfg.dy
-    return _Params(cfg.ny, cfg.nx, k, int(cfg.nu > 0.0), cfg.g, 0.5 * cfg.g,
-                   cfg.cfl * min(cfg.dx, cfg.dy), cfg.dtau, inv_dx, inv_dy,
-                   inv_dx * inv_dx, inv_dy * inv_dy, cfg.nu)
+    return _Params(cfg.ny, cfg.nx, k, int(cfg.nu > 0.0), cfg.g,
+                   0.5 * cfg.g, cfg.cfl * min(cfg.dx, cfg.dy), cfg.dtau,
+                   inv_dx, inv_dy, inv_dx * inv_dx, inv_dy * inv_dy, cfg.nu)
 
 
-def _scratch_fields(cfg) -> int:
-    """state ping-pong (3), depth by step parity (2), and with viscosity
-    the updated velocities (2)."""
-    return 7 if cfg.nu > 0.0 else 5
+@functools.lru_cache(maxsize=None)
+def launch_shape(cfg, index: int) -> TileLaunch:
+    """The launch of this config on device `index`, as the library
+    computes it: blocks and threads a block (512 when every tile then gets
+    its own resident block, else 256: csrc/tiles.cuh tile_grid), the tile
+    (kTileX x kTileY clipped to the grid), the halo (`halo`'s) and the
+    dynamic shared memory a block."""
+    return tile_launch(load(),
+                       f"fst_sw_multistep_grid_{_SUFFIX[cfg.torch_dtype]}",
+                       ctypes.byref(_params(cfg, 1)), index)
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_plan(cfg, k: int, index: int) -> tuple:
+    """(entry point, byref of the params, blocks, threads a block) of a
+    launch on device `index`: what a call needs of the config, formed once
+    per (config, k, device)."""
+    shape = launch_shape(cfg, index)
+    fn = getattr(load(), f"fst_sw_multistep_{_SUFFIX[cfg.torch_dtype]}")
+    return fn, ctypes.byref(_params(cfg, k)), shape.grid, shape.threads
+
+
+def _scratch(cfg, device: torch.device) -> tuple:
+    """(state ping-pong copy, slot words) of launches of this config on
+    the device's current stream."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    return tile_scratch("sw", 3 * cfg.ny * cfg.nx, cfg.torch_dtype, device,
+                        stream)
+
+
+def grid_syncs(cfg, device: torch.device) -> int:
+    """The grid syncs that the last launch of a config of this shape on the
+    device's current stream made, as the kernel counted them."""
+    return _grid_syncs(_scratch(cfg, device)[1])
 
 
 def _check(cfg, s) -> None:
@@ -103,29 +153,20 @@ def sw_multistep(cfg, s, k: int):
     if on_cpu(s.sigma):
         return sw_multistep_plain(cfg, s, k)
     _check(cfg, s)
-    lib = load()
     dev, dt = s.sigma.device, cfg.torch_dtype
-    cells = cfg.nx * cfg.ny
-    out = torch.empty((3, cfg.ny, cfg.nx), dtype=dt, device=dev)
-    clock = torch.empty(2, dtype=dt, device=dev)
-    scratch = torch.empty(_scratch_fields(cfg) * cells, dtype=dt, device=dev)
-    slots = torch.empty(GRID_MAX_WORDS, dtype=torch.int64, device=dev)
-    params = _params(cfg, k)
-    fn = getattr(lib, f"fst_sw_multistep_{_SUFFIX[dt]}")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(s.sigma.data_ptr(), s.u.data_ptr(), s.v.data_ptr(),
-                  s.t.data_ptr(), s.tau.data_ptr(), out[0].data_ptr(),
-                  out[1].data_ptr(), out[2].data_ptr(), clock[0].data_ptr(),
-                  clock[1].data_ptr(), scratch.data_ptr(), slots.data_ptr(),
-                  ctypes.byref(params), dev.index or 0, stream)
-    if code != 0:
-        raise RuntimeError(
-            f"shallow-water multistep kernel launch failed: CUDA error "
-            f"{code} ({lib.fst_cuda_error_string(code).decode()})")
+    fn, params, grid, threads = _launch_plan(cfg, k, dev.index)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch, words = tile_scratch("sw", 3 * cfg.ny * cfg.nx, dt, dev, stream)
+    sig, u, v = torch.empty((3, cfg.ny, cfg.nx), dtype=dt,
+                            device=dev).unbind(0)
+    t, tau = torch.empty(2, dtype=dt, device=dev).unbind(0)
+    code = fn(s.sigma.data_ptr(), s.u.data_ptr(), s.v.data_ptr(),
+              s.t.data_ptr(), s.tau.data_ptr(), sig.data_ptr(), u.data_ptr(),
+              v.data_ptr(), t.data_ptr(), tau.data_ptr(), scratch.data_ptr(),
+              words.data_ptr(), params, grid, threads, dev.index, stream)
+    raise_if(code, load(), "shallow-water multistep kernel launch")
     LAUNCHES["multistep" if k > 1 else "step"] += 1
-    return sw.ShallowWaterState(sigma=out[0], u=out[1], v=out[2], t=clock[0],
-                                tau=clock[1])
+    return sw.ShallowWaterState(sigma=sig, u=u, v=v, t=t, tau=tau)
 
 
 def run_kernels(cfg, s, n_steps: int):

@@ -4,9 +4,10 @@ PyTorch versions, and the 'cuda' engine's step built on them.
 * `lin_solve(x, b, a, c, iters)` — csrc/stam2d_lin_solve.cu, which
   replaces the TPU kernel fluidsims_tpu/kernels/stam2d_pallas.py::
   _lin_solve_kernel: the whole Jacobi solve, `iters` sweeps of
-  x <- (b + a * sum4(x)) / c on a zero ring, in one cooperative launch;
-  x is not written.  Plain version: `lin_solve_plain`
-  (solvers/stam2d.py::_lin_solve).
+  x <- (b + a * sum4(x)) / c on a zero ring, in one cooperative launch,
+  several sweeps a grid sync on tiles in shared memory (`solve_launch`
+  reports the tile and the sweeps a sync); x is not written.  Plain
+  version: `lin_solve_plain` (solvers/stam2d.py::_lin_solve).
 * `advect(cfg, qs, uu, vv)` — csrc/stam2d_advect.cu, which replaces
   stam2d_pallas.py::_advect_kernel: the exact bilinear back-trace of one
   or two fields by one velocity, in new tensors.  Plain version:
@@ -22,10 +23,10 @@ versions are the 'torch' engine's functions.
 The wrappers take the plain version for CPU tensors only.  For CUDA
 tensors they check device, dtype, shape and contiguity, launch on the
 current stream, count the launch in `LAUNCHES`, and raise if the launch
-fails; nothing falls back.  The solve's grid size is asked of the card
-once per (n, dtype, device), and its scratch field is kept per (n, dtype,
-device, stream): a solve's scratch is free again once the solve's launch
-has run, as the next launch on that stream runs after it.
+fails; nothing falls back.  The solve's grid is asked of the card once
+per (n, dtype, device) (`solve_launch`), and its scratch field and slot
+words are kept per (n, dtype, device, stream) (`_common.tile_scratch`,
+which says why that is safe).
 """
 
 from __future__ import annotations
@@ -37,10 +38,13 @@ import torch
 
 from ..solvers import stam2d as s2
 from . import _build
-from ._common import LaunchCounter, check_tensors, on_cpu
+from ._common import (LaunchCounter, TileLaunch, check_tensors, on_cpu,
+                      raise_if, tile_launch, tile_scratch)
+from ._common import grid_syncs as _grid_syncs
 
 __all__ = ["LAUNCHES", "reset_launches", "lin_solve", "lin_solve_plain",
-           "advect", "advect_plain", "make_step_cuda", "load"]
+           "advect", "advect_plain", "make_step_cuda", "load", "solve_launch",
+           "solve_grid_syncs"]
 
 LAUNCHES = LaunchCounter("lin_solve", "advect")
 reset_launches = LAUNCHES.reset
@@ -56,10 +60,10 @@ def load() -> ctypes.CDLL:
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for sfx in _SUFFIX.values():
         fn = getattr(lib, f"fst_stam2d_lin_solve_grid_{sfx}")
-        fn.argtypes = [I, I, ctypes.POINTER(I)]
+        fn.argtypes = [I, I, ctypes.POINTER(TileLaunch)]
         fn.restype = I
         fn = getattr(lib, f"fst_stam2d_lin_solve_{sfx}")
-        fn.argtypes = [P] * 4 + [I, D, D, I, I, I, P]
+        fn.argtypes = [P] * 5 + [I, D, D, I, I, I, P]
         fn.restype = I
         fn = getattr(lib, f"fst_stam2d_advect_{sfx}")
         fn.argtypes = [P] * 9 + [I, D, D, D, I, P]
@@ -83,30 +87,36 @@ def _check(**fields) -> int:
 
 
 def _raise_if(code: int, lib, what: str) -> None:
-    if code != 0:
-        raise RuntimeError(
-            f"stam2d {what} failed: CUDA error {code} "
-            f"({lib.fst_cuda_error_string(code).decode()})")
+    raise_if(code, lib, f"stam2d {what}")
 
 
 # ------------------------------- Jacobi solve --------------------------------
 
 
 @functools.lru_cache(maxsize=None)
-def _grid(n: int, dtype: torch.dtype, index: int) -> int:
-    """Blocks of a solve's cooperative launch on an (n, n) field."""
-    lib = load()
-    grid = ctypes.c_int(0)
-    code = getattr(lib, f"fst_stam2d_lin_solve_grid_{_SUFFIX[dtype]}")(
-        n, index, ctypes.byref(grid))
-    _raise_if(code, lib, "lin_solve grid query")
-    return grid.value
+def solve_launch(n: int, dtype: torch.dtype, index: int) -> TileLaunch:
+    """The launch of a solve on an (n, n) field on device `index`, as the
+    library computes it: blocks, threads a block, the tile (csrc/
+    stam2d_lin_solve.cu kSolveTileX x kSolveTileY clipped to the field),
+    the halo (= the sweeps a grid sync, kSolveSweeps) and the dynamic
+    shared memory a block.  A solve of `iters` sweeps makes
+    ceil(iters / halo) - 1 grid syncs."""
+    return tile_launch(load(), f"fst_stam2d_lin_solve_grid_{_SUFFIX[dtype]}",
+                       n, index)
 
 
-@functools.lru_cache(maxsize=None)
-def _scratch(n: int, dtype: torch.dtype, device: torch.device,
-             stream: int) -> torch.Tensor:
-    return torch.empty((n, n), dtype=dtype, device=device)
+def _scratch(n: int, dtype: torch.dtype, device: torch.device) -> tuple:
+    """(scratch field, slot words) of solves on the device's current
+    stream."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    return tile_scratch("lin_solve", n * n, dtype, device, stream)
+
+
+def solve_grid_syncs(n: int, dtype: torch.dtype,
+                     device: torch.device) -> int:
+    """The grid syncs that the last solve on an (n, n) field of `dtype` on
+    the device's current stream made, as the kernel counted them."""
+    return _grid_syncs(_scratch(n, dtype, device)[1])
 
 
 def lin_solve_plain(x, b, a: float, c: float, iters: int):
@@ -125,14 +135,14 @@ def lin_solve(x, b, a: float, c: float, iters: int):
     n = _check(x=x, b=b)
     dev = x.device
     lib = load()
-    grid = _grid(n, x.dtype, dev.index)
+    shape = solve_launch(n, x.dtype, dev.index)
     out = torch.empty_like(x)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        scratch = _scratch(n, x.dtype, dev, stream) if iters > 1 else out
-        code = getattr(lib, f"fst_stam2d_lin_solve_{_SUFFIX[x.dtype]}")(
-            x.data_ptr(), b.data_ptr(), out.data_ptr(), scratch.data_ptr(), n,
-            float(a), float(c), iters, grid, dev.index, stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch, words = tile_scratch("lin_solve", n * n, x.dtype, dev, stream)
+    code = getattr(lib, f"fst_stam2d_lin_solve_{_SUFFIX[x.dtype]}")(
+        x.data_ptr(), b.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        words.data_ptr(), n, float(a), float(c), iters, shape.grid,
+        dev.index, stream)
     _raise_if(code, lib, "lin_solve kernel launch")
     LAUNCHES["lin_solve"] += 1
     return out

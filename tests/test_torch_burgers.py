@@ -28,6 +28,7 @@ from fluidsims_tpu_torch.core.config import ConfigError
 from fluidsims_tpu_torch.kernels import burgers_cuda as bk
 from fluidsims_tpu_torch.solvers import burgers as tbg
 from tests.oracles.burgers_oracle import BurgersOracle
+from tests.oracles.tiled_step import kernel_tile, tiled_step_fields
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -238,8 +239,88 @@ def test_params_are_the_python_constants():
     assert (p.inv_dx2, p.inv_dy2) == (4.0, 16.0)
     one_d = bk._params(cfg.replace(colehopf=True, ny=1), 1)
     assert (one_d.one_d, one_d.inv_dy, one_d.inv_dy2) == (1, 0.0, 0.0)
-    assert bk._scratch_fields(cfg) == 8
-    assert bk._scratch_fields(cfg.replace(visc_substeps=1)) == 6
+    assert (p.first, p.per_pass) == (3, bk.MAX_HALO)
+    assert bk._scratch_fields(cfg) == 2
+    assert bk._scratch_fields(cfg.replace(visc_substeps=1)) == 2
+
+
+def decode_alike_everywhere(cfg, phi):
+    """u0 sinh(phi) from exp, whose bits do not depend on a cell's place
+    in the array (torch's CPU sinh takes another path at an array's tail,
+    so a window and the whole grid would differ by ulps)."""
+    return cfg.u0 * (0.5 * (torch.exp(phi) - torch.exp(-phi)))
+
+
+TILED = [(nx, ny, opt) for nx, ny in ((40, 28), (5, 3))
+         for opt in ("plain", "muscl", "visc3", "muscl_visc3", "nu0")] + [
+    (64, 1, "colehopf")]
+TILED_OPTS = {"plain": {}, "muscl": {"muscl": True},
+              "visc3": {"visc_substeps": 3},
+              "muscl_visc3": {"muscl": True, "visc_substeps": 3},
+              "nu0": {"nu": 0.0},
+              "colehopf": {"colehopf": True, "dtau": 1e-3}}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("nx, ny, opt", TILED)
+def test_tiled_step_model_is_bitwise_the_step(monkeypatch, dtype, nx, ny,
+                                              opt):
+    """The kernel's tiling (its tile clipped to the grid; bk.plan's halo:
+    the flux stencil's reach, 2 with MUSCL and 1 without, plus the
+    viscosity substeps), modelled in torch, is bitwise the plain step: on
+    a ragged 40x28 grid, on 5x3 (narrower than the halo: windows wrap
+    onto the tile) and in Cole–Hopf's ny = 1."""
+    monkeypatch.setattr(tbg, "_decode", decode_alike_everywhere)
+    cfg = tbg.BurgersConfig(nx=nx, ny=ny, dtype=dtype,
+                            **dict(dict(dtau=1e-2), **TILED_OPTS[opt]))
+    reach, halo, passes = bk.plan(cfg)
+    assert (reach, len(passes)) == (2 if cfg.muscl else 1, 1)
+    assert halo == reach + cfg.visc_substeps
+    rng = np.random.default_rng(nx * ny)
+    s = tbg.init(cfg, CPU)
+    s = s._replace(**{f: getattr(s, f) + torch.tensor(
+        0.1 * rng.standard_normal((ny, nx)), dtype=s.phi_u.dtype)
+        for f in ("phi_u", "phi_v")})
+    for _ in range(2):
+        ref = tbg.step(cfg, s)
+        got = tiled_step_fields(tbg.step_fields, cfg, (s.phi_u, s.phi_v),
+                                s.t, kernel_tile(nx, ny), halo)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref[:2]))
+        s = ref
+
+
+@pytest.mark.parametrize("opt", ["plain", "muscl", "visc3"])
+def test_tiled_step_model_needs_the_full_halo(monkeypatch, opt):
+    """One cell less of halo and the model is no longer the step: the
+    test above can see a wrong halo."""
+    monkeypatch.setattr(tbg, "_decode", decode_alike_everywhere)
+    cfg = tbg.BurgersConfig(nx=40, ny=28, dtype="float64", dtau=1e-2,
+                            **TILED_OPTS[opt])
+    s = tbg.init(cfg, CPU)
+    _, halo, _ = bk.plan(cfg)
+    ref = tbg.step(cfg, s)
+    got = tiled_step_fields(tbg.step_fields, cfg, (s.phi_u, s.phi_v), s.t,
+                            kernel_tile(cfg.nx, cfg.ny), halo - 1)
+    assert not all(torch.equal(a, b) for a, b in zip(got, ref[:2]))
+
+
+@pytest.mark.parametrize("muscl, nsub, passes", [
+    (False, 1, (1,)), (True, 1, (1,)), (False, 7, (7,)), (True, 6, (6,)),
+    (True, 7, (6, 1)), (False, 8, (7, 1)), (True, 15, (6, 8, 1)),
+    (False, 23, (7, 8, 8))])
+def test_plan_splits_substeps_into_passes(muscl, nsub, passes):
+    """A pass holds at most MAX_HALO cells of halo: the first runs the
+    convective update and MAX_HALO - reach substeps at most, each later
+    one MAX_HALO at most; the kernel's scratch holds the (u, v) pairs
+    between passes only when there is more than one."""
+    cfg = tbg.BurgersConfig(nx=24, ny=20, muscl=muscl, visc_substeps=nsub)
+    reach, halo, got = bk.plan(cfg)
+    assert got == passes and sum(got) == nsub
+    assert halo == reach + got[0] <= bk.MAX_HALO
+    assert max(got[1:], default=0) <= bk.MAX_HALO
+    assert bk._scratch_fields(cfg) == (2 if len(got) == 1 else 6)
+    p = bk._params(cfg, 3)
+    assert (p.first, p.per_pass) == (got[0], bk.MAX_HALO)
 
 
 def test_init_defaults_to_gpu():

@@ -103,6 +103,34 @@ def test_build_flags():
     assert "-fmad=false" in flags
 
 
+def test_ptxas_usage_reads_each_kernel_of_the_log():
+    """ptxas_usage picks a kernel's registers, static shared memory, stack
+    and spills out of nvcc's -Xptxas -v log (chip_smoke.py reports them
+    for the tiled kernels)."""
+    log = (
+        "ptxas info    : Compiling entry function "
+        "'_ZN3fst24burgers_multistep_kernelIfEEv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for "
+        "_ZN3fst24burgers_multistep_kernelIfEEv\n"
+        "    16 bytes stack frame, 8 bytes spill stores, "
+        "12 bytes spill loads\n"
+        "ptxas info    : Used 64 registers, used 1 barriers, 472 bytes "
+        "cmem[0]\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN3fst16lin_solve_kernelIdEEv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for "
+        "_ZN3fst16lin_solve_kernelIdEEv\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, used 1 barriers, 96 bytes smem, "
+        "400 bytes cmem[0]\n")
+    (b,) = _build.ptxas_usage("burgers_multistep", log)
+    assert (b["registers"], b["static_smem"], b["stack"], b["spill_stores"],
+            b["spill_loads"]) == (64, 0, 16, 8, 12)
+    (s,) = _build.ptxas_usage("lin_solve", log)
+    assert (s["registers"], s["static_smem"], s["spill_stores"]) == (40, 96, 0)
+    assert _build.ptxas_usage("sw_multistep", log) == []
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.delenv("CUDA_PATH", raising=False)

@@ -29,6 +29,7 @@ from fluidsims_tpu_torch.core.config import ConfigError
 from fluidsims_tpu_torch.kernels import shallow_water_cuda as swk
 from fluidsims_tpu_torch.solvers import shallow_water as tsw
 from tests.oracles.shallow_water_oracle import SWOracle
+from tests.oracles.tiled_step import kernel_tile, tiled_step_fields
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -242,8 +243,49 @@ def test_params_are_the_python_constants():
     assert (p.inv_dx, p.inv_dy, p.inv_dx2, p.inv_dy2, p.nu) == (
         2.0, 0.5, 4.0, 0.25, 0.02)
     assert swk._params(cfg.replace(nu=0.0), 1).visc == 0
-    assert (swk._scratch_fields(cfg), swk._scratch_fields(
-        cfg.replace(nu=0.0))) == (7, 5)
+    assert (swk.halo(cfg), swk.halo(cfg.replace(nu=0.0))) == (2, 1)
+
+
+def noisy(cfg, seed):
+    s = tsw.init(cfg, CPU)
+    rng = np.random.default_rng(seed)
+    return s._replace(**{f: getattr(s, f) + torch.tensor(
+        amp * rng.standard_normal((cfg.ny, cfg.nx)), dtype=s.u.dtype)
+        for f, amp in (("sigma", 1e-3), ("u", 0.5), ("v", 0.5))})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("nu", [0.01, 0.0])
+@pytest.mark.parametrize("nx, ny", [(40, 28), (5, 3), (1, 1)])
+def test_tiled_step_model_is_bitwise_the_step(dtype, nu, nx, ny):
+    """The kernel's tiling (its tile clipped to the grid; swk.halo: 1 for
+    the HLL faces on both sides of a cell, plus 1 for the viscosity when
+    nu > 0), modelled in torch, is bitwise the plain step:
+    on a ragged 40x28 grid, on 5x3 and 1x1 (narrower than the halo:
+    windows wrap onto the tile)."""
+    cfg = tsw.ShallowWaterConfig(nx=nx, ny=ny, dtype=dtype, nu=nu,
+                                 dtau=1e-3)
+    assert swk.halo(cfg) == (2 if nu > 0 else 1)
+    s = noisy(cfg, nx * ny)
+    for _ in range(2):
+        ref = tsw.step(cfg, s)
+        got = tiled_step_fields(tsw.step_fields, cfg, (s.sigma, s.u, s.v),
+                                s.t, kernel_tile(nx, ny), swk.halo(cfg))
+        assert all(torch.equal(a, b) for a, b in zip(got, ref[:3]))
+        s = ref
+
+
+@pytest.mark.parametrize("nu", [0.01, 0.0])
+def test_tiled_step_model_needs_the_full_halo(nu):
+    """One cell less of halo and the model is no longer the step: the
+    test above can see a wrong halo."""
+    cfg = tsw.ShallowWaterConfig(nx=40, ny=28, dtype="float64", nu=nu,
+                                 dtau=1e-3)
+    s = noisy(cfg, 1)
+    ref = tsw.step(cfg, s)
+    got = tiled_step_fields(tsw.step_fields, cfg, (s.sigma, s.u, s.v), s.t,
+                            kernel_tile(cfg.nx, cfg.ny), swk.halo(cfg) - 1)
+    assert not all(torch.equal(a, b) for a, b in zip(got, ref[:3]))
 
 
 def test_init_defaults_to_gpu():

@@ -26,6 +26,7 @@ from fluidsims_tpu.solvers import stam2d as js
 from fluidsims_tpu_torch import interop
 from fluidsims_tpu_torch.kernels import _build
 from fluidsims_tpu_torch.kernels import stam2d_cuda as sc
+from fluidsims_tpu_torch.ops.scalar import div
 from fluidsims_tpu_torch.solvers import stam2d as ts
 from tests.oracles.stam2d_oracle import Stam2DOracle
 
@@ -361,6 +362,92 @@ def test_cuda_composition_equals_torch_engine(dtype, iters):
     for x, y in zip(s0, keep):
         assert torch.equal(x, y)
     assert sc.LAUNCHES == {"lin_solve": 0, "advect": 0}
+
+
+def tiled_lin_solve(x, b, a, c, iters, tile, short=0):
+    """A plain torch model of csrc/stam2d_lin_solve.cu's temporal blocking:
+    phases of up to h sweeps; each tile's window (the tile and a halo of
+    the phase's sweeps, zero outside [0, n)^2) is swept in place, sweep k
+    on the window less a ring of k cells, cells outside the grid set to 0;
+    the tile of the window after the phase's last sweep is the phase's
+    result there.  `short` cuts the halo by that many cells (and sweeps
+    the window less a ring of min(k, halo) cells)."""
+    tx, ty, h = tile[:3]
+    n = x.shape[0]
+    src = x
+    for p in range(-(-iters // h)):
+        cnt = min(h, iters - p * h)
+        halo = cnt - short
+        dst = torch.empty_like(x)
+        for y0 in range(0, n, ty):
+            for x0 in range(0, n, tx):
+                ys = torch.arange(y0 - halo, y0 + ty + halo)
+                xs = torch.arange(x0 - halo, x0 + tx + halo)
+                inside = (((ys >= 0) & (ys < n))[:, None]
+                          & ((xs >= 0) & (xs < n))[None, :])
+                yc, xc = ys.clamp(0, n - 1), xs.clamp(0, n - 1)
+                zero = torch.zeros((), dtype=x.dtype)
+                win = torch.where(inside, src[yc][:, xc], zero)
+                bw = torch.where(inside, b[yc][:, xc], zero)
+                wy, wx = win.shape
+                for k in range(1, cnt + 1):
+                    k = min(k, halo)
+                    r = (slice(k, wy - k), slice(k, wx - k))
+                    up = win[k - 1:wy - k - 1, k:wx - k]
+                    dn = win[k + 1:wy - k + 1, k:wx - k]
+                    lf = win[k:wy - k, k - 1:wx - k - 1]
+                    rt = win[k:wy - k, k + 1:wx - k + 1]
+                    new = win.clone()
+                    new[r] = torch.where(inside[r], div(
+                        bw[r] + a * (up + dn + lf + rt), c), zero)
+                    win = new
+                hy, hx = min(ty, n - y0), min(tx, n - x0)
+                dst[y0:y0 + hy, x0:x0 + hx] = win[halo:halo + hy,
+                                                  halo:halo + hx]
+        src = dst
+    return src
+
+
+# The solve kernel's tile and sweeps a grid sync (h): kSolveTileX x
+# kSolveTileY and kSolveSweeps of csrc/stam2d_lin_solve.cu (the tile
+# clipped to the field; on the card the grid query reports them).
+SOLVE_TILE = (64, 32, 8)
+
+
+def _solve_cases():
+    tx, _, h = SOLVE_TILE
+    return [(n, iters) for n in (1, 3, 37, tx + 1)
+            for iters in sorted({1, 2, h - 1, h, h + 1, 40})]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n, iters", _solve_cases())
+def test_tiled_solve_model_is_bitwise_the_plain_solve(dtype, n, iters):
+    """The kernel's tiling (its tile clipped to the field, h sweeps a
+    grid sync), modelled in torch, is bitwise the plain solve: the halo of
+    h cells, the zero ring and the short last phase are right."""
+    dt = ts.Stam2DConfig(dtype=dtype).torch_dtype
+    rng = np.random.default_rng(n * 100 + iters)
+    x, b = (torch.tensor(rng.random((n, n)), dtype=dt) for _ in range(2))
+    tile = (min(SOLVE_TILE[0], n), min(SOLVE_TILE[1], n), SOLVE_TILE[2])
+    for a, c in ((1.0, 4.0), (0.26, 2.04)):
+        ref = ts._lin_solve(x, b, a, c, iters)
+        assert torch.equal(tiled_lin_solve(x, b, a, c, iters, tile), ref)
+    # a smaller tile, so that the model walks many tiles and halos
+    small = (5, 3, 3)
+    assert torch.equal(tiled_lin_solve(x, b, 0.26, 2.04, iters, small),
+                       ts._lin_solve(x, b, 0.26, 2.04, iters))
+
+
+def test_tiled_solve_model_needs_its_halo():
+    """With a halo one cell short of the sweeps a phase the model is no
+    longer the plain solve: the test above would see a wrong halo."""
+    rng = np.random.default_rng(0)
+    x, b = (torch.tensor(rng.random((37, 37))) for _ in range(2))
+    ref = ts._lin_solve(x, b, 1.0, 4.0, 8)
+    assert torch.equal(tiled_lin_solve(x, b, 1.0, 4.0, 8, (8, 8, 4)), ref)
+    assert not torch.equal(
+        tiled_lin_solve(x, b, 1.0, 4.0, 8, (8, 8, 4), short=1), ref)
 
 
 def test_wrapper_checks():

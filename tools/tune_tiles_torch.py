@@ -1,0 +1,368 @@
+#!/usr/bin/env python
+"""Check and time the tiled cooperative kernels of the port on a GPU, and
+sweep their tiles.
+
+    python tools/tune_tiles_torch.py [check] [time] [sweep]
+        [--root DIR] [--out PATH] [--define NAME=VALUE ...] [--only KEY ...]
+
+The kernels: the Burgers and shallow-water K-step kernels
+(csrc/burgers_multistep.cu, csrc/shallow_water_multistep.cu, TPU kernel
+#7) and the stam2d whole Jacobi solve (csrc/stam2d_lin_solve.cu, #9).
+
+* check — each kernel against its plain version on the card: Burgers and
+  shallow water on 200x75 and 5x3 (every option), k = 1 within 1e-5
+  (f32) / 1e-12 (f64) relative and k = 8 bitwise equal to 8 launches of
+  k = 1; the solve bitwise equal at n = 1, 37 and 512 and 1, h, h + 1 and
+  40 sweeps (h: sweeps a grid sync).  Raises on the first failure.
+* time — ms a launch by CUDA events (a warm-up, then the mean over a run
+  of launches back to back) at the shapes chip_smoke.py's main runs use:
+  Burgers 512^2 f32 K=16 and K=1, 4096^2 f32 K=16, 512^2 f64 K=16;
+  shallow water the same at K=8; the solve at 512^2, 40 sweeps, f32 and
+  f64 (--only: these keys alone).  For the K=1 launches, also the device
+  time a launch (torch.profiler's kernel time over 200 launches) and the
+  host's time a wrapper call (the host clock over 200 calls that queue
+  without a sync), by part.  With --root, the package is imported from
+  DIR (an unpacked tree of another commit), so two commits are timed with
+  one script on one card, each in its own process.
+* sweep — the same times over candidate tiles: each candidate is a build
+  of its own, the sources' tile constants set by -D (csrc/tiles.cuh
+  FST_TILE_X, FST_TILE_Y; csrc/stam2d_lin_solve.cu FST_SOLVE_TILE_X,
+  FST_SOLVE_TILE_Y, FST_SOLVE_SWEEPS, FST_SOLVE_THREADS), timed by this
+  script with `time --define ...` in a process of its own; what the
+  sources' defaults were chosen from.
+
+Prints one line per reading, the card's name and power limit first, and
+writes all readings as JSON to --out (default build/tune_tiles_torch.json).
+Imports torch and the port only.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def time_ms(fn, n: int) -> float:
+    """Mean ms a call of fn over n calls, by CUDA events, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def device_ms(fn, n: int, fragment: str) -> float:
+    """Device time a call of fn by torch.profiler: the kernels whose name
+    holds `fragment`, over n calls."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and fragment in e.name]
+    if not us:
+        raise RuntimeError(f"torch.profiler recorded no {fragment} kernel")
+    return sum(us) / len(us) / 1e3
+
+
+def host_us(fn, n: int) -> float:
+    """Host time a call of fn: n calls on the host clock, no sync between
+    (the queue is deeper than n launches)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def host_parts(m, key, cfg, s, kern) -> dict:
+    """Where a K=1 wrapper call's host time goes (trees whose wrappers
+    report their launch, as this one's; others are left out): the CUDA
+    launch alone through ctypes with its arguments formed once, the tensor
+    checks, the two allocations of the result, the stream query."""
+    out = {}
+    mod = m.bk if hasattr(s, "phi_u") else m.swk
+    dev = s[0].device
+    if not hasattr(mod, "grid_syncs"):
+        return out
+    dt = cfg.torch_dtype
+    fn, params, grid, threads = mod._launch_plan(cfg, 1, dev.index)[:4]
+    nf = 2 if mod is m.bk else 3
+    res = kern(cfg, s, 1)
+    stream = torch.cuda.current_stream().cuda_stream
+    scratch, words = mod._scratch(cfg, dev)
+    ptrs = [f.data_ptr() for f in s] + [f.data_ptr() for f in res]
+    args = (*ptrs, scratch.data_ptr(), words.data_ptr(), params, grid,
+            threads, dev.index, stream)
+    out[key + " host_us launch only"] = host_us(lambda: fn(*args), 200)
+    out[key + " host_us checks"] = host_us(lambda: mod._check(cfg, s), 200)
+    out[key + " host_us allocations"] = host_us(
+        lambda: (torch.empty((nf, cfg.ny, cfg.nx), dtype=dt,
+                             device=dev).unbind(0),
+                 torch.empty(2, dtype=dt, device=dev).unbind(0)), 200)
+    out[key + " host_us stream query"] = host_us(
+        lambda: torch.cuda.current_stream(dev).cuda_stream, 200)
+    return out
+
+
+def noisy(mod, cfg, dev, seed: int):
+    """init() plus seeded noise (Burgers: phi; shallow water: sigma, u,
+    v)."""
+    s = mod.init(cfg, torch.device("cpu"))
+    rng = np.random.default_rng(seed)
+
+    def nz(f, amp):
+        return f + torch.tensor(amp * rng.standard_normal(tuple(f.shape)),
+                                dtype=f.dtype)
+
+    if hasattr(s, "sigma"):
+        s = s._replace(sigma=nz(s.sigma, 1e-3), u=nz(s.u, 0.5),
+                       v=nz(s.v, 0.5))
+    else:
+        s = s._replace(phi_u=nz(s.phi_u, 0.1), phi_v=nz(s.phi_v, 0.1))
+    return type(s)(*(f.to(dev) for f in s))
+
+
+def max_rel(a, b) -> float:
+    worst = 0.0
+    for x, y in zip(a, b):
+        d = float((x.double() - y.double()).abs().max())
+        worst = max(worst, d / max(float(y.double().abs().max()), 1e-300))
+    return worst
+
+
+def check(m, dev) -> list:
+    out = []
+    tol = {torch.float32: 1e-5, torch.float64: 1e-12}
+    for dtype in ("float32", "float64"):
+        for nx, ny in ((200, 75), (5, 3)):
+            cases = [(m.bg, m.bk.burgers_multistep,
+                      m.bk.burgers_multistep_plain,
+                      m.bg.BurgersConfig(nx=nx, ny=ny, dtype=dtype, dtau=1e-2,
+                                         **o))
+                     for o in ({}, {"muscl": True}, {"visc_substeps": 3},
+                               {"muscl": True, "visc_substeps": 9})]
+            cases += [(m.sw, m.swk.sw_multistep, m.swk.sw_multistep_plain,
+                       m.sw.ShallowWaterConfig(nx=nx, ny=ny, dtype=dtype,
+                                               dtau=1e-3, **o))
+                      for o in ({}, {"nu": 0.0})]
+            for mod, kern, plain, cfg in cases:
+                s = noisy(mod, cfg, dev, 7)
+                rel = max_rel(kern(cfg, s, 1), plain(cfg, s, 1))
+                if not rel <= tol[cfg.torch_dtype]:
+                    raise AssertionError(f"{cfg}: k=1 rel err {rel:.3e}")
+                one = s
+                for _ in range(8):
+                    one = kern(cfg, one, 1)
+                if not all(torch.equal(a, b) for a, b in
+                           zip(kern(cfg, s, 8), one)):
+                    raise AssertionError(f"{cfg}: k=8 != 8 x k=1")
+                out.append({"case": f"{mod.__name__.split('.')[-1]} {nx}x{ny} "
+                            f"{dtype}", "rel_k1": rel})
+        dt = torch.float64 if dtype == "float64" else torch.float32
+        rng = np.random.default_rng(11)
+        h = (m.s2k.solve_launch(1, dt, dev.index).halo
+             if hasattr(m.s2k, "solve_launch") else 8)
+        for n in (1, 37, 512):
+            x, b = (torch.tensor(rng.random((n, n)), dtype=dt, device=dev)
+                    for _ in range(2))
+            for iters in (1, h, h + 1, 40):
+                got = m.s2k.lin_solve(x, b, 0.26, 2.04, iters)
+                ref = m.s2k.lin_solve_plain(x, b, 0.26, 2.04, iters)
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"lin_solve n={n} {iters} sweeps "
+                                         f"{dtype}: not bitwise")
+        out.append({"case": f"lin_solve {dtype}", "bitwise": True})
+    torch.cuda.synchronize()
+    log(f"[check] {len(out)} cases ok: K-step kernels within 1e-5 / 1e-12 "
+        "of plain at k=1 and k=8 bitwise to 8 x k=1; lin_solve bitwise")
+    return out
+
+
+def timings(m, dev, only=None) -> dict:
+    """ms a launch at the main runs' shapes (only: the keys to time)."""
+    res = {}
+    runs = (("burgers 512 f32 K=16", m.bg, m.bk.burgers_multistep,
+             dict(nx=512, ny=512), 16, 50),
+            ("burgers 512 f32 K=1", m.bg, m.bk.burgers_multistep,
+             dict(nx=512, ny=512), 1, 400),
+            ("burgers 4096 f32 K=16", m.bg, m.bk.burgers_multistep,
+             dict(nx=4096, ny=4096), 16, 5),
+            ("burgers 512 f64 K=16", m.bg, m.bk.burgers_multistep,
+             dict(nx=512, ny=512, dtype="float64"), 16, 50),
+            ("sw 512 f32 K=8", m.sw, m.swk.sw_multistep,
+             dict(nx=512, ny=512), 8, 50),
+            ("sw 512 f32 K=1", m.sw, m.swk.sw_multistep,
+             dict(nx=512, ny=512), 1, 400),
+            ("sw 4096 f32 K=8", m.sw, m.swk.sw_multistep,
+             dict(nx=4096, ny=4096), 8, 5),
+            ("sw 512 f64 K=8", m.sw, m.swk.sw_multistep,
+             dict(nx=512, ny=512, dtype="float64"), 8, 50))
+    for key, mod, kern, fields, k, n in runs:
+        if only is not None and key not in only:
+            continue
+        cls = (mod.BurgersConfig if hasattr(mod, "BurgersConfig")
+               else mod.ShallowWaterConfig)
+        cfg = cls(**fields)
+        s = mod.init(cfg, dev)
+        res[key] = time_ms(lambda: kern(cfg, s, k), n)
+        if k == 1 and only is None:
+            res[key + " device"] = device_ms(lambda: kern(cfg, s, k), 200,
+                                             "multistep_kernel")
+            res[key + " host_us"] = host_us(lambda: kern(cfg, s, k), 200)
+            res.update(host_parts(m, key, cfg, s, kern))
+    for dtype in (torch.float32, torch.float64):
+        key = f"lin_solve 512 {'f32' if dtype == torch.float32 else 'f64'}"
+        if only is not None and key not in only:
+            continue
+        rng = np.random.default_rng(3)
+        x, b = (torch.tensor(rng.random((512, 512)), dtype=dtype, device=dev)
+                for _ in range(2))
+        res[key] = time_ms(lambda: m.s2k.lin_solve(x, b, 1.0, 4.0, 40), 200)
+    return res
+
+
+# The sweep's candidates: the K-step kernels' tiles (FST_TILE_X,
+# FST_TILE_Y) and the solve's tiles with threads a block
+# (FST_SOLVE_TILE_X, FST_SOLVE_TILE_Y, FST_SOLVE_THREADS) at each of the
+# sweeps a grid sync (FST_SOLVE_SWEEPS).
+KSTEP_TILES = ((32, 16), (32, 32), (64, 16), (64, 32))
+SOLVE_TILES = ((32, 32, 256), (32, 32, 512), (64, 16, 512), (64, 32, 256),
+               (64, 32, 512))
+SOLVE_SWEEPS = (5, 8, 10)
+KSTEP_KEYS = ("burgers 512 f32 K=16", "burgers 4096 f32 K=16",
+              "burgers 512 f64 K=16", "sw 512 f32 K=8", "sw 4096 f32 K=8",
+              "sw 512 f64 K=8")
+SOLVE_KEYS = ("lin_solve 512 f32", "lin_solve 512 f64")
+
+
+def variants() -> list[tuple[dict, tuple]]:
+    """(defines, keys to time) of each build of the sweep: every solve
+    candidate, the first len(KSTEP_TILES) of them with a K-step tile too
+    (the two kernels are built from sources of their own, so one build
+    times both)."""
+    out = []
+    solve = [(tx, ty, th, h) for tx, ty, th in SOLVE_TILES
+             for h in SOLVE_SWEEPS]
+    for i, (tx, ty, th, h) in enumerate(solve):
+        d = {"FST_SOLVE_TILE_X": tx, "FST_SOLVE_TILE_Y": ty,
+             "FST_SOLVE_THREADS": th, "FST_SOLVE_SWEEPS": h}
+        keys = SOLVE_KEYS
+        if i < len(KSTEP_TILES):
+            d["FST_TILE_X"], d["FST_TILE_Y"] = KSTEP_TILES[i]
+            keys = SOLVE_KEYS + KSTEP_KEYS
+        out.append((d, keys))
+    return out
+
+
+def sweep(args) -> list:
+    """Each variant built and timed by this script in a process of its
+    own; a variant the card refuses (a window past shared memory) is
+    recorded as refused."""
+    out = []
+    tmp = Path(args.out).with_suffix(".variant.json")
+    for defines, keys in variants():
+        cmd = [sys.executable, __file__, "time", "--root", args.root,
+               "--out", str(tmp), "--only", *keys]
+        for name, value in defines.items():
+            cmd += ["--define", f"{name}={value}"]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tail = (proc.stdout + proc.stderr).strip().splitlines()[-1:]
+            out.append({"defines": defines, "refused": tail})
+            log(f"[sweep] {defines}: refused ({tail})")
+            continue
+        for key, ms in json.loads(tmp.read_text())["time"].items():
+            out.append({"defines": defines, "key": key, "ms": ms})
+            log(f"[sweep] {defines} {key}: {ms:.4f} ms")
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("what", nargs="*", default=["check", "time"],
+                    choices=["check", "time", "sweep"])
+    ap.add_argument("--root", default=str(ROOT),
+                    help="tree to import fluidsims_tpu_torch from")
+    ap.add_argument("--out", default="build/tune_tiles_torch.json")
+    ap.add_argument("--define", action="append", default=[],
+                    help="NAME=VALUE: build the kernels with -DNAME=VALUE")
+    ap.add_argument("--only", nargs="*", help="time these keys alone")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("tune_tiles_torch: needs a CUDA GPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    if "sweep" in args.what:
+        log(f"[device] {smi}")
+        res = {"device": smi, "sweep": sweep(args)}
+        Path(args.out).write_text(json.dumps(res, indent=1))
+        return 0
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    import types
+
+    from fluidsims_tpu_torch.kernels import _build
+    # the flags are part of the build's name: a variant builds its own
+    _build.NVCC_FLAGS = (*_build.NVCC_FLAGS,
+                         *(f"-D{d}" for d in args.define))
+    from fluidsims_tpu_torch.kernels import burgers_cuda as bk
+    from fluidsims_tpu_torch.kernels import shallow_water_cuda as swk
+    from fluidsims_tpu_torch.kernels import stam2d_cuda as s2k
+    from fluidsims_tpu_torch.solvers import burgers as bg
+    from fluidsims_tpu_torch.solvers import shallow_water as sw
+
+    m = types.SimpleNamespace(bk=bk, swk=swk, s2k=s2k, bg=bg, sw=sw)
+    log(f"[device] {smi}; package from {Path(bk.__file__).parents[1]}")
+    dev = torch.device("cuda", 0)
+    bk.load()
+    res = {"device": smi, "root": str(Path(args.root).resolve()),
+           "defines": args.define}
+    if hasattr(_build, "ptxas_usage"):
+        res["ptxas"] = [u for name in ("burgers_multistep_kernel",
+                                       "sw_multistep_kernel",
+                                       "lin_solve_kernel")
+                        for u in _build.ptxas_usage(name)]
+        for u in res["ptxas"]:
+            log(f"[build] ptxas {u}")
+    if "check" in args.what:
+        res["check"] = check(m, dev)
+    if "time" in args.what:
+        res["time"] = timings(m, dev, args.only)
+        for key, v in res["time"].items():
+            log(f"[time] {key}: " + (f"{v:.2f} us a call" if "host" in key
+                                      else f"{v:.4f} ms a launch"))
+    Path(args.out).write_text(json.dumps(res, indent=1))
+    log(json.dumps(res.get("time", {})))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
