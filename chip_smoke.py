@@ -11,10 +11,13 @@ failure of which ends the run with a non-zero exit:
              seconds and ptxas' register/spill report.
 3. kernels — each kernel against its plain PyTorch version on the same
              inputs, f32 and f64, on a block-aligned (256x128) and a ragged
-             (200x75) grid, from a perturbed state with a NaN cell and a
-             near-vacuum patch: f64 rel err <= 1e-12, f32 <= 1e-5 (the
-             Pallas-vs-XLA bar of the JAX package), NaN cells in the same
-             places, the wavespeed bitwise equal.
+             (200x75) grid and two against the step kernel's tile (45x13,
+             not a multiple of it, and 13x21, narrower than it, each with
+             the NaN cell on a tile corner), from a perturbed state with a
+             NaN cell and a near-vacuum patch: f64 rel err <= 1e-12, f32
+             <= 1e-5 (the Pallas-vs-XLA bar of the JAX package), NaN cells
+             in the same places, the wavespeed bitwise equal; the step's
+             bitwise-equal calls counted (here and in phase 4).
 4. main    — the flagship solver through solvers.hypersonic2d.run: 2048^2
              f32 x 200 steps and 8192x1024 f64 x 50 steps; every step must
              launch both kernels once; rates beside the plain version's;
@@ -46,13 +49,18 @@ failure of which ends the run with a non-zero exit:
              and the pair counts.
 8. hyp3d_kernels — the two 3-D hypersonic kernels (cell update, masked
              max wavespeed) against their plain PyTorch versions, f32 and
-             f64, both outflow modes, on a non-cubic 24x40x56 (z, y, x) grid
-             and on 32^3, from init u0-seeded with seeded noise on every
-             field and a NaN, a negative-pressure and an infinite-velocity
-             cell in the padded input: step max|err|/max|ref| <= 1e-5 (f32)
-             / 1e-12 (f64) with non-finite cells in the same places, the
-             wavespeed bitwise; then 5 steps of the CUDA engine against the
-             plain engine at f32 (<= 5e-4 relative).
+             f64, both outflow modes, on a non-cubic 24x40x56 (z, y, x) grid,
+             on 32^3 and two against the step kernel's tile (9x13x19, not a
+             multiple of it, and 3x7x5, narrower than it in every axis,
+             each with the NaN cell on a tile corner), from init u0-seeded
+             with seeded noise on every field and a NaN, a
+             negative-pressure and an infinite-velocity cell in the padded
+             input: step max|err|/max|ref| <= 1e-5 (f32) / 1e-12 (f64)
+             with non-finite cells in the same places, the step's
+             bitwise-equal calls counted (here and in phase 9), the
+             wavespeed bitwise; then 5 steps of the CUDA engine against
+             the plain engine at f32 on the first two grids (<= 5e-4
+             relative).
 9. hyp3d_main — solvers.hypersonic3d.run with the CUDA engine:
              default_config(64) f32 x 400 steps (bench.py's hypersonic3d_64
              and the reference's size) and default_config(256) f32 x 20;
@@ -235,7 +243,13 @@ dtype: the blocks, threads a block, tile, halo and dynamic shared memory
 that the library's grid query reports, the grid syncs of one launch as
 the kernel counted them, and ptxas's registers, static shared memory,
 stack and spills of each instantiation; #7's lines carry `ms_one_step`, a
-k = 1 launch back to back (the host's cost a call included).
+k = 1 launch back to back (the host's cost a call included).  The lines
+of the two hypersonic step kernels (#1, #2) carry `tiling` at the main
+runs' shapes: the blocks, threads a block, tile, halo and dynamic shared
+memory that the library's launch query reports, and ptxas's registers,
+static shared memory, stack and spills of each instantiation; and
+`bitwise_cases`, [step calls bitwise equal to the plain version, step
+calls] over phases 3-4 and 8-9, with the calls that were not.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -260,11 +274,14 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # Operations (each add, multiply, division, square root, log, exp once),
 # counted from the CUDA sources:
-# hypersonic2d_step.cu per fluid cell: 6 MUSCL-Hancock predicts (~227:
-# 7 primitive decodes, 5 encodes, 4 limited slopes, 2 fluxes, 2 half
-# steps) + 4 HLLC solves (~97) + ghost, update, diffusion and repair
-# (~140); solid cells copy their state.
-HYP2D_STEP_OPS_PER_FLUID_CELL = 1900
+# hypersonic2d_step.cu per fluid cell, each predict and face counted once
+# (the work of the plain step): 2 MUSCL-Hancock predicts (~227 each: 7
+# primitive decodes, 5 encodes, 4 limited slopes, 2 fluxes, 2 half steps),
+# 2 HLLC solves (~97 each) and ~140 for the ghost, the update, the
+# diffusion and the repair; solid cells copy their state.  The kernel's
+# tile ring adds (tile_x + 2) / tile_x predicts along x and
+# (tile_y + 2) / tile_y along y.
+HYP2D_STEP_OPS_PER_FLUID_CELL = 2 * 227 + 2 * 97 + 140
 # hypersonic2d_wavespeed.cu per fluid cell: one decode, sound speed, max.
 HYP2D_WAVESPEED_OPS_PER_FLUID_CELL = 17
 # sph_density.cu: per candidate pair the distance, sqrt, q and the sum
@@ -283,7 +300,9 @@ SPH_BIN_OPS_PER_PARTICLE = 4
 # for the smoothness weights, 3 divisions; ~44 per face for the candidate
 # polynomials and the two weighted sums, 2 divisions) + ~12 floors + one
 # HLLC (~250), and ~150 for U0, the update, the decode, repair,
-# Landau-Teller and sponges; the kernel solves each face twice.
+# Landau-Teller and sponges.  The kernel's tile ring adds (t + 2) / t of
+# the weights and face states and (t + 1) / t of the solves along each
+# axis of t cells.
 HYP3D_STEP_OPS_PER_CELL = 2300
 # hypersonic3d_wavespeed.cu per fluid cell: sound speed (4), three
 # |u|+a divided by d (9), two adds, the test.
@@ -327,10 +346,11 @@ def phase_build(hk, build) -> None:
             log(f"[build] ptxas: {line.strip()}")
 
 
-def perturbed_state(h2, interop, cfg, device):
+def perturbed_state(h2, interop, cfg, device, nan_at=None):
     """init() plus seeded noise in the primitives of the fluid cells, one
-    NaN cell and a near-vacuum patch, so the HLLE fallback and the
-    positivity repair both run."""
+    NaN cell (at `nan_at`, (y, x), or at (4 ny / 5, nx / 2)) and a
+    near-vacuum patch, so the HLLE fallback and the positivity repair
+    both run."""
     s = h2.init(cfg, torch.device("cpu"))
     rng = np.random.default_rng(SEED)
     U = [f.numpy().astype(np.float64) for f in s.U]
@@ -352,7 +372,7 @@ def perturbed_state(h2, interop, cfg, device):
     v[y0:y0 + 4, x0:x0 + 5] = 0.0
     new = [rho, rho * u, rho * v, p / (g - 1.0) + 0.5 * rho * (u * u + v * v)]
     new = [np.where(mask, old, nw) for old, nw in zip(U, new)]
-    yn, xn = (4 * ny) // 5, nx // 2    # one NaN cell
+    yn, xn = nan_at or ((4 * ny) // 5, nx // 2)    # one NaN cell
     if mask[yn, xn]:
         raise AssertionError(f"NaN cell ({yn}, {xn}) lies in the body")
     new[0][yn, xn] = np.nan
@@ -393,7 +413,8 @@ def check_one_call(hk, cfl_dt, cfg, U, mask, what: str, errs: dict) -> float:
     """Both kernels vs their plain versions on copies of the same U: the
     wavespeed and the in-place inflow column bitwise, then the step from
     the same U and dt within STEP_TOL.  Folds the absolute errors into
-    `errs` and returns the step's max rel err."""
+    `errs`, counts the step's bitwise-equal cases in errs["bitwise"] and
+    returns the step's max rel err."""
     a, b = clone_U(U), clone_U(U)
     wk = hk.inflow_wavespeed(cfg, a, mask)
     wp = hk.inflow_wavespeed_plain(cfg, b, mask)
@@ -409,7 +430,38 @@ def check_one_call(hk, cfl_dt, cfg, U, mask, what: str, errs: dict) -> float:
     cp = hk.step_core_plain(cfg, a, mask, dt)
     rel, ab = compare(ck, cp, f"step {what}", STEP_TOL[cfg.torch_dtype])
     errs["step"] = max(errs["step"], ab)
+    count_bitwise(errs, what, ck, cp)
     return rel
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The same bits, NaN payloads and the sign of zero included."""
+    it = torch.int32 if a.element_size() == 4 else torch.int64
+    return torch.equal(a.view(it), b.view(it))
+
+
+def count_bitwise(errs: dict, what: str, got, ref) -> None:
+    """Adds the case to errs["bitwise"] ([bitwise-equal cases, cases,
+    the cases that are not])."""
+    tally = errs.setdefault("bitwise", [0, 0, []])
+    tally[1] += 1
+    if all(bits_equal(a, b) for a, b in zip(got, ref)):
+        tally[0] += 1
+    else:
+        tally[2].append(what)
+
+
+# Phase 3's grids (nx, ny): block-aligned, ragged, and two against the
+# step kernel's tile: not a multiple of it, and narrower than it in x;
+# the last two with the NaN cell on a tile corner (or, narrower than a
+# tile, on the corner of its part inside the grid).
+HYP2D_KERNEL_GRIDS = ((256, 128), (200, 75), (45, 13), (13, 21))
+
+
+def tile_corner(launch, nx: int, ny: int) -> tuple[int, int]:
+    """(y, x) of the second tile row's first cell in the second tile
+    column, clipped to the grid: a tile corner of the step's launch."""
+    return (min(launch.tile_y, ny - 1), min(launch.tile_x, nx - 1))
 
 
 def phase_kernels(h2, hk, interop, cfl_dt, device) -> dict:
@@ -417,12 +469,14 @@ def phase_kernels(h2, hk, interop, cfl_dt, device) -> dict:
     along the kernel path's trajectory, then the two 4-step trajectories."""
     errs = {"step": 0.0, "step_rel": {}, "wavespeed": 0.0}
     for dtype in (torch.float32, torch.float64):
-        for nx, ny in ((256, 128), (200, 75)):
+        for nx, ny in HYP2D_KERNEL_GRIDS:
             cfg = h2.default_config(nx=nx, ny=ny,
                                     dtype=str(dtype).split(".")[1])
             plain = {"core": lambda U, m, dt, c=cfg: hk.step_core_plain(c, U, m, dt),
                      "wavespeed": lambda U, m, c=cfg: hk.inflow_wavespeed_plain(c, U, m)}
-            sk = perturbed_state(h2, interop, cfg, device)
+            corner = (tile_corner(hk.step_launch(ny, nx, dtype), nx, ny)
+                      if (nx, ny) in HYP2D_KERNEL_GRIDS[2:] else None)
+            sk = perturbed_state(h2, interop, cfg, device, corner)
             sp = h2.Hypersonic2DState(clone_U(sk.U), sk.mask, sk.t.clone())
             worst = 0.0
             for k in range(4):
@@ -444,6 +498,9 @@ def phase_kernels(h2, hk, interop, cfl_dt, device) -> dict:
             log(f"[kernels] {key}: step max rel err {worst:.3e} "
                 f"(tol {STEP_TOL[dtype]:g}), wavespeed bitwise equal, "
                 f"{n_nan} NaN cells in the same places after 4 steps")
+    ok, n, differ = errs["bitwise"]
+    log(f"[kernels] step kernel bitwise equal to its plain version in {ok} "
+        f"of {n} calls; not in {differ}")
     return errs
 
 
@@ -556,6 +613,9 @@ def phase_main(h2, hk, regression, cfl_dt, device, smi, errs) -> dict:
             f"{t['step']:.4f} ms vs plain {t['step_plain']:.4f} ms; wavespeed "
             f"kernel {t['wavespeed']:.4f} ms vs plain "
             f"{t['wavespeed_plain']:.4f} ms")
+    ok, n, differ = errs["bitwise"]
+    log(f"[main] step kernel bitwise equal to its plain version in {ok} of "
+        f"{n} calls of phases 3 and 4; not in {differ}")
     return {"launches": launches, "times": times}
 
 
@@ -857,19 +917,23 @@ def rel_fields(got, ref, what: str, tol: float) -> tuple[float, float]:
 
 
 def check_hyp3d_call(h3, hk3, cfg, s, what: str, errs: dict,
-                     inject: bool) -> float:
+                     inject: bool, nan_at=None) -> float:
     """Both 3-D kernels vs their plain versions on the same inputs: the
     step from the padded prims of `s` (with a NaN, a negative-pressure and
-    an infinite-velocity cell when `inject`) at the state's CFL dt, then
-    the wavespeed of its result (with a NaN cell) bitwise.  Folds the
-    absolute errors into `errs`; returns the step's max rel err."""
+    an infinite-velocity cell when `inject`; the NaN at interior cell
+    `nan_at`, (z, y, x), or at (nz / 4, ny / 5, nx / 6)) at the state's
+    CFL dt, then the wavespeed of its result (with a NaN cell) bitwise.
+    Folds the absolute errors into `errs` and counts the step's
+    bitwise-equal cases in errs["bitwise"]; returns the step's max rel
+    err."""
     dev = s.xi.device
     sp = h3.solid_pad_of(cfg, dev)
     q = h3._decode(cfg, *s[:6])
     qp = h3.PrimT(*(f.clone() for f in h3._padded_prims(cfg, q, sp)))
     if inject:
         nz, ny, nx = cfg.nz, cfg.ny, cfg.nx
-        qp.r[3 + nz // 4, 3 + ny // 5, 3 + nx // 6] = float("nan")
+        zn, yn, xn = nan_at or (nz // 4, ny // 5, nx // 6)
+        qp.r[3 + zn, 3 + yn, 3 + xn] = float("nan")
         qp.p[3 + nz // 2, 3 + ny // 7, 3 + (3 * nx) // 4] = -0.5
         qp.u[3 + (3 * nz) // 4, 3 + ny // 3, 3 + nx - 2] = float("inf")
     dt = torch.div(torch.full((), cfg.cfl, dtype=cfg.torch_dtype, device=dev),
@@ -880,6 +944,7 @@ def check_hyp3d_call(h3, hk3, cfg, s, what: str, errs: dict,
     rel, ab = rel_fields(ck, cp, f"hyp3d step {what}",
                          STEP_TOL[cfg.torch_dtype])
     errs["step"] = max(errs["step"], ab)
+    count_bitwise(errs, what, ck, cp)
     q1 = h3.PrimT(*(f.clone() for f in cp))
     fluid = (~s.solid).nonzero()
     q1.v[tuple(fluid[len(fluid) // 2])] = float("nan")
@@ -899,7 +964,11 @@ def plain3(hk3, cfg) -> dict:
             "wavespeed": lambda q1, solid: hk3.wavespeed_plain(cfg, q1, solid)}
 
 
-HYP3D_KERNEL_GRIDS = ((24, 40, 56), (32, 32, 32))
+# Phase 8's grids (nz, ny, nx): non-cubic, cubic, and two against the
+# step kernel's tile: not a multiple of it, and narrower than it in every
+# axis; the last two with the NaN cell on a tile corner (the second tile
+# of each axis, clipped to the grid).
+HYP3D_KERNEL_GRIDS = ((24, 40, 56), (32, 32, 32), (9, 13, 19), (3, 7, 5))
 
 
 def phase_hyp3d_kernels(h3, hk3, interop, device) -> dict:
@@ -911,13 +980,22 @@ def phase_hyp3d_kernels(h3, hk3, interop, device) -> dict:
                     nx=nx, ny=ny, nz=nz, dx=1.0 / nx, dy=1.0 / ny,
                     dz=1.0 / nz, outflow=outflow, dtype=dtype)
                 key = f"{nz}x{ny}x{nx} {dtype} {outflow}"
+                corner = None
+                if (nz, ny, nx) in HYP3D_KERNEL_GRIDS[2:]:
+                    L = hk3.step_launch(nz, ny, nx, cfg.torch_dtype)
+                    corner = (min(L.tile_z, nz - 1), min(L.tile_y, ny - 1),
+                              min(L.tile_x, nx - 1))
                 s = hyp3d_state(h3, interop, cfg, device, SEED)
-                rel = check_hyp3d_call(h3, hk3, cfg, s, key, errs, True)
+                rel = check_hyp3d_call(h3, hk3, cfg, s, key, errs, True,
+                                       corner)
                 errs["rel"][key] = rel
                 log(f"[hyp3d] {key}: step max rel err {rel:.3e} (tol "
                     f"{STEP_TOL[cfg.torch_dtype]:g}), non-finite cells in the "
                     f"same places; wavespeed bitwise equal")
-    for nz, ny, nx in HYP3D_KERNEL_GRIDS:
+    ok, n, differ = errs["bitwise"]
+    log(f"[hyp3d] step kernel bitwise equal to its plain version in {ok} of "
+        f"{n} calls; not in {differ}")
+    for nz, ny, nx in HYP3D_KERNEL_GRIDS[:2]:
         cfg = h3.Hypersonic3DConfig(nx=nx, ny=ny, nz=nz, dx=1.0 / nx,
                                     dy=1.0 / ny, dz=1.0 / nz)
         a = b = hyp3d_state(h3, interop, cfg, device, SEED + 1)
@@ -1024,7 +1102,31 @@ def phase_hyp3d_main(h3, hk3, device, smi, errs) -> dict:
             f"{bounds['wavespeed'][0]:.4f} ms, {bounds['wavespeed'][1]})")
         res[key] = {"launches": launches, "times": times, "bounds": bounds,
                     "rate": rate, "plain_rate": p_rate, "physics": phys}
+    ok, n, differ = errs["bitwise"]
+    log(f"[hyp3d] step kernel bitwise equal to its plain version in {ok} of "
+        f"{n} calls of phases 8 and 9; not in {differ}")
     return res
+
+
+def hyp_tiling(hk, hk3, build) -> dict:
+    """The tiling of the two hypersonic step kernels at the main runs'
+    shapes, as this run's library reports it: the launch query's blocks,
+    threads a block, tile, halo and dynamic shared memory a block (the
+    launch's own make_launch), and ptxas's registers, static shared
+    memory, stack and spills of each instantiation in this run's build."""
+    out = {"hypersonic2d_step": {"ptxas": build.ptxas_usage("11step_kernel")},
+           "hypersonic3d_step": {"ptxas": build.ptxas_usage("12step3_kernel")}}
+    for nx, ny, dtype in ((2048, 2048, torch.float32),
+                          (8192, 1024, torch.float64)):
+        out["hypersonic2d_step"][f"{nx}x{ny} {str(dtype)[6:]}"] = \
+            hk.step_launch(ny, nx, dtype).asdict()
+    for n, dtype in ((64, torch.float32), (256, torch.float32),
+                     (64, torch.float64)):
+        out["hypersonic3d_step"][f"{n}^3 {str(dtype)[6:]}"] = \
+            hk3.step_launch(n, n, n, dtype).asdict()
+    for name, d in out.items():
+        log(f"[build] {name} tiling: {d}")
+    return out
 
 
 def hyp3d_bounds(cfg, solid) -> dict:
@@ -3166,6 +3268,7 @@ def main() -> int:
         raise AssertionError(f"the mpm path launched other kernels: "
                              f"{others}")
 
+    tiling = hyp_tiling(hk, hk3, _build)
     t = main_res["times"]
     flag, ref = t["2048x2048 float32"], t["8192x1024 float64"]
     hb = {}
@@ -3185,7 +3288,10 @@ def main() -> int:
          "ms_8192x1024_f64": ref["step"],
          "plain_ms_8192x1024_f64": ref["step_plain"],
          "bound_ms_8192x1024_f64": hb["ref"]["step"][0],
-         "max_rel_err": errs["step_rel"]},
+         "max_rel_err": errs["step_rel"],
+         "bitwise_cases": errs["bitwise"][:2],
+         "not_bitwise": errs["bitwise"][2],
+         "tiling": tiling["hypersonic2d_step"]},
         {"name": "hypersonic2d_inflow_wavespeed", "route": "cuda",
          "source": "fluidsims_tpu_torch/csrc/hypersonic2d_wavespeed.cu",
          # JAX computes this part as plain XLA (max_wavespeed), next to the
@@ -3244,6 +3350,9 @@ def main() -> int:
             "bound_ms_256": b3["bounds"][name][0],
             "bound_by_256": b3["bounds"][name][1]})
     kernels[-2]["max_rel_err"] = hyp3d_errs["rel"]
+    kernels[-2]["bitwise_cases"] = hyp3d_errs["bitwise"][:2]
+    kernels[-2]["not_bitwise"] = hyp3d_errs["bitwise"][2]
+    kernels[-2]["tiling"] = tiling["hypersonic3d_step"]
     kernels.extend(stencil_kernel_lines(stencil_res, stencil_errs))
     kernels[-1]["max_rel_err"] = stencil_errs["rel"]
     design = tiled_design(bk, swk, s2k, bg, swm, _build, device)

@@ -248,67 +248,61 @@ __device__ Q6<T> hllc_wall_flux(Q6<T> L, bool left, const Gas3<T>& g) {
   return out;
 }
 
-// WENO5 face values of one field along one line, the per-cell form of
-// ops/weno.weno5_lr_slab.  s[0..6] are the cells i-3 .. i+3 around cell i;
-// the results are the left/right states at its minus face (between cells
-// i-1 and i) and at its plus face (between i and i+1).
+// WENO5 face values of one field along a line, the per-cell form of
+// ops/weno.weno5_lr_slab, split so that each value is formed once: a
+// cell's reciprocal-square smoothness weights (weno_weights), the left
+// state of the face right of it (weno_left) and the right state of the
+// face left of it (weno_right), each from the five cells s[0..4] around
+// the cell (s[2]).  A face's L takes its left cell's weights and its R
+// its right cell's, each with weno5_lr_slab's expressions in its order.
 template <typename T>
-struct WenoFaces {
-  T Lm, Rm, Lp, Rp;
+struct WenoWeights {
+  T inv0, inv1, inv2;
 };
 
 template <typename T>
-__device__ __forceinline__ WenoFaces<T> weno_pair(const T s[7]) {
+__device__ __forceinline__ WenoWeights<T> weno_weights(const T s[5]) {
   const T c13 = T(13.0 / 12.0);
-  const T sixth = T(1.0 / 6.0);
   const T eps = T(1e-6);
-  // D centred on cells i-2 .. i+2 (index o+2 for offset o)
-  T D[5];
+  // D centred on s[1], s[2], s[3]
+  T D[3];
 #pragma unroll
-  for (int o = -2; o <= 2; ++o) {
-    const T d2 = (s[o + 2] - T(2) * s[o + 3]) + s[o + 4];
-    D[o + 2] = (c13 * d2) * d2;
+  for (int o = 0; o < 3; ++o) {
+    const T d2 = (s[o] - T(2) * s[o + 1]) + s[o + 2];
+    D[o] = (c13 * d2) * d2;
   }
-  // reciprocal-square smoothness weights of cells i-1, i, i+1 (index o+1)
-  T inv0[3], inv1[3], inv2[3];
-#pragma unroll
-  for (int o = -1; o <= 1; ++o) {
-    const T cd = s[o + 4] - s[o + 2];
-    const T C = (T(0.25) * cd) * cd;
-    const T gd = (s[o + 1] - T(4) * s[o + 2]) + T(3) * s[o + 3];
-    const T G = (T(0.25) * gd) * gd;
-    const T fd = (T(3) * s[o + 3] - T(4) * s[o + 4]) + s[o + 5];
-    const T F = (T(0.25) * fd) * fd;
-    const T t0 = eps + (D[o + 1] + G);
-    const T t1 = eps + (D[o + 2] + C);
-    const T t2 = eps + (D[o + 3] + F);
-    inv0[o + 1] = T(1) / (t0 * t0);
-    inv1[o + 1] = T(1) / (t1 * t1);
-    inv2[o + 1] = T(1) / (t2 * t2);
-  }
-  WenoFaces<T> out;
-#pragma unroll
-  for (int side = 0; side < 2; ++side) {  // 0: minus face, 1: plus face
-    const int oc = side - 1;              // offset of the face's left cell
-    const T A = ((T(2) * s[oc + 1] - T(7) * s[oc + 2]) + T(11) * s[oc + 3]) * sixth;
-    const T M = ((-s[oc + 2] + T(5) * s[oc + 3]) + T(2) * s[oc + 4]) * sixth;
-    const T N = ((T(2) * s[oc + 3] + T(5) * s[oc + 4]) - s[oc + 5]) * sixth;
-    const T B = ((T(11) * s[oc + 4] - T(7) * s[oc + 5]) + T(2) * s[oc + 6]) * sixth;
-    const int c = oc + 1, c1 = oc + 2;  // weight indices of cells c, c+1
-    const T a0 = T(0.1) * inv0[c], a1 = T(0.6) * inv1[c], a2 = T(0.3) * inv2[c];
-    const T L = ((a0 * A + a1 * M) + a2 * N) / ((a0 + a1) + a2);
-    const T r0 = T(0.1) * inv2[c1], r1 = T(0.6) * inv1[c1],
-            r2 = T(0.3) * inv0[c1];
-    const T R = ((r0 * B + r1 * N) + r2 * M) / ((r0 + r1) + r2);
-    if (side == 0) {
-      out.Lm = L;
-      out.Rm = R;
-    } else {
-      out.Lp = L;
-      out.Rp = R;
-    }
-  }
-  return out;
+  const T cd = s[3] - s[1];
+  const T C = (T(0.25) * cd) * cd;
+  const T gd = (s[0] - T(4) * s[1]) + T(3) * s[2];
+  const T G = (T(0.25) * gd) * gd;
+  const T fd = (T(3) * s[2] - T(4) * s[3]) + s[4];
+  const T F = (T(0.25) * fd) * fd;
+  const T t0 = eps + (D[0] + G);
+  const T t1 = eps + (D[1] + C);
+  const T t2 = eps + (D[2] + F);
+  return {T(1) / (t0 * t0), T(1) / (t1 * t1), T(1) / (t2 * t2)};
+}
+
+// L at the face between s[2] and s[3], from s[0..4] and s[2]'s weights.
+template <typename T>
+__device__ __forceinline__ T weno_left(const T s[5], WenoWeights<T> w) {
+  const T sixth = T(1.0 / 6.0);
+  const T A = ((T(2) * s[0] - T(7) * s[1]) + T(11) * s[2]) * sixth;
+  const T M = ((-s[1] + T(5) * s[2]) + T(2) * s[3]) * sixth;
+  const T N = ((T(2) * s[2] + T(5) * s[3]) - s[4]) * sixth;
+  const T a0 = T(0.1) * w.inv0, a1 = T(0.6) * w.inv1, a2 = T(0.3) * w.inv2;
+  return ((a0 * A + a1 * M) + a2 * N) / ((a0 + a1) + a2);
+}
+
+// R at the face between s[1] and s[2], from s[0..4] and s[2]'s weights.
+template <typename T>
+__device__ __forceinline__ T weno_right(const T s[5], WenoWeights<T> w) {
+  const T sixth = T(1.0 / 6.0);
+  const T M = ((-s[0] + T(5) * s[1]) + T(2) * s[2]) * sixth;
+  const T N = ((T(2) * s[1] + T(5) * s[2]) - s[3]) * sixth;
+  const T B = ((T(11) * s[2] - T(7) * s[3]) + T(2) * s[4]) * sixth;
+  const T r0 = T(0.1) * w.inv2, r1 = T(0.6) * w.inv1, r2 = T(0.3) * w.inv0;
+  return ((r0 * B + r1 * N) + r2 * M) / ((r0 + r1) + r2);
 }
 
 }  // namespace fst

@@ -113,6 +113,22 @@ int tile_grid(Kernel kernel, long long tiles, size_t smem, int device,
                             kStepThreads);
 }
 
+// Lets `kernel` take `smem` bytes of dynamic shared memory a block: above
+// 48 KB the kernel's limit is raised to `smem`, once a device (`raised`:
+// the caller's flags for this kernel).  Returns the CUDA error code.
+constexpr int kMaxDevices = 64;
+
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t smem, int device,
+               bool (&raised)[kMaxDevices]) {
+  const bool known = device >= 0 && device < kMaxDevices;
+  if (smem <= 48 * 1024 || (known && raised[device])) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && known) raised[device] = true;
+  return (int)err;
+}
+
 // A launch's threads a block, as tile_grid or a kernel's own constant gave
 // them: a whole number of warps, at most `most`.
 inline bool threads_ok(int threads, int most) {

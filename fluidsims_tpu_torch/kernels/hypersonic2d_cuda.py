@@ -3,8 +3,10 @@ and plain PyTorch versions.
 
 * `step_core(cfg, U, mask, dt) -> Cons` — csrc/hypersonic2d_step.cu, which
   replaces the TPU kernel fluidsims_tpu/kernels/hypersonic2d_pallas.py::
-  _band_kernel.  Plain version: `step_core_plain` (pad_bc +
-  step_core_padded of the solver).
+  _band_kernel: one block a tile, each face solved once from the tile
+  staged in shared memory (`step_launch` reports a launch's blocks,
+  threads, tile, halo and shared memory).  Plain version:
+  `step_core_plain` (pad_bc + step_core_padded of the solver).
 * `inflow_wavespeed(cfg, U, mask) -> 0-d tensor` — csrc/
   hypersonic2d_wavespeed.cu: writes the inflow column into `U` in place
   and returns the max wavespeed, on the device.  Plain version:
@@ -26,10 +28,11 @@ import torch
 from ..ops.euler2d import Cons
 from ..solvers import hypersonic2d as h2
 from . import _build
-from ._common import LaunchCounter, on_cpu
+from ._common import LaunchCounter, TileLaunch, on_cpu, tile_launch
 
 __all__ = ["LAUNCHES", "reset_launches", "step_core", "step_core_plain",
-           "inflow_wavespeed", "inflow_wavespeed_plain", "load"]
+           "step_launch", "inflow_wavespeed", "inflow_wavespeed_plain",
+           "load"]
 
 LAUNCHES = LaunchCounter("step", "wavespeed")
 reset_launches = LAUNCHES.reset
@@ -62,6 +65,10 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, f"fst_hyp2d_step_{sfx}")
         fn.argtypes = [P] * 10 + [ctypes.POINTER(_Params), ctypes.c_int, P]
         fn.restype = ctypes.c_int
+        fn = getattr(lib, f"fst_hyp2d_step_launch_{sfx}")
+        fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(TileLaunch)]
+        fn.restype = ctypes.c_int
         fn = getattr(lib, f"fst_hyp2d_inflow_wavespeed_{sfx}")
         fn.argtypes = [P] * 6 + [ctypes.POINTER(_Params), ctypes.c_int, P]
         fn.restype = ctypes.c_int
@@ -77,6 +84,15 @@ def _params(cfg) -> _Params:
     infl = [float(v) for v in h2.inflow_cons(cfg, torch.device("cpu"))]
     return _Params(cfg.ny, cfg.nx, cfg.gamma, cfg.gamma - 1.0, cfg.visc_rho,
                    cfg.visc_nu, cfg.visc_e, (ctypes.c_double * 4)(*infl))
+
+
+def step_launch(ny: int, nx: int, dtype: torch.dtype) -> TileLaunch:
+    """The launch of a step on an (ny, nx) grid, as the library computes
+    it: blocks (one a tile), threads a block, the tile of `dtype` (csrc/
+    hypersonic2d_step.cu Geo<T>), the halo and the dynamic shared memory
+    a block."""
+    return tile_launch(load(), f"fst_hyp2d_step_launch_{_SUFFIX[dtype]}",
+                       ny, nx)
 
 
 def _check(cfg, U: Cons, mask: torch.Tensor, *scalars: torch.Tensor) -> None:

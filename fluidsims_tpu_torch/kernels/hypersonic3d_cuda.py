@@ -3,9 +3,12 @@ PyTorch versions.
 
 * `step_core(cfg, qp, solid_pad, dt, gain, x0=0) -> PrimT` —
   csrc/hypersonic3d_step.cu, which replaces the TPU kernel
-  fluidsims_tpu/kernels/hypersonic3d_pallas.py::_band_kernel.  Plain
-  version: `step_core_plain` (step_core_padded of the solver: dense wall
-  fluxes, slab sponges).
+  fluidsims_tpu/kernels/hypersonic3d_pallas.py::_band_kernel: one block a
+  tile, each face reconstructed and solved once from the tile staged in
+  shared memory axis by axis (`step_launch` reports a launch's blocks,
+  threads, tile, halo and shared memory).  Plain version:
+  `step_core_plain` (step_core_padded of the solver: dense wall fluxes,
+  slab sponges).
 * `wavespeed(cfg, q1, solid) -> 0-d tensor` — csrc/
   hypersonic3d_wavespeed.cu: the masked max over fluid cells of
   (|u|+a)/dx + (|v|+a)/dy + (|w|+a)/dz, on the device.  Plain version:
@@ -30,7 +33,8 @@ from . import _build
 from ._common import LaunchCounter, on_cpu
 
 __all__ = ["LAUNCHES", "reset_launches", "step_core", "step_core_plain",
-           "wavespeed", "wavespeed_plain", "load"]
+           "step_launch", "Tile3Launch", "wavespeed", "wavespeed_plain",
+           "load"]
 
 LAUNCHES = LaunchCounter("step", "wavespeed")
 reset_launches = LAUNCHES.reset
@@ -66,6 +70,18 @@ class _Params(ctypes.Structure):
     ]
 
 
+class Tile3Launch(ctypes.Structure):
+    """Mirror of fst::Tile3Launch (csrc/hypersonic3d_step.cu): what the
+    step's launch query reports, as the launch computes it."""
+
+    _fields_ = [(name, ctypes.c_int) for name in
+                ("grid", "threads", "tile_x", "tile_y", "tile_z", "halo",
+                 "smem_bytes")]
+
+    def asdict(self) -> dict:
+        return {name: getattr(self, name) for name, _ in self._fields_}
+
+
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
     """Build (first use) and load the kernel library, with typed entry
@@ -75,6 +91,9 @@ def load() -> ctypes.CDLL:
     for sfx in _SUFFIX.values():
         fn = getattr(lib, f"fst_hyp3d_step_{sfx}")
         fn.argtypes = [P] * 15 + [ctypes.POINTER(_Params), ctypes.c_int, P]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"fst_hyp3d_step_launch_{sfx}")
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(Tile3Launch)]
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"fst_hyp3d_wavespeed_{sfx}")
         fn.argtypes = [P] * 7 + [ctypes.POINTER(_Params), ctypes.c_int, P]
@@ -101,6 +120,20 @@ def _params(cfg, x0: int = 0) -> _Params:
         cfg.sponge_strength, cfg.sponge_out_strength,
         max(cfg.inflow_r, h3.RHO_P_FLOOR), max(cfg.inflow_p, h3.RHO_P_FLOOR),
         h3.evib_eq_py(cfg, tgtT))
+
+
+def step_launch(nz: int, ny: int, nx: int,
+                dtype: torch.dtype) -> Tile3Launch:
+    """The launch of a step on an (nz, ny, nx) window, as the library
+    computes it: blocks (one a tile), threads a block, the tile (csrc/
+    hypersonic3d_step.cu kTX x kTY x kTZ), the halo along the staged axis
+    and the dynamic shared memory a block."""
+    lib = load()
+    out = Tile3Launch()
+    code = getattr(lib, f"fst_hyp3d_step_launch_{_SUFFIX[dtype]}")(
+        nz, ny, nx, ctypes.byref(out))
+    _raise_on_error(lib, code, "hypersonic3d step (launch query)")
+    return out
 
 
 def _check_fields(cfg, q: PrimT, mask: torch.Tensor, shape, what: str,

@@ -66,8 +66,9 @@ def weno5_lr_slab(fp, axis: int, halo: int = 3):
 
     `fp` has extent n + 2*halo along `axis` (halo >= 3); returns (L, R)
     tensors of extent n + 1 (one per face).  The CUDA step kernel
-    (csrc/hypersonic3d.cuh, weno_pair) evaluates the same expressions in
-    the same order per cell."""
+    (csrc/hypersonic3d.cuh: weno_weights, weno_left, weno_right)
+    evaluates the same expressions in the same order, the weights once a
+    cell and each side of a face once."""
     if halo < 3:
         raise ValueError("weno5_lr_slab needs halo >= 3")
     n = fp.shape[axis] - 2 * halo

@@ -1,24 +1,35 @@
 #!/usr/bin/env python
-"""Check and time the tiled cooperative kernels of the port on a GPU, and
-sweep their tiles.
+"""Check and time the tiled kernels of the port on a GPU, and sweep their
+tiles.
 
-    python tools/tune_tiles_torch.py [check] [time] [sweep]
+    python tools/tune_tiles_torch.py [check] [time] [sweep] [diff A B]
         [--root DIR] [--out PATH] [--define NAME=VALUE ...] [--only KEY ...]
+        [--fmad] [--dump DIR] [--set tiles|hypersonic]
 
 The kernels: the Burgers and shallow-water K-step kernels
 (csrc/burgers_multistep.cu, csrc/shallow_water_multistep.cu, TPU kernel
-#7) and the stam2d whole Jacobi solve (csrc/stam2d_lin_solve.cu, #9).
+#7), the stam2d whole Jacobi solve (csrc/stam2d_lin_solve.cu, #9) and the
+two hypersonic step kernels (csrc/hypersonic2d_step.cu, #1;
+csrc/hypersonic3d_step.cu, #2).
 
 * check — each kernel against its plain version on the card: Burgers and
   shallow water on 200x75 and 5x3 (every option), k = 1 within 1e-5
   (f32) / 1e-12 (f64) relative and k = 8 bitwise equal to 8 launches of
   k = 1; the solve bitwise equal at n = 1, 37 and 512 and 1, h, h + 1 and
-  40 sweeps (h: sweeps a grid sync).  Raises on the first failure.
+  40 sweeps (h: sweeps a grid sync); the hypersonic steps within 1e-5
+  (f32) / 1e-12 (f64) relative of their plain versions on small and
+  ragged grids from init plus seeded noise, bitwise cases counted.
+  Raises on the first failure.
 * time — ms a launch by CUDA events (a warm-up, then the mean over a run
   of launches back to back) at the shapes chip_smoke.py's main runs use:
   Burgers 512^2 f32 K=16 and K=1, 4096^2 f32 K=16, 512^2 f64 K=16;
   shallow water the same at K=8; the solve at 512^2, 40 sweeps, f32 and
-  f64 (--only: these keys alone).  For the K=1 launches, also the device
+  f64; the hypersonic steps on the final state of chip_smoke.py's main
+  runs (2048^2 f32 after 200 steps, 8192x1024 f64 after 50, 64^3 f32
+  after 400, 256^3 f32 after 20), also as torch.profiler's device time a
+  launch, with a sha256 of the run's final state and of the step's
+  output, so that two trees' kernels can be held to each other bit for
+  bit (--only: these keys alone).  For the K=1 launches, also the device
   time a launch (torch.profiler's kernel time over 200 launches) and the
   host's time a wrapper call (the host clock over 200 calls that queue
   without a sync), by part.  With --root, the package is imported from
@@ -29,7 +40,18 @@ The kernels: the Burgers and shallow-water K-step kernels
   FST_TILE_X, FST_TILE_Y; csrc/stam2d_lin_solve.cu FST_SOLVE_TILE_X,
   FST_SOLVE_TILE_Y, FST_SOLVE_SWEEPS, FST_SOLVE_THREADS), timed by this
   script with `time --define ...` in a process of its own; what the
-  sources' defaults were chosen from.
+  sources' defaults were chosen from.  `--set hypersonic` sweeps the
+  hypersonic step kernels' tiles instead (csrc/hypersonic2d_step.cu
+  FST_HYP2D_TILE_X, FST_HYP2D_TILE_Y for float, FST_HYP2D_F64_TILE_X,
+  FST_HYP2D_F64_TILE_Y for double; csrc/hypersonic3d_step.cu
+  FST_HYP3D_TILE_X, FST_HYP3D_TILE_Y, FST_HYP3D_TILE_Z).
+* --fmad — build with -fmad=true in place of -fmad=false: how much of a
+  kernel's time the unfused multiplies and adds take.  A measurement
+  only; the shipped build and every bitwise bar keep -fmad=false.
+* --dump DIR — `time` also saves each hypersonic key's final state and
+  step output to DIR; `diff A B` then reports, key by key, whether two
+  dumps (two trees, or two builds) are bitwise equal, and by how much
+  they differ where they are not.
 
 Prints one line per reading, the card's name and power limit first, and
 writes all readings as JSON to --out (default build/tune_tiles_torch.json).
@@ -39,6 +61,7 @@ Imports torch and the port only.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -204,9 +227,174 @@ def check(m, dev) -> list:
     return out
 
 
-def timings(m, dev, only=None) -> dict:
-    """ms a launch at the main runs' shapes (only: the keys to time)."""
+# The hypersonic step kernels (#1, #2) at chip_smoke.py's main runs: (key,
+# dimensions, size, dtype, steps of the run, launches timed).
+HYP_RUNS = (("hyp2d 2048x2048 f32", 2, (2048, 2048), "float32", 200, 20),
+            ("hyp2d 8192x1024 f64", 2, (8192, 1024), "float64", 50, 10),
+            ("hyp3d 64^3 f32", 3, 64, "float32", 400, 50),
+            ("hyp3d 256^3 f32", 3, 256, "float32", 20, 10))
+HYP_KEYS = tuple(r[0] for r in HYP_RUNS)
+
+
+def hyp_noisy(m, dim, cfg, dev, seed: int):
+    """init() plus seeded noise on the fluid cells (2-D: the conserved
+    fields, so that some cells need the repair; 3-D: every log field and
+    u0 = 0.05, as chip_smoke.py's hyp3d_state)."""
+    rng = np.random.default_rng(seed)
+    if dim == 2:
+        s = m.h2.init(cfg, torch.device("cpu"))
+        fl = ~s.mask.numpy()
+        U = [f.numpy().astype(np.float64) for f in s.U]
+        for k, amp in enumerate((0.2, 0.5, 0.5, 0.2)):
+            noise = amp * rng.standard_normal(U[k].shape)
+            U[k] = np.where(fl, U[k] * (1.0 + noise) if k in (0, 3)
+                            else U[k] + noise, U[k])
+        return m.interop.state_from_numpy(U, s.mask.numpy(), 0.0,
+                                          dtype=cfg.torch_dtype, device=dev)
+    s = m.h3.init(cfg, torch.device("cpu"))
+    fl = ~s.solid.numpy()
+    f = [x.numpy().astype(np.float64) for x in s[:6]]
+    f[1][fl] = np.arcsinh(0.05 / cfg.u_ref)
+    for k, amp in enumerate((0.3, 0.05, 0.05, 0.05, 0.3, 0.3)):
+        f[k] = f[k] + np.where(fl, amp * rng.standard_normal(f[k].shape), 0.0)
+    return m.interop.hyp3d_state_from_numpy(
+        *f, s.solid.numpy(), cfg.t0, cfg.dtau0, dtype=cfg.torch_dtype,
+        device=dev)
+
+
+def hyp_calls(m, dim, cfg, s):
+    """(kernel call, plain call) of the step on state s at its CFL dt."""
+    if dim == 2:
+        dt = m.cfl_dt(m.hk.inflow_wavespeed_plain(cfg, s.U, s.mask), cfg.cfl,
+                      dx=1.0, nu_max=cfg.nu_max)
+        return (lambda: m.hk.step_core(cfg, s.U, s.mask, dt),
+                lambda: m.hk.step_core_plain(cfg, s.U, s.mask, dt))
+    dev = s.xi.device
+    sp = m.h3.solid_pad_of(cfg, dev)
+    q = m.h3._decode(cfg, *s[:6])
+    qp = m.h3._padded_prims(cfg, q, sp)
+    dt = torch.div(torch.full((), cfg.cfl, dtype=cfg.torch_dtype, device=dev),
+                   m.hk3.wavespeed_plain(cfg, q, s.solid))
+    g = torch.full((), 0.6, dtype=cfg.torch_dtype, device=dev)
+    return (lambda: m.hk3.step_core(cfg, qp, sp, dt, g),
+            lambda: m.hk3.step_core_plain(cfg, qp, sp, dt, g))
+
+
+def check_hyp(m, dev) -> list:
+    """Both hypersonic steps against their plain versions on small and
+    ragged grids (one smaller than any tile), f32 and f64."""
+    out = []
+    tol = {torch.float32: 1e-5, torch.float64: 1e-12}
+    for dtype in ("float32", "float64"):
+        cases = [(2, m.h2.default_config(nx=nx, ny=ny, dtype=dtype))
+                 for nx, ny in ((200, 75), (33, 9), (7, 5))]
+        cases += [(3, m.h3.Hypersonic3DConfig(
+            nx=nx, ny=ny, nz=nz, dx=1.0 / nx, dy=1.0 / ny, dz=1.0 / nz,
+            outflow=outflow, dtype=dtype))
+            for nz, ny, nx in ((24, 40, 56), (5, 7, 9))
+            for outflow in ("transmissive", "characteristic")]
+        for dim, cfg in cases:
+            s = hyp_noisy(m, dim, cfg, dev, 5)
+            kern, plain = hyp_calls(m, dim, cfg, s)
+            got, ref = kern(), plain()
+            for a, b in zip(got, ref):
+                if not torch.equal(torch.isfinite(a), torch.isfinite(b)):
+                    raise AssertionError(f"{cfg}: non-finite cells differ")
+            rel = max_rel([torch.nan_to_num(a) for a in got],
+                          [torch.nan_to_num(b) for b in ref])
+            if not rel <= tol[cfg.torch_dtype]:
+                raise AssertionError(f"{cfg}: rel err {rel:.3e}")
+            out.append({"case": f"hyp{dim}d {tuple(ref[0].shape)} {dtype}"
+                        + ("" if dim == 2 else f" {cfg.outflow}"),
+                        "rel": rel, "bitwise": all(
+                            bits_equal(a, b) for a, b in zip(got, ref))})
+    log(f"[check] hypersonic steps within 1e-5 / 1e-12 of plain in "
+        f"{len(out)} cases, {sum(c['bitwise'] for c in out)} bitwise")
+    return out
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The same bits (NaN payloads and the sign of zero included)."""
+    it = torch.int32 if a.element_size() == 4 else torch.int64
+    return a.dtype == b.dtype and torch.equal(a.view(it), b.view(it))
+
+
+def digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def hyp_main_call(m, dim, size, dtype, steps, dev):
+    """(the step kernel's call on the final state of the main run, the
+    fields of that state), as chip_smoke.py times it."""
+    if dim == 2:
+        nx, ny = size
+        cfg = m.h2.default_config(nx=nx, ny=ny, dtype=dtype)
+        out = m.h2.run(cfg, m.h2.init(cfg, dev), steps)
+        dt = torch.full((), 1e-3, dtype=cfg.torch_dtype, device=dev)
+        return (lambda: m.hk.step_core(cfg, out.U, out.mask, dt)), list(out.U)
+    cfg = m.h3.default_config(size, dtype=dtype)
+    out = m.h3.run(cfg, m.h3.init(cfg, dev), steps)
+    sp = m.h3.solid_pad_of(cfg, dev)
+    qp = m.h3._padded_prims(cfg, m.h3._decode(cfg, *out[:6]), sp)
+    dt = torch.full((), 1e-6, dtype=cfg.torch_dtype, device=dev)
+    g = torch.full((), 1.0, dtype=cfg.torch_dtype, device=dev)
+    return (lambda: m.hk3.step_core(cfg, qp, sp, dt, g)), list(out[:6])
+
+
+def hyp_timings(m, dev, only, dump) -> dict:
     res = {}
+    for key, dim, size, dtype, steps, n in HYP_RUNS:
+        if only is not None and key not in only:
+            continue
+        call, state = hyp_main_call(m, dim, size, dtype, steps, dev)
+        res[key] = time_ms(call, n)
+        res[key + " device"] = device_ms(
+            call, n, "step_kernel" if dim == 2 else "step3_kernel")
+        out = list(call())
+        res[key + " state sha256"] = digest(state)
+        res[key + " out sha256"] = digest(out)
+        if dump:
+            Path(dump).mkdir(parents=True, exist_ok=True)
+            torch.save({"state": [t.cpu() for t in state],
+                        "out": [t.cpu() for t in out]},
+                       Path(dump) / (key.replace(" ", "_").replace("^", "")
+                                     + ".pt"))
+    return res
+
+
+def diff(a: str, b: str) -> dict:
+    """Key by key, two dumps' final states and step outputs: bitwise equal
+    or not, the cells whose bits differ, and the max |a - b| over the
+    cells finite in both, absolute and relative to max |b|."""
+    res = {}
+    for pa in sorted(Path(a).glob("*.pt")):
+        pb = Path(b) / pa.name
+        if not pb.is_file():
+            continue
+        da, db = torch.load(pa), torch.load(pb)
+        for part in ("state", "out"):
+            cells = ab = scale = 0.0
+            for x, y in zip(da[part], db[part]):
+                it = torch.int32 if x.element_size() == 4 else torch.int64
+                cells += int((x.view(it) != y.view(it)).sum())
+                fin = torch.isfinite(x) & torch.isfinite(y)
+                if bool(fin.any()):
+                    ab = max(ab, float((x[fin].double()
+                                        - y[fin].double()).abs().max()))
+                    scale = max(scale, float(y[fin].double().abs().max()))
+            key = f"{pa.stem} {part}"
+            res[key] = {"bitwise": cells == 0, "cells_differing": int(cells),
+                        "max_abs": ab, "max_rel": ab / max(scale, 1e-300)}
+            log(f"[diff] {key}: {res[key]}")
+    return res
+
+
+def timings(m, dev, only=None, dump=None) -> dict:
+    """ms a launch at the main runs' shapes (only: the keys to time)."""
+    res = hyp_timings(m, dev, only, dump)
     runs = (("burgers 512 f32 K=16", m.bg, m.bk.burgers_multistep,
              dict(nx=512, ny=512), 16, 50),
             ("burgers 512 f32 K=1", m.bg, m.bk.burgers_multistep,
@@ -255,6 +443,12 @@ KSTEP_TILES = ((32, 16), (32, 32), (64, 16), (64, 32))
 SOLVE_TILES = ((32, 32, 256), (32, 32, 512), (64, 16, 512), (64, 32, 256),
                (64, 32, 512))
 SOLVE_SWEEPS = (5, 8, 10)
+# The hypersonic sweep: 2-D tiles, float (FST_HYP2D_TILE_X, _Y) and double
+# (FST_HYP2D_F64_TILE_X, _Y), and 3-D tiles (FST_HYP3D_TILE_X, _Y, _Z),
+# paired into builds, each build timing all four keys.
+HYP2D_TILES = (((16, 16), (16, 8)), ((32, 8), (32, 4)), ((16, 8), (16, 4)),
+               ((32, 16), (8, 8)))
+HYP3D_TILES = ((8, 8, 8), (16, 8, 4), (16, 8, 8), (8, 16, 8))
 KSTEP_KEYS = ("burgers 512 f32 K=16", "burgers 4096 f32 K=16",
               "burgers 512 f64 K=16", "sw 512 f32 K=8", "sw 4096 f32 K=8",
               "sw 512 f64 K=8")
@@ -280,13 +474,22 @@ def variants() -> list[tuple[dict, tuple]]:
     return out
 
 
+def hyp_variants() -> list[tuple[dict, tuple]]:
+    return [({"FST_HYP2D_TILE_X": a[0], "FST_HYP2D_TILE_Y": a[1],
+              "FST_HYP2D_F64_TILE_X": a64[0], "FST_HYP2D_F64_TILE_Y": a64[1],
+              "FST_HYP3D_TILE_X": b[0], "FST_HYP3D_TILE_Y": b[1],
+              "FST_HYP3D_TILE_Z": b[2]}, HYP_KEYS)
+            for (a, a64), b in zip(HYP2D_TILES, HYP3D_TILES)]
+
+
 def sweep(args) -> list:
     """Each variant built and timed by this script in a process of its
     own; a variant the card refuses (a window past shared memory) is
     recorded as refused."""
     out = []
     tmp = Path(args.out).with_suffix(".variant.json")
-    for defines, keys in variants():
+    for defines, keys in (hyp_variants() if args.set == "hypersonic"
+                          else variants()):
         cmd = [sys.executable, __file__, "time", "--root", args.root,
                "--out", str(tmp), "--only", *keys]
         for name, value in defines.items():
@@ -297,23 +500,42 @@ def sweep(args) -> list:
             out.append({"defines": defines, "refused": tail})
             log(f"[sweep] {defines}: refused ({tail})")
             continue
-        for key, ms in json.loads(tmp.read_text())["time"].items():
+        got = json.loads(tmp.read_text())
+        for key, ms in got["time"].items():
+            if isinstance(ms, str):
+                continue
             out.append({"defines": defines, "key": key, "ms": ms})
             log(f"[sweep] {defines} {key}: {ms:.4f} ms")
+        out.append({"defines": defines, "ptxas": got.get("ptxas", [])})
     return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("what", nargs="*", default=["check", "time"],
-                    choices=["check", "time", "sweep"])
+                    help="check, time, sweep, or diff A B")
     ap.add_argument("--root", default=str(ROOT),
                     help="tree to import fluidsims_tpu_torch from")
     ap.add_argument("--out", default="build/tune_tiles_torch.json")
     ap.add_argument("--define", action="append", default=[],
                     help="NAME=VALUE: build the kernels with -DNAME=VALUE")
     ap.add_argument("--only", nargs="*", help="time these keys alone")
+    ap.add_argument("--fmad", action="store_true",
+                    help="build with -fmad=true (a measurement only)")
+    ap.add_argument("--dump", help="save the hypersonic outputs here")
+    ap.add_argument("--set", default="tiles", choices=["tiles", "hypersonic"],
+                    help="the kernels whose tiles `sweep` varies")
     args = ap.parse_args(argv)
+    if args.what[:1] == ["diff"]:
+        if len(args.what) != 3:
+            raise SystemExit("diff takes two dump directories")
+        res = {"diff": diff(*args.what[1:])}
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(res, indent=1))
+        return 0
+    bad = set(args.what) - {"check", "time", "sweep"}
+    if bad:
+        raise SystemExit(f"unknown: {sorted(bad)}")
     if not torch.cuda.is_available():
         raise SystemExit("tune_tiles_torch: needs a CUDA GPU")
     smi = subprocess.run(
@@ -331,33 +553,46 @@ def main(argv=None) -> int:
 
     from fluidsims_tpu_torch.kernels import _build
     # the flags are part of the build's name: a variant builds its own
-    _build.NVCC_FLAGS = (*_build.NVCC_FLAGS,
-                         *(f"-D{d}" for d in args.define))
+    flags = _build.NVCC_FLAGS
+    if args.fmad:
+        flags = tuple("-fmad=true" if f == "-fmad=false" else f
+                      for f in flags)
+    _build.NVCC_FLAGS = (*flags, *(f"-D{d}" for d in args.define))
     from fluidsims_tpu_torch.kernels import burgers_cuda as bk
     from fluidsims_tpu_torch.kernels import shallow_water_cuda as swk
     from fluidsims_tpu_torch.kernels import stam2d_cuda as s2k
+    from fluidsims_tpu_torch import interop
+    from fluidsims_tpu_torch.core.clock import cfl_dt
+    from fluidsims_tpu_torch.kernels import hypersonic2d_cuda as hk
+    from fluidsims_tpu_torch.kernels import hypersonic3d_cuda as hk3
     from fluidsims_tpu_torch.solvers import burgers as bg
+    from fluidsims_tpu_torch.solvers import hypersonic2d as h2
+    from fluidsims_tpu_torch.solvers import hypersonic3d as h3
     from fluidsims_tpu_torch.solvers import shallow_water as sw
 
-    m = types.SimpleNamespace(bk=bk, swk=swk, s2k=s2k, bg=bg, sw=sw)
+    m = types.SimpleNamespace(bk=bk, swk=swk, s2k=s2k, bg=bg, sw=sw, hk=hk,
+                              hk3=hk3, h2=h2, h3=h3, interop=interop,
+                              cfl_dt=cfl_dt)
     log(f"[device] {smi}; package from {Path(bk.__file__).parents[1]}")
     dev = torch.device("cuda", 0)
     bk.load()
     res = {"device": smi, "root": str(Path(args.root).resolve()),
-           "defines": args.define}
+           "defines": args.define, "fmad": args.fmad}
     if hasattr(_build, "ptxas_usage"):
         res["ptxas"] = [u for name in ("burgers_multistep_kernel",
                                        "sw_multistep_kernel",
-                                       "lin_solve_kernel")
+                                       "lin_solve_kernel", "11step_kernel",
+                                       "12step3_kernel")
                         for u in _build.ptxas_usage(name)]
         for u in res["ptxas"]:
             log(f"[build] ptxas {u}")
     if "check" in args.what:
-        res["check"] = check(m, dev)
+        res["check"] = check(m, dev) + check_hyp(m, dev)
     if "time" in args.what:
-        res["time"] = timings(m, dev, args.only)
+        res["time"] = timings(m, dev, args.only, args.dump)
         for key, v in res["time"].items():
-            log(f"[time] {key}: " + (f"{v:.2f} us a call" if "host" in key
+            log(f"[time] {key}: " + (v if isinstance(v, str) else
+                                      f"{v:.2f} us a call" if "host" in key
                                       else f"{v:.4f} ms a launch"))
     Path(args.out).write_text(json.dumps(res, indent=1))
     log(json.dumps(res.get("time", {})))
