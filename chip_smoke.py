@@ -29,7 +29,13 @@ failure of which ends the run with a non-zero exit:
              against their plain PyTorch versions on the same inputs, f32
              and f64, on 4096 particles from init plus seeded velocity
              noise: the binning bitwise, density and forces max|err| /
-             max|ref| <= 1e-5 (f32) / 1e-12 (f64).  The kernels have no
+             max|ref| <= 1e-5 (f32) / 1e-12 (f64), and a second forces
+             launch bitwise equal to the first (here and in phase 7); the
+             same on 4096 particles with 1500 packed into one cell, whose
+             3x3 neighbourhood holds more candidates than the forces
+             kernel stages at once (checked from the binning and the
+             kernel's reported chunk), so its chunk loop runs more than
+             once.  The kernels have no
              cell capacity: on 512 particles with cell_capacity=8 (cells
              holding more than K particles, which the 'torch' engine
              drops) density and forces + integrate are held, at the same
@@ -238,13 +244,18 @@ the peaks of an H100 SXM at 700 W; bound_by says which.  Operation counts
 per cell or pair are counted from the CUDA sources (see *_OPS below);
 where the work depends on the data (SPH pairs), this run's pairs are
 counted.  The lines of the tiled kernels (#7: Burgers and shallow water;
-#9: the stam2d solve) also carry `tiling` at the main runs' configs, per
-dtype: the blocks, threads a block, tile, halo and dynamic shared memory
-that the library's grid query reports, the grid syncs of one launch as
-the kernel counted them, and ptxas's registers, static shared memory,
-stack and spills of each instantiation; #7's lines carry `ms_one_step`, a
-k = 1 launch back to back (the host's cost a call included).  The lines
-of the two hypersonic step kernels (#1, #2) carry `tiling` at the main
+#8: MHD; #9: the stam2d solve) also carry `tiling` at the main runs'
+configs, per dtype: the blocks, threads a block, tile, halo and dynamic
+shared memory that the library's grid query reports, the grid syncs of
+one launch as the kernel counted them, and ptxas's registers, static
+shared memory, stack and spills of each instantiation; #7's and #8's
+lines carry `ms_one_step`, a k = 1 launch back to back (the host's cost
+a call included).  The SPH forces kernel's line (#15) carries `block`, for
+the main runs' particle counts (f32) and 4096 f64, its threads a block,
+lanes a particle, candidates a staged chunk and shared memory a block as
+the library reports them, and
+`repeat_bitwise`, the forces calls whose second launch repeated the
+first one's bits.  The lines of the two hypersonic step kernels (#1, #2) carry `tiling` at the main
 runs' shapes: the blocks, threads a block, tile, halo and dynamic shared
 memory that the library's launch query reports, and ptxas's registers,
 static shared memory, stack and spills of each instantiation; and
@@ -714,12 +725,43 @@ def check_sph_call(sk, cfg, pos, vel, what: str, errs: dict) -> dict:
         if not out[k] <= tol:
             raise AssertionError(f"{k} {what}: max rel err {out[k]:.3e} > "
                                  f"{tol:g}")
+    # the lanes' sums combine in a fixed order: a second launch repeats
+    # the first one's bits
+    pk2, vk2 = sk.forces(cfg, b, rp, dt)
+    if not (bits_equal(pk, pk2) and bits_equal(vk, vk2)):
+        raise AssertionError(f"forces {what}: two launches on the same "
+                             "input differ")
+    errs["repeat_bitwise"] = errs.get("repeat_bitwise", 0) + 1
     past = int((b.rank >= cfg.grid().K).sum())
     log(f"[sph] {what}: bin bitwise equal ({past} of {cfg.n} past the torch "
         f"engine's K={cfg.grid().K}, all in the pair sums); density max rel "
         f"err {out['density']:.3e}, forces+integrate {out['forces']:.3e} "
-        f"(tol {tol:g})")
+        f"(tol {tol:g}); forces twice bitwise equal")
     return out
+
+
+def crowded_pool(sk, ts, cfg, device, rng, crowd: int = 1500):
+    """(pos, vel): init() with `crowd` particles packed into cell (3, 2)
+    and seeded velocity noise; raises unless that cell's 3x3 neighbourhood
+    holds more candidates than the forces kernel stages at once (its
+    chunk), so that the kernel's chunk loop runs more than once."""
+    c = cfg.grid().cell
+    pos = ts.init(cfg, torch.device("cpu")).pos.clone()
+    for k, at in ((0, 3.5), (1, 2.5)):
+        pos[:crowd, k] = torch.tensor(
+            at * c + 0.45 * c * rng.uniform(-1, 1, crowd), dtype=pos.dtype)
+    vel = torch.tensor(0.5 * rng.standard_normal((cfg.n, 2)),
+                       dtype=cfg.torch_dtype)
+    b = sk.binning_plain(cfg, pos, vel)
+    g = cfg.grid()
+    starts = b.starts.long()
+    hood = sum(int(starts[y * g.Gx + 5] - starts[y * g.Gx + 2])
+               for y in (1, 2, 3))
+    chunk = sk.forces_shape(cfg).chunk
+    if not hood > chunk:
+        raise AssertionError(f"crowded pool: {hood} candidates around cell "
+                             f"(3, 2), not more than a chunk of {chunk}")
+    return pos.to(device), vel.to(device), hood
 
 
 def check_sph_exact(sk, ts, cfg, pos, vel, what: str, errs: dict) -> dict:
@@ -774,6 +816,10 @@ def phase_sph_kernels(sk, ts, device) -> dict:
             errs["rel"][key] = (
                 check_sph_exact(sk, ts, cfg, st.pos, vel, key, errs) if cap
                 else check_sph_call(sk, cfg, st.pos, vel, key, errs))
+        cfg = ts.SPHConfig(n=4096, dtype=dtype)
+        pos, vel, hood = crowded_pool(sk, ts, cfg, device, rng)
+        key = f"n=4096 crowded ({hood} candidates around one cell) {dtype}"
+        errs["rel"][key] = check_sph_call(sk, cfg, pos, vel, key, errs)
     cfg = ts.SPHConfig(n=4096, rain=True, dtau=1e-2)
     a = b = ts.init(cfg, device)
     plain = plain_sph_step(sk, ts, cfg)
@@ -1656,13 +1702,13 @@ def check_resident_case(name, mods, cfg, s, key, errs) -> float:
     return worst
 
 
-# The tiled K-step kernels (#7), which count their grid syncs.
-TILED = ("burgers", "sw")
+# The tiled K-step kernels (#7, #8), which count their grid syncs.
+TILED = ("burgers", "sw", "mhd")
 
 
 def tiled_syncs_want(name, kmod, cfg, k: int) -> int:
     """The grid syncs a launch of k steps makes by the sources' notes: K +
-    1, and for Burgers K more for each pass past the first."""
+    1, and for Burgers K more for each pass past the first (MHD: K + 1)."""
     extra = len(kmod.plan(cfg)[2]) - 1 if name == "burgers" else 0
     return k + 1 + extra * k
 
@@ -1670,7 +1716,7 @@ def tiled_syncs_want(name, kmod, cfg, k: int) -> int:
 def check_tiled_syncs(name, kmod, cfg, s, k: int, key: str) -> int:
     """The grid syncs of the launch of k steps just made on s's device, as
     the kernel counted them: tiled_syncs_want's, or the script fails."""
-    got = kmod.grid_syncs(cfg, s[0].device)
+    got = kmod.grid_syncs(cfg, resident_fields(s)[0][1].device)
     want = tiled_syncs_want(name, kmod, cfg, k)
     if got != want:
         raise AssertionError(f"{key} k={k}: the kernel made {got} grid "
@@ -1849,11 +1895,12 @@ BURGERS_OPS_PER_CELL = 4 + 6 + 2 * 20 + 16 + 24 + 4
 # the x and y HLL faces (~55 each: 2 sqrt, speeds, 6 fluxes, 3 mids and
 # selects), the update, floor, 2 divisions and log (27), viscosity (25).
 SW_OPS_PER_CELL = 8 + 2 * 55 + 27 + 25
-# mhd_multistep.cu: primitives, hypot and both fast speeds (45); per axis
-# 7 MC slopes (22 each), the face states (21), one HLL face (~172: 2
-# primitive decodes, 2 fast speeds, 2 GLM fluxes, 7 HLL mixes and
-# selects) and the band mask (7); the pair update, damping, the new
-# primitives, the revert test and select (76).
+# mhd_multistep.cu, which computes each MC slope and each face once:
+# primitives, hypot and both fast speeds (45); per axis 7 MC slopes (22
+# each), the face states (21), one HLL face (~172: 2 primitive decodes, 2
+# fast speeds, 2 GLM fluxes, 7 HLL mixes and selects) and the band mask
+# (7); the pair update, damping, the new primitives, the revert test and
+# select (76).
 MHD_OPS_PER_CELL = 45 + 2 * (7 * 22 + 21 + 172 + 7) + 76
 RESIDENT_OPS = {"burgers": BURGERS_OPS_PER_CELL, "sw": SW_OPS_PER_CELL,
                 "mhd": MHD_OPS_PER_CELL}
@@ -1959,18 +2006,20 @@ def phase_resident_main(mods, device, smi, errs,
     return res
 
 
-def tiled_design(bk, swk, s2k, bg, swm, build, device) -> dict:
+def tiled_design(bk, swk, mk, s2k, bg, swm, mhd, build, device) -> dict:
     """The tiling of the redesigned kernels at the main runs' configs
-    (Burgers 512^2 at block_k 16, shallow water 512^2 at 8, the stam2d
-    solve at 512^2 and 40 sweeps), per dtype, as this run's library
-    reports it: the grid query's blocks (`grid`), threads a block, tile,
-    halo and dynamic shared memory a block (the launch's own make_args);
-    the grid syncs of one launch as the kernel counted them (held to K + 1
-    and ceil(40 / h) - 1); and ptxas's registers, static shared memory,
-    stack and spills of each instantiation in this run's build."""
+    (Burgers 512^2 at block_k 16, shallow water 512^2 at 8, MHD 320x220 at
+    8, the stam2d solve at 512^2 and 40 sweeps), per dtype, as this run's
+    library reports it: the grid query's blocks (`grid`), threads a block,
+    tile, halo and dynamic shared memory a block (the launch's own
+    make_args); the grid syncs of one launch as the kernel counted them
+    (held to K + 1 and ceil(40 / h) - 1); and ptxas's registers, static
+    shared memory, stack and spills of each instantiation in this run's
+    build."""
     out = {}
     for name, kname in (("burgers", "burgers_multistep_kernel"),
                         ("sw", "sw_multistep_kernel"),
+                        ("mhd", "mhd_multistep_kernel"),
                         ("lin_solve", "lin_solve_kernel")):
         d = {"ptxas": build.ptxas_usage(kname)}
         for dtype in ("float32", "float64"):
@@ -1981,16 +2030,19 @@ def tiled_design(bk, swk, s2k, bg, swm, build, device) -> dict:
                 s2k.lin_solve(x, b, 1.0, 4.0, 40)
                 syncs = check_solve_syncs(s2k, x, 40, f"512^2 {dtype}")
             else:
-                mod, kmod, kern = ((bg, bk, bk.burgers_multistep)
-                                   if name == "burgers" else
-                                   (swm, swk, swk.sw_multistep))
-                cfg = (mod.BurgersConfig if name == "burgers" else
-                       mod.ShallowWaterConfig)(nx=512, ny=512, dtype=dtype)
+                mod, kmod, kern, cls, nx, ny = {
+                    "burgers": (bg, bk, bk.burgers_multistep,
+                                bg.BurgersConfig, 512, 512),
+                    "sw": (swm, swk, swk.sw_multistep,
+                           swm.ShallowWaterConfig, 512, 512),
+                    "mhd": (mhd, mk, mk.mhd_multistep, mhd.MHDConfig, 320,
+                            220)}[name]
+                cfg = cls(nx=nx, ny=ny, dtype=dtype)
                 shape = kmod.launch_shape(cfg, device.index)
                 s = mod.init(cfg, device)
                 kern(cfg, s, cfg.block_k)
                 syncs = check_tiled_syncs(name, kmod, cfg, s, cfg.block_k,
-                                          f"{name} 512^2 {dtype}")
+                                          f"{name} {nx}x{ny} {dtype}")
             d[dtype] = {**shape.asdict(), "grid_syncs_per_launch": syncs}
         out[name] = d
         log(f"[build] {name} tiling: {d}")
@@ -3321,6 +3373,12 @@ def main() -> int:
             "ms": a["times"][name], "plain_ms": a["times"][name + "_plain"],
             "bound_ms": a["bounds"][name][0], "bound_by": a["bounds"][name][1],
             "library_ms": None,
+            **({"block": {f"{n} {dt}": sk.forces_shape(ts.SPHConfig(
+                    n=n, dtype=dt)).asdict()
+                    for n, dt in ((65536, "float32"), (1 << 20, "float32"),
+                                  (4096, "float64"))},
+                "repeat_bitwise": sph_errs["repeat_bitwise"]}
+               if name == "forces" else {}),
             "launches_65536": a["launches"][name],
             "launches_1048576": b["launches"][name],
             "ms_1048576": b["times"][name],
@@ -3355,7 +3413,7 @@ def main() -> int:
     kernels[-2]["tiling"] = tiling["hypersonic3d_step"]
     kernels.extend(stencil_kernel_lines(stencil_res, stencil_errs))
     kernels[-1]["max_rel_err"] = stencil_errs["rel"]
-    design = tiled_design(bk, swk, s2k, bg, swm, _build, device)
+    design = tiled_design(bk, swk, mk, s2k, bg, swm, mhd, _build, device)
     kernels.extend(resident_kernel_lines(resident_res, resident_errs, design))
     kernels.extend(stam3d_kernel_lines(stam3d_res, stam3d_errs))
     kernels.extend(stam2d_kernel_lines(stam2d_res, stam2d_errs, design))

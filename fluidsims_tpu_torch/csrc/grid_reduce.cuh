@@ -1,4 +1,4 @@
-// What the three K-step τ-clock kernels share (burgers_multistep.cu,
+// What the K-step τ-clock kernels share (burgers_multistep.cu,
 // shallow_water_multistep.cu, mhd_multistep.cu): NaN-propagating min and
 // max as torch.minimum / torch.maximum / torch.clamp_min compute them, the
 // exact grid-wide max of a step's wavespeeds, and the cooperative launch,
@@ -8,17 +8,13 @@
 //
 // The grid-wide max.  Every wavespeed is >= +0, and for non-negative IEEE
 // values the order of the bit patterns is the order of the values, so a
-// warp max followed by atomicMax on the bits (zero-extended to 64 bits for
+// block max followed by atomicMax on the bits (zero-extended to 64 bits for
 // float) is the exact max, whatever the order the atomics land in.  Bit
 // atomics drop NaN, so a flag beside the bits records whether any
 // wavespeed was NaN; the max read back is then NaN, as torch.max's is.
-// Each step uses its own slot of three: in mhd_multistep.cu step s
-// accumulates into slot s % 3 and one thread clears slot (s + 1) % 3,
-// which nobody reads or writes again until step s + 1 (between the last
-// read of that slot, in step s - 2, and the clear lie at least one grid
-// sync); the tiled kernels rotate the slots one step ahead (their notes
-// say how) and fold and read them with tiles.cuh's block_max_add and
-// slot_max_read.
+// Each step uses its own slot of three, rotated one step ahead (the tiled
+// kernels' notes say how: burgers_multistep.cu), folded and read with
+// tiles.cuh's block_max_add and slot_max_read.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -74,30 +70,6 @@ struct LocalMax {
       m = fmax(m, s + T(0));  // + 0 makes a -0 wavespeed +0
   }
 };
-
-// Folds every thread's LocalMax into slot `slot` (two words: bits, NaN
-// flag).  Called by every thread of the block.
-template <typename T>
-__device__ __forceinline__ void grid_max_add(unsigned long long* slots,
-                                             int slot, LocalMax<T> lm) {
-  T v = lm.m;
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmax(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const bool nan = __any_sync(0xffffffffu, lm.nan);
-  if ((threadIdx.x & 31) == 0) {
-    atomicMax(slots + 2 * slot, to_bits(v));
-    if (nan) atomicExch(slots + 2 * slot + 1, 1ull);
-  }
-}
-
-// The max of slot `slot`, after the grid sync that ends its step's adds.
-template <typename T>
-__device__ __forceinline__ T grid_max_read(const unsigned long long* slots,
-                                           int slot) {
-  const volatile unsigned long long* p = slots + 2 * slot;
-  if (p[1]) return T(NAN);
-  return from_bits<T>(p[0]);
-}
 
 __device__ __forceinline__ void grid_max_clear(unsigned long long* slots,
                                                int slot) {
@@ -194,17 +166,6 @@ int launch_cooperative_on(Kernel kernel, const Args& args, int grid,
     return (int)err;
   }
   return (int)cudaGetLastError();
-}
-
-// Launches `kernel(args)` cooperatively on the grid cooperative_grid gives
-// for `cells`.  Returns the CUDA error code.
-template <typename Kernel, typename Args>
-int launch_cooperative(Kernel kernel, const Args& args, long long cells,
-                       int device, void* stream) {
-  int grid = 0;
-  const int err = cooperative_grid(kernel, cells, device, &grid);
-  if (err != 0) return err;
-  return launch_cooperative_on(kernel, args, grid, device, stream);
 }
 
 }  // namespace fst

@@ -10,7 +10,11 @@
 // it: there is no cell capacity, so no pair is dropped however full a cell
 // gets, as in the reference's linked lists (tau_sph.cu:165-176).  A
 // particle's position in the sorted order minus its cell's start is its
-// rank in the cell.
+// rank in the cell.  The 3x3 cells around a cell, or around a run of cells
+// of one row, are three contiguous ranges of that order, one a neighbour
+// row (NeighbourRows), which a block stages into shared memory in chunks
+// (stage_chunk); a cell's own 3x3 cells are a contiguous part of each
+// (cell_entries).
 //
 // Rules that keep the kernels equal to the plain versions (as in
 // euler2d.cuh): literals cast to T before they meet a T value; constants
@@ -81,6 +85,81 @@ __device__ __forceinline__ bool cell_range(const int* __restrict__ starts,
   *b = __ldg(starts + c);
   *e = __ldg(starts + c + 1);
   return true;
+}
+
+// The members of the cells of rows gy - 1 .. gy + 1 and columns gx0 - 1
+// .. gx1 + 1 (clipped to the grid), as three contiguous ranges of the
+// sorted order, one a row ([b[r], b[r] + len[r]); empty for a row outside
+// the grid): for gx0 = gx1 the 3x3 cells around (gx0, gy), for a run of
+// cells gx0 .. gx1 of row gy the union of their 3x3 cells.  List entry k,
+// 0 <= k < total, walks the ranges in row order; off(r) is row r's first
+// entry.
+struct NeighbourRows {
+  int b[3], len[3], total;
+
+  __device__ __forceinline__ int off(int r) const {
+    return r == 0 ? 0 : (r == 1 ? len[0] : len[0] + len[1]);
+  }
+
+  __device__ __forceinline__ int at(int k) const {
+    if (k < len[0]) return b[0] + k;
+    k -= len[0];
+    if (k < len[1]) return b[1] + k;
+    return b[2] + (k - len[1]);
+  }
+};
+
+__device__ __forceinline__ NeighbourRows neighbour_rows(
+    const int* __restrict__ starts, int gx0, int gx1, int gy,
+    const SPHParams& p) {
+  NeighbourRows r;
+  r.total = 0;
+  const int x0 = max(gx0 - 1, 0), x1 = min(gx1 + 1, p.Gx - 1);
+  for (int o = 0; o < 3; ++o) {
+    const int y = gy - 1 + o;
+    r.b[o] = 0;
+    r.len[o] = 0;
+    if (y < 0 || y >= p.Gy) continue;
+    r.b[o] = __ldg(starts + y * p.Gx + x0);
+    r.len[o] = __ldg(starts + y * p.Gx + x1 + 1) - r.b[o];
+    r.total += r.len[o];
+  }
+  return r;
+}
+
+// The list entries [*a, *e) of `rows` (built for a run of row gy's cells
+// that holds column gx) that are the members of the 3x3 cells around
+// (gx, gy) in neighbour row o: a contiguous part of row o's range.
+__device__ __forceinline__ void cell_entries(const NeighbourRows& rows,
+                                             const int* __restrict__ starts,
+                                             int o, int gx, int gy,
+                                             const SPHParams& p, int* a,
+                                             int* e) {
+  const int y = gy - 1 + o;
+  if (y < 0 || y >= p.Gy) {
+    *a = *e = 0;
+    return;
+  }
+  const int base = rows.off(o) - rows.b[o];
+  *a = base + __ldg(starts + y * p.Gx + max(gx - 1, 0));
+  *e = base + __ldg(starts + y * p.Gx + min(gx + 1, p.Gx - 1) + 1);
+}
+
+// Stages list entries [k0, k0 + count) of `rows` into shared memory, spread
+// over the block's threads (consecutive threads, consecutive entries): the
+// sorted (x, y, vx, vy) into sf[0 .. count) and, unless rp is null, the
+// (rho, p / rho^2) into sr.
+template <typename T>
+__device__ __forceinline__ void stage_chunk(const NeighbourRows& rows, int k0,
+                                            int count,
+                                            const V4<T>* __restrict__ fields,
+                                            const V2<T>* __restrict__ rp,
+                                            V4<T>* sf, V2<T>* sr) {
+  for (int i = threadIdx.x; i < count; i += blockDim.x) {
+    const int j = rows.at(k0 + i);
+    sf[i] = fields[j];
+    if (rp != nullptr) sr[i] = rp[j];
+  }
 }
 
 }  // namespace fst

@@ -1,7 +1,8 @@
 // What the tiled cooperative kernels share (burgers_multistep.cu,
-// shallow_water_multistep.cu, stam2d_lin_solve.cu): the K-step kernels'
-// tile, the launch report of a grid query (TileLaunch), a grid group that
-// counts its syncs, a tile's window of a grid in shared memory, and loops
+// shallow_water_multistep.cu, mhd_multistep.cu, stam2d_lin_solve.cu): the
+// Burgers and shallow-water kernels' tile, the launch report of a grid
+// query (TileLaunch), a grid group that counts its syncs, a tile's window
+// of a grid in shared memory (wrapped or clamped at the edges), and loops
 // that spread a rectangle of the window over the block's threads.
 //
 // A tile of tile_x x tile_y cells with a halo of `halo` cells has a window
@@ -16,12 +17,13 @@
 
 namespace fst {
 
-// The K-step tile kernels run blocks of kStepThreads (256) threads, or of
-// kTileThreadsWide (512) when the grid then still gives every tile a block
-// of its own (few tiles, as at 512^2: a block runs one tile a step, and
-// twice the threads halve the dependent work a thread does between
-// barriers).  With many tiles (4096^2) the narrower blocks, more of them
-// an SM, ran faster.  Blocks of kTileThreadsWide an SM should hold (the
+// The Burgers and shallow-water K-step tile kernels run blocks of
+// kStepThreads (256) threads, or of kTileThreadsWide (512) when the grid
+// then still gives every tile a block of its own (few tiles, as at 512^2:
+// a block runs one tile a step, and twice the threads halve the dependent
+// work a thread does between barriers).  With many tiles (4096^2) the
+// narrower blocks, more of them an SM, ran faster.  Blocks of
+// kTileThreadsWide an SM should hold (the
 // second argument of the kernels' __launch_bounds__, which caps their
 // registers at 65536 / (512 x value), as for 2x as many 256-thread
 // blocks): 2 for float (64 registers), 1 for double (128).  Left to
@@ -33,11 +35,12 @@ struct TileBlocksPerSM {
   static constexpr int value = sizeof(T) == 4 ? 2 : 1;
 };
 
-// The K-step tile kernels' tile, kTileX x kTileY cells, clipped to the
-// grid (tile_of).  One value for float and double: the sweep of
-// tools/tune_tiles_torch.py, which builds variants with -DFST_TILE_X=...
-// -DFST_TILE_Y=..., found no tile more than 4% faster at the main runs'
-// shapes (PERF.md), and 64 x 16 and 64 x 32 slower at 4096^2.
+// The Burgers and shallow-water K-step kernels' tile, kTileX x kTileY
+// cells, clipped to the grid (tile_of).  One value for float and double:
+// the sweep of tools/tune_tiles_torch.py, which builds variants with
+// -DFST_TILE_X=... -DFST_TILE_Y=..., found no tile more than 4% faster at
+// the main runs' shapes (PERF.md), and 64 x 16 and 64 x 32 slower at
+// 4096^2.
 #ifndef FST_TILE_X
 #define FST_TILE_X 32
 #endif
@@ -219,10 +222,31 @@ __device__ __forceinline__ void load_periodic(const Window& w, int ny,
   }, g, s);
 }
 
-// grid_max_add (grid_reduce.cuh) with the block's warps folded in shared
-// memory first: one atomicMax (and at most one NaN flag) a block, not one
-// a warp, so the atomics that queue on the one slot are 8 times fewer.
-// The max of non-negative values is exact in any order.  Called by every
+// i clamped to [0, n).
+__device__ __forceinline__ int clamp1(int i, int n) {
+  return i < 0 ? 0 : (i >= n ? n - 1 : i);
+}
+
+// load_window on an ny x nx grid with edge-copy boundaries, NF fields g[f]
+// into s + f * stride: window cell (ly, lx) holds grid cell
+// (clamp1(oy + ly, ny), clamp1(ox + lx, nx)), as shift_clamped reads past
+// the edge.
+template <int NF, typename T>
+__device__ __forceinline__ void load_clamped(const Window& w, int ny,
+                                             int nx, const T* const* g,
+                                             T* s, int stride) {
+  for_region(0, w.wy, 0, w.wx, w.wx, [&](int ly, int lx, int c) {
+    const long long gi =
+        (long long)clamp1(w.oy + ly, ny) * nx + clamp1(w.ox + lx, nx);
+#pragma unroll
+    for (int f = 0; f < NF; ++f) s[f * stride + c] = g[f][gi];
+  });
+}
+
+// Folds every thread's LocalMax (grid_reduce.cuh) into slot `slot` (two
+// words: bits, NaN flag), the block's warps folded in shared memory first:
+// one atomicMax (and at most one NaN flag) a block.  The max of
+// non-negative values is exact in any order.  Called by every
 // thread of the block; calls are a grid sync (hence a block barrier)
 // apart.
 template <typename T>
@@ -251,8 +275,9 @@ __device__ __forceinline__ void block_max_add(unsigned long long* slots,
   }
 }
 
-// grid_max_read (grid_reduce.cuh) as one 16-byte load of the slot's two
-// words from L2, after the grid sync that ends its step's adds.
+// The max of slot `slot` (NaN if its flag is set), as one 16-byte load of
+// the slot's two words from L2, after the grid sync that ends its step's
+// adds.
 template <typename T>
 __device__ __forceinline__ T slot_max_read(const unsigned long long* slots,
                                            int slot) {

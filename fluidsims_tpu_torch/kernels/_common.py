@@ -10,16 +10,14 @@ import functools
 
 import torch
 
-__all__ = ["LaunchCounter", "on_cpu", "check_tensors", "GRID_MAX_WORDS",
-           "TILE_WORDS", "TileLaunch", "tile_launch", "tile_scratch",
-           "grid_syncs", "raise_if"]
+__all__ = ["LaunchCounter", "on_cpu", "check_tensors", "TILE_WORDS",
+           "TileLaunch", "tile_launch", "tile_scratch", "grid_syncs",
+           "raise_if"]
 
-# Words of the grid-max scratch of the K-step τ-clock kernels
-# (csrc/grid_reduce.cuh): 3 slots of (bits, NaN flag).
-GRID_MAX_WORDS = 6
-# Words of a tiled kernel's slots (csrc/tiles.cuh kTileWords): the grid-max
-# slots, then the count of grid syncs the last launch made.
-TILE_WORDS = GRID_MAX_WORDS + 1
+# Words of a tiled kernel's slots (csrc/tiles.cuh kTileWords): 3 grid-max
+# slots of (bits, NaN flag), then the count of grid syncs the last launch
+# made.
+TILE_WORDS = 2 * 3 + 1
 
 
 class LaunchCounter(dict):

@@ -10,7 +10,10 @@ versions, and the 'cuda' engine built on them.
   per sorted position.  Plain version: `density_plain`.
 * `forces(cfg, b, rp, dt) -> (pos, vel)` — csrc/sph_forces.cu, which
   replaces sph_pallas.py::_forces_kernel: pair forces, gravity and the
-  integrate, back in particle order.  Plain version: `forces_plain`.
+  integrate, back in particle order; a block a run of sorted positions,
+  their 3x3 cells staged in shared memory in chunks, 2-8 lanes a particle
+  chosen from the particle count (`forces_shape` reports the blocks).
+  Plain version: `forces_plain`.
 
 Neither the kernels nor their plain versions have a cell capacity: every
 member of the 3x3 cells around a particle enters its pair sums, as in the
@@ -41,8 +44,8 @@ from . import _build
 from ._common import LaunchCounter, on_cpu
 
 __all__ = ["LAUNCHES", "reset_launches", "Binned", "binning", "binning_plain",
-           "pair_chunks", "density", "density_plain", "forces", "forces_plain",
-           "make_step_cuda", "load"]
+           "pair_chunks", "density", "density_plain", "pair_forces", "forces",
+           "forces_plain", "forces_shape", "make_step_cuda", "load"]
 
 LAUNCHES = LaunchCounter("bin", "density", "forces")
 reset_launches = LAUNCHES.reset
@@ -69,6 +72,18 @@ class _Params(ctypes.Structure):
                      ("cell", "inv_h", "alpha", "alpha_q", "mass", "inv_rho0",
                       "c0sq_rho0", "gamma_eos", "four_h2", "two_h",
                       "visc_coef", "eps_h2", "gravity", "box_x", "box_y")]
+
+
+class ForcesShape(ctypes.Structure):
+    """Mirror of fst::SPHForcesShape (csrc/sph_forces.cu): the forces
+    kernel's threads a block, lanes a particle, candidates a staged chunk
+    and dynamic shared memory a block."""
+
+    _fields_ = [(name, ctypes.c_int) for name in
+                ("threads", "lanes", "chunk", "smem_bytes")]
+
+    def asdict(self) -> dict:
+        return {name: getattr(self, name) for name, _ in self._fields_}
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,6 +119,9 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, f"fst_sph_{name}_{sfx}")
             fn.argtypes = argtypes + [ctypes.c_int, P]
             fn.restype = ctypes.c_int
+        fn = getattr(lib, f"fst_sph_forces_shape_{sfx}")
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ForcesShape)]
+        fn.restype = None
     lib.fst_cuda_error_string.argtypes = [ctypes.c_int]
     lib.fst_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -259,40 +277,49 @@ def density_plain(cfg, b: Binned):
     return torch.stack([rho, press / (rs * rs)], -1)
 
 
+def pair_forces(cfg, f, rp, recv, nbr):
+    """The forces kernel's pair term, term by term, of each (receiver,
+    neighbour) pair of sorted positions: (c dx, c dy), 0 where the pair is
+    skipped (the receiver itself, r^2 >= (2h)^2, r^2 <= 1e-16).  f: the
+    sorted (x, y, vx, vy); rp: the density kernel's (rho, p / rho^2)."""
+    p = _params(cfg)
+    zero = torch.zeros((), dtype=f.dtype, device=f.device)
+    rho = torch.clamp(rp[:, 0], min=1e-30)
+    fi, fj = f[recv], f[nbr]
+    dx = fi[:, 0] - fj[:, 0]
+    dy = fi[:, 1] - fj[:, 1]
+    r2 = dx * dx + dy * dy
+    valid = (recv != nbr) & (r2 < p.four_h2) & (r2 > 1e-16)
+    r2s = torch.clamp(r2, min=1e-30)
+    inv_r = 1.0 / torch.sqrt(r2s)
+    r = r2s * inv_r
+    q = r * p.inv_h
+    t = 2.0 - q
+    dwdq = torch.where(q < 1.0, p.alpha * (-3.0 * q + 2.25 * q * q),
+                       p.alpha * (-0.75 * (t * t)))
+    scale = torch.where((r > 1e-8) & (r < p.two_h),
+                        dwdq * p.inv_h * inv_r, zero)
+    common = -p.mass * (rp[recv, 1] + rp[nbr, 1])
+    if p.use_visc:
+        dot = (fi[:, 2] - fj[:, 2]) * dx + (fi[:, 3] - fj[:, 3]) * dy
+        rho_bar = 0.5 * (rho[recv] + rho[nbr])
+        pi = torch.where(dot < 0.0,
+                         p.visc_coef * dot / ((r2 + p.eps_h2) * rho_bar),
+                         zero)
+        common = common - p.mass * pi
+    c = torch.where(valid, common * scale, zero)
+    return c * dx, c * dy
+
+
 def forces_plain(cfg, b: Binned, rp, dt):
     """Plain PyTorch version of the forces + integrate kernel: (pos, vel)
     in particle order."""
     p = _params(cfg)
     f = b.fields
-    zero = torch.zeros((), dtype=f.dtype, device=f.device)
-    rho = torch.clamp(rp[:, 0], min=1e-30)
     acc = torch.zeros((cfg.n, 2), dtype=f.dtype, device=f.device)
     for recv, nbr in pair_chunks(cfg, b):
-        fi, fj = f[recv], f[nbr]
-        dx = fi[:, 0] - fj[:, 0]
-        dy = fi[:, 1] - fj[:, 1]
-        r2 = dx * dx + dy * dy
-        valid = (recv != nbr) & (r2 < p.four_h2) & (r2 > 1e-16)
-        r2s = torch.clamp(r2, min=1e-30)
-        inv_r = 1.0 / torch.sqrt(r2s)
-        r = r2s * inv_r
-        q = r * p.inv_h
-        t = 2.0 - q
-        dwdq = torch.where(q < 1.0, p.alpha * (-3.0 * q + 2.25 * q * q),
-                           p.alpha * (-0.75 * (t * t)))
-        scale = torch.where((r > 1e-8) & (r < p.two_h),
-                            dwdq * p.inv_h * inv_r, zero)
-        common = -p.mass * (rp[recv, 1] + rp[nbr, 1])
-        if p.use_visc:
-            dot = (fi[:, 2] - fj[:, 2]) * dx + (fi[:, 3] - fj[:, 3]) * dy
-            rho_bar = 0.5 * (rho[recv] + rho[nbr])
-            pi = torch.where(dot < 0.0,
-                             p.visc_coef * dot / ((r2 + p.eps_h2) * rho_bar),
-                             zero)
-            common = common - p.mass * pi
-        c = torch.where(valid, common * scale, zero)
-        acc.index_add_(0, recv, torch.stack([c * dx, c * dy], -1))
-
+        cx, cy = pair_forces(cfg, f, rp, recv, nbr)
+        acc.index_add_(0, recv, torch.stack([cx, cy], -1))
     if p.use_grav:
         acc = acc - torch.tensor([0.0, p.gravity], dtype=acc.dtype,
                                  device=acc.device)
@@ -334,6 +361,17 @@ def forces(cfg, b: Binned, rp, dt):
             b.starts.data_ptr(), b.order.data_ptr(), dt.data_ptr(),
             ctypes.byref(_params(cfg)), pos.data_ptr(), vel.data_ptr())
     return pos, vel
+
+
+@functools.lru_cache(maxsize=None)
+def forces_shape(cfg) -> ForcesShape:
+    """The forces kernel's blocks for cfg's particle count and dtype, as
+    the library launches them (csrc/sph_forces.cu: the FST_SPH_*
+    constants, the lanes a particle chosen from the count)."""
+    out = ForcesShape()
+    sfx = _SUFFIX[cfg.torch_dtype]
+    getattr(load(), f"fst_sph_forces_shape_{sfx}")(cfg.n, ctypes.byref(out))
+    return out
 
 
 def make_step_cuda(cfg):

@@ -11,7 +11,8 @@ f32 x 1000 steps, each at the default block_k (16, 8) and at block_k = 1
 320x220 Brio–Wu f32 x 4000 steps (bench.py's sizes and step counts) at
 the default block_k (16, 8, 8) and at 1 (the K-step kernel with k = 1
 every step), and Burgers and shallow water 4096^2, MHD Orszag–Tang 2048^2
-f32 x 200 at the default block_k; each from init:
+f32 x 200 at the default block_k, and MHD 320x220 f64 x 1000 at block_k 8
+(chip_smoke.py's fourth MHD run); each from init:
 
 * the step time on the host clock, unprofiled: the whole run bracketed by
   torch.cuda.synchronize(), after a warm-up of block_k + 1 steps from the
@@ -73,7 +74,9 @@ RUNS = (("gray_scott", gs.GrayScottConfig(nx=2048, ny=2048, block_k=16), 2000),
         ("mhd", mhd.MHDConfig(nx=320, ny=220, block_k=8), 4000),
         ("mhd", mhd.MHDConfig(nx=320, ny=220, block_k=1), 4000),
         ("mhd", mhd.MHDConfig(nx=2048, ny=2048, problem="orszag-tang",
-                              block_k=8), 200))
+                              block_k=8), 200),
+        ("mhd", mhd.MHDConfig(nx=320, ny=220, dtype="float64", block_k=8),
+         1000))
 MODULES = {"gray_scott": gs, "lbm": lbm, "burgers": bg, "shallow_water": sw,
            "mhd": mhd}
 # solvers whose 'cuda' engine is one K-step kernel, launched with k = 1 for

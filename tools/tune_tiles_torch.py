@@ -4,13 +4,15 @@ tiles.
 
     python tools/tune_tiles_torch.py [check] [time] [sweep] [diff A B]
         [--root DIR] [--out PATH] [--define NAME=VALUE ...] [--only KEY ...]
-        [--fmad] [--dump DIR] [--set tiles|hypersonic]
+        [--fmad] [--dump DIR] [--set tiles|hypersonic|mhd|sph]
 
 The kernels: the Burgers and shallow-water K-step kernels
 (csrc/burgers_multistep.cu, csrc/shallow_water_multistep.cu, TPU kernel
-#7), the stam2d whole Jacobi solve (csrc/stam2d_lin_solve.cu, #9) and the
+#7), the stam2d whole Jacobi solve (csrc/stam2d_lin_solve.cu, #9), the
 two hypersonic step kernels (csrc/hypersonic2d_step.cu, #1;
-csrc/hypersonic3d_step.cu, #2).
+csrc/hypersonic3d_step.cu, #2), the GLM-MHD K-step kernel
+(csrc/mhd_multistep.cu, #8) and the SPH forces kernel
+(csrc/sph_forces.cu, #15).
 
 * check — each kernel against its plain version on the card: Burgers and
   shallow water on 200x75 and 5x3 (every option), k = 1 within 1e-5
@@ -18,8 +20,14 @@ csrc/hypersonic3d_step.cu, #2).
   k = 1; the solve bitwise equal at n = 1, 37 and 512 and 1, h, h + 1 and
   40 sweeps (h: sweeps a grid sync); the hypersonic steps within 1e-5
   (f32) / 1e-12 (f64) relative of their plain versions on small and
-  ragged grids from init plus seeded noise, bitwise cases counted.
-  Raises on the first failure.
+  ragged grids from init plus seeded noise, bitwise cases counted; the
+  MHD kernel on 200x75, 37x23 and 256x128 (both problems, both flux
+  signs, f32 and f64) at k = 1 within 1e-5 / 1e-12 relative, k = 8
+  bitwise equal to 8 launches of k = 1, with K + 1 grid syncs as the
+  kernel counts them (trees whose wrapper reports them); the SPH forces
+  kernel within 1e-5 / 1e-12 relative on 4096 particles and on a crowded
+  pool (one cell's neighbourhood larger than a staged chunk), two
+  launches bitwise equal.  Raises on the first failure.
 * time — ms a launch by CUDA events (a warm-up, then the mean over a run
   of launches back to back) at the shapes chip_smoke.py's main runs use:
   Burgers 512^2 f32 K=16 and K=1, 4096^2 f32 K=16, 512^2 f64 K=16;
@@ -29,7 +37,11 @@ csrc/hypersonic3d_step.cu, #2).
   after 400, 256^3 f32 after 20), also as torch.profiler's device time a
   launch, with a sha256 of the run's final state and of the step's
   output, so that two trees' kernels can be held to each other bit for
-  bit (--only: these keys alone).  For the K=1 launches, also the device
+  bit (--only: these keys alone); the MHD kernel the same way on the
+  final state of chip_smoke.py's MHD runs (320x220 Brio–Wu f32 x 4000 at
+  K=8 and K=1, 2048^2 Orszag–Tang f32 x 200 at K=8, 320x220 f64 x 1000 at
+  K=8); the SPH forces kernel on the final state of its runs (65,536 f32
+  x 200, 2^20 f32 with rain x 50).  For the K=1 launches, also the device
   time a launch (torch.profiler's kernel time over 200 launches) and the
   host's time a wrapper call (the host clock over 200 calls that queue
   without a sync), by part.  With --root, the package is imported from
@@ -44,14 +56,20 @@ csrc/hypersonic3d_step.cu, #2).
   hypersonic step kernels' tiles instead (csrc/hypersonic2d_step.cu
   FST_HYP2D_TILE_X, FST_HYP2D_TILE_Y for float, FST_HYP2D_F64_TILE_X,
   FST_HYP2D_F64_TILE_Y for double; csrc/hypersonic3d_step.cu
-  FST_HYP3D_TILE_X, FST_HYP3D_TILE_Y, FST_HYP3D_TILE_Z).
+  FST_HYP3D_TILE_X, FST_HYP3D_TILE_Y, FST_HYP3D_TILE_Z); `--set mhd` the
+  MHD kernel's tiles and threads (csrc/mhd_multistep.cu FST_MHD_TILE_X,
+  _Y, FST_MHD_F64_TILE_X, _Y, FST_MHD_THREADS, FST_MHD_MIN_BLOCKS,
+  FST_MHD_F64_MIN_BLOCKS); `--set sph` the SPH
+  forces kernel's threads, lanes a particle and staged bytes
+  (csrc/sph_forces.cu FST_SPH_FORCES_THREADS, FST_SPH_MIN_LANES,
+  FST_SPH_MAX_LANES, FST_SPH_STAGE_BYTES).
 * --fmad — build with -fmad=true in place of -fmad=false: how much of a
   kernel's time the unfused multiplies and adds take.  A measurement
   only; the shipped build and every bitwise bar keep -fmad=false.
-* --dump DIR — `time` also saves each hypersonic key's final state and
-  step output to DIR; `diff A B` then reports, key by key, whether two
-  dumps (two trees, or two builds) are bitwise equal, and by how much
-  they differ where they are not.
+* --dump DIR — `time` also saves each hypersonic, MHD and SPH key's final
+  state and step output to DIR; `diff A B` then reports, key by key,
+  whether two dumps (two trees, or two builds) are bitwise equal, and by
+  how much they differ where they are not.
 
 Prints one line per reading, the card's name and power limit first, and
 writes all readings as JSON to --out (default build/tune_tiles_torch.json).
@@ -313,6 +331,105 @@ def check_hyp(m, dev) -> list:
     return out
 
 
+def mhd_noisy(m, cfg, dev, seed: int):
+    """init() plus seeded noise on rho, mx, my and By (as chip_smoke.py's
+    resident_state)."""
+    s = m.mhd.init(cfg, torch.device("cpu"))
+    rng = np.random.default_rng(seed)
+    U = s.U
+
+    def nz(f, amp):
+        return f + torch.tensor(amp * rng.standard_normal(tuple(f.shape)),
+                                dtype=f.dtype)
+
+    rho = U.rho * (1.0 + 0.02 * torch.tensor(
+        rng.uniform(-1, 1, tuple(U.rho.shape)), dtype=U.rho.dtype))
+    U = U._replace(rho=rho, mx=nz(U.mx, 0.02), my=nz(U.my, 0.02),
+                   By=nz(U.By, 0.02))
+    return m.mhd.MHDState(U=type(U)(*(f.to(dev) for f in U)), t=s.t.to(dev))
+
+
+def check_mhd(m, dev) -> list:
+    """The MHD kernel against its plain version: k = 1 within 1e-5 / 1e-12
+    relative, k = 8 bitwise equal to 8 launches of k = 1, K + 1 grid
+    syncs a launch where the wrapper reports them."""
+    out = []
+    tol = {torch.float32: 1e-5, torch.float64: 1e-12}
+    for dtype in ("float32", "float64"):
+        for nx, ny in ((200, 75), (37, 23), (256, 128)):
+            for problem in ("briowu", "orszag-tang"):
+                for stable in (False, True):
+                    cfg = m.mhd.MHDConfig(nx=nx, ny=ny, dtype=dtype,
+                                          problem=problem, stable_hll=stable)
+                    s = mhd_noisy(m, cfg, dev, 7)
+                    a, b = (m.mk.mhd_multistep(cfg, s, 1),
+                            m.mk.mhd_multistep_plain(cfg, s, 1))
+                    rel = max_rel([*a.U, a.t], [*b.U, b.t])
+                    if not rel <= tol[cfg.torch_dtype]:
+                        raise AssertionError(f"{cfg}: k=1 rel err {rel:.3e}")
+                    got8 = m.mk.mhd_multistep(cfg, s, 8)
+                    syncs = (m.mk.grid_syncs(cfg, dev)
+                             if hasattr(m.mk, "grid_syncs") else None)
+                    if syncs not in (None, 9):
+                        raise AssertionError(f"{cfg}: {syncs} grid syncs at "
+                                             "k=8, want 9")
+                    one = s
+                    for _ in range(8):
+                        one = m.mk.mhd_multistep(cfg, one, 1)
+                    if not all(bits_equal(x, y) for x, y in
+                               zip([*got8.U, got8.t], [*one.U, one.t])):
+                        raise AssertionError(f"{cfg}: k=8 != 8 x k=1")
+                    out.append({"case": f"mhd {nx}x{ny} {dtype} {problem} "
+                                f"stable={stable}", "rel_k1": rel,
+                                "grid_syncs_k8": syncs})
+    torch.cuda.synchronize()
+    log(f"[check] mhd: {len(out)} cases, k=1 within 1e-5 / 1e-12 of plain, "
+        "k=8 bitwise to 8 x k=1, grid syncs K + 1 where counted")
+    return out
+
+
+def check_sph(m, dev) -> list:
+    """The SPH forces kernel against its plain version on the same binning
+    and density, and two launches bitwise equal: 4096 particles from init
+    with seeded velocity noise, and a crowded pool (a cell packed with
+    more candidates than a staged chunk holds)."""
+    out = []
+    tol = {torch.float32: 1e-5, torch.float64: 1e-12}
+    rng = np.random.default_rng(9)
+    for dtype in ("float32", "float64"):
+        for n, crowd in ((4096, 0), (4096, 1500)):
+            cfg = m.ts.SPHConfig(n=n, dtype=dtype)
+            pos = m.ts.init(cfg, torch.device("cpu")).pos.clone()
+            if crowd:
+                c = cfg.grid().cell
+                for k in (0, 1):
+                    pos[:crowd, k] = torch.tensor(
+                        (3.5 - k) * c + 0.45 * c * rng.uniform(-1, 1, crowd),
+                        dtype=pos.dtype)
+            vel = torch.tensor(0.5 * rng.standard_normal((n, 2)),
+                               dtype=cfg.torch_dtype)
+            pos, vel = pos.to(dev), vel.to(dev)
+            b = m.sk.binning(cfg, pos, vel)
+            rp = m.sk.density(cfg, b)
+            dt = torch.full((), 1e-4, dtype=cfg.torch_dtype, device=dev)
+            got, again = (m.sk.forces(cfg, b, rp, dt) for _ in range(2))
+            ref = m.sk.forces_plain(cfg, b, rp, dt)
+            rel = max_rel(got, ref)
+            if not rel <= tol[cfg.torch_dtype]:
+                raise AssertionError(f"sph forces n={n} crowd={crowd} "
+                                     f"{dtype}: rel err {rel:.3e}")
+            if not all(bits_equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"sph forces n={n} crowd={crowd} "
+                                     f"{dtype}: two launches differ")
+            peak = int(torch.bincount(b.cid.long()).max())
+            out.append({"case": f"sph forces n={n} crowd={crowd} {dtype}",
+                        "rel": rel, "max_cell": peak})
+    torch.cuda.synchronize()
+    log(f"[check] sph forces: {len(out)} cases within 1e-5 / 1e-12 of "
+        "plain, two launches bitwise equal")
+    return out
+
+
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     """The same bits (NaN payloads and the sign of zero included)."""
     it = torch.int32 if a.element_size() == 4 else torch.int64
@@ -344,6 +461,19 @@ def hyp_main_call(m, dim, size, dtype, steps, dev):
     return (lambda: m.hk3.step_core(cfg, qp, sp, dt, g)), list(out[:6])
 
 
+def record(res: dict, key: str, state, out, dump) -> None:
+    """The sha256 digests of a key's final state and of the kernel's output
+    on it, and with `dump` both saved for `diff`."""
+    res[key + " state sha256"] = digest(state)
+    res[key + " out sha256"] = digest(out)
+    if dump:
+        Path(dump).mkdir(parents=True, exist_ok=True)
+        torch.save({"state": [t.cpu() for t in state],
+                    "out": [t.cpu() for t in out]},
+                   Path(dump) / (key.replace(" ", "_").replace("^", "")
+                                 + ".pt"))
+
+
 def hyp_timings(m, dev, only, dump) -> dict:
     res = {}
     for key, dim, size, dtype, steps, n in HYP_RUNS:
@@ -353,15 +483,67 @@ def hyp_timings(m, dev, only, dump) -> dict:
         res[key] = time_ms(call, n)
         res[key + " device"] = device_ms(
             call, n, "step_kernel" if dim == 2 else "step3_kernel")
-        out = list(call())
-        res[key + " state sha256"] = digest(state)
-        res[key + " out sha256"] = digest(out)
-        if dump:
-            Path(dump).mkdir(parents=True, exist_ok=True)
-            torch.save({"state": [t.cpu() for t in state],
-                        "out": [t.cpu() for t in out]},
-                       Path(dump) / (key.replace(" ", "_").replace("^", "")
-                                     + ".pt"))
+        record(res, key, state, list(call()), dump)
+    return res
+
+
+# The MHD K-step kernel (#8) at chip_smoke.py's MHD runs: (key, config
+# fields, steps of the run, k a launch, launches timed).
+MHD_RUNS = (("mhd 320x220 f32 K=8", dict(nx=320, ny=220), 4000, 8, 100),
+            ("mhd 320x220 f32 K=1", dict(nx=320, ny=220), 4000, 1, 400),
+            ("mhd 2048x2048 ot f32 K=8",
+             dict(nx=2048, ny=2048, problem="orszag-tang"), 200, 8, 10),
+            ("mhd 320x220 f64 K=8", dict(nx=320, ny=220, dtype="float64"),
+             1000, 8, 100))
+MHD_KEYS = tuple(r[0] for r in MHD_RUNS)
+
+
+def mhd_timings(m, dev, only, dump) -> dict:
+    """ms a launch of the MHD kernel on the final state of each run
+    (K=1 also as device time and the host's time a wrapper call), with
+    the digests of that state and of the launch's output."""
+    res = {}
+    for key, fields, steps, k, n in MHD_RUNS:
+        if only is not None and key not in only:
+            continue
+        cfg = m.mhd.MHDConfig(**fields, block_k=k)
+        out = m.mhd.run(cfg, m.mhd.init(cfg, dev), steps)
+        res[key] = time_ms(lambda: m.mk.mhd_multistep(cfg, out, k), n)
+        if k == 1:
+            res[key + " device"] = device_ms(
+                lambda: m.mk.mhd_multistep(cfg, out, k), n, "mhd_multistep")
+            res[key + " host_us"] = host_us(
+                lambda: m.mk.mhd_multistep(cfg, out, k), 200)
+        got = m.mk.mhd_multistep(cfg, out, k)
+        record(res, key, [*out.U, out.t], [*got.U, got.t], dump)
+    return res
+
+
+# The SPH forces kernel (#15) at chip_smoke.py's SPH runs: (key, particles,
+# rain, steps of the run, launches timed).
+SPH_RUNS = (("sph 65536 f32", 65536, False, 200, 50),
+            ("sph 1048576 f32 rain", 1 << 20, True, 50, 20))
+SPH_KEYS = tuple(r[0] for r in SPH_RUNS)
+
+
+def sph_timings(m, dev, only, dump) -> dict:
+    """ms a launch of the forces kernel (also as device time) on the
+    binning and density of each run's final state, with the digests of
+    that state and of the launch's output."""
+    res = {}
+    for key, n_p, rain, steps, n in SPH_RUNS:
+        if only is not None and key not in only:
+            continue
+        cfg = m.ts.SPHConfig(n=n_p, rain=rain)
+        out = m.ts.run(cfg, m.ts.init(cfg, dev), steps)
+        b = m.sk.binning(cfg, out.pos, out.vel)
+        rp = m.sk.density(cfg, b)
+        dt = m.ts._frame_dt(cfg, out, None)
+        res[key] = time_ms(lambda: m.sk.forces(cfg, b, rp, dt), n)
+        res[key + " device"] = device_ms(lambda: m.sk.forces(cfg, b, rp, dt),
+                                         n, "forces_kernel")
+        record(res, key, [out.pos, out.vel], list(m.sk.forces(cfg, b, rp, dt)),
+               dump)
     return res
 
 
@@ -392,9 +574,20 @@ def diff(a: str, b: str) -> dict:
     return res
 
 
+def checks(m, dev, only=None) -> list:
+    """The checks of the kernels that `only`'s keys time (all without
+    --only)."""
+    parts = ((check, KSTEP_KEYS + SOLVE_KEYS), (check_hyp, HYP_KEYS),
+             (check_mhd, MHD_KEYS), (check_sph, SPH_KEYS))
+    return [c for fn, keys in parts if only is None or set(keys) & set(only)
+            for c in fn(m, dev)]
+
+
 def timings(m, dev, only=None, dump=None) -> dict:
     """ms a launch at the main runs' shapes (only: the keys to time)."""
     res = hyp_timings(m, dev, only, dump)
+    res.update(mhd_timings(m, dev, only, dump))
+    res.update(sph_timings(m, dev, only, dump))
     runs = (("burgers 512 f32 K=16", m.bg, m.bk.burgers_multistep,
              dict(nx=512, ny=512), 16, 50),
             ("burgers 512 f32 K=1", m.bg, m.bk.burgers_multistep,
@@ -449,6 +642,17 @@ SOLVE_SWEEPS = (5, 8, 10)
 HYP2D_TILES = (((16, 16), (16, 8)), ((32, 8), (32, 4)), ((16, 8), (16, 4)),
                ((32, 16), (8, 8)))
 HYP3D_TILES = ((8, 8, 8), (16, 8, 4), (16, 8, 8), (8, 16, 8))
+# The MHD sweep: (f32 tile, f64 tile, threads a block, f32 and f64 blocks
+# an SM of __launch_bounds__) of each build.
+MHD_VARIANTS = (
+    ((16, 15), (16, 7), 128, 5, 3), ((16, 15), (16, 7), 128, 6, 2),
+    ((32, 15), (16, 15), 128, 5, 2), ((8, 15), (8, 7), 64, 8, 5),
+    ((16, 16), (16, 8), 128, 2, 2), ((16, 15), (16, 7), 128, 4, 4),
+    ((32, 15), (16, 7), 256, 2, 3), ((16, 16), (16, 16), 256, 2, 2))
+# The SPH forces sweep: (threads a block, fewest and most lanes a
+# particle, staged bytes).
+SPH_VARIANTS = ((128, 2, 8, 24576), (128, 1, 8, 24576), (128, 4, 8, 24576),
+                (128, 2, 4, 24576), (128, 2, 8, 12288), (256, 2, 8, 24576))
 KSTEP_KEYS = ("burgers 512 f32 K=16", "burgers 4096 f32 K=16",
               "burgers 512 f64 K=16", "sw 512 f32 K=8", "sw 4096 f32 K=8",
               "sw 512 f64 K=8")
@@ -482,14 +686,33 @@ def hyp_variants() -> list[tuple[dict, tuple]]:
             for (a, a64), b in zip(HYP2D_TILES, HYP3D_TILES)]
 
 
+def mhd_variants() -> list[tuple[dict, tuple]]:
+    keys = tuple(k for k in MHD_KEYS if "K=1" not in k)
+    return [({"FST_MHD_TILE_X": a[0], "FST_MHD_TILE_Y": a[1],
+              "FST_MHD_F64_TILE_X": b[0], "FST_MHD_F64_TILE_Y": b[1],
+              "FST_MHD_THREADS": th, "FST_MHD_MIN_BLOCKS": m32,
+              "FST_MHD_F64_MIN_BLOCKS": m64}, keys)
+            for a, b, th, m32, m64 in MHD_VARIANTS]
+
+
+def sph_variants() -> list[tuple[dict, tuple]]:
+    return [({"FST_SPH_FORCES_THREADS": th, "FST_SPH_MIN_LANES": fewest,
+              "FST_SPH_MAX_LANES": most, "FST_SPH_STAGE_BYTES": stage},
+             SPH_KEYS)
+            for th, fewest, most, stage in SPH_VARIANTS]
+
+
+SWEEPS = {"tiles": variants, "hypersonic": hyp_variants, "mhd": mhd_variants,
+          "sph": sph_variants}
+
+
 def sweep(args) -> list:
     """Each variant built and timed by this script in a process of its
     own; a variant the card refuses (a window past shared memory) is
     recorded as refused."""
     out = []
     tmp = Path(args.out).with_suffix(".variant.json")
-    for defines, keys in (hyp_variants() if args.set == "hypersonic"
-                          else variants()):
+    for defines, keys in SWEEPS[args.set]():
         cmd = [sys.executable, __file__, "time", "--root", args.root,
                "--out", str(tmp), "--only", *keys]
         for name, value in defines.items():
@@ -502,7 +725,7 @@ def sweep(args) -> list:
             continue
         got = json.loads(tmp.read_text())
         for key, ms in got["time"].items():
-            if isinstance(ms, str):
+            if isinstance(ms, str) or key not in keys:
                 continue
             out.append({"defines": defines, "key": key, "ms": ms})
             log(f"[sweep] {defines} {key}: {ms:.4f} ms")
@@ -519,11 +742,12 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="build/tune_tiles_torch.json")
     ap.add_argument("--define", action="append", default=[],
                     help="NAME=VALUE: build the kernels with -DNAME=VALUE")
-    ap.add_argument("--only", nargs="*", help="time these keys alone")
+    ap.add_argument("--only", nargs="*",
+                    help="time these keys alone, and check their kernels")
     ap.add_argument("--fmad", action="store_true",
                     help="build with -fmad=true (a measurement only)")
     ap.add_argument("--dump", help="save the hypersonic outputs here")
-    ap.add_argument("--set", default="tiles", choices=["tiles", "hypersonic"],
+    ap.add_argument("--set", default="tiles", choices=sorted(SWEEPS),
                     help="the kernels whose tiles `sweep` varies")
     args = ap.parse_args(argv)
     if args.what[:1] == ["diff"]:
@@ -569,10 +793,14 @@ def main(argv=None) -> int:
     from fluidsims_tpu_torch.solvers import hypersonic2d as h2
     from fluidsims_tpu_torch.solvers import hypersonic3d as h3
     from fluidsims_tpu_torch.solvers import shallow_water as sw
+    from fluidsims_tpu_torch.kernels import mhd_cuda as mk
+    from fluidsims_tpu_torch.kernels import sph_cuda as sk
+    from fluidsims_tpu_torch.solvers import mhd
+    from fluidsims_tpu_torch.solvers import sph as ts
 
     m = types.SimpleNamespace(bk=bk, swk=swk, s2k=s2k, bg=bg, sw=sw, hk=hk,
                               hk3=hk3, h2=h2, h3=h3, interop=interop,
-                              cfl_dt=cfl_dt)
+                              cfl_dt=cfl_dt, mk=mk, sk=sk, mhd=mhd, ts=ts)
     log(f"[device] {smi}; package from {Path(bk.__file__).parents[1]}")
     dev = torch.device("cuda", 0)
     bk.load()
@@ -582,12 +810,14 @@ def main(argv=None) -> int:
         res["ptxas"] = [u for name in ("burgers_multistep_kernel",
                                        "sw_multistep_kernel",
                                        "lin_solve_kernel", "11step_kernel",
-                                       "12step3_kernel")
+                                       "12step3_kernel",
+                                       "mhd_multistep_kernel",
+                                       "forces_kernel")
                         for u in _build.ptxas_usage(name)]
         for u in res["ptxas"]:
             log(f"[build] ptxas {u}")
     if "check" in args.what:
-        res["check"] = check(m, dev) + check_hyp(m, dev)
+        res["check"] = checks(m, dev, args.only)
     if "time" in args.what:
         res["time"] = timings(m, dev, args.only, args.dump)
         for key, v in res["time"].items():
