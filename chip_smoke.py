@@ -84,10 +84,11 @@ failure of which ends the run with a non-zero exit:
              steps a launch) against their plain PyTorch versions, f32 and
              f64, from init plus seeded noise, on a ragged 200x75 grid
              (LBM with a radius-8 obstacle), an aligned 256x128 one and,
-             for LBM, 200x75 with the top wall row removed: Gray–Scott
-             bitwise, LBM bitwise or within 1e-5 (f32) / 1e-12 (f64)
-             relative; K = 16 and K = 1 (Gray–Scott), K = 8 and K = 1
-             (LBM); the overrides feed=0.04, kill=0.058 and drive=3e-4;
+             for LBM, 200x75 with the top wall row removed and 24x20
+             (narrower than the K-step kernel's window): bitwise; K = 16
+             and K = 1 (Gray–Scott), K = 1, 3, 8 and 16 (LBM, each K-step
+             launch also bitwise equal to K launches of the one-step
+             kernel); the overrides feed=0.04, kill=0.058 and drive=3e-4;
              run(cfg, s, 23) at block_k=8 makes exactly 2 K-step and 7
              one-step launches and equals 23 plain steps.
 12. stencil_main — solvers.gray_scott.run and solvers.lbm.run with engine
@@ -186,14 +187,16 @@ failure of which ends the run with a non-zero exit:
 19. flip_kernels — the three FLIP/APIC kernels (atomic P2G, the whole
              grid phase in one cooperative launch, G2P with the density
              raster) against their plain PyTorch versions, f32 and f64, at
-             n=128, 37 and 512 with 4 n^2 seeded particles (eight on the
-             walls and corners), jacobi 48 and 7, the config's blend and
-             the overrides flip=0.5, apic=0.3: P2G within 1e-5 (f32) /
-             1e-12 (f64) relative to each grid's max (atomics add in no
-             fixed order); the grid phase on the kernel's P2G grids and G2P
-             on the kernel's fields, same bars, bitwise cases counted; the
-             raster equal to the plain version's and counting every
-             particle; then 5 steps of the cuda engine against the
+             n=128, 37, 512 and 16 with 4 n^2 seeded particles (eight on
+             the walls and corners), jacobi 48, 7, 1 and 0, the config's
+             blend and the overrides flip=0.5, apic=0.3: P2G within 1e-5
+             (f32) / 1e-12 (f64) relative to each grid's max (atomics add
+             in no fixed order); the grid phase on the kernel's P2G grids
+             bitwise equal or the script fails, with max(ceil(jacobi / h),
+             1) - 1 grid syncs as the kernel counts them (h: sweeps a
+             sync); G2P on the kernel's fields within the same bars,
+             bitwise cases counted; the raster equal to the plain
+             version's and counting every particle; then 5 steps of the cuda engine against the
              'scatter' engine at FlipApicConfig() within 5e-4 (f32) / 1e-10
              (f64) relative (FLIP_TRAJ_TOL), the raster equal to the plain
              raster of the cuda positions (and to the scatter engine's
@@ -244,13 +247,18 @@ the peaks of an H100 SXM at 700 W; bound_by says which.  Operation counts
 per cell or pair are counted from the CUDA sources (see *_OPS below);
 where the work depends on the data (SPH pairs), this run's pairs are
 counted.  The lines of the tiled kernels (#7: Burgers and shallow water;
-#8: MHD; #9: the stam2d solve) also carry `tiling` at the main runs'
+#8: MHD; #9: the stam2d solve; #17: the FLIP grid phase, at each FLIP
+run's grid and dtype) also carry `tiling` at the main runs'
 configs, per dtype: the blocks, threads a block, tile, halo and dynamic
 shared memory that the library's grid query reports, the grid syncs of
 one launch as the kernel counted them, and ptxas's registers, static
 shared memory, stack and spills of each instantiation; #7's and #8's
 lines carry `ms_one_step`, a k = 1 launch back to back (the host's cost
-a call included).  The SPH forces kernel's line (#15) carries `block`, for
+a call included).  The LBM K-step kernel's line (#6) carries `tiling`
+(blocks, threads, tile, halo K and shared memory of the K=8 launch at
+2048x1024, per dtype, as the library reports them, and ptxas's report) and
+`ms_k_one_step`, K times the one-step kernel's ms a launch in the same
+run (f32, and `ms_k_one_step_f64`).  The SPH forces kernel's line (#15) carries `block`, for
 the main runs' particle counts (f32) and 4096 f64, its threads a block,
 lanes a particle, candidates a staged chunk and shared memory a block as
 the library reports them, and
@@ -1339,26 +1347,54 @@ def phase_stencil_kernels(gs, lbm, gk, lk, device) -> dict:
                 f"and feed=0.04 kill=0.058) bitwise equal to the plain "
                 f"version; run(23) at block_k=8: 2 + 7 launches, bitwise "
                 f"equal to 23 plain steps")
-        for nx, ny, top in ((200, 75, True), (256, 128, True),
-                            (200, 75, False)):
+        for nx, ny, top, radius in ((200, 75, True, 8.0),
+                                    (256, 128, True, 8.0),
+                                    (200, 75, False, 8.0),
+                                    (24, 20, True, 4.0)):
             cfg = lbm.LBMConfig(nx=nx, ny=ny, dtype=dtype,
-                                obstacle_radius=8.0)
+                                obstacle_radius=radius)
             key = (f"lbm {nx}x{ny} {dtype}"
                    + ("" if top else " no top wall"))
             s = lbm_state(lbm, cfg, device, SEED, top)
-            worst = 0.0
             for over in ({}, {"drive": 3e-4}):
-                for k in (None, 8, 1):
-                    worst = max(worst, check_stencil_call(
-                        lk, "lbm", cfg, s, k, f"{key} K={k} {over}", errs,
-                        STEP_TOL[dt], **over))
-            check_run23(lbm, lk, cfg, s, key, STEP_TOL[dt])
-            errs["rel"][key] = worst
-            log(f"[stencil] {key}: one-step and K-step (K=8, 1; default and "
-                f"drive=3e-4) vs the plain version: max rel err {worst:.3e} "
-                f"(tol {STEP_TOL[dt]:g}; 0 = bitwise); run(23) at block_k=8: "
-                f"2 + 7 launches, equal to 23 plain steps")
+                for k in LBM_CHECK_K:
+                    check_stencil_call(lk, "lbm", cfg, s, k,
+                                       f"{key} K={k} {over}", errs, 0.0,
+                                       **over)
+                    if k is not None:
+                        check_k_one_steps(lk, cfg, s, k,
+                                          f"{key} K={k} {over}", **over)
+            check_run23(lbm, lk, cfg, s, key, 0.0)
+            errs["rel"][key] = 0.0
+            windows = {k: lk.launch_shape(cfg, k).asdict()
+                       for k in LBM_CHECK_K if k is not None}
+            log(f"[stencil] {key}: one-step and K-step (K={LBM_CHECK_K[1:]}; "
+                f"default and drive=3e-4) bitwise equal to the plain "
+                f"version, each K-step launch bitwise equal to K one-step "
+                f"launches; run(23) at block_k=8: 2 + 7 launches, bitwise "
+                f"equal to 23 plain steps; K-step launches {windows}")
     return errs
+
+
+# The LBM kernels of phase 11: the one-step kernel (None) and the K-step
+# kernel at these K.
+LBM_CHECK_K = (None, 1, 3, 8, 16)
+
+
+def check_k_one_steps(lk, cfg, s, k: int, what: str, **over) -> None:
+    """A K-step launch bitwise equal, the sign of zero included, to k
+    plain steps and to k launches of the one-step kernel."""
+    got = lk.lbm_multistep(cfg, s, k, **over)
+    one = s
+    for _ in range(k):
+        one = lk.lbm_step(cfg, one, **over)
+    plain = lk.lbm_multistep_plain(cfg, s, k, **over)
+    torch.cuda.synchronize()
+    for ref, name in ((plain, f"{k} plain steps"),
+                      (one, f"{k} one-step launches")):
+        if not bits_equal(got.f, ref.f):
+            raise AssertionError(f"{what}: the K-step launch differs from "
+                                 f"{name}")
 
 
 def check_gs_physics(out, key: str) -> dict:
@@ -1513,11 +1549,23 @@ def phase_stencil_main(gs, lbm, gk, lk, device, smi, errs,
     return res
 
 
-def stencil_kernel_lines(res, errs) -> list:
+def lbm_tiling(lk, lbm, build) -> dict:
+    """The LBM K-step launch at the main runs' grid (2048x1024, K=8), per
+    dtype, as the library reports it, and ptxas's report of the kernel."""
+    out = {"ptxas": build.ptxas_usage("lbm_multistep_kernel")}
+    for dtype in ("float32", "float64"):
+        cfg = lbm.LBMConfig(nx=2048, ny=1024, dtype=dtype)
+        out[dtype] = lk.launch_shape(cfg, cfg.block_k).asdict()
+    log(f"[build] lbm_multistep tiling: {out}")
+    return out
+
+
+def stencil_kernel_lines(res, errs, lbm_design) -> list:
     """The {"kernels": [...]} entries of the four stencil kernels: times
     and bounds from the final state of the f32 run at the default
     block_k, the f64 run's beside them; launches summed over the three
-    runs of each solver."""
+    runs of each solver.  The LBM K-step line carries its tiling and K
+    times the one-step kernel's time."""
     out = []
     for solver, src, lines, k32, k64 in (
             ("gs", "gray_scott", (30, 130),
@@ -1542,6 +1590,10 @@ def stencil_kernel_lines(res, errs) -> list:
                 "bound_by_f64": b["bounds"][name][1]}
             if name == "multistep":
                 entry["k"] = a["k"]
+            if solver == "lbm" and name == "multistep":
+                entry["tiling"] = lbm_design
+                entry["ms_k_one_step"] = a["k"] * a["times"]["step"]
+                entry["ms_k_one_step_f64"] = b["k"] * b["times"]["step"]
             out.append(entry)
     return out
 
@@ -2725,8 +2777,13 @@ def check_flip_call(fk, cfg, parts, what, errs, flip=None, apic=None):
                               fk.p2g_plain(cfg, pos, vel, ax, ay, apic),
                               label, tol, errs, "p2g")
     fields = fk.grid_phase(cfg, *grids)
-    out["grid"] = transfer_rel(fields, fk.grid_phase_plain(cfg, *grids),
-                               label, tol, errs, "grid")
+    plain = fk.grid_phase_plain(cfg, *grids)
+    out["grid"] = transfer_rel(fields, plain, label, tol, errs, "grid",
+                               bitwise=True)
+    if not all(bits_equal(a, b) for a, b in zip(fields, plain)):
+        raise AssertionError(f"{label} grid: equal values, other bits (the "
+                             f"sign of a zero)")
+    check_flip_syncs(fk, cfg, pos.device, label)
     got = fk.g2p(cfg, pos, vel, *fields, flip)
     ref = fk.g2p_plain(cfg, pos, vel, *fields, flip)
     out["g2p"] = transfer_rel(got, ref, label, tol, errs, "g2p")
@@ -2736,26 +2793,49 @@ def check_flip_call(fk, cfg, parts, what, errs, flip=None, apic=None):
     return out, grids
 
 
+def check_flip_syncs(fk, cfg, device, what: str) -> int:
+    """The grid syncs of the grid phase just launched at cfg's grid and
+    dtype, as the kernel counted them: max(ceil(jacobi / h), 1) - 1 for h
+    sweeps a sync (the grid query's halo), or the script fails."""
+    h = fk.grid_launch(cfg.grid, cfg.torch_dtype, device.index).halo
+    got = fk.grid_syncs(cfg.grid, cfg.torch_dtype, device)
+    want = max(-(-cfg.jacobi // h), 1) - 1
+    if got != want:
+        raise AssertionError(f"{what}: jacobi {cfg.jacobi}, {h} sweeps a "
+                             f"sync: the grid phase made {got} grid syncs, "
+                             f"want {want}")
+    return got
+
+
+# (n, jacobi) of phase 19's grid-phase cases
+FLIP_CHECK_N = (128, 37, 512, 16)
+FLIP_CHECK_JACOBI = (48, 7, 1, 0)
+
+
 def phase_flip_kernels(fk, fa, device) -> dict:
-    errs = {"p2g": 0.0, "grid": 0.0, "g2p": 0.0, "rel": {}}
+    errs = {"p2g": 0.0, "grid": 0.0, "g2p": 0.0, "rel": {},
+            "grid_bitwise": [0, 0]}
     for dtype in ("float32", "float64"):
-        for n in (128, 37, 512):
+        for n in FLIP_CHECK_N:
             cfg = fa.FlipApicConfig(particles=4 * n * n, grid=n, dtype=dtype)
             parts = flip_particles(cfg.particles, cfg.torch_dtype, device,
                                    SEED + n)
             key = f"n={n} {dtype}"
             cases = [check_flip_call(fk, cfg.replace(jacobi=jac), parts,
                                      key, errs, flip, apic)[0]
-                     for jac in (48, 7)
+                     for jac in FLIP_CHECK_JACOBI
                      for flip, apic in ((None, None), (0.5, 0.3))]
             worst = {k: max(c[k][0] for c in cases) for k in cases[0]}
             bits = {k: sum(c[k][1] for c in cases) for k in cases[0]}
             errs["rel"][key] = worst
+            errs["grid_bitwise"][0] += bits["grid"]
+            errs["grid_bitwise"][1] += len(cases)
             log(f"[flip] {key}, {cfg.particles} particles (8 on the walls), "
-                f"jacobi 48 and 7, blend (config) and (flip 0.5, apic 0.3): "
-                f"kernels vs plain max rel err {worst} (tol "
-                f"{STEP_TOL[cfg.torch_dtype]:g}); bitwise cases of "
-                f"{len(cases)}: {bits}")
+                f"jacobi {FLIP_CHECK_JACOBI}, blend (config) and (flip 0.5, "
+                f"apic 0.3): kernels vs plain max rel err {worst} (tol "
+                f"{STEP_TOL[cfg.torch_dtype]:g}; the grid phase bitwise); "
+                f"bitwise cases of {len(cases)}: {bits}; grid phase "
+                f"{fk.grid_launch(n, cfg.torch_dtype, device.index).asdict()}")
     for dtype in ("float32", "float64"):
         cfg = fa.FlipApicConfig(dtype=dtype)
         if fa.resolve_engine(cfg, device) != "cuda":
@@ -2884,15 +2964,16 @@ def phase_flip_main(fk, fa, device, smi, errs, runs=FLIP_RUNS) -> dict:
             f"{wall:.3f} s, {rate:.2f} steps/s, {n_p * rate / 1e6:.3f} M "
             f"particle-steps/s; plain scatter engine {p_steps} steps "
             f"{p_rate:.2f} steps/s ({n_p * p_rate / 1e6:.3f} M); launches "
-            f"{launches}; the grid phase is "
-            f"{fk._grid(n, cfg.torch_dtype, device.index)} blocks of 256 "
-            "threads")
+            f"{launches}; the grid phase's launch "
+            f"{fk.grid_launch(n, cfg.torch_dtype, device.index).asdict()}")
         phys = check_flip_physics(fa, cfg, st0, out)
 
         # the kernels against their plain versions from the final state
         parts = (out.pos, out.vel, out.affine_x, out.affine_y)
         checks, grids = check_flip_call(fk, cfg, parts, key + " final state",
                                         errs)
+        errs["grid_bitwise"][0] += checks["grid"][1]
+        errs["grid_bitwise"][1] += 1
         errs["rel"][key + " final state"] = {k: v[0]
                                              for k, v in checks.items()}
         log(f"[flip] {key} final state: kernels vs plain (rel err, "
@@ -2921,6 +3002,26 @@ def phase_flip_main(fk, fa, device, smi, errs, runs=FLIP_RUNS) -> dict:
                     "mpsteps": n_p * rate / 1e6,
                     "plain_mpsteps": n_p * p_rate / 1e6, "physics": phys}
     return res
+
+
+def flip_tiling(fk, fa, build, device) -> dict:
+    """The grid phase's tiling at each FLIP run's grid and dtype, as this
+    run's library reports it (blocks, threads a block, tile, halo = sweeps
+    a grid sync, dynamic shared memory), the grid syncs of one launch at
+    the config's 48 sweeps as the kernel counted them (held to
+    max(ceil(48 / h), 1) - 1), and ptxas's report of the kernel."""
+    out = {"ptxas": build.ptxas_usage("11grid_kernel")}
+    for n_p, n, dtype, _, _ in FLIP_RUNS:
+        cfg = fa.FlipApicConfig(particles=n_p, grid=n, dtype=dtype)
+        grids = [torch.zeros((n, n), dtype=cfg.torch_dtype, device=device)
+                 for _ in range(3)]
+        fk.grid_phase(cfg, *grids)
+        syncs = check_flip_syncs(fk, cfg, device, f"flip {n}^2 {dtype}")
+        out[f"{n}^2 {dtype}"] = {
+            **fk.grid_launch(n, cfg.torch_dtype, device.index).asdict(),
+            "grid_syncs_per_launch": syncs}
+    log(f"[build] flip grid phase tiling: {out}")
+    return out
 
 
 def transfer_kernel_lines(solver: str, runs, lines: dict, res,
@@ -3411,7 +3512,8 @@ def main() -> int:
     kernels[-2]["bitwise_cases"] = hyp3d_errs["bitwise"][:2]
     kernels[-2]["not_bitwise"] = hyp3d_errs["bitwise"][2]
     kernels[-2]["tiling"] = tiling["hypersonic3d_step"]
-    kernels.extend(stencil_kernel_lines(stencil_res, stencil_errs))
+    kernels.extend(stencil_kernel_lines(stencil_res, stencil_errs,
+                                        lbm_tiling(lk, lbm, _build)))
     kernels[-1]["max_rel_err"] = stencil_errs["rel"]
     design = tiled_design(bk, swk, mk, s2k, bg, swm, mhd, _build, device)
     kernels.extend(resident_kernel_lines(resident_res, resident_errs, design))
@@ -3420,6 +3522,8 @@ def main() -> int:
     kernels.extend(transfer_kernel_lines(
         "flip", FLIP_RUNS, {"p2g": 82, "grid": 126, "g2p": 171}, flip_res,
         flip_errs))
+    kernels[-2]["tiling"] = flip_tiling(fk, fa, _build, device)
+    kernels[-2]["bitwise_cases"] = flip_errs["grid_bitwise"]
     kernels.extend(transfer_kernel_lines(
         "mpm", MPM_RUNS, {"p2g": 42, "grid": 78, "g2p": 101}, mpm_res,
         mpm_errs))

@@ -1,5 +1,6 @@
-// What the tiled cooperative kernels share (burgers_multistep.cu,
-// shallow_water_multistep.cu, mhd_multistep.cu, stam2d_lin_solve.cu): the
+// What the tiled kernels share (burgers_multistep.cu,
+// shallow_water_multistep.cu, mhd_multistep.cu, stam2d_lin_solve.cu,
+// flip_grid.cu, cooperative; lbm_multistep.cu, a plain launch): the
 // Burgers and shallow-water kernels' tile, the launch report of a grid
 // query (TileLaunch), a grid group that counts its syncs, a tile's window
 // of a grid in shared memory (wrapped or clamped at the edges), and loops

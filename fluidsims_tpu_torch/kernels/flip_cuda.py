@@ -9,8 +9,10 @@ versions, and the 'cuda' engine's step built on them.
 * `grid_phase(cfg, mass, u, v)` — csrc/flip_grid.cu, which replaces
   flip_pallas.py::_grid_kernel: normalize, gravity, wall clamps,
   divergence, every Jacobi sweep and the projection in one cooperative
-  launch.  Plain version: `grid_phase_plain` (solvers/flip_apic.py::
-  _grid_phase).
+  launch, several sweeps a grid sync on tiles in shared memory
+  (`grid_launch` reports the tile and the sweeps a sync, `grid_syncs`
+  the syncs the last launch made).  Plain version: `grid_phase_plain`
+  (solvers/flip_apic.py::_grid_phase).
 * `g2p(cfg, pos, vel, u_prev, v_prev, u_proj, v_proj, flip)` —
   csrc/flip_g2p.cu, which replaces flip_pallas.py::_g2p_kernel: per
   particle the samples, the FLIP/PIC blend, the APIC affine matrix, the
@@ -30,11 +32,11 @@ apic are launch arguments: an override runs the same kernels.
 The wrappers take the plain version for CPU tensors only, uncounted.  For
 CUDA tensors they check device, dtype, shape and contiguity, launch on the
 current stream, count the launch in `LAUNCHES`, and raise if the launch
-fails; nothing falls back.  The grid phase's cooperative grid is asked of
-the card once per (n, dtype, device), and its scratch (divergence and the
-pressure ping-pong, 3 (n, n) fields) is kept per (n, dtype, device,
-stream): it is free again once the launch has run, as the next launch on
-that stream runs after it.  Nothing writes the tensors it is given.
+fails; nothing falls back.  The grid phase's launch is asked of the card
+once per (n, dtype, device), and its scratch (divergence and the pressure
+ping-pong, 3 (n, n) fields) and slot words are kept per (n, dtype,
+device, stream) (`_common.tile_scratch`, which says why that is safe).
+Nothing writes the tensors it is given.
 """
 
 from __future__ import annotations
@@ -46,10 +48,13 @@ import torch
 
 from ..solvers import flip_apic as fa
 from . import _build
-from ._common import LaunchCounter, check_tensors, on_cpu
+from ._common import (LaunchCounter, TileLaunch, check_tensors, on_cpu,
+                      tile_launch, tile_scratch)
+from ._common import grid_syncs as _grid_syncs
 
 __all__ = ["LAUNCHES", "reset_launches", "p2g", "p2g_plain", "grid_phase",
-           "grid_phase_plain", "g2p", "g2p_plain", "make_step_cuda", "load"]
+           "grid_phase_plain", "g2p", "g2p_plain", "make_step_cuda", "load",
+           "grid_launch", "grid_syncs"]
 
 LAUNCHES = LaunchCounter("p2g", "grid", "g2p")
 reset_launches = LAUNCHES.reset
@@ -69,10 +74,10 @@ def load() -> ctypes.CDLL:
         fn.argtypes = [P] * 7 + [L, I, D, I, P]
         fn.restype = I
         fn = getattr(lib, f"fst_flip_grid_blocks_{sfx}")
-        fn.argtypes = [I, I, ctypes.POINTER(I)]
+        fn.argtypes = [I, I, ctypes.POINTER(TileLaunch)]
         fn.restype = I
         fn = getattr(lib, f"fst_flip_grid_{sfx}")
-        fn.argtypes = [P] * 8 + [I, I, D, I, I, P]
+        fn.argtypes = [P] * 9 + [I, I, D, I, I, P]
         fn.restype = I
         fn = getattr(lib, f"fst_flip_g2p_{sfx}")
         fn.argtypes = [P] * 11 + [L, I, D, D, I, P]
@@ -151,20 +156,28 @@ def p2g(cfg, pos, vel, ax, ay, apic=None):
 
 
 @functools.lru_cache(maxsize=None)
-def _grid(n: int, dtype: torch.dtype, index: int) -> int:
-    """Blocks of the grid phase's cooperative launch on an (n, n) grid."""
-    lib = load()
-    grid = ctypes.c_int(0)
-    code = getattr(lib, f"fst_flip_grid_blocks_{_SUFFIX[dtype]}")(
-        n, index, ctypes.byref(grid))
-    _raise_if(code, lib, "grid phase occupancy query")
-    return grid.value
+def grid_launch(n: int, dtype: torch.dtype, index: int) -> TileLaunch:
+    """The grid phase's launch on an (n, n) grid on device `index`, as the
+    library computes it: blocks, threads a block, the tile (csrc/
+    flip_grid.cu, picked from n), the halo (= the sweeps a grid sync, h)
+    and the dynamic shared memory a block.  A launch of `jacobi` sweeps
+    makes max(ceil(jacobi / h), 1) - 1 grid syncs."""
+    return tile_launch(load(), f"fst_flip_grid_blocks_{_SUFFIX[dtype]}", n,
+                       index)
 
 
-@functools.lru_cache(maxsize=None)
-def _scratch(n: int, dtype: torch.dtype, device: torch.device,
-             stream: int) -> torch.Tensor:
-    return torch.empty((3, n, n), dtype=dtype, device=device)
+def _scratch(n: int, dtype: torch.dtype, device: torch.device) -> tuple:
+    """(scratch of 3 (n, n) fields, slot words) of grid-phase launches on
+    the device's current stream."""
+    return tile_scratch("flip_grid", 3 * n * n, dtype, device,
+                        _stream(device))
+
+
+def grid_syncs(n: int, dtype: torch.dtype, device: torch.device) -> int:
+    """The grid syncs that the last grid-phase launch on an (n, n) grid of
+    `dtype` on the device's current stream made, as the kernel counted
+    them."""
+    return _grid_syncs(_scratch(n, dtype, device)[1])
 
 
 def grid_phase_plain(cfg, mass, u, v):
@@ -181,14 +194,15 @@ def grid_phase(cfg, mass, u, v):
     _check_grids(cfg, mass=mass, mom_u=u, mom_v=v)
     n, dev = cfg.grid, mass.device
     lib = load()
-    blocks = _grid(n, mass.dtype, dev.index)
+    shape = grid_launch(n, mass.dtype, dev.index)
     out = torch.empty((4, n, n), dtype=mass.dtype, device=dev)
-    stream = _stream(dev)
-    scratch = _scratch(n, mass.dtype, dev, stream)
+    scratch, words = _scratch(n, mass.dtype, dev)
     code = getattr(lib, f"fst_flip_grid_{_SUFFIX[mass.dtype]}")(
         mass.data_ptr(), u.data_ptr(), v.data_ptr(),
-        *(out[k].data_ptr() for k in range(4)), scratch.data_ptr(), n,
-        cfg.jacobi, float(cfg.gravity * cfg.dt), blocks, dev.index, stream)
+        *(out[k].data_ptr() for k in range(4)), scratch.data_ptr(),
+        words.data_ptr(), n, max(cfg.jacobi, 0),
+        float(cfg.gravity * cfg.dt),
+        shape.grid, dev.index, _stream(dev))
     _raise_if(code, lib, "grid phase kernel launch")
     LAUNCHES["grid"] += 1
     return out[0], out[1], out[2], out[3]

@@ -6,8 +6,9 @@ PyTorch versions, and the 'cuda' engine's run built on them.
   in push form.  Plain version: `lbm_step_plain` (the solver's torch
   `step`, pull form).
 * `lbm_multistep(cfg, s, k, drive) -> LBMState` — csrc/lbm_multistep.cu,
-  which replaces lbm_pallas.py::_ms_kernel: k steps in one launch,
-  bitwise equal to k launches of the one-step kernel.  Plain version:
+  which replaces lbm_pallas.py::_ms_kernel: k steps in one launch on
+  tiles in shared memory (`launch_shape` reports the tile), bitwise equal
+  to k launches of the one-step kernel.  Plain version:
   `lbm_multistep_plain` (k torch steps).
 * `run_kernels(cfg, s, n, drive)` — the 'cuda' engine: `n // k` K-step
   launches then `n % k` one-step launches (k = cfg.block_k); with k = 1
@@ -33,18 +34,17 @@ import torch
 from ..core.stepper import run_split
 from ..solvers import lbm
 from . import _build
-from ._common import LaunchCounter, on_cpu
+from ._common import LaunchCounter, TileLaunch, on_cpu, tile_launch
 
 __all__ = ["LAUNCHES", "MAX_BLOCK_K", "reset_launches", "lbm_step",
            "lbm_step_plain", "lbm_multistep", "lbm_multistep_plain",
-           "run_kernels", "load"]
+           "run_kernels", "load", "launch_shape"]
 
 LAUNCHES = LaunchCounter("step", "multistep")
 reset_launches = LAUNCHES.reset
 
-# The K-step kernel's bound on k: two copies of nine (T + 2k)^2 packet
-# planes in 227 KB of shared memory with T >= 8 at f64
-# (csrc/lbm_multistep.cu).
+# The K-step kernel's bound on k (csrc/lbm_multistep.cu kLbmMaxK): a tile
+# of 24^2 at f64 with its halo of 16 in 227 KB of shared memory.
 MAX_BLOCK_K = 16
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -69,9 +69,24 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, f"fst_lbm_{name}_{sfx}")
             fn.argtypes = [P] * 3 + [ctypes.POINTER(_Params), ctypes.c_int, P]
             fn.restype = ctypes.c_int
+        fn = getattr(lib, f"fst_lbm_multistep_shape_{sfx}")
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(TileLaunch)]
+        fn.restype = ctypes.c_int
     lib.fst_cuda_error_string.argtypes = [ctypes.c_int]
     lib.fst_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def launch_shape(cfg, k: int) -> TileLaunch:
+    """The K-step launch of k steps at cfg's grid and dtype, as the library
+    computes it: blocks, threads a block, the tile (the largest square
+    whose window fits the shared memory, evened out over the grid), the
+    halo (k) and the dynamic shared memory a block."""
+    if cfg.torch_dtype not in _SUFFIX:
+        raise TypeError(f"no kernel for dtype {cfg.torch_dtype}")
+    return tile_launch(load(), f"fst_lbm_multistep_shape_"
+                       f"{_SUFFIX[cfg.torch_dtype]}", cfg.ny, cfg.nx, k)
 
 
 def _drive(cfg, drive) -> float:

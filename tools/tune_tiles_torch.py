@@ -4,15 +4,16 @@ tiles.
 
     python tools/tune_tiles_torch.py [check] [time] [sweep] [diff A B]
         [--root DIR] [--out PATH] [--define NAME=VALUE ...] [--only KEY ...]
-        [--fmad] [--dump DIR] [--set tiles|hypersonic|mhd|sph]
+        [--fmad] [--dump DIR] [--set tiles|hypersonic|mhd|sph|flip|lbm]
 
 The kernels: the Burgers and shallow-water K-step kernels
 (csrc/burgers_multistep.cu, csrc/shallow_water_multistep.cu, TPU kernel
 #7), the stam2d whole Jacobi solve (csrc/stam2d_lin_solve.cu, #9), the
 two hypersonic step kernels (csrc/hypersonic2d_step.cu, #1;
 csrc/hypersonic3d_step.cu, #2), the GLM-MHD K-step kernel
-(csrc/mhd_multistep.cu, #8) and the SPH forces kernel
-(csrc/sph_forces.cu, #15).
+(csrc/mhd_multistep.cu, #8), the SPH forces kernel
+(csrc/sph_forces.cu, #15), the FLIP grid phase (csrc/flip_grid.cu, #17)
+and the LBM K-step kernel (csrc/lbm_multistep.cu, #6).
 
 * check — each kernel against its plain version on the card: Burgers and
   shallow water on 200x75 and 5x3 (every option), k = 1 within 1e-5
@@ -27,7 +28,15 @@ csrc/hypersonic3d_step.cu, #2), the GLM-MHD K-step kernel
   kernel counts them (trees whose wrapper reports them); the SPH forces
   kernel within 1e-5 / 1e-12 relative on 4096 particles and on a crowded
   pool (one cell's neighbourhood larger than a staged chunk), two
-  launches bitwise equal.  Raises on the first failure.
+  launches bitwise equal; the FLIP grid phase bitwise equal to its plain
+  version at n = 16, 37, 128 and 512 and 0, 1, 7, h, h + 1 and 48 sweeps
+  (h: sweeps a grid sync), with max(ceil(sweeps / h), 1) - 1 grid syncs
+  as the kernel counts them (trees whose wrapper reports them); the LBM
+  K-step kernel bitwise equal to K plain steps and to K launches of the
+  one-step kernel at K = 1, 3, 8 and 16 on 37x23 (an obstacle on a tile
+  corner), 200x75 without the top wall and 20x17 (narrower than the
+  window), with and without a drive override.  Raises on the first
+  failure.
 * time — ms a launch by CUDA events (a warm-up, then the mean over a run
   of launches back to back) at the shapes chip_smoke.py's main runs use:
   Burgers 512^2 f32 K=16 and K=1, 4096^2 f32 K=16, 512^2 f64 K=16;
@@ -41,7 +50,11 @@ csrc/hypersonic3d_step.cu, #2), the GLM-MHD K-step kernel
   final state of chip_smoke.py's MHD runs (320x220 Brio–Wu f32 x 4000 at
   K=8 and K=1, 2048^2 Orszag–Tang f32 x 200 at K=8, 320x220 f64 x 1000 at
   K=8); the SPH forces kernel on the final state of its runs (65,536 f32
-  x 200, 2^20 f32 with rain x 50).  For the K=1 launches, also the device
+  x 200, 2^20 f32 with rain x 50); the FLIP grid phase on the P2G grids
+  of the final state of its runs (65,536 on 128^2 f32 x 1000 and f64 x
+  200, 2^20 on 512^2 f32 x 200); the LBM K-step kernel at K=8 and the
+  one-step kernel (the K=1 run's) on the final state of the LBM runs
+  (2048x1024 f32 x 1000, f64 x 200).  For the K=1 launches, also the device
   time a launch (torch.profiler's kernel time over 200 launches) and the
   host's time a wrapper call (the host clock over 200 calls that queue
   without a sync), by part.  With --root, the package is imported from
@@ -62,11 +75,17 @@ csrc/hypersonic3d_step.cu, #2), the GLM-MHD K-step kernel
   FST_MHD_F64_MIN_BLOCKS); `--set sph` the SPH
   forces kernel's threads, lanes a particle and staged bytes
   (csrc/sph_forces.cu FST_SPH_FORCES_THREADS, FST_SPH_MIN_LANES,
-  FST_SPH_MAX_LANES, FST_SPH_STAGE_BYTES).
+  FST_SPH_MAX_LANES, FST_SPH_STAGE_BYTES); `--set flip` the FLIP grid
+  phase's sweeps a phase and its tiles and threads for small and large
+  grids (csrc/flip_grid.cu FST_FLIP_SWEEPS, FST_FLIP_SMALL_TILE_X, _Y,
+  FST_FLIP_SMALL_THREADS, FST_FLIP_TILE_X, _Y, FST_FLIP_THREADS); `--set
+  lbm` the LBM K-step kernel's shared memory a block and threads
+  (csrc/lbm_multistep.cu FST_LBM_SMEM, FST_LBM_THREADS).
 * --fmad — build with -fmad=true in place of -fmad=false: how much of a
   kernel's time the unfused multiplies and adds take.  A measurement
   only; the shipped build and every bitwise bar keep -fmad=false.
-* --dump DIR — `time` also saves each hypersonic, MHD and SPH key's final
+* --dump DIR — `time` also saves each hypersonic, MHD, SPH, FLIP and LBM
+  key's final
   state and step output to DIR; `diff A B` then reports, key by key,
   whether two dumps (two trees, or two builds) are bitwise equal, and by
   how much they differ where they are not.
@@ -430,6 +449,102 @@ def check_sph(m, dev) -> list:
     return out
 
 
+def flip_fields(m, n: int, dtype: str, seed: int):
+    """(config, P2G grids) of 4 n^2 seeded particles (as chip_smoke.py's
+    flip_particles: the first eight on the walls and corners), through
+    the plain P2G."""
+    cfg = m.fa.FlipApicConfig(particles=4 * n * n, grid=n, dtype=dtype)
+    rng = np.random.default_rng(seed)
+    pos = rng.random((cfg.particles, 2))
+    pos[:8] = [[0, 0], [1, 1], [0, 1], [1, 0], [0.01, 0.99], [0.99, 0.01],
+               [0.5, 0], [1, 0.5]]
+    parts = [torch.tensor(a, dtype=cfg.torch_dtype) for a in
+             (pos, *(rng.standard_normal((cfg.particles, 2))
+                     for _ in range(3)))]
+    return cfg, m.fk.p2g_plain(cfg, *parts)
+
+
+def check_flip(m, dev) -> list:
+    """The FLIP grid phase against its plain version, bitwise, with its
+    grid syncs where the wrapper reports them."""
+    out = []
+    for dtype in ("float32", "float64"):
+        for n in (16, 37, 128, 512):
+            cfg, grids = flip_fields(m, n, dtype, 40 + n)
+            grids = [g.to(dev) for g in grids]
+            h = (m.fk.grid_launch(n, cfg.torch_dtype, dev.index).halo
+                 if hasattr(m.fk, "grid_launch") else None)
+            for jac in sorted({0, 1, 7, 48} | ({h, h + 1} if h else set())):
+                c = cfg.replace(jacobi=jac)
+                got = m.fk.grid_phase(c, *grids)
+                ref = m.fk.grid_phase_plain(c, *grids)
+                if not all(bits_equal(a, b) for a, b in zip(got, ref)):
+                    raise AssertionError(f"flip grid n={n} jacobi={jac} "
+                                         f"{dtype}: not bitwise")
+                syncs = None
+                if h:
+                    syncs = m.fk.grid_syncs(n, cfg.torch_dtype, dev)
+                    if syncs != max(-(-jac // h), 1) - 1:
+                        raise AssertionError(f"flip grid n={n} jacobi={jac}"
+                                             f": {syncs} grid syncs")
+                out.append({"case": f"flip grid n={n} jacobi={jac} {dtype}",
+                            "bitwise": True, "grid_syncs": syncs})
+    torch.cuda.synchronize()
+    log(f"[check] flip grid phase: {len(out)} cases bitwise to plain, grid "
+        "syncs max(ceil(jacobi / h), 1) - 1 where counted")
+    return out
+
+
+def lbm_noisy(m, cfg, dev, seed: int, top_wall: bool = True):
+    """init() with the populations scaled by 1 + 0.05 x seeded noise (as
+    chip_smoke.py's lbm_state), without the top wall row if asked."""
+    s = m.lbm.init(cfg, torch.device("cpu"))
+    rng = np.random.default_rng(seed)
+    f = s.f * (1.0 + torch.tensor(0.05 * rng.standard_normal(s.f.shape),
+                                  dtype=s.f.dtype))
+    solid = s.solid.clone()
+    if not top_wall:
+        solid[-1] = False
+    return m.lbm.LBMState(f=f.contiguous().to(dev), solid=solid.to(dev))
+
+
+def check_lbm(m, dev) -> list:
+    """The LBM K-step kernel bitwise equal to K plain steps and to K
+    one-step launches."""
+    out = []
+    for dtype in ("float32", "float64"):
+        for nx, ny, top, corner in ((37, 23, True, True),
+                                    (200, 75, False, False),
+                                    (20, 17, True, False)):
+            cfg = m.lbm.LBMConfig(nx=nx, ny=ny, dtype=dtype,
+                                  obstacle_radius=4.0)
+            s = lbm_noisy(m, cfg, dev, 7, top)
+            for k in (1, 3, 8, 16):
+                if corner and hasattr(m.lk, "launch_shape"):
+                    # a 2x2 obstacle on the corner of the first tile
+                    t = m.lk.launch_shape(cfg, k)
+                    solid = s.solid.clone()
+                    y, x = min(t.tile_y, ny - 2) - 1, min(t.tile_x, nx - 2) - 1
+                    solid[y:y + 2, x:x + 2] = True
+                    s = s._replace(solid=solid)
+                for over in ({}, {"drive": 3e-4}):
+                    got = m.lk.lbm_multistep(cfg, s, k, **over)
+                    ref = m.lk.lbm_multistep_plain(cfg, s, k, **over)
+                    one = s
+                    for _ in range(k):
+                        one = m.lk.lbm_step(cfg, one, **over)
+                    if not (bits_equal(got.f, ref.f)
+                            and bits_equal(got.f, one.f)):
+                        raise AssertionError(f"lbm {nx}x{ny} {dtype} K={k} "
+                                             f"{over}: not bitwise")
+                out.append({"case": f"lbm {nx}x{ny} {dtype} K={k}",
+                            "bitwise": True})
+    torch.cuda.synchronize()
+    log(f"[check] lbm K-step: {len(out)} cases bitwise to K plain steps and "
+        "to K one-step launches")
+    return out
+
+
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     """The same bits (NaN payloads and the sign of zero included)."""
     it = torch.int32 if a.element_size() == 4 else torch.int64
@@ -547,6 +662,72 @@ def sph_timings(m, dev, only, dump) -> dict:
     return res
 
 
+# The FLIP grid phase (#17) at chip_smoke.py's FLIP runs: (key, particles,
+# grid, dtype, steps of the run, launches timed).
+FLIP_RUNS = (("flip 128 f32", 65536, 128, "float32", 1000, 200),
+             ("flip 128 f64", 65536, 128, "float64", 200, 200),
+             ("flip 512 f32", 1 << 20, 512, "float32", 200, 100))
+FLIP_KEYS = tuple(r[0] for r in FLIP_RUNS)
+
+
+def flip_timings(m, dev, only, dump) -> dict:
+    """ms a launch of the grid phase (also as device time) on the P2G grids
+    of each run's final state, with the digests of that state and of the
+    launch's output."""
+    res = {}
+    for key, n_p, n, dtype, steps, reps in FLIP_RUNS:
+        if only is not None and key not in only:
+            continue
+        cfg = m.fa.FlipApicConfig(particles=n_p, grid=n, dtype=dtype)
+        out = m.fa.run(cfg, m.fa.init(cfg, dev), steps)
+        grids = m.fk.p2g(cfg, out.pos, out.vel, out.affine_x, out.affine_y)
+        res[key] = time_ms(lambda: m.fk.grid_phase(cfg, *grids), reps)
+        res[key + " device"] = device_ms(
+            lambda: m.fk.grid_phase(cfg, *grids), reps, "grid_kernel")
+        res[key + " host_us"] = host_us(
+            lambda: m.fk.grid_phase(cfg, *grids), reps)
+        got = list(m.fk.grid_phase(cfg, *grids))
+        # the P2G's atomics make each run's grids differ in their last
+        # bits, so the digests of two trees differ; the kernel is held to
+        # its plain version on the same grids instead
+        res[key + " bitwise to plain"] = all(
+            bits_equal(a, b) for a, b in
+            zip(got, m.fk.grid_phase_plain(cfg, *grids)))
+        record(res, key, list(grids), got, dump)
+    return res
+
+
+# The LBM kernels (#6 K-step, #5 one-step) at chip_smoke.py's LBM runs:
+# (key, dtype, steps of the run, k a launch: 1 is the one-step kernel,
+# launches timed).
+LBM_RUNS = (("lbm 2048x1024 f32 K=8", "float32", 1000, 8, 50),
+            ("lbm 2048x1024 f32 K=1", "float32", 1000, 1, 200),
+            ("lbm 2048x1024 f64 K=8", "float64", 200, 8, 20),
+            ("lbm 2048x1024 f64 K=1", "float64", 200, 1, 100))
+LBM_KEYS = tuple(r[0] for r in LBM_RUNS)
+
+
+def lbm_timings(m, dev, only, dump) -> dict:
+    """ms a launch of the K-step kernel at K=8 and of the one-step kernel
+    (also as device time) on the final state of the LBM run at block_k 8,
+    with the digests of that state and of the launch's output."""
+    res, states = {}, {}
+    for key, dtype, steps, k, reps in LBM_RUNS:
+        if only is not None and key not in only:
+            continue
+        cfg = m.lbm.LBMConfig(nx=2048, ny=1024, dtype=dtype)
+        if dtype not in states:
+            states[dtype] = m.lbm.run(cfg, m.lbm.init(cfg, dev), steps)
+        s = states[dtype]
+        call = ((lambda: m.lk.lbm_multistep(cfg, s, k)) if k > 1
+                else (lambda: m.lk.lbm_step(cfg, s)))
+        res[key] = time_ms(call, reps)
+        res[key + " device"] = device_ms(
+            call, reps, "multistep_kernel" if k > 1 else "step_kernel")
+        record(res, key, [s.f], [call().f], dump)
+    return res
+
+
 def diff(a: str, b: str) -> dict:
     """Key by key, two dumps' final states and step outputs: bitwise equal
     or not, the cells whose bits differ, and the max |a - b| over the
@@ -578,7 +759,8 @@ def checks(m, dev, only=None) -> list:
     """The checks of the kernels that `only`'s keys time (all without
     --only)."""
     parts = ((check, KSTEP_KEYS + SOLVE_KEYS), (check_hyp, HYP_KEYS),
-             (check_mhd, MHD_KEYS), (check_sph, SPH_KEYS))
+             (check_mhd, MHD_KEYS), (check_sph, SPH_KEYS),
+             (check_flip, FLIP_KEYS), (check_lbm, LBM_KEYS))
     return [c for fn, keys in parts if only is None or set(keys) & set(only)
             for c in fn(m, dev)]
 
@@ -588,6 +770,8 @@ def timings(m, dev, only=None, dump=None) -> dict:
     res = hyp_timings(m, dev, only, dump)
     res.update(mhd_timings(m, dev, only, dump))
     res.update(sph_timings(m, dev, only, dump))
+    res.update(flip_timings(m, dev, only, dump))
+    res.update(lbm_timings(m, dev, only, dump))
     runs = (("burgers 512 f32 K=16", m.bg, m.bk.burgers_multistep,
              dict(nx=512, ny=512), 16, 50),
             ("burgers 512 f32 K=1", m.bg, m.bk.burgers_multistep,
@@ -653,6 +837,20 @@ MHD_VARIANTS = (
 # particle, staged bytes).
 SPH_VARIANTS = ((128, 2, 8, 24576), (128, 1, 8, 24576), (128, 4, 8, 24576),
                 (128, 2, 4, 24576), (128, 2, 8, 12288), (256, 2, 8, 24576))
+# The FLIP grid-phase sweep: (sweeps a phase; small-grid tile, threads;
+# large-grid tile, threads) of each build.
+FLIP_VARIANTS = ((8, (16, 8), 256, (64, 32), 512),
+                 (8, (16, 16), 256, (32, 32), 512),
+                 (12, (16, 8), 256, (64, 32), 512),
+                 (6, (16, 8), 256, (64, 32), 512),
+                 (8, (8, 8), 128, (64, 32), 1024),
+                 (8, (16, 8), 128, (64, 16), 512),
+                 (8, (32, 8), 256, (128, 32), 1024),
+                 (8, (32, 16), 512, (32, 64), 512))
+# The LBM K-step sweep: (shared memory a block, threads) of each build;
+# 115712 and 76800 bytes hold two and three blocks an SM.
+LBM_VARIANTS = ((232448, 1024), (232448, 512), (115712, 512),
+                (115712, 1024), (76800, 640))
 KSTEP_KEYS = ("burgers 512 f32 K=16", "burgers 4096 f32 K=16",
               "burgers 512 f64 K=16", "sw 512 f32 K=8", "sw 4096 f32 K=8",
               "sw 512 f64 K=8")
@@ -702,8 +900,22 @@ def sph_variants() -> list[tuple[dict, tuple]]:
             for th, fewest, most, stage in SPH_VARIANTS]
 
 
+def flip_variants() -> list[tuple[dict, tuple]]:
+    return [({"FST_FLIP_SWEEPS": h, "FST_FLIP_SMALL_TILE_X": a[0],
+              "FST_FLIP_SMALL_TILE_Y": a[1], "FST_FLIP_SMALL_THREADS": ta,
+              "FST_FLIP_TILE_X": b[0], "FST_FLIP_TILE_Y": b[1],
+              "FST_FLIP_THREADS": tb}, FLIP_KEYS)
+            for h, a, ta, b, tb in FLIP_VARIANTS]
+
+
+def lbm_variants() -> list[tuple[dict, tuple]]:
+    keys = tuple(k for k in LBM_KEYS if "K=1" not in k)
+    return [({"FST_LBM_SMEM": smem, "FST_LBM_THREADS": threads}, keys)
+            for smem, threads in LBM_VARIANTS]
+
+
 SWEEPS = {"tiles": variants, "hypersonic": hyp_variants, "mhd": mhd_variants,
-          "sph": sph_variants}
+          "sph": sph_variants, "flip": flip_variants, "lbm": lbm_variants}
 
 
 def sweep(args) -> list:
@@ -725,7 +937,9 @@ def sweep(args) -> list:
             continue
         got = json.loads(tmp.read_text())
         for key, ms in got["time"].items():
-            if isinstance(ms, str) or key not in keys:
+            # the keys' ms a launch and, where timed, their device time
+            if (not isinstance(ms, float)
+                    or key.removesuffix(" device") not in keys):
                 continue
             out.append({"defines": defines, "key": key, "ms": ms})
             log(f"[sweep] {defines} {key}: {ms:.4f} ms")
@@ -797,10 +1011,15 @@ def main(argv=None) -> int:
     from fluidsims_tpu_torch.kernels import sph_cuda as sk
     from fluidsims_tpu_torch.solvers import mhd
     from fluidsims_tpu_torch.solvers import sph as ts
+    from fluidsims_tpu_torch.kernels import flip_cuda as fk
+    from fluidsims_tpu_torch.kernels import lbm_cuda as lk
+    from fluidsims_tpu_torch.solvers import flip_apic as fa
+    from fluidsims_tpu_torch.solvers import lbm
 
     m = types.SimpleNamespace(bk=bk, swk=swk, s2k=s2k, bg=bg, sw=sw, hk=hk,
                               hk3=hk3, h2=h2, h3=h3, interop=interop,
-                              cfl_dt=cfl_dt, mk=mk, sk=sk, mhd=mhd, ts=ts)
+                              cfl_dt=cfl_dt, mk=mk, sk=sk, mhd=mhd, ts=ts,
+                              fk=fk, lk=lk, fa=fa, lbm=lbm)
     log(f"[device] {smi}; package from {Path(bk.__file__).parents[1]}")
     dev = torch.device("cuda", 0)
     bk.load()
@@ -812,7 +1031,8 @@ def main(argv=None) -> int:
                                        "lin_solve_kernel", "11step_kernel",
                                        "12step3_kernel",
                                        "mhd_multistep_kernel",
-                                       "forces_kernel")
+                                       "forces_kernel", "11grid_kernel",
+                                       "lbm_multistep_kernel")
                         for u in _build.ptxas_usage(name)]
         for u in res["ptxas"]:
             log(f"[build] ptxas {u}")
