@@ -184,19 +184,28 @@ failure of which ends the run with a non-zero exit:
              state both kernels against their plain versions at full
              shape with the main path's arguments, per-launch times and
              bounds.
-19. flip_kernels — the three FLIP/APIC kernels (atomic P2G, the whole
-             grid phase in one cooperative launch, G2P with the density
-             raster) against their plain PyTorch versions, f32 and f64, at
-             n=128, 37, 512 and 16 with 4 n^2 seeded particles (eight on
-             the walls and corners), jacobi 48, 7, 1 and 0, the config's
-             blend and the overrides flip=0.5, apic=0.3: P2G within 1e-5
-             (f32) / 1e-12 (f64) relative to each grid's max (atomics add
-             in no fixed order); the grid phase on the kernel's P2G grids
-             bitwise equal or the script fails, with max(ceil(jacobi / h),
-             1) - 1 grid syncs as the kernel counts them (h: sweeps a
-             sync); G2P on the kernel's fields within the same bars,
-             bitwise cases counted; the raster equal to the plain
-             version's and counting every particle; then 5 steps of the cuda engine against the
+19. flip_kernels — the three FLIP/APIC kernels (the P2G, atomic below
+             2^18 particles and tiled from there, the whole grid phase in
+             one cooperative launch, G2P with the density raster) against
+             their plain PyTorch versions, f32 and f64, at n=128, 37, 512
+             and 16 with 4 n^2 seeded particles (eight on the walls and
+             corners), jacobi 48, 7, 1 and 0, the config's blend and the
+             overrides flip=0.5, apic=0.3: P2G, the design the wrapper
+             picks and each design, within 1e-5 (f32) / 1e-12 (f64)
+             relative to each grid's max (adds land in no fixed order), and
+             both designs so on n=128 and 37 with a cell crowded past the
+             tiled design's chunk, twelve particles on and past the walls
+             and tiles left empty (the tiled launch's stats: a tile past a
+             chunk, 3 grid syncs); the tiled design so on two launch shapes
+             whose scratch has one size (n=30, 10,007 particles, and n=46),
+             launched A, B, A on one stream, and on n=2048 (more tiles than
+             a block counts in shared memory, 300,000 particles); the grid
+             phase on the kernel's P2G grids bitwise equal or the script
+             fails, with max(ceil(jacobi / h), 1) - 1 grid syncs as the
+             kernel counts them (h: sweeps a sync); G2P on the kernel's
+             fields within the same bars, bitwise cases counted; the
+             raster equal to the plain version's and counting every
+             particle; then 5 steps of the cuda engine against the
              'scatter' engine at FlipApicConfig() within 5e-4 (f32) / 1e-10
              (f64) relative (FLIP_TRAJ_TOL), the raster equal to the plain
              raster of the cuda positions (and to the scatter engine's
@@ -210,21 +219,33 @@ failure of which ends the run with a non-zero exit:
              steps); physics (finite, positions in [0.01, 0.99], the raster
              equal to the plain raster of the positions and summing to the
              particle count, mean y below its start, max |v| <
-             50, overflow_count 0); then from each final state the kernels
-             against their plain versions at full shape, per-launch times
-             and bounds (FLIP_*_OPS; the P2G's nonzero offsets counted from
-             the state).
-21. mpm_kernels — the three MLS-MPM kernels (atomic P2G, the grid
-             update, G2P) against their plain PyTorch versions, f32 and f64,
-             on 96^2, 37x53 (Gx != Gy) and 512^2 with 4 Gx Gy seeded
-             particles over the grid (eight on its walls and corners, whose
-             targets reach past it), F = I + 0.05 N, Jp in [0.5, 1.5], for
-             mud, snow and sand: P2G within 1e-5 (f32) / 1e-12 (f64)
-             relative to each grid's max (atomics add in no fixed order);
-             the grid update on the kernel's P2G grids and G2P on the
-             kernel's node velocities bitwise equal or the script fails,
-             bitwise cases counted; then 5 steps of the cuda engine against
-             the 'scatter' engine at MPMConfig() within 5e-4 (f32) / 1e-10
+             50, overflow_count 0) and the fold: the kernel's P2G mass grid
+             sums (in f64) to the particles' hat weights (their count away
+             from the walls) within 1e-5 (f32) / 1e-12 (f64); then from each
+             final state the kernels against their plain versions at full
+             shape (the P2G's two designs too), per-launch times by CUDA
+             events and the P2G's device time by torch.profiler (each
+             design's too), and bounds (FLIP_*_OPS; the P2G's nonzero
+             offsets counted from the state).
+21. mpm_kernels — the three MLS-MPM kernels (the P2G, atomic below 2^18
+             particles and tiled from there, the grid update, G2P) against
+             their plain PyTorch versions, f32 and f64, on 96^2, 37x53 (Gx
+             != Gy) and 512^2 with 4 Gx Gy seeded particles over the grid
+             (eight on its walls and corners, whose targets reach past it),
+             F = I + 0.05 N, Jp in [0.5, 1.5], for mud, snow and sand: P2G,
+             the design the wrapper picks and each design, within 1e-5
+             (f32) / 1e-12 (f64) relative to each grid's max (adds land in
+             no fixed order), and both designs so on 96^2 and 37x53 with a
+             cell crowded past the tiled design's chunk, twelve particles
+             on and past the walls and tiles left empty; the tiled design
+             so on two launch shapes whose scratch has one size (30x46,
+             10,007 particles, and 46x46), launched A, B, A on one stream,
+             and on 2048^2 (more tiles than a block counts in shared
+             memory, 300,000 particles); the grid update on the kernel's
+             P2G grids and G2P on the kernel's node velocities bitwise
+             equal or the script fails, bitwise cases counted; then 5
+             steps of the cuda engine against the 'scatter' engine at
+             MPMConfig() within 5e-4 (f32) / 1e-10
              (f64) relative (MPM_TRAJ_TOL).
 22. mpm_main — solvers.mpm.run with engine 'auto', which must resolve to
              'cuda': MPMConfig() (32,768 snow particles on 96^2, bench.py's
@@ -234,10 +255,14 @@ failure of which ends the run with a non-zero exit:
              plain 'scatter' engine's (20 steps); physics (finite, positions
              in [2dx, (G-3)dx], Jp in [0.05, 20], mean y below its start,
              the P2G mass n * particle_mass within 1e-5 relative,
-             overflow_count 0); then from each final state the kernels
-             against their plain versions at full shape (same bars),
-             per-launch times and bounds (MPM_*_OPS; the P2G's targets
-             inside the grid counted from the state).
+             overflow_count 0) and the fold: the P2G mass grid's sum (in
+             f64) equals particle_mass times the particles' in-grid
+             weights within 1e-5 (f32) / 1e-12 (f64); then from each final
+             state the kernels against their plain versions at full shape
+             (same bars; the P2G's two designs too), per-launch times by
+             CUDA events and the P2G's device time by torch.profiler (each
+             design's too), and bounds (MPM_*_OPS; the P2G's targets inside
+             the grid counted from the state).
 
 Every kernel's line in {"kernels": [...]} carries bound_ms, the least time
 the card could take for its work at the main path's shape: the larger of
@@ -268,7 +293,15 @@ runs' shapes: the blocks, threads a block, tile, halo and dynamic shared
 memory that the library's launch query reports, and ptxas's registers,
 static shared memory, stack and spills of each instantiation; and
 `bitwise_cases`, [step calls bitwise equal to the plain version, step
-calls] over phases 3-4 and 8-9, with the calls that were not.
+calls] over phases 3-4 and 8-9, with the calls that were not.  The two
+P2G lines (#16, #19) carry `ms_device` (torch.profiler's device time a
+call of the design the wrapper picks, beside `ms`, the CUDA events' time
+of the call), `ms_device_atomic` and `ms_device_tiled` (each design), the
+same for the f64 and 2^20 runs, `tiling` (the launch the library's grid
+query reports at each main run's size: the picked and the tiled design,
+and ptxas's report of both kernels) and `edge_cases` (phases 19 and 21's
+crowded and wall cases, the two shapes of one scratch size and the grid of
+many tiles: rel errs and the tiled launch's stats).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -278,6 +311,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -536,6 +570,23 @@ def time_launches(fn, n: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def device_ms(fn, n: int, fragment: str) -> float | None:
+    """Device time a call of fn() by torch.profiler: the kernels whose name
+    holds `fragment` over n calls, after one warm-up call; None where the
+    profiler records no such kernel."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and fragment in e.name]
+    return sum(us) / n / 1e3 if us else None
 
 
 def run_timed(h2, cfg, s, steps, **engine):
@@ -2763,19 +2814,37 @@ def transfer_rel(got, ref, what: str, tol: float, errs: dict, name: str,
     return worst, bit
 
 
+# The P2G's two designs (kernels/_common.py P2G_DESIGNS): the wrappers take
+# the tiled one from FST_P2G_TILED_FROM particles (csrc/p2g_tiles.cuh); their
+# private `_p2g` forces one.
+P2G_DESIGNS = ("atomic", "tiled")
+
+
+def check_p2g_designs(kmod, cfg, parts, ref, label, tol, errs,
+                      **kw) -> dict:
+    """Each P2G design on `parts` against the plain version's grids `ref`,
+    within tol relative to each grid's max: {"p2g_<design>": (rel,
+    bitwise)}."""
+    return {f"p2g_{d}": transfer_rel(kmod._p2g(cfg, *parts, **kw, design=d),
+                                     ref, f"{label} {d}", tol, errs, "p2g")
+            for d in P2G_DESIGNS}
+
+
 def check_flip_call(fk, cfg, parts, what, errs, flip=None, apic=None):
     """The three kernels against their plain versions: P2G on the
-    particles; the grid phase on the kernel's P2G grids; G2P on the
-    kernel's grid-phase fields; each within STEP_TOL relative, the raster
-    equal.  Returns {kernel: (rel, bitwise)} and the kernel's grids."""
+    particles (the design the wrapper picks, and each design); the grid
+    phase on the kernel's P2G grids; G2P on the kernel's grid-phase fields;
+    each within STEP_TOL relative, the raster equal.  Returns {kernel:
+    (rel, bitwise)} and the kernel's grids."""
     pos, vel, ax, ay = parts
     tol = STEP_TOL[pos.dtype]
     label = f"flip {what}"
     out = {}
     grids = fk.p2g(cfg, pos, vel, ax, ay, apic)
-    out["p2g"] = transfer_rel(grids,
-                              fk.p2g_plain(cfg, pos, vel, ax, ay, apic),
-                              label, tol, errs, "p2g")
+    plain = fk.p2g_plain(cfg, pos, vel, ax, ay, apic)
+    out["p2g"] = transfer_rel(grids, plain, label, tol, errs, "p2g")
+    out.update(check_p2g_designs(fk, cfg, parts, plain, label, tol, errs,
+                                 apic=apic))
     fields = fk.grid_phase(cfg, *grids)
     plain = fk.grid_phase_plain(cfg, *grids)
     out["grid"] = transfer_rel(fields, plain, label, tol, errs, "grid",
@@ -2791,6 +2860,116 @@ def check_flip_call(fk, cfg, parts, what, errs, flip=None, apic=None):
         raise AssertionError(f"flip g2p {what}: the raster counts "
                              f"{int(got[4].sum())} of {pos.shape[0]}")
     return out, grids
+
+
+def edge_positions(rng, n_p: int, X: float, Y: float, crowd: int):
+    """Seeded positions over [0, 0.5 X] x [0, Y] (tiles right of the bulk
+    empty), `crowd` of them in one cell, and twelve on and past the walls
+    and corners (MPM drops their out-of-grid targets, FLIP clips them)."""
+    pos = rng.random((n_p, 2)) * [0.5 * X, Y]
+    pos[12:12 + crowd] = ([0.3 * X, 0.4 * Y]
+                          + 1e-3 * X * rng.random((crowd, 2)))
+    pos[:12] = [[0, 0], [X, Y], [0, Y], [X, 0], [-0.02 * X, 0.5 * Y],
+                [1.03 * X, 0.5 * Y], [0.5 * X, -0.05 * Y],
+                [0.3 * X, 1.1 * Y], [-X, -Y], [5 * X, 5 * Y],
+                [0.999 * X, 0.001 * Y], [0.001 * X, 0.999 * Y]]
+    return pos
+
+
+def check_p2g_edges(kmod, cfg, n_p, parts, label, errs) -> dict:
+    """Both P2G designs on particles with one cell crowded past the tiled
+    design's chunk and twelve on and past the walls, against the plain
+    version within STEP_TOL; the tiled launch's stats (a tile past a chunk,
+    its grid syncs as the query says).  Returns the stats."""
+    dt = parts[0].dtype
+    ref = kmod.p2g_plain(cfg, *parts)
+    rels = check_p2g_designs(kmod, cfg, parts, ref, label, STEP_TOL[dt],
+                             errs)
+    size = (cfg.gx, cfg.gy) if hasattr(cfg, "gx") else (cfg.grid,)
+    launch = kmod.p2g_launch(n_p, *size, dt, parts[0].device.index, "tiled")
+    stats = kmod.p2g_stats(cfg, n_p, dt, parts[0].device, "tiled")
+    if (stats["most_in_tile"] <= launch.chunk
+            or stats["grid_syncs"] != launch.grid_syncs):
+        raise AssertionError(f"{label}: tiled launch {stats}, chunk "
+                             f"{launch.chunk}, grid syncs "
+                             f"{launch.grid_syncs}")
+    log(f"[p2g] {label}: a cell crowded past the chunk, twelve particles "
+        f"on and past the walls, tiles left empty: (rel err, bitwise) "
+        f"{rels} (tol {STEP_TOL[dt]:g}); tiled launch {stats}")
+    return {"rel": {k: v[0] for k, v in rels.items()}, **stats}
+
+
+def check_p2g_scratch_shapes(kmod, case, sizes, n_p, label, errs) -> dict:
+    """Two tiled P2G launch shapes whose scratch has one size (the second
+    grid's particles found near n_p by the grid query), launched A, B, A
+    on one stream, each against the plain version within STEP_TOL: a
+    launch leaves its tile counts at 0 for the next one on its scratch,
+    and the two shapes lay their scratch out differently, so they must not
+    share it.  `case(particles, size)` gives (cfg, parts).  Returns each
+    launch's particles, grid, scratch words and rel err."""
+    cfg, parts = case(n_p, sizes[0])
+    dt, dev = parts[0].dtype, parts[0].device
+
+    def words(m, size):
+        return kmod.p2g_launch(m, *size, dt, dev.index, "tiled").scratch_ints
+
+    want = words(n_p, sizes[0])
+    n_b = next((m for m in range(n_p - 512, n_p + 512)
+                if words(m, sizes[1]) == want), None)
+    if n_b is None:
+        raise AssertionError(f"{label}: no particle count on {sizes[1]} "
+                             f"near {n_p} takes {want} scratch words")
+    shapes = [(n_p, sizes[0]), (n_b, sizes[1]), (n_p, sizes[0])]
+    out = []
+    for m, size in shapes:
+        cfg, parts = case(m, size)
+        rel = transfer_rel(kmod._p2g(cfg, *parts, design="tiled"),
+                           kmod.p2g_plain(cfg, *parts),
+                           f"{label} {m} on {size}", STEP_TOL[dt], errs,
+                           "p2g")[0]
+        out.append({"particles": m, "grid": list(size), "rel": rel,
+                    "scratch_ints": words(m, size)})
+    log(f"[p2g] {label}: tiled launches of two shapes with {want} scratch "
+        f"words each, back to back on one stream: {out} (tol "
+        f"{STEP_TOL[dt]:g})")
+    return {"shapes": out}
+
+
+def p2g_shared_tiles() -> int:
+    """kP2GSharedTiles of csrc/p2g_tiles.cuh: past this many tiles a tiled
+    P2G launch counts its particles a tile by global adds, not in shared
+    memory."""
+    from fluidsims_tpu_torch.kernels import _build
+    src = (_build.CSRC / "p2g_tiles.cuh").read_text()
+    found = re.search(r"constexpr int kP2GSharedTiles = (\d+);", src)
+    if found is None:
+        raise AssertionError("kP2GSharedTiles not found in p2g_tiles.cuh")
+    return int(found.group(1))
+
+
+def check_p2g_many_tiles(kmod, case, size, n_p, label, errs) -> dict:
+    """The tiled P2G on a grid of more tiles than kP2GSharedTiles (phase
+    1's count by global adds) against the plain version within STEP_TOL,
+    with the grid syncs the query says.  Returns the tiles and rel err."""
+    cfg, parts = case(n_p, size)
+    dt, dev = parts[0].dtype, parts[0].device
+    launch = kmod.p2g_launch(n_p, *size, dt, dev.index, "tiled")
+    tiles = (-(-(size[0] + 2) // launch.tile_x)
+             * -(-(size[-1] + 2) // launch.tile_y))
+    if tiles <= p2g_shared_tiles():
+        raise AssertionError(f"{label}: {tiles} tiles, not past "
+                             f"{p2g_shared_tiles()}")
+    rel = transfer_rel(kmod._p2g(cfg, *parts, design="tiled"),
+                       kmod.p2g_plain(cfg, *parts), label, STEP_TOL[dt],
+                       errs, "p2g")[0]
+    stats = kmod.p2g_stats(cfg, n_p, dt, dev, "tiled")
+    if stats["grid_syncs"] != launch.grid_syncs:
+        raise AssertionError(f"{label}: tiled launch {stats}, grid syncs "
+                             f"{launch.grid_syncs}")
+    log(f"[p2g] {label}: {tiles} tiles (counted by global adds past "
+        f"{p2g_shared_tiles()}): rel err {rel:.3e} (tol {STEP_TOL[dt]:g}); "
+        f"tiled launch {stats}")
+    return {"tiles": tiles, "rel": rel, **stats}
 
 
 def check_flip_syncs(fk, cfg, device, what: str) -> int:
@@ -2814,7 +2993,7 @@ FLIP_CHECK_JACOBI = (48, 7, 1, 0)
 
 def phase_flip_kernels(fk, fa, device) -> dict:
     errs = {"p2g": 0.0, "grid": 0.0, "g2p": 0.0, "rel": {},
-            "grid_bitwise": [0, 0]}
+            "grid_bitwise": [0, 0], "edges": {}}
     for dtype in ("float32", "float64"):
         for n in FLIP_CHECK_N:
             cfg = fa.FlipApicConfig(particles=4 * n * n, grid=n, dtype=dtype)
@@ -2836,6 +3015,27 @@ def phase_flip_kernels(fk, fa, device) -> dict:
                 f"{STEP_TOL[cfg.torch_dtype]:g}; the grid phase bitwise); "
                 f"bitwise cases of {len(cases)}: {bits}; grid phase "
                 f"{fk.grid_launch(n, cfg.torch_dtype, device.index).asdict()}")
+        for n in (128, 37):
+            cfg = fa.FlipApicConfig(particles=4 * n * n, grid=n, dtype=dtype)
+            chunk = fk.p2g_launch(cfg.particles, n, cfg.torch_dtype,
+                                  device.index, "tiled").chunk
+            rng = np.random.default_rng(SEED + 3 * n)
+            pos = edge_positions(rng, cfg.particles, 1.0, 1.0, 3 * chunk)
+            parts = [torch.tensor(a, dtype=cfg.torch_dtype, device=device)
+                     for a in (pos, *(rng.standard_normal(
+                         (cfg.particles, 2)) for _ in range(3)))]
+            errs["edges"][f"n={n} {dtype}"] = check_p2g_edges(
+                fk, cfg, cfg.particles, parts, f"flip p2g n={n} {dtype}",
+                errs)
+
+        def case(m, size, dtype=dtype):
+            cfg = fa.FlipApicConfig(particles=m, grid=size[0], dtype=dtype)
+            return cfg, flip_particles(m, cfg.torch_dtype, device, SEED + m)
+
+        errs["edges"][f"scratch {dtype}"] = check_p2g_scratch_shapes(
+            fk, case, ((30,), (46,)), 10007, f"flip p2g {dtype}", errs)
+        errs["edges"][f"n=2048 {dtype}"] = check_p2g_many_tiles(
+            fk, case, (2048,), 300000, f"flip p2g n=2048 {dtype}", errs)
     for dtype in ("float32", "float64"):
         cfg = fa.FlipApicConfig(dtype=dtype)
         if fa.resolve_engine(cfg, device) != "cuda":
@@ -2906,6 +3106,36 @@ def flip_bounds(cfg, pos) -> dict:
         "nonzero_offsets": nz}
 
 
+def flip_weight_sum(fa, cfg, pos) -> float:
+    """The sum over particles of their hat weights wt > 0 over the 9
+    clipped targets, in float64: the P2G mass grid's sum (the particle
+    count where no particle is within a cell of a wall)."""
+    n = cfg.grid
+    g = pos.double() * (n - 1)
+    base = torch.floor(g).long()
+    w = [torch.stack([fa._w1(g[:, a] - (base[:, a] + o).clamp(0, n - 1))
+                      for o in (-1, 0, 1)], 1) for a in (0, 1)]
+    wt = w[1][:, :, None] * w[0][:, None, :]
+    return float(wt[wt > 0].sum())
+
+
+def check_flip_fold(fk, fa, cfg, out) -> dict:
+    """The kernel's P2G mass grid on the final state sums (in float64) to
+    the particles' hat weights, within STEP_TOL; their count beside it."""
+    mass = fk.p2g(cfg, out.pos, out.vel, out.affine_x, out.affine_y)[0]
+    total = float(mass.double().sum())
+    want = flip_weight_sum(fa, cfg, out.pos)
+    tol = STEP_TOL[cfg.torch_dtype]
+    if not abs(total - want) <= tol * want:
+        raise AssertionError(f"flip fold: P2G mass {total}, weights {want}")
+    log(f"[physics] flip {cfg.particles} on {cfg.grid}^2 {cfg.dtype}: P2G "
+        f"mass sum {total!r}, the hat weights' {want!r} (rel "
+        f"{abs(total - want) / want:.3e}, tol {tol:g}), particles "
+        f"{cfg.particles}")
+    return {"mass_sum": total, "weights": want,
+            "rel": abs(total - want) / want}
+
+
 def check_flip_physics(fa, cfg, st0, out) -> dict:
     """Finite; positions within the walls' clip; the raster equal to the
     plain raster of the final positions (every particle in it once); the
@@ -2967,6 +3197,7 @@ def phase_flip_main(fk, fa, device, smi, errs, runs=FLIP_RUNS) -> dict:
             f"{launches}; the grid phase's launch "
             f"{fk.grid_launch(n, cfg.torch_dtype, device.index).asdict()}")
         phys = check_flip_physics(fa, cfg, st0, out)
+        phys["fold"] = check_flip_fold(fk, fa, cfg, out)
 
         # the kernels against their plain versions from the final state
         parts = (out.pos, out.vel, out.affine_x, out.affine_y)
@@ -2982,6 +3213,7 @@ def phase_flip_main(fk, fa, device, smi, errs, runs=FLIP_RUNS) -> dict:
         fields = fk.grid_phase(cfg, *grids)
         times = {
             "p2g": time_launches(lambda: fk.p2g(cfg, *parts), 100),
+            **p2g_device_times(fk, cfg, parts),
             "p2g_plain": time_launches(lambda: fk.p2g_plain(cfg, *parts), 5),
             "grid": time_launches(lambda: fk.grid_phase(cfg, *grids), 50),
             "grid_plain": time_launches(
@@ -2996,12 +3228,42 @@ def phase_flip_main(fk, fa, device, smi, errs, runs=FLIP_RUNS) -> dict:
             f"{k} {times[k]:.4f} ms vs plain {times[k + '_plain']:.4f} ms "
             f"(bound {bounds[k][0]:.5f} ms, {bounds[k][1]})"
             for k in ("p2g", "grid", "g2p"))
-            + f"; {bounds['nonzero_offsets']} nonzero P2G offsets")
+            + f"; {bounds['nonzero_offsets']} nonzero P2G offsets; "
+            + p2g_device_line(times))
         res[key] = {"launches": launches, "times": times, "bounds": bounds,
                     "rate": rate, "plain_rate": p_rate,
                     "mpsteps": n_p * rate / 1e6,
                     "plain_mpsteps": n_p * p_rate / 1e6, "physics": phys}
     return res
+
+
+def p2g_device_times(kmod, cfg, parts) -> dict:
+    """The P2G's device time a call by torch.profiler on `parts`: the
+    design the wrapper picks, and each design."""
+    out = {"p2g_device": device_ms(lambda: kmod.p2g(cfg, *parts), 100,
+                                   "p2g")}
+    for d in P2G_DESIGNS:
+        out[f"p2g_device_{d}"] = device_ms(
+            lambda: kmod._p2g(cfg, *parts, design=d), 100, "p2g")
+    return out
+
+
+def p2g_tiling(kmod, kind: str, runs, build, device) -> dict:
+    """The P2G's launch at each main run's particles, grid and dtype as
+    this run's library reports it (the design the wrapper picks, and the
+    tiled design: blocks, threads, tile, chunk, shared memory, grid syncs,
+    scratch), and ptxas's report of both designs' kernels."""
+    out = {"ptxas": [u for u in build.ptxas_usage("p2g_")
+                     if kind in u["kernel"]]}
+    for n_p, n, dtype, _, _ in runs:
+        size = (n, n) if kind == "MPMParticles" else (n,)
+        dt = getattr(torch, dtype)
+        out[f"{n_p} {n}^2 {dtype}"] = {
+            d or "picked": kmod.p2g_launch(n_p, *size, dt, device.index,
+                                           d).asdict()
+            for d in (None, "tiled")}
+    log(f"[build] {kind} p2g tiling: {out}")
+    return out
 
 
 def flip_tiling(fk, fa, build, device) -> dict:
@@ -3024,6 +3286,15 @@ def flip_tiling(fk, fa, build, device) -> dict:
     return out
 
 
+def p2g_device_line(times: dict) -> str:
+    """The P2G's device times beside its events time, for a log line."""
+    def ms(v):
+        return "not recorded" if v is None else f"{v:.4f} ms"
+    return (f"P2G {times['p2g']:.4f} ms by events, {ms(times['p2g_device'])} "
+            f"of device time (atomic design {ms(times['p2g_device_atomic'])},"
+            f" tiled {ms(times['p2g_device_tiled'])})")
+
+
 def transfer_kernel_lines(solver: str, runs, lines: dict, res,
                           errs) -> list:
     """The {"kernels": [...]} entries of a particle solver's three kernels
@@ -3044,6 +3315,9 @@ def transfer_kernel_lines(solver: str, runs, lines: dict, res,
             "ms": a["times"][name], "plain_ms": a["times"][name + "_plain"],
             "bound_ms": a["bounds"][name][0], "bound_by": a["bounds"][name][1],
             "library_ms": None}
+        if name == "p2g":
+            entry.update({f"ms_{k.removeprefix('p2g_')}": a["times"][k]
+                          for k in a["times"] if k.startswith("p2g_device")})
         for k, tag in zip(keys[1:], ("f64", "1048576")):
             r = res[k]
             entry.update({f"launches_{tag}": r["launches"][name],
@@ -3051,6 +3325,10 @@ def transfer_kernel_lines(solver: str, runs, lines: dict, res,
                           f"plain_ms_{tag}": r["times"][name + "_plain"],
                           f"bound_ms_{tag}": r["bounds"][name][0],
                           f"bound_by_{tag}": r["bounds"][name][1]})
+            if name == "p2g":
+                entry.update({f"ms_{t.removeprefix('p2g_')}_{tag}":
+                              r["times"][t] for t in r["times"]
+                              if t.startswith("p2g_device")})
         out.append(entry)
     out[-1]["max_rel_err"] = errs["rel"]
     return out
@@ -3107,17 +3385,18 @@ def mpm_particles(cfg, device, seed):
 
 def check_mpm_call(mk, cfg, parts, what, errs):
     """The three kernels against their plain versions: P2G on the
-    particles within STEP_TOL relative to each grid's max; the grid update
-    on the kernel's P2G grids and G2P on the kernel's node velocities,
-    both bitwise.  Returns {kernel: (rel, bitwise)} and the kernel's P2G
-    grids."""
+    particles (the design the wrapper picks, and each design) within
+    STEP_TOL relative to each grid's max; the grid update on the kernel's
+    P2G grids and G2P on the kernel's node velocities, both bitwise.
+    Returns {kernel: (rel, bitwise)} and the kernel's P2G grids."""
     pos, vel, F, Jp = parts
     tol = STEP_TOL[pos.dtype]
     label = f"mpm {what}"
     out = {}
     grids = mk.p2g(cfg, pos, vel, F, Jp)
-    out["p2g"] = transfer_rel(grids, mk.p2g_plain(cfg, pos, vel, F, Jp),
-                              label, tol, errs, "p2g")
+    plain = mk.p2g_plain(cfg, pos, vel, F, Jp)
+    out["p2g"] = transfer_rel(grids, plain, label, tol, errs, "p2g")
+    out.update(check_p2g_designs(mk, cfg, parts, plain, label, tol, errs))
     vels = mk.grid_update(cfg, *grids)
     out["grid"] = transfer_rel(vels, mk.grid_update_plain(cfg, *grids),
                                label, tol, errs, "grid", bitwise=True)
@@ -3128,8 +3407,31 @@ def check_mpm_call(mk, cfg, parts, what, errs):
 
 
 def phase_mpm_kernels(mk, mp, device) -> dict:
-    errs = {"p2g": 0.0, "grid": 0.0, "g2p": 0.0, "rel": {}}
+    errs = {"p2g": 0.0, "grid": 0.0, "g2p": 0.0, "rel": {}, "edges": {}}
     for dtype in ("float32", "float64"):
+        for gx, gy in ((96, 96), (37, 53)):
+            cfg = mp.MPMConfig(n=4 * gx * gy, gx=gx, gy=gy, dtype=dtype)
+            chunk = mk.p2g_launch(cfg.n, gx, gy, cfg.torch_dtype,
+                                  device.index, "tiled").chunk
+            rng = np.random.default_rng(SEED + 5 * gx)
+            pos = edge_positions(rng, cfg.n, (gx - 1) * cfg.dx,
+                                 (gy - 1) * cfg.dx, 3 * chunk)
+            F = np.eye(2) + 0.05 * rng.standard_normal((cfg.n, 2, 2))
+            parts = [torch.tensor(a, dtype=cfg.torch_dtype, device=device)
+                     for a in (pos, rng.standard_normal((cfg.n, 2)), F,
+                               rng.uniform(0.5, 1.5, cfg.n))]
+            errs["edges"][f"{gx}x{gy} {dtype}"] = check_p2g_edges(
+                mk, cfg, cfg.n, parts, f"mpm p2g {gx}x{gy} {dtype}", errs)
+
+        def case(m, size, dtype=dtype):
+            cfg = mp.MPMConfig(n=m, gx=size[0], gy=size[1], dtype=dtype)
+            return cfg, mpm_particles(cfg, device, SEED + m)
+
+        errs["edges"][f"scratch {dtype}"] = check_p2g_scratch_shapes(
+            mk, case, ((30, 46), (46, 46)), 10007, f"mpm p2g {dtype}", errs)
+        errs["edges"][f"2048x2048 {dtype}"] = check_p2g_many_tiles(
+            mk, case, (2048, 2048), 300000, f"mpm p2g 2048x2048 {dtype}",
+            errs)
         for gx, gy in ((96, 96), (37, 53), (512, 512)):
             cases = []
             for material in ("mud", "snow", "sand"):
@@ -3198,6 +3500,20 @@ def mpm_bounds(cfg, pos, mass) -> dict:
         "offsets_in_grid": nz, "nodes_with_mass": massive}
 
 
+def mpm_weight_sum(mp, cfg, pos) -> float:
+    """particle_mass times the sum over particles of their B-spline weights
+    at the targets inside the grid, in float64: the P2G mass grid's sum."""
+    Xp = pos.double() * (1.0 / cfg.dx)
+    base = torch.floor(Xp - 0.5)
+    frac = Xp - base
+    axes = []
+    for a, g in ((0, cfg.gx), (1, cfg.gy)):
+        w = mp._bspline_w(frac[:, a])
+        axes.append(sum(w[o] * ((base[:, a] + o >= 0)
+                                & (base[:, a] + o < g)) for o in range(3)))
+    return cfg.particle_mass * float((axes[0] * axes[1]).sum())
+
+
 def check_mpm_physics(mk, mp, cfg, st0, out) -> dict:
     """Finite; positions within [2dx, (G-3)dx]; Jp within [0.05, 20]; the
     block lower than at the start; the P2G mass n * particle_mass (every
@@ -3227,13 +3543,22 @@ def check_mpm_physics(mk, mp, cfg, st0, out) -> dict:
     if not abs(total - want) <= MPM_MASS_TOL * want or not y1 < y0 or over:
         raise AssertionError(f"mpm physics: P2G mass {total} of {want}, mean "
                              f"y {y0} -> {y1}, overflow {over}")
+    fold = mpm_weight_sum(mp, cfg, out.pos)
+    ftol = STEP_TOL[out.pos.dtype]
+    if not abs(total - fold) <= ftol * fold:
+        raise AssertionError(f"mpm fold: P2G mass {total}, particle_mass x "
+                             f"the in-grid weights {fold}")
     log(f"[physics] mpm {cfg.n} on {cfg.gx}^2 {cfg.material} {cfg.dtype}: "
         f"all finite, pos in [{pmin:.6g}, {max(xmax, ymax):.6g}], Jp in "
-        f"[{jmin:.6g}, {jmax:.6g}], P2G mass {total:.9g} of {want:g} "
-        f"(rel {abs(total - want) / want:.3e}), mean y {y0:.6f} -> "
-        f"{y1:.6f}, max |v| {vmax:.4f}, overflow_count 0")
+        f"[{jmin:.6g}, {jmax:.6g}], P2G mass {total!r} of {want:g} "
+        f"(rel {abs(total - want) / want:.3e}); particle_mass x the in-grid "
+        f"weights {fold!r} (rel {abs(total - fold) / fold:.3e}, tol "
+        f"{ftol:g}), mean y {y0:.6f} -> {y1:.6f}, max |v| {vmax:.4f}, "
+        f"overflow_count 0")
     return {"mean_y": [y0, y1], "jp": [jmin, jmax], "max_abs_v": vmax,
-            "mass_rel_err": abs(total - want) / want}
+            "mass_rel_err": abs(total - want) / want,
+            "fold": {"mass_sum": total, "weights": fold,
+                     "rel": abs(total - fold) / fold}}
 
 
 def phase_mpm_main(mk, mp, device, smi, errs, runs=MPM_RUNS) -> dict:
@@ -3277,6 +3602,7 @@ def phase_mpm_main(mk, mp, device, smi, errs, runs=MPM_RUNS) -> dict:
         g2p_in = (out.pos, out.F, out.Jp, *vels)
         times = {
             "p2g": time_launches(lambda: mk.p2g(cfg, *parts), 100),
+            **p2g_device_times(mk, cfg, parts),
             "p2g_plain": time_launches(lambda: mk.p2g_plain(cfg, *parts), 5),
             "grid": time_launches(lambda: mk.grid_update(cfg, *grids), 100),
             "grid_plain": time_launches(
@@ -3291,7 +3617,8 @@ def phase_mpm_main(mk, mp, device, smi, errs, runs=MPM_RUNS) -> dict:
             f"(bound {bounds[k][0]:.5f} ms, {bounds[k][1]})"
             for k in ("p2g", "grid", "g2p"))
             + f"; {bounds['offsets_in_grid']} P2G offsets inside the grid, "
-            f"{bounds['nodes_with_mass']} nodes with mass")
+            f"{bounds['nodes_with_mass']} nodes with mass; "
+            + p2g_device_line(times))
         res[key] = {"launches": launches, "times": times, "bounds": bounds,
                     "rate": rate, "plain_rate": p_rate,
                     "mpsteps": n_p * rate / 1e6,
@@ -3524,9 +3851,15 @@ def main() -> int:
         flip_errs))
     kernels[-2]["tiling"] = flip_tiling(fk, fa, _build, device)
     kernels[-2]["bitwise_cases"] = flip_errs["grid_bitwise"]
+    kernels[-3]["tiling"] = p2g_tiling(fk, "FlipParticles", FLIP_RUNS,
+                                       _build, device)
+    kernels[-3]["edge_cases"] = flip_errs["edges"]
     kernels.extend(transfer_kernel_lines(
         "mpm", MPM_RUNS, {"p2g": 42, "grid": 78, "g2p": 101}, mpm_res,
         mpm_errs))
+    kernels[-3]["tiling"] = p2g_tiling(mpk, "MPMParticles", MPM_RUNS,
+                                       _build, device)
+    kernels[-3]["edge_cases"] = mpm_errs["edges"]
     if len(kernels) != 25:
         raise AssertionError(f"{len(kernels)} kernel lines, want 25")
     log(f"[hyp3d] steps/s: 64^3 f32 {a3['rate']:.2f} (plain "

@@ -106,22 +106,23 @@ int cooperative_blocks(Kernel kernel, long long want, int device, int* grid,
   // With shared memory, ask for the largest shared-memory carveout, so that
   // the launch gets the carveout the occupancy query counted on (left to
   // the CUDA runtime, a later launch may get a smaller one and hold fewer
-  // blocks an SM than the grid needs); above 48 KB, allow the device's
-  // largest block (less the kernel's static shared memory), once, so that
-  // no query lowers what another launch of the kernel needs.
+  // blocks an SM than the grid needs); above 48 KB with the kernel's static
+  // shared memory, allow the device's largest block (less the static
+  // part), once, so that no query lowers what another launch of the
+  // kernel needs.
   if (err == cudaSuccess && smem > 0)
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
   int optin = 0;
   cudaFuncAttributes fa{};
-  if (err == cudaSuccess && smem > 48 * 1024)
+  if (err == cudaSuccess && smem > 0) err = cudaFuncGetAttributes(&fa, kernel);
+  const bool large = smem + fa.sharedSizeBytes > 48 * 1024;
+  if (err == cudaSuccess && large)
     err = cudaDeviceGetAttribute(&optin,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                  device);
-  if (err == cudaSuccess && smem > 48 * 1024)
-    err = cudaFuncGetAttributes(&fa, kernel);
-  if (err == cudaSuccess && smem > 48 * 1024)
+  if (err == cudaSuccess && large)
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                optin - (int)fa.sharedSizeBytes);

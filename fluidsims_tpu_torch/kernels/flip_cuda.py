@@ -4,8 +4,15 @@ versions, and the 'cuda' engine's step built on them.
 * `p2g(cfg, pos, vel, ax, ay, apic)` — csrc/flip_p2g.cu, which replaces the
   TPU kernel fluidsims_tpu/kernels/flip_pallas.py::_p2g_kernel: the
   hat-weight transfer of mass and APIC momentum over each particle's 3x3
-  nodes by atomicAdd, into three zeroed (n, n) grids.  Plain version:
-  `p2g_plain` (solvers/flip_apic.py::_p2g, `index_add_`).
+  nodes into three (n, n) grids, which the launch zeroes itself.  Two
+  designs (csrc/p2g_tiles.cuh), picked from the particles: "atomic" (one
+  thread a particle, an atomicAdd a target and field, after a memset)
+  below 2^18 particles, "tiled" from there (one cooperative launch bins
+  the particles by tile, sorts each chunk by cell in shared memory and
+  adds each run of a cell's particles once); `_p2g` forces one, for checks;
+  `p2g_launch` reports the design, tile, chunk, blocks, threads, shared
+  memory and grid syncs, `p2g_stats` what the last launch counted.  Plain
+  version: `p2g_plain` (solvers/flip_apic.py::_p2g, `index_add_`).
 * `grid_phase(cfg, mass, u, v)` — csrc/flip_grid.cu, which replaces
   flip_pallas.py::_grid_kernel: normalize, gravity, wall clamps,
   divergence, every Jacobi sweep and the projection in one cooperative
@@ -20,12 +27,12 @@ versions, and the 'cuda' engine's step built on them.
   version: `g2p_plain` (solvers/flip_apic.py::_g2p).
 * `make_step_cuda(cfg)` — the 'cuda' engine's step: solvers/flip_apic.py::
   _step on the three kernels, one launch of each a step; around them only
-  the memsets of the P2G grids and of the raster.
+  the memset of the raster.
 
 The plain versions are the 'scatter' engine's functions, so that engine is
 their composition.  The grid phase and G2P are bitwise equal to their
 plain versions for equal inputs (same operation order, true divisions,
-the library built with -fmad=false); P2G's atomics add in no fixed order,
+the library built with -fmad=false); P2G's adds land in no fixed order,
 so it matches its plain version to rounding.  The blend factors flip and
 apic are launch arguments: an override runs the same kernels.
 
@@ -35,8 +42,10 @@ current stream, count the launch in `LAUNCHES`, and raise if the launch
 fails; nothing falls back.  The grid phase's launch is asked of the card
 once per (n, dtype, device), and its scratch (divergence and the pressure
 ping-pong, 3 (n, n) fields) and slot words are kept per (n, dtype,
-device, stream) (`_common.tile_scratch`, which says why that is safe).
-Nothing writes the tensors it is given.
+device, stream) (`_common.tile_scratch`, which says why that is safe); the
+P2G's launch once per (np, n, dtype, device), its int32 scratch (tile
+counts, the index array, the chunks) and slot words per (np, n, dtype,
+design, device, stream).  Nothing writes the tensors it is given.
 """
 
 from __future__ import annotations
@@ -48,13 +57,13 @@ import torch
 
 from ..solvers import flip_apic as fa
 from . import _build
-from ._common import (LaunchCounter, TileLaunch, check_tensors, on_cpu,
-                      tile_launch, tile_scratch)
+from ._common import (P2G_DESIGNS, LaunchCounter, P2GLaunch, TileLaunch,
+                      check_tensors, on_cpu, tile_launch, tile_scratch)
 from ._common import grid_syncs as _grid_syncs
 
 __all__ = ["LAUNCHES", "reset_launches", "p2g", "p2g_plain", "grid_phase",
            "grid_phase_plain", "g2p", "g2p_plain", "make_step_cuda", "load",
-           "grid_launch", "grid_syncs"]
+           "grid_launch", "grid_syncs", "p2g_launch", "p2g_stats"]
 
 LAUNCHES = LaunchCounter("p2g", "grid", "g2p")
 reset_launches = LAUNCHES.reset
@@ -70,8 +79,11 @@ def load() -> ctypes.CDLL:
     P, I, L, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_double
     for sfx in _SUFFIX.values():
+        fn = getattr(lib, f"fst_flip_p2g_blocks_{sfx}")
+        fn.argtypes = [L, I, I, I, ctypes.POINTER(P2GLaunch)]
+        fn.restype = I
         fn = getattr(lib, f"fst_flip_p2g_{sfx}")
-        fn.argtypes = [P] * 7 + [L, I, D, I, P]
+        fn.argtypes = [P] * 9 + [L, I, D, I, I, I, P]
         fn.restype = I
         fn = getattr(lib, f"fst_flip_grid_blocks_{sfx}")
         fn.argtypes = [I, I, ctypes.POINTER(TileLaunch)]
@@ -131,22 +143,70 @@ def p2g_plain(cfg, pos, vel, ax, ay, apic=None):
     return fa._p2g(cfg, pos, vel, ax, ay, apic)
 
 
+@functools.lru_cache(maxsize=None)
+def p2g_launch(n_p: int, n: int, dtype: torch.dtype, index: int,
+               design: str | None = None) -> P2GLaunch:
+    """The P2G's launch for n_p particles on an (n, n) grid on device
+    `index`, as the library computes it: the design (`design`, or the one
+    the particles pick: "atomic" or "tiled"), blocks, threads a block, the
+    tile of base nodes, particles a chunk, dynamic shared memory a block,
+    grid syncs a launch and scratch words."""
+    return tile_launch(load(), f"fst_flip_p2g_blocks_{_SUFFIX[dtype]}", n_p,
+                       n, -1 if design is None else P2G_DESIGNS[design],
+                       index, kind=P2GLaunch)
+
+
+def _p2g_scratch(n_p: int, n: int, dtype: torch.dtype, shape: P2GLaunch,
+                 device: torch.device, stream: int) -> tuple:
+    # One scratch a launch shape, not a size: a tiled launch leaves its tile
+    # counts at 0 for the next launch on the scratch, and another shape of
+    # the same size keeps other words there (csrc/p2g_tiles.cuh p2g_layout).
+    return tile_scratch(("flip_p2g", n_p, n, dtype, shape.design),
+                        shape.scratch_ints, torch.int32, device, stream)
+
+
+def p2g_stats(cfg, n_p: int, dtype: torch.dtype, device: torch.device,
+              design: str | None = None) -> dict:
+    """What the last P2G launch of `design` for n_p particles on cfg's grid
+    on the device's current stream counted: its grid syncs and, tiled, its
+    chunks and the most particles in one tile (waits for the launch)."""
+    shape = p2g_launch(n_p, cfg.grid, dtype, device.index, design)
+    scratch, words = _p2g_scratch(n_p, cfg.grid, dtype, shape, device,
+                                  _stream(device))
+    out = {"design": shape.asdict()["design"],
+           "grid_syncs": _grid_syncs(words)}
+    if shape.scratch_ints:
+        out.update(chunks=int(scratch[0]), most_in_tile=int(scratch[1]))
+    return out
+
+
 def p2g(cfg, pos, vel, ax, ay, apic=None):
     """(mass, mom_u, mom_v), each (n, n), of the particles' hat-weighted
-    transfer: the kernel on CUDA tensors, the plain version on CPU
-    tensors.  `apic` overrides cfg.apic."""
+    transfer: the kernel on CUDA tensors (the design the particles pick),
+    the plain version on CPU tensors.  `apic` overrides cfg.apic."""
     if on_cpu(pos):
         return p2g_plain(cfg, pos, vel, ax, ay, apic)
+    return _p2g(cfg, pos, vel, ax, ay, apic, design=None)
+
+
+def _p2g(cfg, pos, vel, ax, ay, apic=None, *, design):
+    """`p2g` on CUDA tensors in `design` ("atomic" or "tiled"; None: the
+    one the particles pick), so that checks can hold each design to the
+    plain version."""
     n_p = _check_particles(pos=pos, vel=vel, affine_x=ax, affine_y=ay)
     n = cfg.grid
     apic = float(cfg.apic if apic is None else apic)
     dev = pos.device
-    grids = torch.zeros((3, n, n), dtype=pos.dtype, device=dev)
+    shape = p2g_launch(n_p, n, pos.dtype, dev.index, design)
+    stream = _stream(dev)
+    scratch, words = _p2g_scratch(n_p, n, pos.dtype, shape, dev, stream)
+    grids = torch.empty((3, n, n), dtype=pos.dtype, device=dev)
     lib = load()
     code = getattr(lib, f"fst_flip_p2g_{_SUFFIX[pos.dtype]}")(
         pos.data_ptr(), vel.data_ptr(), ax.data_ptr(), ay.data_ptr(),
-        grids[0].data_ptr(), grids[1].data_ptr(), grids[2].data_ptr(), n_p,
-        n, apic, dev.index, _stream(dev))
+        grids[0].data_ptr(), grids[1].data_ptr(), grids[2].data_ptr(),
+        scratch.data_ptr(), words.data_ptr(), n_p, n, apic, shape.design,
+        shape.grid, dev.index, stream)
     _raise_if(code, lib, "p2g kernel launch")
     LAUNCHES["p2g"] += 1
     return grids[0], grids[1], grids[2]

@@ -4,9 +4,16 @@ versions, and the 'cuda' engine's step built on them.
 * `p2g(cfg, pos, vel, F, Jp)` — csrc/mpm_p2g.cu, which replaces the TPU
   kernel fluidsims_tpu/kernels/mpm_pallas.py::_p2g_kernel: the quadratic
   B-spline transfer of mass and of momentum plus the stress force over
-  each particle's 3x3 nodes by atomicAdd, into three zeroed (Gy, Gx)
-  grids; out-of-grid targets are skipped.  Plain version: `p2g_plain`
-  (solvers/mpm.py::_p2g, `index_add_`).
+  each particle's 3x3 nodes into three (Gy, Gx) grids, which the launch
+  zeroes itself; out-of-grid targets are skipped.  Two designs
+  (csrc/p2g_tiles.cuh), picked from the particles: "atomic" (one thread a
+  particle, an atomicAdd a target and field, after a memset) below 2^18
+  particles, "tiled" from there (one cooperative launch bins the
+  particles by tile, sorts each chunk by cell in shared memory and adds
+  each run of a cell's particles once); `_p2g` forces one, for checks;
+  `p2g_launch` reports the design, tile, chunk, blocks, threads, shared
+  memory and grid syncs, `p2g_stats` what the last launch counted.  Plain
+  version: `p2g_plain` (solvers/mpm.py::_p2g, `index_add_`).
 * `grid_update(cfg, mass, mom_x, mom_y)` — csrc/mpm_grid.cu, which
   replaces mpm_pallas.py::_grid_kernel: normalize, gravity, the sticky
   bands, one thread a node.  Plain version: `grid_update_plain`
@@ -16,13 +23,13 @@ versions, and the 'cuda' engine's step built on them.
   the F, Jp and position updates.  Plain version: `g2p_plain`
   (solvers/mpm.py::_g2p).
 * `make_step_cuda(cfg)` — the 'cuda' engine's step: solvers/mpm.py::_step
-  on the three kernels, one launch of each a step; around them only the
-  zero fill of the P2G grids.
+  on the three kernels, one launch of each a step and no other device
+  work.
 
 The plain versions are the 'scatter' engine's functions, so that engine is
 their composition.  The grid update and G2P are bitwise equal to their
 plain versions for equal inputs (same operation order, true divisions,
-the library built with -fmad=false); P2G's atomics add in no fixed order
+the library built with -fmad=false); P2G's adds land in no fixed order
 and it calls CUDA's exp and log, so it matches its plain version to
 rounding.  Every constant the kernels take (inv_dx, the stress scale,
 gravity*dt, the clip bounds) is formed in Python doubles as JAX forms it
@@ -31,7 +38,11 @@ and rounded once to the dtype.
 The wrappers take the plain version for CPU tensors only, uncounted.  For
 CUDA tensors they check device, dtype, shape and contiguity, launch on the
 current stream, count the launch in `LAUNCHES`, and raise if the launch
-fails; nothing falls back.  Nothing writes the tensors it is given.
+fails; nothing falls back.  The P2G's launch is asked of the card once per
+(np, grid, dtype, device), and its int32 scratch (tile counts, the index
+array, the chunks) and slot words are kept per (np, grid, dtype, design,
+device, stream) (`_common.tile_scratch`, which says why that is safe).
+Nothing writes the tensors it is given.
 """
 
 from __future__ import annotations
@@ -43,10 +54,13 @@ import torch
 
 from ..solvers import mpm
 from . import _build
-from ._common import LaunchCounter, check_tensors, on_cpu
+from ._common import (P2G_DESIGNS, LaunchCounter, P2GLaunch,
+                      check_tensors, on_cpu, tile_launch, tile_scratch)
+from ._common import grid_syncs as _grid_syncs
 
 __all__ = ["LAUNCHES", "reset_launches", "p2g", "p2g_plain", "grid_update",
-           "grid_update_plain", "g2p", "g2p_plain", "make_step_cuda", "load"]
+           "grid_update_plain", "g2p", "g2p_plain", "make_step_cuda", "load",
+           "p2g_launch", "p2g_stats"]
 
 LAUNCHES = LaunchCounter("p2g", "grid", "g2p")
 reset_launches = LAUNCHES.reset
@@ -77,8 +91,11 @@ def load() -> ctypes.CDLL:
         ctypes.c_double
     for dtype, sfx in _SUFFIX.items():
         C = ctypes.POINTER(_CONSTS[dtype])
+        fn = getattr(lib, f"fst_mpm_p2g_blocks_{sfx}")
+        fn.argtypes = [L, I, I, I, I, ctypes.POINTER(P2GLaunch)]
+        fn.restype = I
         fn = getattr(lib, f"fst_mpm_p2g_{sfx}")
-        fn.argtypes = [P] * 7 + [L, C, I, P]
+        fn.argtypes = [P] * 9 + [L, C, I, I, I, P]
         fn.restype = I
         fn = getattr(lib, f"fst_mpm_grid_{sfx}")
         fn.argtypes = [P] * 5 + [I, I, D, I, P]
@@ -153,19 +170,71 @@ def p2g_plain(cfg, pos, vel, F, Jp):
     return mpm._p2g(cfg, pos, vel, F, Jp)
 
 
+@functools.lru_cache(maxsize=None)
+def p2g_launch(n_p: int, gx: int, gy: int, dtype: torch.dtype, index: int,
+               design: str | None = None) -> P2GLaunch:
+    """The P2G's launch for n_p particles on a (gy, gx) grid on device
+    `index`, as the library computes it: the design (`design`, or the one
+    the particles pick: "atomic" or "tiled"), blocks, threads a block, the
+    tile of base nodes, particles a chunk, dynamic shared memory a block,
+    grid syncs a launch and scratch words."""
+    return tile_launch(load(), f"fst_mpm_p2g_blocks_{_SUFFIX[dtype]}", n_p,
+                       gx, gy, -1 if design is None else P2G_DESIGNS[design],
+                       index, kind=P2GLaunch)
+
+
+def _p2g_scratch(n_p: int, gx: int, gy: int, dtype: torch.dtype,
+                 shape: P2GLaunch, device: torch.device,
+                 stream: int) -> tuple:
+    # One scratch a launch shape, not a size: a tiled launch leaves its tile
+    # counts at 0 for the next launch on the scratch, and another shape of
+    # the same size keeps other words there (csrc/p2g_tiles.cuh p2g_layout).
+    return tile_scratch(("mpm_p2g", n_p, gx, gy, dtype, shape.design),
+                        shape.scratch_ints, torch.int32, device, stream)
+
+
+def p2g_stats(cfg, n_p: int, dtype: torch.dtype, device: torch.device,
+              design: str | None = None) -> dict:
+    """What the last P2G launch of `design` for n_p particles on cfg's grid
+    on the device's current stream counted: its grid syncs and, tiled, its
+    chunks and the most particles in one tile (waits for the launch)."""
+    shape = p2g_launch(n_p, cfg.gx, cfg.gy, dtype, device.index, design)
+    scratch, words = _p2g_scratch(n_p, cfg.gx, cfg.gy, dtype, shape, device,
+                                  _stream(device))
+    out = {"design": shape.asdict()["design"],
+           "grid_syncs": _grid_syncs(words)}
+    if shape.scratch_ints:
+        out.update(chunks=int(scratch[0]), most_in_tile=int(scratch[1]))
+    return out
+
+
 def p2g(cfg, pos, vel, F, Jp):
     """(mass, mom_x, mom_y), each (Gy, Gx), of the particles' transfer:
-    the kernel on CUDA tensors, the plain version on CPU tensors."""
+    the kernel on CUDA tensors (the design the particles pick), the plain
+    version on CPU tensors."""
     if on_cpu(pos):
         return p2g_plain(cfg, pos, vel, F, Jp)
+    return _p2g(cfg, pos, vel, F, Jp, design=None)
+
+
+def _p2g(cfg, pos, vel, F, Jp, *, design):
+    """`p2g` on CUDA tensors in `design` ("atomic" or "tiled"; None: the
+    one the particles pick), so that checks can hold each design to the
+    plain version."""
     n_p = _check_particles(pos, F, Jp, vel=vel)
     dev = pos.device
-    grids = torch.zeros((3, cfg.gy, cfg.gx), dtype=pos.dtype, device=dev)
+    shape = p2g_launch(n_p, cfg.gx, cfg.gy, pos.dtype, dev.index, design)
+    stream = _stream(dev)
+    scratch, words = _p2g_scratch(n_p, cfg.gx, cfg.gy, pos.dtype, shape, dev,
+                                  stream)
+    grids = torch.empty((3, cfg.gy, cfg.gx), dtype=pos.dtype, device=dev)
     lib = load()
     code = getattr(lib, f"fst_mpm_p2g_{_SUFFIX[pos.dtype]}")(
         pos.data_ptr(), vel.data_ptr(), F.data_ptr(), Jp.data_ptr(),
-        grids[0].data_ptr(), grids[1].data_ptr(), grids[2].data_ptr(), n_p,
-        ctypes.byref(consts(cfg, pos.dtype)), dev.index, _stream(dev))
+        grids[0].data_ptr(), grids[1].data_ptr(), grids[2].data_ptr(),
+        scratch.data_ptr(), words.data_ptr(), n_p,
+        ctypes.byref(consts(cfg, pos.dtype)), shape.design, shape.grid,
+        dev.index, stream)
     _raise_if(code, lib, "p2g kernel launch")
     LAUNCHES["p2g"] += 1
     return grids[0], grids[1], grids[2]

@@ -8,9 +8,10 @@ solvers.flip_apic.run with engine 'auto' (the CUDA kernels):
 FlipApicConfig() (65,536 particles on 128^2, f32) x 1000 steps and 2^20
 particles on 512^2 f32 x 200 steps, each from init: the unprofiled step
 time and M particle-steps/s, and under torch.profiler the device time of
-each kernel (the atomic P2G, the cooperative grid phase, G2P) and of the
-torch ops around them (the zero fills of the P2G grids and the density
-raster), the busy and idle shares (tools/profile_torch_common.py says how
+each kernel (the P2G, group "FlipParticles": the tiled design at 2^20
+particles, the atomic one at 65,536; the cooperative grid phase, G2P) and
+of the rest (the atomic design's memset of the P2G grids, the zero fill of
+the density raster), the busy and idle shares (tools/profile_torch_common.py says how
 each is read).
 
 Imports torch and the port only.  Writes JSON to `--out` (default
@@ -30,7 +31,7 @@ from fluidsims_tpu_torch.solvers import flip_apic as fa  # noqa: E402
 from profile_torch_common import Run, main  # noqa: E402
 
 RUNS = ((65536, 128, "float32", 1000), (1 << 20, 512, "float32", 200))
-GROUPS = ("p2g_kernel", "grid_kernel", "g2p_kernel")
+GROUPS = ("FlipParticles", "grid_kernel", "g2p_kernel")
 
 
 def _make_go(n_p: int, n: int, dtype: str):

@@ -2,9 +2,11 @@
 """Check and time the tiled kernels of the port on a GPU, and sweep their
 tiles.
 
-    python tools/tune_tiles_torch.py [check] [time] [sweep] [diff A B]
+    python tools/tune_tiles_torch.py [check] [time] [sweep] [phases]
+        [sass] [diff A B]
         [--root DIR] [--out PATH] [--define NAME=VALUE ...] [--only KEY ...]
-        [--fmad] [--dump DIR] [--set tiles|hypersonic|mhd|sph|flip|lbm]
+        [--fmad] [--dump DIR]
+        [--set tiles|hypersonic|mhd|sph|flip|lbm|p2g]
 
 The kernels: the Burgers and shallow-water K-step kernels
 (csrc/burgers_multistep.cu, csrc/shallow_water_multistep.cu, TPU kernel
@@ -12,8 +14,10 @@ The kernels: the Burgers and shallow-water K-step kernels
 two hypersonic step kernels (csrc/hypersonic2d_step.cu, #1;
 csrc/hypersonic3d_step.cu, #2), the GLM-MHD K-step kernel
 (csrc/mhd_multistep.cu, #8), the SPH forces kernel
-(csrc/sph_forces.cu, #15), the FLIP grid phase (csrc/flip_grid.cu, #17)
-and the LBM K-step kernel (csrc/lbm_multistep.cu, #6).
+(csrc/sph_forces.cu, #15), the FLIP grid phase (csrc/flip_grid.cu, #17),
+the LBM K-step kernel (csrc/lbm_multistep.cu, #6) and the MPM and FLIP
+P2Gs (csrc/mpm_p2g.cu, #19; csrc/flip_p2g.cu, #16; both csrc/
+p2g_tiles.cuh).
 
 * check — each kernel against its plain version on the card: Burgers and
   shallow water on 200x75 and 5x3 (every option), k = 1 within 1e-5
@@ -54,8 +58,14 @@ and the LBM K-step kernel (csrc/lbm_multistep.cu, #6).
   of the final state of its runs (65,536 on 128^2 f32 x 1000 and f64 x
   200, 2^20 on 512^2 f32 x 200); the LBM K-step kernel at K=8 and the
   one-step kernel (the K=1 run's) on the final state of the LBM runs
-  (2048x1024 f32 x 1000, f64 x 200).  For the K=1 launches, also the device
-  time a launch (torch.profiler's kernel time over 200 launches) and the
+  (2048x1024 f32 x 1000, f64 x 200); the MPM and FLIP P2Gs on the final
+  state of chip_smoke.py's MPM and FLIP runs (MPM 32,768 on 96^2 f32 x
+  1000 and f64 x 200, 2^18 on 256^2 f32 x 200, 2^20 on 512^2 f32 x 200;
+  FLIP likewise on 128^2, 256^2 and 512^2), also as torch.profiler's
+  device time a launch of the P2G kernel and of all device work a wrapper
+  call (the parent's zero fill, the atomic design's memset too; where the
+  tree has two designs, each one's), and the host's time a wrapper call
+  (`host_us`).  For the K=1 launches, also the device time a launch (torch.profiler's kernel time over 200 launches) and the
   host's time a wrapper call (the host clock over 200 calls that queue
   without a sync), by part.  With --root, the package is imported from
   DIR (an unpacked tree of another commit), so two commits are timed with
@@ -80,7 +90,21 @@ and the LBM K-step kernel (csrc/lbm_multistep.cu, #6).
   grids (csrc/flip_grid.cu FST_FLIP_SWEEPS, FST_FLIP_SMALL_TILE_X, _Y,
   FST_FLIP_SMALL_THREADS, FST_FLIP_TILE_X, _Y, FST_FLIP_THREADS); `--set
   lbm` the LBM K-step kernel's shared memory a block and threads
-  (csrc/lbm_multistep.cu FST_LBM_SMEM, FST_LBM_THREADS).
+  (csrc/lbm_multistep.cu FST_LBM_SMEM, FST_LBM_THREADS); `--set p2g` the
+  P2Gs' tiles, particles a chunk and threads a block (csrc/mpm_p2g.cu
+  FST_MPM_P2G_TILE_X, _Y, FST_MPM_P2G_CHUNK, FST_MPM_P2G_THREADS;
+  csrc/flip_p2g.cu FST_FLIP_P2G_...), timed by their device time.
+* phases — the tiled P2Gs' phase times on the final states that `time`
+  uses: a build with -DFST_P2G_STAMPS (csrc/p2g_tiles.cuh), in which
+  block 0 stamps %globaltimer at the launch's start and after each of
+  its three grid syncs and every block its end, launched 55 times; the
+  mean over the last 50 of the count (with the zeroing of the grids), the
+  scan, the fill with the chunk list and the chunks.  The stamps cost a
+  few instructions a launch, so it runs alone (or with sass).
+* sass — the atomic instructions of the built library's P2G kernels in
+  `cuobjdump -sass`, and of a probe of float and double atomicAdd on
+  shared memory built for the same target: ATOMS.CAST.SPIN is a
+  compare-and-swap loop, ATOMS.ADD a native shared-memory add.
 * --fmad — build with -fmad=true in place of -fmad=false: how much of a
   kernel's time the unfused multiplies and adds take.  A measurement
   only; the shipped build and every bitwise bar keep -fmad=false.
@@ -98,8 +122,10 @@ Imports torch and the port only.
 from __future__ import annotations
 
 import argparse
+import collections
 import hashlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -495,6 +521,255 @@ def check_flip(m, dev) -> list:
     return out
 
 
+def p2g_positions(rng, n_p: int, X: float, Y: float):
+    """Seeded positions over [0, X] x [0, Y] with no particle in the
+    grid's last quarter along x (empty tiles), 2,000 (or a third) crowded
+    into one cell (more particles than a chunk), and twelve on and past
+    the walls and corners (MPM drops their out-of-grid targets, FLIP clips
+    them)."""
+    pos = rng.random((n_p, 2)) * [0.75 * X, Y]
+    crowd = min(n_p // 3, 2000)
+    pos[12:12 + crowd] = [0.3 * X, 0.4 * Y] + 1e-3 * X * rng.random((crowd, 2))
+    pos[:12] = [[0, 0], [X, Y], [0, Y], [X, 0], [-0.02 * X, 0.5 * Y],
+                [1.03 * X, 0.5 * Y], [0.5 * X, -0.05 * Y],
+                [0.3 * X, 1.1 * Y], [-X, -Y], [5 * X, 5 * Y],
+                [0.999 * X, 0.001 * Y], [0.001 * X, 0.999 * Y]]
+    return pos
+
+
+def p2g_designs(mod) -> tuple:
+    """The P2G designs a tree's wrapper takes (None: its only one)."""
+    return (("atomic", "tiled") if hasattr(mod, "p2g_stats") else (None,))
+
+
+def check_p2g_syncs(mod, cfg, n_p, dev, what, design):
+    """The grid syncs of the P2G launch of `design` just made, where the
+    wrapper reports them (None otherwise)."""
+    if design is None:
+        return None
+    st = mod.p2g_stats(cfg, n_p, cfg.torch_dtype, dev, design)
+    launch = (mod.p2g_launch(n_p, cfg.gx, cfg.gy, cfg.torch_dtype, dev.index,
+                             design)
+              if hasattr(cfg, "gx") else
+              mod.p2g_launch(n_p, cfg.grid, cfg.torch_dtype, dev.index,
+                             design))
+    if st["grid_syncs"] != launch.grid_syncs:
+        raise AssertionError(f"{what}: {st['grid_syncs']} grid syncs, the "
+                             f"query says {launch.grid_syncs}")
+    return st
+
+
+def check_p2g(m, dev) -> list:
+    """Both P2Gs, each design, against their plain versions, within 1e-5
+    (f32) / 1e-12 (f64) relative to each grid's max."""
+    out = []
+    for dtype in ("float32", "float64"):
+        bar = 1e-5 if dtype == "float32" else 1e-12
+        for gx, gy in ((96, 96), (37, 53), (512, 512)):
+            for material in ("mud", "snow", "sand"):
+                cfg = m.mp.MPMConfig(n=4 * gx * gy, gx=gx, gy=gy,
+                                     material=material, dtype=dtype)
+                rng = np.random.default_rng(gx + gy)
+                pos = p2g_positions(rng, cfg.n, (gx - 1) * cfg.dx,
+                                    (gy - 1) * cfg.dx)
+                F = np.eye(2) + 0.05 * rng.standard_normal((cfg.n, 2, 2))
+                parts = [torch.tensor(a, dtype=cfg.torch_dtype, device=dev)
+                         for a in (pos, rng.standard_normal((cfg.n, 2)), F,
+                                   rng.uniform(0.5, 1.5, cfg.n))]
+                ref = m.mpk.p2g_plain(cfg, *parts)
+                for design in p2g_designs(m.mpk):
+                    got = (m.mpk.p2g(cfg, *parts) if design is None else
+                           m.mpk._p2g(cfg, *parts, design=design))
+                    rel = max_rel(got, ref)
+                    what = f"p2g mpm {gx}x{gy} {material} {dtype} {design}"
+                    if not rel <= bar:
+                        raise AssertionError(f"{what}: rel err {rel:.3e}")
+                    out.append({"case": what, "rel": rel, **(check_p2g_syncs(
+                        m.mpk, cfg, cfg.n, dev, what, design) or {})})
+        for n in (128, 37, 512, 16):
+            for apic in (None, 0.0, 1.0):
+                cfg = m.fa.FlipApicConfig(particles=4 * n * n, grid=n,
+                                          dtype=dtype)
+                rng = np.random.default_rng(n)
+                pos = p2g_positions(rng, cfg.particles, 1.0, 1.0)
+                parts = [torch.tensor(a, dtype=cfg.torch_dtype, device=dev)
+                         for a in (pos, *(rng.standard_normal(
+                             (cfg.particles, 2)) for _ in range(3)))]
+                ref = m.fk.p2g_plain(cfg, *parts, apic)
+                for design in p2g_designs(m.fk):
+                    got = (m.fk.p2g(cfg, *parts, apic) if design is None else
+                           m.fk._p2g(cfg, *parts, apic, design=design))
+                    rel = max_rel(got, ref)
+                    what = f"p2g flip {n}^2 apic {apic} {dtype} {design}"
+                    if not rel <= bar:
+                        raise AssertionError(f"{what}: rel err {rel:.3e}")
+                    out.append({"case": what, "rel": rel, **(check_p2g_syncs(
+                        m.fk, cfg, cfg.particles, dev, what, design) or {})})
+    torch.cuda.synchronize()
+    log(f"[check] p2g: {len(out)} cases within 1e-5 / 1e-12 of plain, "
+        f"worst {max(c['rel'] for c in out):.3e}; " + "; ".join(
+            f"{c['case']}: chunks {c.get('chunks')}, most in a tile "
+            f"{c.get('most_in_tile')}" for c in out
+            if "96x96 snow" in c["case"] or "128^2 apic None" in c["case"]
+            if "tiled" in c["case"]))
+    return out
+
+
+def device_call_ms(fn, n: int) -> float:
+    """Device time a call of fn by torch.profiler: all kernels over n
+    calls."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(us) / n / 1e3
+
+
+# The P2Gs (#19, #16) at chip_smoke.py's MPM and FLIP runs, and 2^18
+# particles on 256^2 between them: (key, solver, particles, grid, dtype,
+# steps of the run, launches timed).
+P2G_RUNS = (("p2g mpm 96 f32", "mpm", 32768, 96, "float32", 1000, 200),
+            ("p2g mpm 96 f64", "mpm", 32768, 96, "float64", 200, 200),
+            ("p2g mpm 256 f32", "mpm", 1 << 18, 256, "float32", 200, 100),
+            ("p2g mpm 512 f32", "mpm", 1 << 20, 512, "float32", 200, 100),
+            ("p2g flip 128 f32", "flip", 65536, 128, "float32", 1000, 200),
+            ("p2g flip 128 f64", "flip", 65536, 128, "float64", 200, 200),
+            ("p2g flip 256 f32", "flip", 1 << 18, 256, "float32", 200, 100),
+            ("p2g flip 512 f32", "flip", 1 << 20, 512, "float32", 200, 100))
+P2G_KEYS = tuple(r[0] for r in P2G_RUNS)
+
+
+def p2g_run(m, dev, solver, n_p, n, dtype, steps) -> tuple:
+    """(cfg, particles, wrapper module) of a P2G_RUNS run's final state."""
+    if solver == "mpm":
+        cfg = m.mp.MPMConfig(n=n_p, gx=n, gy=n, dtype=dtype)
+        out = m.mp.run(cfg, m.mp.init(cfg, dev), steps)
+        return cfg, (out.pos, out.vel, out.F, out.Jp), m.mpk
+    cfg = m.fa.FlipApicConfig(particles=n_p, grid=n, dtype=dtype)
+    out = m.fa.run(cfg, m.fa.init(cfg, dev), steps)
+    return cfg, (out.pos, out.vel, out.affine_x, out.affine_y), m.fk
+
+
+P2G_PHASES = ("count", "scan", "fill", "chunks")
+
+
+def p2g_phases(m, dev, reps: int = 50) -> dict:
+    """Mean us of each phase of the tiled P2G on each P2G_RUNS run's final
+    state, from the stamps of a build with -DFST_P2G_STAMPS (csrc/
+    p2g_tiles.cuh): the count (with the zeroing of the grids), the scan,
+    the fill with the chunk list, and the chunks (to the last block's
+    end); 5 launches, then the mean over `reps`."""
+    res = {}
+    for key, solver, n_p, n, dtype, steps, _ in P2G_RUNS:
+        cfg, parts, mod = p2g_run(m, dev, solver, n_p, n, dtype, steps)
+        size = (n, n) if solver == "mpm" else (n,)
+        launch = mod.p2g_launch(n_p, *size, cfg.torch_dtype, dev.index,
+                                "tiled")
+        words = mod._p2g_scratch(n_p, *size, cfg.torch_dtype, launch, dev,
+                                 torch.cuda.current_stream(dev).cuda_stream)[1]
+        acc = torch.zeros(len(P2G_PHASES), dtype=torch.float64)
+        for r in range(reps + 5):
+            torch.cuda.synchronize()
+            words.zero_()
+            mod._p2g(cfg, *parts, design="tiled")
+            torch.cuda.synchronize()
+            w = words.cpu().double()
+            if r >= 5:
+                acc += w[1:5] - w[0:4]
+        us = (acc / reps / 1e3).tolist()
+        res[key] = {**{f"{k}_us": v for k, v in zip(P2G_PHASES, us)},
+                    "total_us": sum(us), "grid": launch.grid,
+                    **mod.p2g_stats(cfg, n_p, cfg.torch_dtype, dev, "tiled")}
+        log(f"[phases] {key}: {res[key]}")
+    return res
+
+
+# Shared-memory atomicAdd of each float type, for `sass`.
+SASS_PROBE = r"""
+template <typename T>
+__device__ void probe(T* out, const T* in) {
+  __shared__ T s[32];
+  if (threadIdx.x < 32) s[threadIdx.x] = T(0);
+  __syncthreads();
+  atomicAdd(s + (threadIdx.x & 31), in[threadIdx.x]);
+  __syncthreads();
+  if (threadIdx.x < 32) out[threadIdx.x] = s[threadIdx.x];
+}
+extern "C" __global__ void shared_add_f32(float* o, const float* i) {
+  probe(o, i);
+}
+extern "C" __global__ void shared_add_f64(double* o, const double* i) {
+  probe(o, i);
+}
+"""
+
+
+def sass_atomics(cuobjdump: Path, binary: Path, fragment: str) -> dict:
+    """The atomic instructions of each kernel of `binary` whose name holds
+    `fragment`, counted in `cuobjdump -sass`: ATOMS.CAST.SPIN is a
+    compare-and-swap loop on shared memory, ATOMS.ADD a native add there,
+    RED/ATOM.E.ADD an add in L2."""
+    text = subprocess.run([str(cuobjdump), "-sass", str(binary)],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if fragment in name:
+            out[name] = dict(collections.Counter(re.findall(
+                r"\s((?:ATOMS|ATOMG|ATOM|REDG|RED)\.[\w.]*)", part)))
+            log(f"[sass] {name[:100]}: {out[name]}")
+    return out
+
+
+def sass(build) -> dict:
+    """The atomic instructions of the built library's P2G kernels, and of
+    a probe of float and double atomicAdd on shared memory built for the
+    library's target."""
+    nvcc = Path(build.find_nvcc())
+    cuobjdump = nvcc.parent / "cuobjdump"
+    lib = build._lib_path(build.find_nvcc())  # the one this process built
+    src = build.build_dir() / "sass_probe.cu"
+    src.write_text(SASS_PROBE)
+    cubin = src.with_suffix(".cubin")
+    subprocess.run([str(nvcc), *build.NVCC_FLAGS[:2], "-cubin", "-o",
+                    str(cubin), str(src)], check=True, capture_output=True)
+    return {"p2g": sass_atomics(cuobjdump, lib, "p2g"),
+            "shared_add": sass_atomics(cuobjdump, cubin, "shared_add")}
+
+
+def p2g_timings(m, dev, only, dump) -> dict:
+    """ms a launch of each P2G (the design the wrapper picks) on its run's
+    final state by CUDA events, by torch.profiler (the P2G kernel's device
+    time, and all device work a wrapper call), the host's time a call, and
+    the kernel against its plain version there (rel err); where the tree
+    has two designs, each one's device time a wrapper call too."""
+    res = {}
+    for key, solver, n_p, n, dtype, steps, reps in P2G_RUNS:
+        if only is not None and key not in only:
+            continue
+        cfg, parts, mod = p2g_run(m, dev, solver, n_p, n, dtype, steps)
+        call = lambda: mod.p2g(cfg, *parts)  # noqa: E731
+        res[key] = time_ms(call, reps)
+        res[key + " device"] = device_ms(call, reps, "p2g")
+        res[key + " device_call"] = device_call_ms(call, reps)
+        res[key + " host_us"] = host_us(call, reps)
+        got = call()
+        res[key + " rel to plain"] = max_rel(got, mod.p2g_plain(cfg, *parts))
+        if hasattr(mod, "p2g_stats"):
+            res[key + " stats"] = json.dumps(mod.p2g_stats(
+                cfg, n_p, cfg.torch_dtype, dev))
+            for design in p2g_designs(mod):
+                one = lambda: mod._p2g(cfg, *parts, design=design)  # noqa
+                res[f"{key} {design} device"] = device_call_ms(one, reps)
+        record(res, key, list(parts), list(got), dump)
+    return res
+
+
 def lbm_noisy(m, cfg, dev, seed: int, top_wall: bool = True):
     """init() with the populations scaled by 1 + 0.05 x seeded noise (as
     chip_smoke.py's lbm_state), without the top wall row if asked."""
@@ -760,7 +1035,8 @@ def checks(m, dev, only=None) -> list:
     --only)."""
     parts = ((check, KSTEP_KEYS + SOLVE_KEYS), (check_hyp, HYP_KEYS),
              (check_mhd, MHD_KEYS), (check_sph, SPH_KEYS),
-             (check_flip, FLIP_KEYS), (check_lbm, LBM_KEYS))
+             (check_flip, FLIP_KEYS), (check_lbm, LBM_KEYS),
+             (check_p2g, P2G_KEYS))
     return [c for fn, keys in parts if only is None or set(keys) & set(only)
             for c in fn(m, dev)]
 
@@ -772,6 +1048,7 @@ def timings(m, dev, only=None, dump=None) -> dict:
     res.update(sph_timings(m, dev, only, dump))
     res.update(flip_timings(m, dev, only, dump))
     res.update(lbm_timings(m, dev, only, dump))
+    res.update(p2g_timings(m, dev, only, dump))
     runs = (("burgers 512 f32 K=16", m.bg, m.bk.burgers_multistep,
              dict(nx=512, ny=512), 16, 50),
             ("burgers 512 f32 K=1", m.bg, m.bk.burgers_multistep,
@@ -851,6 +1128,15 @@ FLIP_VARIANTS = ((8, (16, 8), 256, (64, 32), 512),
 # 115712 and 76800 bytes hold two and three blocks an SM.
 LBM_VARIANTS = ((232448, 1024), (232448, 512), (115712, 512),
                 (115712, 1024), (76800, 640))
+# The P2G sweep: (MPM tile, chunk, threads; FLIP tile, chunk, threads) of
+# each build.
+P2G_VARIANTS = (((16, 16), 512, 256, (16, 16), 512, 256),
+                ((16, 16), 256, 256, (16, 16), 256, 256),
+                ((16, 16), 1024, 256, (16, 16), 1024, 256),
+                ((16, 16), 1024, 512, (16, 16), 1024, 512),
+                ((8, 8), 512, 256, (8, 8), 512, 256),
+                ((32, 32), 512, 256, (32, 32), 512, 256),
+                ((16, 16), 128, 128, (16, 16), 128, 128))
 KSTEP_KEYS = ("burgers 512 f32 K=16", "burgers 4096 f32 K=16",
               "burgers 512 f64 K=16", "sw 512 f32 K=8", "sw 4096 f32 K=8",
               "sw 512 f64 K=8")
@@ -914,8 +1200,17 @@ def lbm_variants() -> list[tuple[dict, tuple]]:
             for smem, threads in LBM_VARIANTS]
 
 
+def p2g_variants() -> list[tuple[dict, tuple]]:
+    return [({"FST_MPM_P2G_TILE_X": a[0], "FST_MPM_P2G_TILE_Y": a[1],
+              "FST_MPM_P2G_CHUNK": ca, "FST_MPM_P2G_THREADS": ta,
+              "FST_FLIP_P2G_TILE_X": b[0], "FST_FLIP_P2G_TILE_Y": b[1],
+              "FST_FLIP_P2G_CHUNK": cb, "FST_FLIP_P2G_THREADS": tb}, P2G_KEYS)
+            for a, ca, ta, b, cb, tb in P2G_VARIANTS]
+
+
 SWEEPS = {"tiles": variants, "hypersonic": hyp_variants, "mhd": mhd_variants,
-          "sph": sph_variants, "flip": flip_variants, "lbm": lbm_variants}
+          "sph": sph_variants, "flip": flip_variants, "lbm": lbm_variants,
+          "p2g": p2g_variants}
 
 
 def sweep(args) -> list:
@@ -937,9 +1232,13 @@ def sweep(args) -> list:
             continue
         got = json.loads(tmp.read_text())
         for key, ms in got["time"].items():
-            # the keys' ms a launch and, where timed, their device time
-            if (not isinstance(ms, float)
-                    or key.removesuffix(" device") not in keys):
+            # the keys' ms a launch and, where timed, their device time (a
+            # P2G key's, each design's)
+            base = key.removesuffix(" device")
+            for design in (" tiled", " atomic"):
+                base = base.removesuffix(design)
+            if not isinstance(ms, float) or base not in keys or (
+                    base != key and not key.endswith(" device")):
                 continue
             out.append({"defines": defines, "key": key, "ms": ms})
             log(f"[sweep] {defines} {key}: {ms:.4f} ms")
@@ -971,9 +1270,14 @@ def main(argv=None) -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(res, indent=1))
         return 0
-    bad = set(args.what) - {"check", "time", "sweep"}
+    bad = set(args.what) - {"check", "time", "sweep", "phases", "sass"}
     if bad:
         raise SystemExit(f"unknown: {sorted(bad)}")
+    if "phases" in args.what:
+        # the stamps are a build of their own, timed by nothing else
+        if set(args.what) & {"check", "time", "sweep"}:
+            raise SystemExit("phases runs alone or with sass")
+        args.define.append("FST_P2G_STAMPS=1")
     if not torch.cuda.is_available():
         raise SystemExit("tune_tiles_torch: needs a CUDA GPU")
     smi = subprocess.run(
@@ -1015,11 +1319,13 @@ def main(argv=None) -> int:
     from fluidsims_tpu_torch.kernels import lbm_cuda as lk
     from fluidsims_tpu_torch.solvers import flip_apic as fa
     from fluidsims_tpu_torch.solvers import lbm
+    from fluidsims_tpu_torch.kernels import mpm_cuda as mpk
+    from fluidsims_tpu_torch.solvers import mpm as mp
 
     m = types.SimpleNamespace(bk=bk, swk=swk, s2k=s2k, bg=bg, sw=sw, hk=hk,
                               hk3=hk3, h2=h2, h3=h3, interop=interop,
                               cfl_dt=cfl_dt, mk=mk, sk=sk, mhd=mhd, ts=ts,
-                              fk=fk, lk=lk, fa=fa, lbm=lbm)
+                              fk=fk, lk=lk, fa=fa, lbm=lbm, mpk=mpk, mp=mp)
     log(f"[device] {smi}; package from {Path(bk.__file__).parents[1]}")
     dev = torch.device("cuda", 0)
     bk.load()
@@ -1032,17 +1338,22 @@ def main(argv=None) -> int:
                                        "12step3_kernel",
                                        "mhd_multistep_kernel",
                                        "forces_kernel", "11grid_kernel",
-                                       "lbm_multistep_kernel")
+                                       "lbm_multistep_kernel", "p2g")
                         for u in _build.ptxas_usage(name)]
         for u in res["ptxas"]:
             log(f"[build] ptxas {u}")
     if "check" in args.what:
         res["check"] = checks(m, dev, args.only)
+    if "phases" in args.what:
+        res["phases"] = p2g_phases(m, dev)
+    if "sass" in args.what:
+        res["sass"] = sass(_build)
     if "time" in args.what:
         res["time"] = timings(m, dev, args.only, args.dump)
         for key, v in res["time"].items():
             log(f"[time] {key}: " + (v if isinstance(v, str) else
                                       f"{v:.2f} us a call" if "host" in key
+                                      else f"{v:.3e}" if "rel" in key
                                       else f"{v:.4f} ms a launch"))
     Path(args.out).write_text(json.dumps(res, indent=1))
     log(json.dumps(res.get("time", {})))
