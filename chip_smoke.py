@@ -30,12 +30,14 @@ failure of which ends the run with a non-zero exit:
              and f64, on 4096 particles from init plus seeded velocity
              noise: the binning bitwise, density and forces max|err| /
              max|ref| <= 1e-5 (f32) / 1e-12 (f64), and a second forces
-             launch bitwise equal to the first (here and in phase 7); the
-             same on 4096 particles with 1500 packed into one cell, whose
-             3x3 neighbourhood holds more candidates than the forces
-             kernel stages at once (checked from the binning and the
-             kernel's reported chunk), so its chunk loop runs more than
-             once.  The kernels have no
+             launch of each of density and forces bitwise equal to the
+             first (here and in phase 7); the same on 4096 particles with
+             1500 (at least 500 more than the density kernel's chunk)
+             packed into one cell, whose 3x3 neighbourhood holds more
+             candidates than the density and the forces kernels each
+             stage at once (checked from the binning and the kernels'
+             reported chunks), so both chunk loops run more than once.
+             The kernels have no
              cell capacity: on 512 particles with cell_capacity=8 (cells
              holding more than K particles, which the 'torch' engine
              drops) density and forces + integrate are held, at the same
@@ -85,10 +87,11 @@ failure of which ends the run with a non-zero exit:
              f64, from init plus seeded noise, on a ragged 200x75 grid
              (LBM with a radius-8 obstacle), an aligned 256x128 one and,
              for LBM, 200x75 with the top wall row removed and 24x20
-             (narrower than the K-step kernel's window): bitwise; K = 16
-             and K = 1 (Gray–Scott), K = 1, 3, 8 and 16 (LBM, each K-step
+             (narrower than the K-step kernel's window), Gray–Scott also
+             on 24x20 (narrower than its window): bitwise; K = 1, 3, 16
+             and 32 (Gray–Scott), K = 1, 3, 8 and 16 (LBM), each K-step
              launch also bitwise equal to K launches of the one-step
-             kernel); the overrides feed=0.04, kill=0.058 and drive=3e-4;
+             kernel; the overrides feed=0.04, kill=0.058 and drive=3e-4;
              run(cfg, s, 23) at block_k=8 makes exactly 2 K-step and 7
              one-step launches and equals 23 plain steps.
 12. stencil_main — solvers.gray_scott.run and solvers.lbm.run with engine
@@ -103,7 +106,10 @@ failure of which ends the run with a non-zero exit:
              1e-14 (f64) a step relative to the start (f32 rounding drifts
              by 1.3e-8 a step), max |u| < 0.1, mean x velocity of the fluid
              above its start); then from each final state every kernel
-             against its plain version at full shape and per-launch times.
+             against its plain version at full shape and per-launch times
+             (Gray–Scott also torch.profiler's device time a launch of
+             both kernels, and the K-step launch that the library's grid
+             query reports).
 13. resident_kernels — the Burgers, shallow-water and GLM-MHD K-step
              kernels (one cooperative launch of k whole steps) against their
              plain PyTorch versions, f32 and f64, from init plus seeded
@@ -283,12 +289,20 @@ a call included).  The LBM K-step kernel's line (#6) carries `tiling`
 (blocks, threads, tile, halo K and shared memory of the K=8 launch at
 2048x1024, per dtype, as the library reports them, and ptxas's report) and
 `ms_k_one_step`, K times the one-step kernel's ms a launch in the same
-run (f32, and `ms_k_one_step_f64`).  The SPH forces kernel's line (#15) carries `block`, for
+run (f32, and `ms_k_one_step_f64`); the Gray–Scott K-step line (#4)
+the same at K=16 on 2048^2, and both Gray–Scott lines (#3, #4)
+`ms_device` and `ms_device_f64` (torch.profiler's device time a launch;
+on #4 also `ms_device_k_one_step` and `_f64`, K one-step launches' device
+time).  The SPH forces kernel's line (#15) carries `block`, for
 the main runs' particle counts (f32) and 4096 f64, its threads a block,
 lanes a particle, candidates a staged chunk and shared memory a block as
 the library reports them, and
 `repeat_bitwise`, the forces calls whose second launch repeated the
-first one's bits.  The lines of the two hypersonic step kernels (#1, #2) carry `tiling` at the main
+first one's bits; the SPH density line (#14) the same for its kernel
+(`block`, `repeat_bitwise`), `ms_device`, `ms_device_1048576`
+(torch.profiler's device time a launch) and `ptxas` (each lane count's
+registers and spills).  The lines of the two hypersonic step kernels
+(#1, #2) carry `tiling` at the main
 runs' shapes: the blocks, threads a block, tile, halo and dynamic shared
 memory that the library's launch query reports, and ptxas's registers,
 static shared memory, stack and spills of each instantiation; and
@@ -771,6 +785,12 @@ def check_sph_call(sk, cfg, pos, vel, what: str, errs: dict) -> dict:
     out = {}
     rp = sk.density(cfg, b)
     rpp = sk.density_plain(cfg, b)
+    # the density lanes' sums combine in a fixed order too
+    if not bits_equal(rp, sk.density(cfg, b)):
+        raise AssertionError(f"density {what}: two launches on the same "
+                             "input differ")
+    errs["density_repeat_bitwise"] = (
+        errs.get("density_repeat_bitwise", 0) + 1)
     out["density"] = max(rel_err(rp[:, k], rpp[:, k])[0] for k in (0, 1))
     errs["density"] = max(errs["density"], float((rp - rpp).abs().max()))
     dt_cfl = cfg.cfl * cfg.h / (cfg.c0 * (1.0 + 2.0 * cfg.visc_alpha))
@@ -795,15 +815,20 @@ def check_sph_call(sk, cfg, pos, vel, what: str, errs: dict) -> dict:
     log(f"[sph] {what}: bin bitwise equal ({past} of {cfg.n} past the torch "
         f"engine's K={cfg.grid().K}, all in the pair sums); density max rel "
         f"err {out['density']:.3e}, forces+integrate {out['forces']:.3e} "
-        f"(tol {tol:g}); forces twice bitwise equal")
+        f"(tol {tol:g}); density and forces twice bitwise equal")
     return out
 
 
 def crowded_pool(sk, ts, cfg, device, rng, crowd: int = 1500):
-    """(pos, vel): init() with `crowd` particles packed into cell (3, 2)
-    and seeded velocity noise; raises unless that cell's 3x3 neighbourhood
-    holds more candidates than the forces kernel stages at once (its
-    chunk), so that the kernel's chunk loop runs more than once."""
+    """(pos, vel, candidates): init() with `crowd` particles (at least 500
+    more than the density kernel's chunk) packed into cell (3, 2) and
+    seeded velocity noise; raises unless that cell's 3x3 neighbourhood
+    holds more candidates than the density and the forces kernels each
+    stage at once (their reported chunks), so that both kernels' chunk
+    loops run more than once."""
+    chunks = {"density": sk.density_shape(cfg).chunk,
+              "forces": sk.forces_shape(cfg).chunk}
+    crowd = min(max(crowd, chunks["density"] + 500), cfg.n - 96)
     c = cfg.grid().cell
     pos = ts.init(cfg, torch.device("cpu")).pos.clone()
     for k, at in ((0, 3.5), (1, 2.5)):
@@ -816,10 +841,11 @@ def crowded_pool(sk, ts, cfg, device, rng, crowd: int = 1500):
     starts = b.starts.long()
     hood = sum(int(starts[y * g.Gx + 5] - starts[y * g.Gx + 2])
                for y in (1, 2, 3))
-    chunk = sk.forces_shape(cfg).chunk
-    if not hood > chunk:
-        raise AssertionError(f"crowded pool: {hood} candidates around cell "
-                             f"(3, 2), not more than a chunk of {chunk}")
+    for name, chunk in chunks.items():
+        if not hood > chunk:
+            raise AssertionError(f"crowded pool: {hood} candidates around "
+                                 f"cell (3, 2), not more than a {name} "
+                                 f"chunk of {chunk}")
     return pos.to(device), vel.to(device), hood
 
 
@@ -877,7 +903,9 @@ def phase_sph_kernels(sk, ts, device) -> dict:
                 else check_sph_call(sk, cfg, st.pos, vel, key, errs))
         cfg = ts.SPHConfig(n=4096, dtype=dtype)
         pos, vel, hood = crowded_pool(sk, ts, cfg, device, rng)
-        key = f"n=4096 crowded ({hood} candidates around one cell) {dtype}"
+        key = (f"n=4096 crowded ({hood} candidates around one cell; chunks "
+               f"density {sk.density_shape(cfg).chunk}, forces "
+               f"{sk.forces_shape(cfg).chunk}) {dtype}")
         errs["rel"][key] = check_sph_call(sk, cfg, pos, vel, key, errs)
     cfg = ts.SPHConfig(n=4096, rain=True, dtau=1e-2)
     a = b = ts.init(cfg, device)
@@ -973,6 +1001,8 @@ def phase_sph_main(sk, ts, device, smi, errs, runs=SPH_RUNS) -> dict:
             "forces": time_launches(lambda: sk.forces(cfg, b, rp, dt), 20),
             "forces_plain": time_launches(lambda: sk.forces_plain(cfg, b, rp, dt),
                                           2 if big else 5),
+            "density_device": device_ms(lambda: sk.density(cfg, b), 20,
+                                        "density_kernel"),
         }
         bounds = sph_bounds(sk, cfg, b)
         log(f"[sph] per launch at n={cfg.n} f32 on {smi}: " + ", ".join(
@@ -1383,21 +1413,27 @@ def phase_stencil_kernels(gs, lbm, gk, lk, device) -> dict:
             "lbm_multistep": 0.0, "rel": {}}
     for dtype in ("float32", "float64"):
         dt = getattr(torch, dtype)
-        for nx, ny in ((200, 75), (256, 128)):
+        for nx, ny in ((200, 75), (256, 128), (24, 20)):
             cfg = gs.GrayScottConfig(nx=nx, ny=ny, dtype=dtype)
             key = f"gray_scott {nx}x{ny} {dtype}"
             s = gs_state(gs, cfg, device, SEED)
             for over in ({}, {"feed": 0.04, "kill": 0.058}):
-                for k in (None, 16, 1):
+                for k in GS_CHECK_K:
                     check_stencil_call(gk, "gs", cfg, s, k,
                                        f"{key} K={k} {over}", errs, 0.0,
                                        **over)
+                    if k is not None:
+                        check_k_one_steps(gk, "gs", cfg, s, k,
+                                          f"{key} K={k} {over}", **over)
             check_run23(gs, gk, cfg, s, key, 0.0)
             errs["rel"][key] = 0.0
-            log(f"[stencil] {key}: one-step and K-step (K=16, 1; default "
-                f"and feed=0.04 kill=0.058) bitwise equal to the plain "
-                f"version; run(23) at block_k=8: 2 + 7 launches, bitwise "
-                f"equal to 23 plain steps")
+            windows = {k: gk.launch_shape(cfg, k).asdict()
+                       for k in GS_CHECK_K if k is not None}
+            log(f"[stencil] {key}: one-step and K-step (K={GS_CHECK_K[1:]}; "
+                f"default and feed=0.04 kill=0.058) bitwise equal to the "
+                f"plain version, each K-step launch bitwise equal to K "
+                f"one-step launches; run(23) at block_k=8: 2 + 7 launches, "
+                f"bitwise equal to 23 plain steps; K-step launches {windows}")
         for nx, ny, top, radius in ((200, 75, True, 8.0),
                                     (256, 128, True, 8.0),
                                     (200, 75, False, 8.0),
@@ -1413,7 +1449,7 @@ def phase_stencil_kernels(gs, lbm, gk, lk, device) -> dict:
                                        f"{key} K={k} {over}", errs, 0.0,
                                        **over)
                     if k is not None:
-                        check_k_one_steps(lk, cfg, s, k,
+                        check_k_one_steps(lk, "lbm", cfg, s, k,
                                           f"{key} K={k} {over}", **over)
             check_run23(lbm, lk, cfg, s, key, 0.0)
             errs["rel"][key] = 0.0
@@ -1427,25 +1463,29 @@ def phase_stencil_kernels(gs, lbm, gk, lk, device) -> dict:
     return errs
 
 
-# The LBM kernels of phase 11: the one-step kernel (None) and the K-step
+# The kernels of phase 11: the one-step kernel (None) and the K-step
 # kernel at these K.
+GS_CHECK_K = (None, 1, 3, 16, 32)
 LBM_CHECK_K = (None, 1, 3, 8, 16)
 
 
-def check_k_one_steps(lk, cfg, s, k: int, what: str, **over) -> None:
-    """A K-step launch bitwise equal, the sign of zero included, to k
-    plain steps and to k launches of the one-step kernel."""
-    got = lk.lbm_multistep(cfg, s, k, **over)
+def check_k_one_steps(kmod, solver, cfg, s, k: int, what: str,
+                      **over) -> None:
+    """A K-step launch of `solver` ("gs" or "lbm") bitwise equal, the sign
+    of zero included, to k plain steps and to k launches of the one-step
+    kernel."""
+    got = getattr(kmod, f"{solver}_multistep")(cfg, s, k, **over)
     one = s
     for _ in range(k):
-        one = lk.lbm_step(cfg, one, **over)
-    plain = lk.lbm_multistep_plain(cfg, s, k, **over)
+        one = getattr(kmod, f"{solver}_step")(cfg, one, **over)
+    plain = getattr(kmod, f"{solver}_multistep_plain")(cfg, s, k, **over)
     torch.cuda.synchronize()
     for ref, name in ((plain, f"{k} plain steps"),
                       (one, f"{k} one-step launches")):
-        if not bits_equal(got.f, ref.f):
-            raise AssertionError(f"{what}: the K-step launch differs from "
-                                 f"{name}")
+        for field, a, b in zip(ref._fields, got, ref):
+            if a.dtype != torch.bool and not bits_equal(a, b):
+                raise AssertionError(f"{what}: the K-step launch's {field} "
+                                     f"differs from {name}")
 
 
 def check_gs_physics(out, key: str) -> dict:
@@ -1584,6 +1624,12 @@ def phase_stencil_main(gs, lbm, gk, lk, device, smi, errs,
                 lambda: fns["multistep_plain"](cfg, out, kk),
                 1 if dtype == "float64" else 2),
         }
+        if solver == "gs":  # device time a launch, by torch.profiler
+            times["step_device"] = device_ms(
+                lambda: fns["step"](cfg, out), 100, "gs_step_kernel")
+            times["multistep_device"] = device_ms(
+                lambda: fns["multistep"](cfg, out, kk), 20,
+                "gs_multistep_kernel")
         fluid = None if solver == "gs" else int((~out.solid).sum())
         bounds = stencil_bounds(cfg, kk, fluid)
         log(f"[stencil] {key} final state: kernels vs plain max rel err "
@@ -1593,11 +1639,30 @@ def phase_stencil_main(gs, lbm, gk, lk, device, smi, errs,
             f"K-step (K={kk}) {times['multistep']:.4f} "
             f"ms vs plain {times['multistep_plain']:.4f} ms (bound "
             f"{bounds['multistep'][0]:.4f} ms, {bounds['multistep'][1]})")
+        if solver == "gs":
+            log(f"[stencil] {key} final state: device time a launch "
+                f"(torch.profiler) one-step {times['step_device']:.4f} ms, "
+                f"K-step (K={kk}) {times['multistep_device']:.4f} ms, "
+                f"{kk} one-step launches "
+                f"{kk * times['step_device']:.4f} ms; K-step launch "
+                f"{gk.launch_shape(cfg, kk).asdict()}")
         res[key] = {"launches": got, "times": times, "bounds": bounds,
                     "rate": rate, "plain_rate": p_rate, "k": kk,
                     "physics": phys}
     res["launches"] = launches
     return res
+
+
+def gs_tiling(gk, gs, build) -> dict:
+    """The Gray–Scott K-step launch at the main runs' grid (2048^2, K=16),
+    per dtype, as the library reports it, and ptxas's report of the
+    kernel."""
+    out = {"ptxas": build.ptxas_usage("gs_multistep_kernel")}
+    for dtype in ("float32", "float64"):
+        cfg = gs.GrayScottConfig(nx=2048, ny=2048, dtype=dtype)
+        out[dtype] = gk.launch_shape(cfg, cfg.block_k).asdict()
+    log(f"[build] gs_multistep tiling: {out}")
+    return out
 
 
 def lbm_tiling(lk, lbm, build) -> dict:
@@ -1611,12 +1676,13 @@ def lbm_tiling(lk, lbm, build) -> dict:
     return out
 
 
-def stencil_kernel_lines(res, errs, lbm_design) -> list:
+def stencil_kernel_lines(res, errs, gs_design, lbm_design) -> list:
     """The {"kernels": [...]} entries of the four stencil kernels: times
     and bounds from the final state of the f32 run at the default
     block_k, the f64 run's beside them; launches summed over the three
-    runs of each solver.  The LBM K-step line carries its tiling and K
-    times the one-step kernel's time."""
+    runs of each solver.  The K-step lines carry their tiling and K times
+    the one-step kernel's time; the Gray–Scott lines also their device
+    time a launch (torch.profiler)."""
     out = []
     for solver, src, lines, k32, k64 in (
             ("gs", "gray_scott", (30, 130),
@@ -1641,10 +1707,18 @@ def stencil_kernel_lines(res, errs, lbm_design) -> list:
                 "bound_by_f64": b["bounds"][name][1]}
             if name == "multistep":
                 entry["k"] = a["k"]
-            if solver == "lbm" and name == "multistep":
-                entry["tiling"] = lbm_design
+            if name == "multistep":
+                entry["tiling"] = lbm_design if solver == "lbm" else gs_design
                 entry["ms_k_one_step"] = a["k"] * a["times"]["step"]
                 entry["ms_k_one_step_f64"] = b["k"] * b["times"]["step"]
+            if solver == "gs":
+                entry["ms_device"] = a["times"][name + "_device"]
+                entry["ms_device_f64"] = b["times"][name + "_device"]
+                if name == "multistep":
+                    entry["ms_device_k_one_step"] = (
+                        a["k"] * a["times"]["step_device"])
+                    entry["ms_device_k_one_step_f64"] = (
+                        b["k"] * b["times"]["step_device"])
             out.append(entry)
     return out
 
@@ -3787,6 +3861,7 @@ def main() -> int:
          "bound_ms_8192x1024_f64": hb["ref"]["wavespeed"][0]},
     ]
     a, b = (sph_res[n] for n, _, _ in SPH_RUNS)
+    log(f"[build] sph density ptxas: {_build.ptxas_usage('density_kernel')}")
     for name, src, replaces in (
             ("bin", "sph_bin.cu", "fluidsims_tpu/ops/rank_pallas.py:44"),
             ("density", "sph_density.cu",
@@ -3801,12 +3876,18 @@ def main() -> int:
             "ms": a["times"][name], "plain_ms": a["times"][name + "_plain"],
             "bound_ms": a["bounds"][name][0], "bound_by": a["bounds"][name][1],
             "library_ms": None,
-            **({"block": {f"{n} {dt}": sk.forces_shape(ts.SPHConfig(
-                    n=n, dtype=dt)).asdict()
+            **({"block": {f"{n} {dt}": getattr(sk, f"{name}_shape")(
+                    ts.SPHConfig(n=n, dtype=dt)).asdict()
                     for n, dt in ((65536, "float32"), (1 << 20, "float32"),
                                   (4096, "float64"))},
-                "repeat_bitwise": sph_errs["repeat_bitwise"]}
-               if name == "forces" else {}),
+                "repeat_bitwise": sph_errs[
+                    "repeat_bitwise" if name == "forces"
+                    else "density_repeat_bitwise"]}
+               if name != "bin" else {}),
+            **({"ms_device": a["times"]["density_device"],
+                "ms_device_1048576": b["times"]["density_device"],
+                "ptxas": _build.ptxas_usage("density_kernel")}
+               if name == "density" else {}),
             "launches_65536": a["launches"][name],
             "launches_1048576": b["launches"][name],
             "ms_1048576": b["times"][name],
@@ -3840,6 +3921,7 @@ def main() -> int:
     kernels[-2]["not_bitwise"] = hyp3d_errs["bitwise"][2]
     kernels[-2]["tiling"] = tiling["hypersonic3d_step"]
     kernels.extend(stencil_kernel_lines(stencil_res, stencil_errs,
+                                        gs_tiling(gk, gs, _build),
                                         lbm_tiling(lk, lbm, _build)))
     kernels[-1]["max_rel_err"] = stencil_errs["rel"]
     design = tiled_design(bk, swk, mk, s2k, bg, swm, mhd, _build, device)

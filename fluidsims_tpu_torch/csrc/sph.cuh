@@ -12,9 +12,9 @@
 // particle's position in the sorted order minus its cell's start is its
 // rank in the cell.  The 3x3 cells around a cell, or around a run of cells
 // of one row, are three contiguous ranges of that order, one a neighbour
-// row (NeighbourRows), which a block stages into shared memory in chunks
-// (stage_chunk); a cell's own 3x3 cells are a contiguous part of each
-// (cell_entries).
+// row (NeighbourRows), which a block of the density or the forces kernel
+// stages into shared memory in chunks (stage_chunk); a cell's own 3x3
+// cells are a contiguous part of each (cell_entries).
 //
 // Rules that keep the kernels equal to the plain versions (as in
 // euler2d.cuh): literals cast to T before they meet a T value; constants
@@ -146,20 +146,33 @@ __device__ __forceinline__ void cell_entries(const NeighbourRows& rows,
 }
 
 // Stages list entries [k0, k0 + count) of `rows` into shared memory, spread
-// over the block's threads (consecutive threads, consecutive entries): the
-// sorted (x, y, vx, vy) into sf[0 .. count) and, unless rp is null, the
-// (rho, p / rho^2) into sr.
-template <typename T>
+// over the block's threads (consecutive threads, consecutive entries):
+// put(i, j) stores what the kernel keeps of sorted position j (the forces
+// kernel: (x, y, vx, vy) and (rho, p / rho^2); the density kernel: (x, y))
+// at slot i of the chunk.
+template <typename Put>
 __device__ __forceinline__ void stage_chunk(const NeighbourRows& rows, int k0,
-                                            int count,
-                                            const V4<T>* __restrict__ fields,
-                                            const V2<T>* __restrict__ rp,
-                                            V4<T>* sf, V2<T>* sr) {
-  for (int i = threadIdx.x; i < count; i += blockDim.x) {
-    const int j = rows.at(k0 + i);
-    sf[i] = fields[j];
-    if (rp != nullptr) sr[i] = rp[j];
-  }
+                                            int count, Put put) {
+  for (int i = threadIdx.x; i < count; i += blockDim.x)
+    put(i, rows.at(k0 + i));
+}
+
+// What the grid queries of the density and forces kernels report of their
+// blocks (mirrored by kernels/sph_cuda.py BlockShape): threads a block,
+// lanes a particle, candidates a staged chunk, dynamic shared memory a
+// block.
+struct SPHBlockShape {
+  int threads, lanes, chunk, smem_bytes;
+};
+
+// The lanes a particle of a launch over n particles: the largest power of
+// two in [fewest, most] whose n x lanes stays within lane_threads.
+inline int lanes_for(int n, int fewest, int most, long long lane_threads) {
+  int lanes = 1;
+  while (lanes < fewest) lanes *= 2;
+  while (lanes * 2 <= most && (long long)n * lanes * 2 <= lane_threads)
+    lanes *= 2;
+  return lanes;
 }
 
 }  // namespace fst

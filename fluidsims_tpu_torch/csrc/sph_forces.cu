@@ -34,8 +34,8 @@
 //
 // The design.  A block takes kGroup = kThreads / kLanes consecutive
 // sorted positions (128 threads; kLanes lanes a particle chosen at launch
-// from n, lanes_for: 8 at 65,536, 2 at 2^20), a run of cells of one grid
-// row or, where the run crosses a row, one run a row after another.  The 3x3 cells of a run of
+// from n, forces_lanes: 8 at 65,536, 2 at 2^20), a run of cells of one
+// grid row or, where the run crosses a row, one run a row after another.  The 3x3 cells of a run of
 // cells gxa .. gxb of row gy together are three contiguous ranges of the
 // sorted order (sph.cuh NeighbourRows), which the block stages into shared
 // memory in chunks of kChunk<T> candidates ((x, y, vx, vy) and (rho,
@@ -62,12 +62,6 @@
 #include "sph.cuh"
 
 namespace fst {
-
-// What the grid query reports of the kernel's blocks (mirrored by
-// kernels/sph_cuda.py ForcesShape).
-struct SPHForcesShape {
-  int threads, lanes, chunk, smem_bytes;
-};
 
 namespace {
 
@@ -100,13 +94,9 @@ static_assert(FST_SPH_MIN_LANES >= 1 && FST_SPH_MAX_LANES <= 8 &&
               "lanes a particle in [1, 8]");
 
 // The lanes a particle of a launch over n particles (a power of two).
-inline int lanes_for(int n) {
-  int lanes = 1;
-  while (lanes < FST_SPH_MIN_LANES) lanes *= 2;
-  while (lanes * 2 <= FST_SPH_MAX_LANES &&
-         (long long)n * lanes * 2 <= FST_SPH_LANE_THREADS)
-    lanes *= 2;
-  return lanes;
+inline int forces_lanes(int n) {
+  return lanes_for(n, FST_SPH_MIN_LANES, FST_SPH_MAX_LANES,
+                   FST_SPH_LANE_THREADS);
 }
 
 // Candidates a staged chunk holds: the stage's bytes over a candidate's.
@@ -193,7 +183,10 @@ forces_kernel(const V4<T>* __restrict__ fields, const V2<T>* __restrict__ rp,
     for (int k0 = 0; k0 < rows.total; k0 += kChunk<T>) {
       const int count = min(kChunk<T>, rows.total - k0);
       __syncthreads();  // the chunk before is read
-      stage_chunk(rows, k0, count, fields, rp, sf, sr);
+      stage_chunk(rows, k0, count, [&](int i, int j) {
+        sf[i] = fields[j];
+        sr[i] = rp[j];
+      });
       __syncthreads();
       if (!live) continue;  // all lanes of a particle alike
       for (int o = 0; o < 3; ++o) {
@@ -242,8 +235,8 @@ forces_kernel(const V4<T>* __restrict__ fields, const V2<T>* __restrict__ rp,
 }
 
 template <typename T>
-SPHForcesShape shape_of(int n) {
-  return {kThreads, lanes_for(n), kChunk<T>,
+SPHBlockShape shape_of(int n) {
+  return {kThreads, forces_lanes(n), kChunk<T>,
           (int)(kChunk<T> * (sizeof(V4<T>) + sizeof(V2<T>)))};
 }
 
@@ -267,7 +260,7 @@ int launch_forces(const T* fields, const T* rp, const int* starts,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (p->n < 1) return 0;
-  const SPHForcesShape sh = shape_of<T>(p->n);
+  const SPHBlockShape sh = shape_of<T>(p->n);
   const size_t smem = (size_t)sh.smem_bytes;
   switch (sh.lanes) {
     case 1:
@@ -297,11 +290,11 @@ extern "C" {
 // The blocks of the forces kernel of each dtype for n particles: threads,
 // lanes a particle, candidates a staged chunk and dynamic shared memory a
 // block.
-void fst_sph_forces_shape_f32(int n, fst::SPHForcesShape* out) {
+void fst_sph_forces_shape_f32(int n, fst::SPHBlockShape* out) {
   *out = fst::shape_of<float>(n);
 }
 
-void fst_sph_forces_shape_f64(int n, fst::SPHForcesShape* out) {
+void fst_sph_forces_shape_f64(int n, fst::SPHBlockShape* out) {
   *out = fst::shape_of<double>(n);
 }
 

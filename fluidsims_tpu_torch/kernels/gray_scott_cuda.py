@@ -7,8 +7,11 @@ PyTorch versions, and the 'cuda' engine's run built on them.
   (the solver's torch `step`).
 * `gs_multistep(cfg, s, k, feed, kill) -> GrayScottState` — csrc/
   gray_scott_multistep.cu, which replaces gray_scott_pallas.py::_ms_kernel:
-  k steps in one launch, bitwise equal to k launches of the one-step
-  kernel.  Plain version: `gs_multistep_plain` (k torch steps).
+  k steps in one launch on tiles in shared memory (f64: one copy of u and
+  v stepped in place; f32: two copies ping-ponged; `launch_shape` reports
+  the tile), bitwise equal to k launches of the one-step kernel.
+  Plain version: `gs_multistep_plain`
+  (k torch steps).
 * `run_kernels(cfg, s, n, feed, kill)` — the 'cuda' engine: `n // k`
   K-step launches then `n % k` one-step launches (k = cfg.block_k); with
   k = 1 the one-step kernel every step.
@@ -35,17 +38,17 @@ import torch
 from ..core.stepper import run_split
 from ..solvers import gray_scott as gs
 from . import _build
-from ._common import LaunchCounter, on_cpu
+from ._common import LaunchCounter, on_cpu, tile_launch
 
 __all__ = ["LAUNCHES", "MAX_BLOCK_K", "reset_launches", "gs_step",
            "gs_step_plain", "gs_multistep", "gs_multistep_plain",
-           "run_kernels", "load"]
+           "run_kernels", "load", "GSLaunch", "launch_shape"]
 
 LAUNCHES = LaunchCounter("step", "multistep")
 reset_launches = LAUNCHES.reset
 
-# The K-step kernel's bound on k: four (T + 2k)^2 tiles in 227 KB of
-# shared memory with T >= 16 at f64 (csrc/gray_scott_multistep.cu).
+# The K-step kernel's bound on k (csrc/gray_scott_multistep.cu kGsMaxK):
+# at k = 32 a window of 90^2 f64 still holds a 26^2 tile.
 MAX_BLOCK_K = 32
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -60,6 +63,22 @@ class _Params(ctypes.Structure):
         for name in ("inv_dx2", "Du", "Dv", "dt", "feed", "fk")]
 
 
+class GSLaunch(ctypes.Structure):
+    """Mirror of fst::GSLaunch (csrc/gray_scott_multistep.cu): what the
+    K-step kernel's grid query reports of a launch: blocks, threads a
+    block, the tile, the halo (k), dynamic shared memory a block, the rows
+    and columns of an item, the copies of the window (1: stepped in place,
+    2: ping-ponged), the blocks an SM the occupancy query allows and the
+    waves of the grid."""
+
+    _fields_ = [(name, ctypes.c_int) for name in
+                ("grid", "threads", "tile_x", "tile_y", "halo", "smem_bytes",
+                 "rows", "cols", "copies", "blocks_per_sm", "waves")]
+
+    def asdict(self) -> dict:
+        return {name: getattr(self, name) for name, _ in self._fields_}
+
+
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
     """Build (first use) and load the kernel library, with typed entry
@@ -71,9 +90,27 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, f"fst_gs_{name}_{sfx}")
             fn.argtypes = [P] * 4 + [ctypes.POINTER(_Params), ctypes.c_int, P]
             fn.restype = ctypes.c_int
+        fn = getattr(lib, f"fst_gs_multistep_shape_{sfx}")
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(GSLaunch)]
+        fn.restype = ctypes.c_int
     lib.fst_cuda_error_string.argtypes = [ctypes.c_int]
     lib.fst_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def launch_shape(cfg, k: int, device=None) -> GSLaunch:
+    """The K-step launch of k steps at cfg's grid and dtype on `device` (a
+    CUDA device, default the current one), as the library computes it:
+    the tile (the square whose window fits the shared memory, and in place
+    the threads, at the least cost in waves, evened out over the grid),
+    the strip an item, the copies, the occupancy and the waves."""
+    if cfg.torch_dtype not in _SUFFIX:
+        raise TypeError(f"no kernel for dtype {cfg.torch_dtype}")
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return tile_launch(load(), f"fst_gs_multistep_shape_"
+                       f"{_SUFFIX[cfg.torch_dtype]}", cfg.ny, cfg.nx, k,
+                       index, kind=GSLaunch)
 
 
 def _scalars(cfg, feed, kill) -> tuple[float, float]:

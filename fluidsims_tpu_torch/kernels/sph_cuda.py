@@ -7,7 +7,9 @@ versions, and the 'cuda' engine built on them.
   Plain version: `binning_plain` (one packed-key sort).
 * `density(cfg, b) -> rp` — csrc/sph_density.cu, which replaces
   fluidsims_tpu/kernels/sph_pallas.py::_density_kernel: (rho, p / rho^2)
-  per sorted position.  Plain version: `density_plain`.
+  per sorted position; the forces kernel's blocks, with positions alone
+  staged and lanes of its own (`density_shape` reports the blocks).
+  Plain version: `density_plain`.
 * `forces(cfg, b, rp, dt) -> (pos, vel)` — csrc/sph_forces.cu, which
   replaces sph_pallas.py::_forces_kernel: pair forces, gravity and the
   integrate, back in particle order; a block a run of sorted positions,
@@ -44,8 +46,10 @@ from . import _build
 from ._common import LaunchCounter, on_cpu
 
 __all__ = ["LAUNCHES", "reset_launches", "Binned", "binning", "binning_plain",
-           "pair_chunks", "density", "density_plain", "pair_forces", "forces",
-           "forces_plain", "forces_shape", "make_step_cuda", "load"]
+           "pair_chunks", "density", "density_plain", "pair_density",
+           "density_eos", "pair_forces", "forces",
+           "forces_plain", "BlockShape", "density_shape", "forces_shape",
+           "make_step_cuda", "load"]
 
 LAUNCHES = LaunchCounter("bin", "density", "forces")
 reset_launches = LAUNCHES.reset
@@ -74,8 +78,8 @@ class _Params(ctypes.Structure):
                       "visc_coef", "eps_h2", "gravity", "box_x", "box_y")]
 
 
-class ForcesShape(ctypes.Structure):
-    """Mirror of fst::SPHForcesShape (csrc/sph_forces.cu): the forces
+class BlockShape(ctypes.Structure):
+    """Mirror of fst::SPHBlockShape (csrc/sph.cuh): the density or forces
     kernel's threads a block, lanes a particle, candidates a staged chunk
     and dynamic shared memory a block."""
 
@@ -119,9 +123,10 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, f"fst_sph_{name}_{sfx}")
             fn.argtypes = argtypes + [ctypes.c_int, P]
             fn.restype = ctypes.c_int
-        fn = getattr(lib, f"fst_sph_forces_shape_{sfx}")
-        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ForcesShape)]
-        fn.restype = None
+        for name in ("density", "forces"):
+            fn = getattr(lib, f"fst_sph_{name}_shape_{sfx}")
+            fn.argtypes = [ctypes.c_int, ctypes.POINTER(BlockShape)]
+            fn.restype = None
     lib.fst_cuda_error_string.argtypes = [ctypes.c_int]
     lib.fst_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -249,24 +254,28 @@ def pair_chunks(cfg, b: Binned):
         lo = hi
 
 
-def density_plain(cfg, b: Binned):
-    """Plain PyTorch version of the density kernel: (rho, p / rho^2) per
-    sorted position, (n, 2)."""
+def pair_density(cfg, f, recv, nbr):
+    """The density kernel's pair term, term by term, of each (receiver,
+    neighbour) pair of sorted positions: W(r) without the mass (the self
+    pair included).  f: the sorted (x, y, vx, vy)."""
     p = _params(cfg)
-    x, y = b.fields[:, 0], b.fields[:, 1]
+    x, y = f[:, 0], f[:, 1]
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    rho = torch.zeros_like(x)
-    for recv, nbr in pair_chunks(cfg, b):
-        dx = x[recv] - x[nbr]
-        dy = y[recv] - y[nbr]
-        q = torch.sqrt(dx * dx + dy * dy) * p.inv_h
-        q2 = q * q
-        t = 2.0 - q
-        w = torch.where(q < 1.0, p.alpha * (1.0 - 1.5 * q2 + 0.75 * q2 * q),
-                        torch.where(q < 2.0, p.alpha_q * t * t * t, zero))
-        rho.index_add_(0, recv, w)
-    rho = p.mass * rho
+    dx = x[recv] - x[nbr]
+    dy = y[recv] - y[nbr]
+    q = torch.sqrt(dx * dx + dy * dy) * p.inv_h
+    q2 = q * q
+    t = 2.0 - q
+    return torch.where(q < 1.0, p.alpha * (1.0 - 1.5 * q2 + 0.75 * q2 * q),
+                       torch.where(q < 2.0, p.alpha_q * t * t * t, zero))
 
+
+def density_eos(cfg, rho):
+    """(rho, p / rho^2) per sorted position, (n, 2), from each position's
+    sum of W: the mass, the log-density round trip and the Tait EOS, as the
+    density kernel's lane 0 forms them."""
+    p = _params(cfg)
+    rho = p.mass * rho
     rho = torch.exp(torch.log(torch.clamp(rho, min=1e-6)))
     ratio = rho * p.inv_rho0
     powed = ratio if p.gamma_is_one else torch.exp(p.gamma_eos * torch.log(ratio))
@@ -275,6 +284,15 @@ def density_plain(cfg, b: Binned):
                                      device=rho.device), min=0.0)
     rs = torch.clamp(rho, min=1e-30)
     return torch.stack([rho, press / (rs * rs)], -1)
+
+
+def density_plain(cfg, b: Binned):
+    """Plain PyTorch version of the density kernel: (rho, p / rho^2) per
+    sorted position, (n, 2)."""
+    rho = torch.zeros_like(b.fields[:, 0])
+    for recv, nbr in pair_chunks(cfg, b):
+        rho.index_add_(0, recv, pair_density(cfg, b.fields, recv, nbr))
+    return density_eos(cfg, rho)
 
 
 def pair_forces(cfg, f, rp, recv, nbr):
@@ -363,15 +381,28 @@ def forces(cfg, b: Binned, rp, dt):
     return pos, vel
 
 
+def _block_shape(name: str, cfg) -> BlockShape:
+    out = BlockShape()
+    sfx = _SUFFIX[cfg.torch_dtype]
+    getattr(load(), f"fst_sph_{name}_shape_{sfx}")(cfg.n, ctypes.byref(out))
+    return out
+
+
 @functools.lru_cache(maxsize=None)
-def forces_shape(cfg) -> ForcesShape:
+def density_shape(cfg) -> BlockShape:
+    """The density kernel's blocks for cfg's particle count and dtype, as
+    the library launches them (csrc/sph_density.cu: the
+    FST_SPH_DENSITY_* constants, the lanes a particle chosen from the
+    count)."""
+    return _block_shape("density", cfg)
+
+
+@functools.lru_cache(maxsize=None)
+def forces_shape(cfg) -> BlockShape:
     """The forces kernel's blocks for cfg's particle count and dtype, as
     the library launches them (csrc/sph_forces.cu: the FST_SPH_*
     constants, the lanes a particle chosen from the count)."""
-    out = ForcesShape()
-    sfx = _SUFFIX[cfg.torch_dtype]
-    getattr(load(), f"fst_sph_forces_shape_{sfx}")(cfg.n, ctypes.byref(out))
-    return out
+    return _block_shape("forces", cfg)
 
 
 def make_step_cuda(cfg):

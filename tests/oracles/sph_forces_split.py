@@ -59,10 +59,12 @@ def kernel_chunk(dtype: torch.dtype, stage_bytes: int = STAGE_BYTES) -> int:
     return stage_bytes // (6 * torch.finfo(dtype).bits // 8)
 
 
-def lane_sequences(cfg, b: sk.Binned, threads: int, lanes: int, chunk: int):
+def lane_sequences(cfg, b: sk.Binned, threads: int, lanes: int, chunk: int,
+                   skip_self: bool = True):
     """(seqs, skips, chunks): seqs[s][l], the sorted positions whose pair
     terms lane l of sorted position s adds, in the kernel's order; skips[s],
-    the entries its own-index test skipped; chunks[s], the chunks its run
+    the entries its own-index test skipped (none without `skip_self`: the
+    density kernel sums the self pair); chunks[s], the chunks its run
     staged."""
     g = cfg.grid()
     gx_n, gy_n = g.Gx, g.Gy
@@ -113,7 +115,7 @@ def lane_sequences(cfg, b: sk.Binned, threads: int, lanes: int, chunk: int):
                         jb, je = max(pa, k0), min(pe, k0 + count)
                         for lane in range(lanes):
                             for j in range(jb + lane, je, lanes):
-                                if j == self_:
+                                if skip_self and j == self_:
                                     skips[s] += 1
                                     continue
                                 seqs[s][lane].append(at(j))

@@ -7,7 +7,8 @@ For the runs chip_smoke.py drives through the `run` of fluidsims_tpu_torch.
 solvers.gray_scott, lbm, burgers, shallow_water and mhd with engine 'auto'
 (the CUDA kernels): Gray–Scott 2048^2 f32 x 2000 steps and LBM 2048x1024
 f32 x 1000 steps, each at the default block_k (16, 8) and at block_k = 1
-(the one-step kernel every step); Burgers and shallow water 512^2 and MHD
+(the one-step kernel every step), and Gray–Scott 2048^2 f64 x 400 at
+block_k 16 (chip_smoke.py's f64 run); Burgers and shallow water 512^2 and MHD
 320x220 Brio–Wu f32 x 4000 steps (bench.py's sizes and step counts) at
 the default block_k (16, 8, 8) and at 1 (the K-step kernel with k = 1
 every step), and Burgers and shallow water 4096^2, MHD Orszag–Tang 2048^2
@@ -60,6 +61,8 @@ from fluidsims_tpu_torch.solvers import shallow_water as sw  # noqa: E402
 # (solver, config, steps)
 RUNS = (("gray_scott", gs.GrayScottConfig(nx=2048, ny=2048, block_k=16), 2000),
         ("gray_scott", gs.GrayScottConfig(nx=2048, ny=2048, block_k=1), 2000),
+        ("gray_scott", gs.GrayScottConfig(nx=2048, ny=2048, dtype="float64",
+                                          block_k=16), 400),
         ("lbm", lbm.LBMConfig(nx=2048, ny=1024, block_k=8), 1000),
         ("lbm", lbm.LBMConfig(nx=2048, ny=1024, block_k=1), 1000),
         ("burgers", bg.BurgersConfig(nx=512, ny=512, block_k=16), 4000),

@@ -6,18 +6,19 @@ tiles.
         [sass] [diff A B]
         [--root DIR] [--out PATH] [--define NAME=VALUE ...] [--only KEY ...]
         [--fmad] [--dump DIR]
-        [--set tiles|hypersonic|mhd|sph|flip|lbm|p2g]
+        [--set tiles|hypersonic|mhd|sph|flip|lbm|p2g|gs]
 
 The kernels: the Burgers and shallow-water K-step kernels
 (csrc/burgers_multistep.cu, csrc/shallow_water_multistep.cu, TPU kernel
 #7), the stam2d whole Jacobi solve (csrc/stam2d_lin_solve.cu, #9), the
 two hypersonic step kernels (csrc/hypersonic2d_step.cu, #1;
 csrc/hypersonic3d_step.cu, #2), the GLM-MHD K-step kernel
-(csrc/mhd_multistep.cu, #8), the SPH forces kernel
-(csrc/sph_forces.cu, #15), the FLIP grid phase (csrc/flip_grid.cu, #17),
-the LBM K-step kernel (csrc/lbm_multistep.cu, #6) and the MPM and FLIP
-P2Gs (csrc/mpm_p2g.cu, #19; csrc/flip_p2g.cu, #16; both csrc/
-p2g_tiles.cuh).
+(csrc/mhd_multistep.cu, #8), the SPH density and forces kernels
+(csrc/sph_density.cu, #14; csrc/sph_forces.cu, #15), the FLIP grid phase
+(csrc/flip_grid.cu, #17), the LBM K-step kernel (csrc/lbm_multistep.cu,
+#6), the MPM and FLIP P2Gs (csrc/mpm_p2g.cu, #19; csrc/flip_p2g.cu, #16;
+both csrc/p2g_tiles.cuh) and the Gray–Scott K-step kernel
+(csrc/gray_scott_multistep.cu, #4).
 
 * check — each kernel against its plain version on the card: Burgers and
   shallow water on 200x75 and 5x3 (every option), k = 1 within 1e-5
@@ -29,18 +30,23 @@ p2g_tiles.cuh).
   MHD kernel on 200x75, 37x23 and 256x128 (both problems, both flux
   signs, f32 and f64) at k = 1 within 1e-5 / 1e-12 relative, k = 8
   bitwise equal to 8 launches of k = 1, with K + 1 grid syncs as the
-  kernel counts them (trees whose wrapper reports them); the SPH forces
-  kernel within 1e-5 / 1e-12 relative on 4096 particles and on a crowded
-  pool (one cell's neighbourhood larger than a staged chunk), two
-  launches bitwise equal; the FLIP grid phase bitwise equal to its plain
+  kernel counts them (trees whose wrapper reports them); the SPH density
+  and forces kernels within 1e-5 / 1e-12 relative on 4096 particles and
+  on two crowded pools (one cell's neighbourhood larger than a staged
+  chunk of the forces kernel, and of the density kernel where the tree
+  reports its chunk), two launches of each bitwise equal; the FLIP grid
+  phase bitwise equal to its plain
   version at n = 16, 37, 128 and 512 and 0, 1, 7, h, h + 1 and 48 sweeps
   (h: sweeps a grid sync), with max(ceil(sweeps / h), 1) - 1 grid syncs
   as the kernel counts them (trees whose wrapper reports them); the LBM
   K-step kernel bitwise equal to K plain steps and to K launches of the
   one-step kernel at K = 1, 3, 8 and 16 on 37x23 (an obstacle on a tile
   corner), 200x75 without the top wall and 20x17 (narrower than the
-  window), with and without a drive override.  Raises on the first
-  failure.
+  window), with and without a drive override; the Gray–Scott K-step
+  kernel bitwise equal to K plain steps and to K one-step launches at
+  K = 1, 3, 16 and 32 on 37x23, 200x75, 256x128 and 20x17 (narrower than
+  the window), f32 and f64, with and without feed=0.04, kill=0.058.
+  Raises on the first failure.
 * time — ms a launch by CUDA events (a warm-up, then the mean over a run
   of launches back to back) at the shapes chip_smoke.py's main runs use:
   Burgers 512^2 f32 K=16 and K=1, 4096^2 f32 K=16, 512^2 f64 K=16;
@@ -53,8 +59,12 @@ p2g_tiles.cuh).
   bit (--only: these keys alone); the MHD kernel the same way on the
   final state of chip_smoke.py's MHD runs (320x220 Brio–Wu f32 x 4000 at
   K=8 and K=1, 2048^2 Orszag–Tang f32 x 200 at K=8, 320x220 f64 x 1000 at
-  K=8); the SPH forces kernel on the final state of its runs (65,536 f32
-  x 200, 2^20 f32 with rain x 50); the FLIP grid phase on the P2G grids
+  K=8); the SPH density and forces kernels on the final state of its runs
+  (65,536 f32 x 200, 2^20 f32 with rain x 50), each also as device time;
+  the Gray–Scott K-step kernel at K=16 and the one-step kernel (the K=1
+  keys) on the final state of chip_smoke.py's Gray–Scott runs (2048^2
+  f32 x 2000, f64 x 400), also as device time; the FLIP grid phase on
+  the P2G grids
   of the final state of its runs (65,536 on 128^2 f32 x 1000 and f64 x
   200, 2^20 on 512^2 f32 x 200); the LBM K-step kernel at K=8 and the
   one-step kernel (the K=1 run's) on the final state of the LBM runs
@@ -79,13 +89,20 @@ p2g_tiles.cuh).
   hypersonic step kernels' tiles instead (csrc/hypersonic2d_step.cu
   FST_HYP2D_TILE_X, FST_HYP2D_TILE_Y for float, FST_HYP2D_F64_TILE_X,
   FST_HYP2D_F64_TILE_Y for double; csrc/hypersonic3d_step.cu
-  FST_HYP3D_TILE_X, FST_HYP3D_TILE_Y, FST_HYP3D_TILE_Z); `--set mhd` the
+  FST_HYP3D_TILE_X, FST_HYP3D_TILE_Y, FST_HYP3D_TILE_Z); `--set gs` the
+  Gray–Scott K-step kernel's threads, blocks an SM of __launch_bounds__,
+  rows a strip and copies of the window, each dtype's
+  (csrc/gray_scott_multistep.cu FST_GS_THREADS, FST_GS_MIN_BLOCKS,
+  FST_GS_ROWS, FST_GS_COPIES and the FST_GS_F64_ ones); `--set mhd` the
   MHD kernel's tiles and threads (csrc/mhd_multistep.cu FST_MHD_TILE_X,
   _Y, FST_MHD_F64_TILE_X, _Y, FST_MHD_THREADS, FST_MHD_MIN_BLOCKS,
   FST_MHD_F64_MIN_BLOCKS); `--set sph` the SPH
-  forces kernel's threads, lanes a particle and staged bytes
+  density kernel's threads, lanes a particle and staged bytes
+  (csrc/sph_density.cu FST_SPH_DENSITY_THREADS, _MIN_LANES, _MAX_LANES,
+  _LANE_THREADS, _STAGE_BYTES) beside the forces kernel's
   (csrc/sph_forces.cu FST_SPH_FORCES_THREADS, FST_SPH_MIN_LANES,
-  FST_SPH_MAX_LANES, FST_SPH_STAGE_BYTES); `--set flip` the FLIP grid
+  FST_SPH_MAX_LANES, FST_SPH_STAGE_BYTES), each build timing both;
+  `--set flip` the FLIP grid
   phase's sweeps a phase and its tiles and threads for small and large
   grids (csrc/flip_grid.cu FST_FLIP_SWEEPS, FST_FLIP_SMALL_TILE_X, _Y,
   FST_FLIP_SMALL_THREADS, FST_FLIP_TILE_X, _Y, FST_FLIP_THREADS); `--set
@@ -434,15 +451,21 @@ def check_mhd(m, dev) -> list:
 
 
 def check_sph(m, dev) -> list:
-    """The SPH forces kernel against its plain version on the same binning
-    and density, and two launches bitwise equal: 4096 particles from init
-    with seeded velocity noise, and a crowded pool (a cell packed with
-    more candidates than a staged chunk holds)."""
+    """The SPH density and forces kernels against their plain versions on
+    the same binning (forces also on the same density), and two launches
+    of each bitwise equal: 4096 particles from init with seeded velocity
+    noise, and crowded pools (a cell packed with more candidates than a
+    staged chunk of the forces kernel holds, and than one of the density
+    kernel where the tree reports its chunk)."""
     out = []
     tol = {torch.float32: 1e-5, torch.float64: 1e-12}
     rng = np.random.default_rng(9)
     for dtype in ("float32", "float64"):
-        for n, crowd in ((4096, 0), (4096, 1500)):
+        crowds = [0, 1500]
+        if hasattr(m.sk, "density_shape"):
+            cfg = m.ts.SPHConfig(n=4096, dtype=dtype)
+            crowds.append(min(m.sk.density_shape(cfg).chunk + 500, 4000))
+        for n, crowd in ((4096, c) for c in crowds):
             cfg = m.ts.SPHConfig(n=n, dtype=dtype)
             pos = m.ts.init(cfg, torch.device("cpu")).pos.clone()
             if crowd:
@@ -455,23 +478,26 @@ def check_sph(m, dev) -> list:
                                dtype=cfg.torch_dtype)
             pos, vel = pos.to(dev), vel.to(dev)
             b = m.sk.binning(cfg, pos, vel)
-            rp = m.sk.density(cfg, b)
+            rp, rp2 = (m.sk.density(cfg, b) for _ in range(2))
+            rel_d = max_rel(rp.unbind(1), m.sk.density_plain(cfg, b).unbind(1))
             dt = torch.full((), 1e-4, dtype=cfg.torch_dtype, device=dev)
             got, again = (m.sk.forces(cfg, b, rp, dt) for _ in range(2))
             ref = m.sk.forces_plain(cfg, b, rp, dt)
             rel = max_rel(got, ref)
-            if not rel <= tol[cfg.torch_dtype]:
-                raise AssertionError(f"sph forces n={n} crowd={crowd} "
-                                     f"{dtype}: rel err {rel:.3e}")
-            if not all(bits_equal(x, y) for x, y in zip(got, again)):
-                raise AssertionError(f"sph forces n={n} crowd={crowd} "
-                                     f"{dtype}: two launches differ")
+            what = f"n={n} crowd={crowd} {dtype}"
+            if not (rel_d <= tol[cfg.torch_dtype]
+                    and rel <= tol[cfg.torch_dtype]):
+                raise AssertionError(f"sph {what}: rel err density "
+                                     f"{rel_d:.3e}, forces {rel:.3e}")
+            if not (bits_equal(rp, rp2)
+                    and all(bits_equal(x, y) for x, y in zip(got, again))):
+                raise AssertionError(f"sph {what}: two launches differ")
             peak = int(torch.bincount(b.cid.long()).max())
-            out.append({"case": f"sph forces n={n} crowd={crowd} {dtype}",
+            out.append({"case": f"sph {what}", "rel_density": rel_d,
                         "rel": rel, "max_cell": peak})
     torch.cuda.synchronize()
-    log(f"[check] sph forces: {len(out)} cases within 1e-5 / 1e-12 of "
-        "plain, two launches bitwise equal")
+    log(f"[check] sph density and forces: {len(out)} cases within 1e-5 / "
+        "1e-12 of plain, two launches of each bitwise equal")
     return out
 
 
@@ -820,6 +846,45 @@ def check_lbm(m, dev) -> list:
     return out
 
 
+def gs_noisy(m, cfg, dev, seed: int):
+    """init() plus seeded normal noise (0.05) on u and v (as
+    chip_smoke.py's gs_state)."""
+    s = m.gs.init(cfg, torch.device("cpu"))
+    rng = np.random.default_rng(seed)
+    return m.gs.GrayScottState(*(
+        (f + torch.tensor(0.05 * rng.standard_normal(tuple(f.shape)),
+                          dtype=f.dtype)).to(dev) for f in s))
+
+
+def check_gs(m, dev) -> list:
+    """The Gray–Scott K-step kernel bitwise equal to K plain steps and to
+    K one-step launches."""
+    out = []
+    for dtype in ("float32", "float64"):
+        for nx, ny in ((37, 23), (200, 75), (256, 128), (20, 17)):
+            cfg = m.gs.GrayScottConfig(nx=nx, ny=ny, dtype=dtype)
+            s = gs_noisy(m, cfg, dev, 7)
+            for k in (1, 3, 16, 32):
+                for over in ({}, {"feed": 0.04, "kill": 0.058}):
+                    got = m.gk.gs_multistep(cfg, s, k, **over)
+                    ref = m.gk.gs_multistep_plain(cfg, s, k, **over)
+                    one = s
+                    for _ in range(k):
+                        one = m.gk.gs_step(cfg, one, **over)
+                    if not all(bits_equal(a, b) and bits_equal(a, c)
+                               for a, b, c in zip(got, ref, one)):
+                        raise AssertionError(f"gs {nx}x{ny} {dtype} K={k} "
+                                             f"{over}: not bitwise")
+                shape = (m.gk.launch_shape(cfg, k).asdict()
+                         if hasattr(m.gk, "launch_shape") else None)
+                out.append({"case": f"gs {nx}x{ny} {dtype} K={k}",
+                            "bitwise": True, "launch": shape})
+    torch.cuda.synchronize()
+    log(f"[check] gs K-step: {len(out)} cases bitwise to K plain steps and "
+        "to K one-step launches")
+    return out
+
+
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     """The same bits (NaN payloads and the sign of zero included)."""
     it = torch.int32 if a.element_size() == 4 else torch.int64
@@ -909,17 +974,18 @@ def mhd_timings(m, dev, only, dump) -> dict:
     return res
 
 
-# The SPH forces kernel (#15) at chip_smoke.py's SPH runs: (key, particles,
-# rain, steps of the run, launches timed).
+# The SPH density and forces kernels (#14, #15) at chip_smoke.py's SPH
+# runs: (key, particles, rain, steps of the run, launches timed).
 SPH_RUNS = (("sph 65536 f32", 65536, False, 200, 50),
             ("sph 1048576 f32 rain", 1 << 20, True, 50, 20))
 SPH_KEYS = tuple(r[0] for r in SPH_RUNS)
 
 
 def sph_timings(m, dev, only, dump) -> dict:
-    """ms a launch of the forces kernel (also as device time) on the
-    binning and density of each run's final state, with the digests of
-    that state and of the launch's output."""
+    """ms a launch of the forces kernel (the key) and of the density
+    kernel (the key + " density"), each also as device time, on the
+    binning (and density) of each run's final state, with the digests of
+    that state and of the forces launch's output."""
     res = {}
     for key, n_p, rain, steps, n in SPH_RUNS:
         if only is not None and key not in only:
@@ -932,6 +998,9 @@ def sph_timings(m, dev, only, dump) -> dict:
         res[key] = time_ms(lambda: m.sk.forces(cfg, b, rp, dt), n)
         res[key + " device"] = device_ms(lambda: m.sk.forces(cfg, b, rp, dt),
                                          n, "forces_kernel")
+        res[key + " density"] = time_ms(lambda: m.sk.density(cfg, b), n)
+        res[key + " density device"] = device_ms(
+            lambda: m.sk.density(cfg, b), n, "density_kernel")
         record(res, key, [out.pos, out.vel], list(m.sk.forces(cfg, b, rp, dt)),
                dump)
     return res
@@ -1003,6 +1072,41 @@ def lbm_timings(m, dev, only, dump) -> dict:
     return res
 
 
+# The Gray–Scott kernels (#4 K-step, #3 one-step) at chip_smoke.py's
+# Gray–Scott runs: (key, dtype, steps of the run, k a launch: 1 is the
+# one-step kernel, launches timed).
+GS_RUNS = (("gs 2048x2048 f32 K=16", "float32", 2000, 16, 50),
+           ("gs 2048x2048 f32 K=1", "float32", 2000, 1, 400),
+           ("gs 2048x2048 f64 K=16", "float64", 400, 16, 20),
+           ("gs 2048x2048 f64 K=1", "float64", 400, 1, 200))
+GS_KEYS = tuple(r[0] for r in GS_RUNS)
+
+
+def gs_timings(m, dev, only, dump) -> dict:
+    """ms a launch of the K-step kernel at K=16 and of the one-step kernel
+    (also as device time) on the final state of the Gray–Scott run of
+    each dtype, with the digests of that state and of the launch's
+    output, and the K-step launch's shape where the tree reports it."""
+    res, states = {}, {}
+    for key, dtype, steps, k, reps in GS_RUNS:
+        if only is not None and key not in only:
+            continue
+        cfg = m.gs.GrayScottConfig(nx=2048, ny=2048, dtype=dtype)
+        if dtype not in states:
+            states[dtype] = m.gs.run(cfg, m.gs.init(cfg, dev), steps)
+        s = states[dtype]
+        call = ((lambda: m.gk.gs_multistep(cfg, s, k)) if k > 1
+                else (lambda: m.gk.gs_step(cfg, s)))
+        res[key] = time_ms(call, reps)
+        res[key + " device"] = device_ms(
+            call, reps, "multistep_kernel" if k > 1 else "step_kernel")
+        if k > 1 and hasattr(m.gk, "launch_shape"):
+            res[key + " launch"] = json.dumps(
+                m.gk.launch_shape(cfg, k).asdict())
+        record(res, key, list(s), list(call()), dump)
+    return res
+
+
 def diff(a: str, b: str) -> dict:
     """Key by key, two dumps' final states and step outputs: bitwise equal
     or not, the cells whose bits differ, and the max |a - b| over the
@@ -1036,7 +1140,7 @@ def checks(m, dev, only=None) -> list:
     parts = ((check, KSTEP_KEYS + SOLVE_KEYS), (check_hyp, HYP_KEYS),
              (check_mhd, MHD_KEYS), (check_sph, SPH_KEYS),
              (check_flip, FLIP_KEYS), (check_lbm, LBM_KEYS),
-             (check_p2g, P2G_KEYS))
+             (check_p2g, P2G_KEYS), (check_gs, GS_KEYS))
     return [c for fn, keys in parts if only is None or set(keys) & set(only)
             for c in fn(m, dev)]
 
@@ -1049,6 +1153,7 @@ def timings(m, dev, only=None, dump=None) -> dict:
     res.update(flip_timings(m, dev, only, dump))
     res.update(lbm_timings(m, dev, only, dump))
     res.update(p2g_timings(m, dev, only, dump))
+    res.update(gs_timings(m, dev, only, dump))
     runs = (("burgers 512 f32 K=16", m.bg, m.bk.burgers_multistep,
              dict(nx=512, ny=512), 16, 50),
             ("burgers 512 f32 K=1", m.bg, m.bk.burgers_multistep,
@@ -1110,10 +1215,27 @@ MHD_VARIANTS = (
     ((32, 15), (16, 15), 128, 5, 2), ((8, 15), (8, 7), 64, 8, 5),
     ((16, 16), (16, 8), 128, 2, 2), ((16, 15), (16, 7), 128, 4, 4),
     ((32, 15), (16, 7), 256, 2, 3), ((16, 16), (16, 16), 256, 2, 2))
-# The SPH forces sweep: (threads a block, fewest and most lanes a
-# particle, staged bytes).
+# The SPH sweep: the density kernel's (threads a block, fewest and most
+# lanes a particle, lane threads, staged bytes) beside the forces kernel's
+# defaults, then the forces kernel's (threads a block, fewest and most
+# lanes a particle, staged bytes) beside the density kernel's defaults.
+DENSITY_VARIANTS = ((128, 1, 8, 524288, 8192), (128, 2, 8, 524288, 8192),
+                    (128, 4, 16, 1048576, 8192), (128, 2, 8, 1048576, 8192),
+                    (128, 2, 8, 524288, 24576), (256, 2, 8, 524288, 8192))
 SPH_VARIANTS = ((128, 2, 8, 24576), (128, 1, 8, 24576), (128, 4, 8, 24576),
                 (128, 2, 4, 24576), (128, 2, 8, 12288), (256, 2, 8, 24576))
+# The Gray–Scott K-step sweep: the f32 and the f64 design (threads a
+# block, blocks an SM of __launch_bounds__, rows a strip, copies of the
+# window) of each build: the sources', each dtype with the other's, and
+# others.
+GS_VARIANTS = (((1024, 1, 4, 2), (512, 1, 8, 1)),
+               ((512, 1, 8, 1), (1024, 1, 4, 2)),
+               ((1024, 1, 8, 2), (512, 1, 8, 2)),
+               ((512, 1, 8, 2), (256, 2, 8, 1)),
+               ((768, 1, 4, 1), (1024, 1, 2, 1)),
+               ((768, 1, 4, 2), (512, 1, 8, 1)),
+               ((1024, 1, 3, 2), (512, 1, 8, 1)),
+               ((1024, 1, 6, 2), (512, 1, 8, 1)))
 # The FLIP grid-phase sweep: (sweeps a phase; small-grid tile, threads;
 # large-grid tile, threads) of each build.
 FLIP_VARIANTS = ((8, (16, 8), 256, (64, 32), 512),
@@ -1180,10 +1302,25 @@ def mhd_variants() -> list[tuple[dict, tuple]]:
 
 
 def sph_variants() -> list[tuple[dict, tuple]]:
-    return [({"FST_SPH_FORCES_THREADS": th, "FST_SPH_MIN_LANES": fewest,
-              "FST_SPH_MAX_LANES": most, "FST_SPH_STAGE_BYTES": stage},
-             SPH_KEYS)
-            for th, fewest, most, stage in SPH_VARIANTS]
+    density = [({"FST_SPH_DENSITY_THREADS": th,
+                 "FST_SPH_DENSITY_MIN_LANES": fewest,
+                 "FST_SPH_DENSITY_MAX_LANES": most,
+                 "FST_SPH_DENSITY_LANE_THREADS": lane_threads,
+                 "FST_SPH_DENSITY_STAGE_BYTES": stage}, SPH_KEYS)
+               for th, fewest, most, lane_threads, stage in DENSITY_VARIANTS]
+    return density + [({"FST_SPH_FORCES_THREADS": th,
+                        "FST_SPH_MIN_LANES": fewest,
+                        "FST_SPH_MAX_LANES": most,
+                        "FST_SPH_STAGE_BYTES": stage}, SPH_KEYS)
+                      for th, fewest, most, stage in SPH_VARIANTS[1:]]
+
+
+def gs_variants() -> list[tuple[dict, tuple]]:
+    keys = tuple(k for k in GS_KEYS if not k.endswith(" K=1"))
+    names = ("THREADS", "MIN_BLOCKS", "ROWS", "COPIES")
+    return [({**{f"FST_GS_{n}": v for n, v in zip(names, f32)},
+              **{f"FST_GS_F64_{n}": v for n, v in zip(names, f64)}}, keys)
+            for f32, f64 in GS_VARIANTS]
 
 
 def flip_variants() -> list[tuple[dict, tuple]]:
@@ -1210,7 +1347,7 @@ def p2g_variants() -> list[tuple[dict, tuple]]:
 
 SWEEPS = {"tiles": variants, "hypersonic": hyp_variants, "mhd": mhd_variants,
           "sph": sph_variants, "flip": flip_variants, "lbm": lbm_variants,
-          "p2g": p2g_variants}
+          "p2g": p2g_variants, "gs": gs_variants}
 
 
 def sweep(args) -> list:
@@ -1235,7 +1372,7 @@ def sweep(args) -> list:
             # the keys' ms a launch and, where timed, their device time (a
             # P2G key's, each design's)
             base = key.removesuffix(" device")
-            for design in (" tiled", " atomic"):
+            for design in (" tiled", " atomic", " density"):
                 base = base.removesuffix(design)
             if not isinstance(ms, float) or base not in keys or (
                     base != key and not key.endswith(" device")):
@@ -1321,11 +1458,14 @@ def main(argv=None) -> int:
     from fluidsims_tpu_torch.solvers import lbm
     from fluidsims_tpu_torch.kernels import mpm_cuda as mpk
     from fluidsims_tpu_torch.solvers import mpm as mp
+    from fluidsims_tpu_torch.kernels import gray_scott_cuda as gk
+    from fluidsims_tpu_torch.solvers import gray_scott as gs
 
     m = types.SimpleNamespace(bk=bk, swk=swk, s2k=s2k, bg=bg, sw=sw, hk=hk,
                               hk3=hk3, h2=h2, h3=h3, interop=interop,
                               cfl_dt=cfl_dt, mk=mk, sk=sk, mhd=mhd, ts=ts,
-                              fk=fk, lk=lk, fa=fa, lbm=lbm, mpk=mpk, mp=mp)
+                              fk=fk, lk=lk, fa=fa, lbm=lbm, mpk=mpk, mp=mp,
+                              gk=gk, gs=gs)
     log(f"[device] {smi}; package from {Path(bk.__file__).parents[1]}")
     dev = torch.device("cuda", 0)
     bk.load()
@@ -1338,7 +1478,9 @@ def main(argv=None) -> int:
                                        "12step3_kernel",
                                        "mhd_multistep_kernel",
                                        "forces_kernel", "11grid_kernel",
-                                       "lbm_multistep_kernel", "p2g")
+                                       "lbm_multistep_kernel", "p2g",
+                                       "gs_multistep_kernel",
+                                       "density_kernel")
                         for u in _build.ptxas_usage(name)]
         for u in res["ptxas"]:
             log(f"[build] ptxas {u}")
