@@ -2343,20 +2343,54 @@ def check_stam3d_call(sc, s3, cfg, s, what: str, errs: dict) -> float:
     tol = ADVECT_TOL[cfg.torch_dtype]
     if not rel <= tol:
         raise AssertionError(f"advect {what}: max rel err {rel:.3e} > {tol:g}")
-    got = [f.clone() for f in (s.u, s.v, s.w, s.d)]
-    ref = [f.clone() for f in got]
-    sc.set_bnd(*got)
-    sc.set_bnd_plain(*ref)
-    if not all(same(x, y) for x, y in zip(got, ref)):
-        raise AssertionError(f"set_bnd {what}: differs from the plain version")
+    check_set_bnd(sc, [s.u, s.v, s.w, s.d], what, errs)
     log(f"[stam3d] {what}: jacobi sweep and solves (12 and 5 sweeps, 3 "
         f"coefficient pairs) bitwise equal; advect max rel err {rel:.3e} (tol "
         f"{tol:g}); set_bnd bitwise equal")
     return rel
 
 
+def check_set_bnd(sc, fields, what: str, errs: dict) -> None:
+    """set_bnd of the four fields (copies) against its plain version, the
+    same bits or the script fails; counted in errs["set_bnd_bitwise"]."""
+    got = [f.clone() for f in fields]
+    ref = [f.clone() for f in got]
+    sc.set_bnd(*got)
+    sc.set_bnd_plain(*ref)
+    if not all(bits_equal(x, y) for x, y in zip(got, ref)):
+        raise AssertionError(f"set_bnd {what}: differs from the plain version")
+    errs["set_bnd_bitwise"] += 1
+
+
+# Phase 15's set_bnd sizes (also tools/tune_tiles_torch.py check's):
+# fewer cells a face than a block's row, the solver's cases, and the main
+# runs' 192^3
+SET_BND_CHECK_N = (1, 2, 3, 24, 37, 192)
+
+
+def check_set_bnd_cases(sc, device, errs) -> None:
+    """set_bnd at SET_BND_CHECK_N, f32 and f64, on seeded fields with -0.0
+    and NaN cells, each bitwise equal to the plain version or the script
+    fails."""
+    for dtype in (torch.float32, torch.float64):
+        for n in SET_BND_CHECK_N:
+            rng = np.random.default_rng(SEED + n)
+            fields = [torch.tensor(rng.standard_normal((n + 2,) * 3),
+                                   dtype=dtype, device=device)
+                      for _ in range(4)]
+            fields[0].view(-1)[::5] = -0.0
+            fields[3].view(-1)[::7] = float("nan")
+            check_set_bnd(sc, fields, f"n={n} {dtype}", errs)
+    log(f"[stam3d] set_bnd at n = {SET_BND_CHECK_N}, f32 and f64, with -0.0 "
+        f"and NaN cells: bitwise equal to the plain version")
+
+
 def phase_stam3d_kernels(sc, s3, device) -> dict:
-    errs = {"jacobi": 0.0, "advect": 0.0, "set_bnd": 0.0, "rel": {}}
+    errs = {"jacobi": 0.0, "advect": 0.0, "set_bnd": 0.0, "rel": {},
+            "set_bnd_bitwise": 0}
+    check_set_bnd_cases(sc, device, errs)
+    log(f"[stam3d] set_bnd launch at n=192: "
+        f"{sc.set_bnd_launch(192).asdict()}")
     for dtype in ("float32", "float64"):
         for n in (24, 37):
             cfg = s3.Stam3DConfig(n=n, dtype=dtype)
@@ -2462,6 +2496,8 @@ def phase_stam3d_main(sc, s3, device, smi, errs,
             "advect_plain": time_launches(
                 lambda: sc.advect_plain(cfg, out.d, out.u, out.v, out.w), 10),
             "set_bnd": time_launches(lambda: sc.set_bnd(*bnd), 50),
+            "set_bnd_device": device_ms(lambda: sc.set_bnd(*bnd), 50,
+                                        "set_bnd_kernel"),
             "set_bnd_plain": time_launches(lambda: sc.set_bnd_plain(*bnd),
                                            20),
         }
@@ -2469,7 +2505,8 @@ def phase_stam3d_main(sc, s3, device, smi, errs,
         log(f"[stam3d] per launch at {cfg.n}^3 {dtype} on {smi}: " + ", ".join(
             f"{k} {times[k]:.4f} ms vs plain {times[k + '_plain']:.4f} ms "
             f"(bound {bounds[k][0]:.4f} ms, {bounds[k][1]})"
-            for k in ("jacobi", "advect", "set_bnd")))
+            for k in ("jacobi", "advect", "set_bnd"))
+            + f"; set_bnd {times['set_bnd_device']} ms of device time")
         res[dtype] = {"launches": launches, "times": times, "bounds": bounds,
                       "rate": rate, "plain_rate": p_rate,
                       "mcells": cells * rate / 1e6,
@@ -2499,7 +2536,10 @@ def stam3d_kernel_lines(res, errs) -> list:
             "plain_ms_f64": b["times"][name + "_plain"],
             "bound_ms_f64": b["bounds"][name][0],
             "bound_by_f64": b["bounds"][name][1]})
-    out[-1]["max_rel_err"] = errs["rel"]
+    out[-1].update(device_ms=a["times"]["set_bnd_device"],
+                   device_ms_f64=b["times"]["set_bnd_device"],
+                   bitwise_cases=errs["set_bnd_bitwise"],
+                   max_rel_err=errs["rel"])
     return out
 
 
@@ -2927,13 +2967,92 @@ def check_flip_call(fk, cfg, parts, what, errs, flip=None, apic=None):
         raise AssertionError(f"{label} grid: equal values, other bits (the "
                              f"sign of a zero)")
     check_flip_syncs(fk, cfg, pos.device, label)
+    out["g2p"] = check_g2p_call(fk, cfg, pos, vel, fields, flip, label,
+                                errs)
+    return out, grids
+
+
+def check_g2p_call(fk, cfg, pos, vel, fields, flip, label, errs,
+                   bitwise=False):
+    """G2P against its plain version on the same grid-phase fields: within
+    STEP_TOL relative, the raster equal and counting every particle, the
+    same bits where `bitwise`; the case and whether its bits were equal
+    counted in errs["g2p_bitwise"].  Returns (rel, bitwise)."""
     got = fk.g2p(cfg, pos, vel, *fields, flip)
     ref = fk.g2p_plain(cfg, pos, vel, *fields, flip)
-    out["g2p"] = transfer_rel(got, ref, label, tol, errs, "g2p")
+    rel, _ = transfer_rel(got, ref, label, STEP_TOL[pos.dtype], errs, "g2p")
+    bit = all(bits_equal(a, b) for a, b in zip(got, ref))
+    if bitwise and not bit:
+        raise AssertionError(f"{label} g2p: equal values, other bits")
     if int(got[4].sum()) != pos.shape[0]:
-        raise AssertionError(f"flip g2p {what}: the raster counts "
+        raise AssertionError(f"{label} g2p: the raster counts "
                              f"{int(got[4].sum())} of {pos.shape[0]}")
-    return out, grids
+    errs["g2p_bitwise"][0] += bit
+    errs["g2p_bitwise"][1] += 1
+    return rel, bit
+
+
+def g2p_positions(kind: str, n: int, n_p: int, rng) -> np.ndarray:
+    """G2P positions of n_p particles on an (n, n) grid, the one generator
+    of phase 19, tools/tune_tiles_torch.py check and the CPU tests:
+    "uniform"; exactly on nodes ("nodes"); +-h across nodes ("crossing":
+    node +- h (1 + eps), where rounding puts some floors of the +-h
+    samples two nodes from the centre's, past the kernel's window); on and
+    past the walls ("walls": 16 corner, wall and far-out points, then half
+    the particles on or one node past a wall in x); 2,000 in one cell
+    ("crowded", the raster's grouped adds; one cell up to n = 2048)."""
+    h = 1.0 / (n - 1)
+    if kind == "uniform":
+        return rng.random((n_p, 2))
+    nodes = rng.integers(0, n, (n_p, 2)) * h
+    if kind == "nodes":
+        return nodes
+    if kind == "crossing":
+        eps = rng.choice([-3e-7, -1e-7, 0.0, 1e-7, 3e-7, -1e-15, 1e-15],
+                         (n_p, 2))
+        return nodes + rng.choice([-1, 1], (n_p, 2)) * h * (1 + eps)
+    pos = rng.random((n_p, 2))
+    if kind == "walls":
+        pos[:16] = [[0, 0], [1, 1], [0, 1], [1, 0], [-0.1, 0.5], [1.2, 0.5],
+                    [0.5, -3], [0.5, 7], [h, h], [1 - h, 1 - h],
+                    [0.5 * h, 1 - 0.5 * h], [1e-30, 1 - 1e-7], [0.01, 0.99],
+                    [0.99, 0.01], [-1e9, 1e9], [1 + h, -h]]
+        pos[16:n_p // 2, 0] = rng.choice([0.0, 1.0, -h, 1 + h], n_p // 2 - 16)
+    elif kind == "crowded":
+        pos[:2000] = [0.3, 0.4] + 1e-4 * rng.random((2000, 2))
+    else:
+        raise ValueError(f"no G2P position kind {kind!r}")
+    return pos
+
+
+# Phase 19's G2P cases beside check_flip_call's (also tools/
+# tune_tiles_torch.py check's): (n, position kind), each with 4 n^2
+# particles, seeded grids, the config's blend and flip 0.5
+G2P_CHECK = ((16, "walls"), (37, "nodes"), (37, "crossing"), (37, "walls"),
+             (128, "nodes"), (128, "crossing"), (128, "walls"),
+             (128, "crowded"), (512, "crossing"), (512, "walls"),
+             (2048, "uniform"))
+
+
+def check_g2p_cases(fk, fa, device, errs) -> None:
+    """G2P_CHECK's cases, each bitwise equal to the plain version or the
+    script fails."""
+    for dtype in ("float32", "float64"):
+        for n, kind in G2P_CHECK:
+            cfg = fa.FlipApicConfig(particles=4 * n * n, grid=n, dtype=dtype)
+            rng = np.random.default_rng(SEED + 5 * n)
+            pos = g2p_positions(kind, n, cfg.particles, rng)
+            t = [torch.tensor(a, dtype=cfg.torch_dtype, device=device)
+                 for a in (pos, rng.standard_normal((cfg.particles, 2)),
+                           *(rng.standard_normal((n, n)) for _ in range(4)))]
+            for flip in (None, 0.5):
+                check_g2p_call(fk, cfg, t[0], t[1], t[2:], flip,
+                               f"flip n={n} {kind} {dtype} flip={flip}",
+                               errs, bitwise=True)
+    log(f"[flip] g2p {G2P_CHECK}, f32 and f64, the config's blend and flip "
+        f"0.5: bitwise equal to the plain version, every raster counting "
+        f"its particles; G2P bitwise in {errs['g2p_bitwise'][0]} of "
+        f"{errs['g2p_bitwise'][1]} cases of phase 19 so far")
 
 
 def edge_positions(rng, n_p: int, X: float, Y: float, crowd: int):
@@ -3067,7 +3186,8 @@ FLIP_CHECK_JACOBI = (48, 7, 1, 0)
 
 def phase_flip_kernels(fk, fa, device) -> dict:
     errs = {"p2g": 0.0, "grid": 0.0, "g2p": 0.0, "rel": {},
-            "grid_bitwise": [0, 0], "edges": {}}
+            "grid_bitwise": [0, 0], "g2p_bitwise": [0, 0], "edges": {}}
+    check_g2p_cases(fk, fa, device, errs)
     for dtype in ("float32", "float64"):
         for n in FLIP_CHECK_N:
             cfg = fa.FlipApicConfig(particles=4 * n * n, grid=n, dtype=dtype)
@@ -3294,6 +3414,9 @@ def phase_flip_main(fk, fa, device, smi, errs, runs=FLIP_RUNS) -> dict:
                 lambda: fk.grid_phase_plain(cfg, *grids), 3),
             "g2p": time_launches(lambda: fk.g2p(cfg, out.pos, out.vel,
                                                 *fields), 100),
+            "g2p_device": device_ms(lambda: fk.g2p(cfg, out.pos, out.vel,
+                                                   *fields), 100,
+                                    "::g2p_kernel"),
             "g2p_plain": time_launches(lambda: fk.g2p_plain(
                 cfg, out.pos, out.vel, *fields), 5),
         }
@@ -3303,7 +3426,9 @@ def phase_flip_main(fk, fa, device, smi, errs, runs=FLIP_RUNS) -> dict:
             f"(bound {bounds[k][0]:.5f} ms, {bounds[k][1]})"
             for k in ("p2g", "grid", "g2p"))
             + f"; {bounds['nonzero_offsets']} nonzero P2G offsets; "
-            + p2g_device_line(times))
+            + p2g_device_line(times)
+            + f"; G2P {times['g2p_device']} ms of device time, launch "
+            f"{fk.g2p_launch(n_p, cfg.torch_dtype).asdict()}")
         res[key] = {"launches": launches, "times": times, "bounds": bounds,
                     "rate": rate, "plain_rate": p_rate,
                     "mpsteps": n_p * rate / 1e6,
@@ -3392,6 +3517,8 @@ def transfer_kernel_lines(solver: str, runs, lines: dict, res,
         if name == "p2g":
             entry.update({f"ms_{k.removeprefix('p2g_')}": a["times"][k]
                           for k in a["times"] if k.startswith("p2g_device")})
+        if name + "_device" in a["times"]:
+            entry["device_ms"] = a["times"][name + "_device"]
         for k, tag in zip(keys[1:], ("f64", "1048576")):
             r = res[k]
             entry.update({f"launches_{tag}": r["launches"][name],
@@ -3403,6 +3530,8 @@ def transfer_kernel_lines(solver: str, runs, lines: dict, res,
                 entry.update({f"ms_{t.removeprefix('p2g_')}_{tag}":
                               r["times"][t] for t in r["times"]
                               if t.startswith("p2g_device")})
+            if name + "_device" in r["times"]:
+                entry[f"device_ms_{tag}"] = r["times"][name + "_device"]
         out.append(entry)
     out[-1]["max_rel_err"] = errs["rel"]
     return out
@@ -3927,12 +4056,19 @@ def main() -> int:
     design = tiled_design(bk, swk, mk, s2k, bg, swm, mhd, _build, device)
     kernels.extend(resident_kernel_lines(resident_res, resident_errs, design))
     kernels.extend(stam3d_kernel_lines(stam3d_res, stam3d_errs))
+    kernels[-1]["launch"] = {"192^3": sc.set_bnd_launch(192).asdict(),
+                             "ptxas": _build.ptxas_usage("set_bnd_kernel")}
     kernels.extend(stam2d_kernel_lines(stam2d_res, stam2d_errs, design))
     kernels.extend(transfer_kernel_lines(
         "flip", FLIP_RUNS, {"p2g": 82, "grid": 126, "g2p": 171}, flip_res,
         flip_errs))
     kernels[-2]["tiling"] = flip_tiling(fk, fa, _build, device)
     kernels[-2]["bitwise_cases"] = flip_errs["grid_bitwise"]
+    kernels[-1]["bitwise_cases"] = flip_errs["g2p_bitwise"]
+    kernels[-1]["launch"] = {
+        **{f"{n_p} {dt}": fk.g2p_launch(n_p, getattr(torch, dt)).asdict()
+           for n_p, _, dt, *_ in FLIP_RUNS},
+        "ptxas": _build.ptxas_usage("10g2p_kernel")}
     kernels[-3]["tiling"] = p2g_tiling(fk, "FlipParticles", FLIP_RUNS,
                                        _build, device)
     kernels[-3]["edge_cases"] = flip_errs["edges"]

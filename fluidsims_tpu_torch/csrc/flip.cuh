@@ -9,8 +9,6 @@
 
 namespace fst {
 
-constexpr int kFlipThreads = 256;  // threads a block of the particle kernels
-
 // Linear hat weight (tau_flip_apic.cu w1, :67-70): 1 - |x| inside |x| < 1.
 template <typename T>
 __device__ __forceinline__ T flip_w1(T x) {
@@ -29,30 +27,35 @@ __device__ __forceinline__ int flip_clampi(int i, int lo, int hi) {
   return i < lo ? lo : (i > hi ? hi : i);
 }
 
-// Bilinear sample of u and v at particle coordinates (px, py) (sample_grid,
+// One axis of a bilinear sample at particle coordinate p (sample_grid,
 // :186-200): g = clip(p * (n - 1), 0, hi) with hi = n - 1.001 in T, the
-// base corner floor(g) and the far one min(base + 1, n - 1), blended as
-// (1 - tx)((1 - ty) f00 + ty f01) + tx((1 - ty) f10 + ty f11).  The grids
-// are read-only for the whole launch.
+// base node i0 = floor(g), the far one i1 = min(i0 + 1, n - 1), the
+// fraction t = g - i0 and o = 1 - t.  The index clamp only keeps a
+// non-finite coordinate inside the grid (a NaN converts to 0).
 template <typename T>
-__device__ __forceinline__ void flip_sample(const T* __restrict__ u,
-                                            const T* __restrict__ v, T px,
-                                            T py, int n, T nm1, T hi, T& su,
-                                            T& sv) {
-  const T gx = flip_clip(px * nm1, T(0), hi);
-  const T gy = flip_clip(py * nm1, T(0), hi);
-  // the index clamp only keeps a non-finite coordinate inside the grid
-  const int i0 = flip_clampi((int)floor(gx), 0, n - 1);
-  const int j0 = flip_clampi((int)floor(gy), 0, n - 1);
-  const int i1 = min(i0 + 1, n - 1);
-  const int j1 = min(j0 + 1, n - 1);
-  const T tx = gx - T(i0), ty = gy - T(j0);
-  const T ox = T(1) - tx, oy = T(1) - ty;
-  const size_t r0 = (size_t)j0 * n, r1 = (size_t)j1 * n;
-  su = ox * (oy * __ldg(u + r0 + i0) + ty * __ldg(u + r1 + i0)) +
-       tx * (oy * __ldg(u + r0 + i1) + ty * __ldg(u + r1 + i1));
-  sv = ox * (oy * __ldg(v + r0 + i0) + ty * __ldg(v + r1 + i0)) +
-       tx * (oy * __ldg(v + r0 + i1) + ty * __ldg(v + r1 + i1));
+struct FlipAxis {
+  int i0, i1;
+  T t, o;
+};
+
+template <typename T>
+__device__ __forceinline__ FlipAxis<T> flip_axis(T p, T nm1, T hi, int n) {
+  const T g = flip_clip(p * nm1, T(0), hi);
+  FlipAxis<T> a;
+  a.i0 = flip_clampi((int)floor(g), 0, n - 1);
+  a.i1 = min(a.i0 + 1, n - 1);
+  a.t = g - T(a.i0);
+  a.o = T(1) - a.t;
+  return a;
+}
+
+// The bilinear blend (1 - tx)((1 - ty) f00 + ty f01) + tx((1 - ty) f10 +
+// ty f11) of the values f<x><y> at (y.i<y>, x.i<x>).
+template <typename T>
+__device__ __forceinline__ T flip_blend(const FlipAxis<T>& x,
+                                        const FlipAxis<T>& y, T f00, T f01,
+                                        T f10, T f11) {
+  return x.o * (y.o * f00 + y.t * f01) + x.t * (y.o * f10 + y.t * f11);
 }
 
 }  // namespace fst

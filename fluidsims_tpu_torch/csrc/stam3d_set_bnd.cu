@@ -13,55 +13,84 @@
 // writes need no order and the update is safe in place.  Negation and copy
 // are exact: the result is bitwise that of the plain version.
 //
-// What bounds it on an H100: bytes, and at these sizes the launch.  A
-// thread reads one value and writes one: 6 n^2 cells a field, 4 fields, so
-// ~7 MB at 192^3 f32 (~2 us at 3.35 TB/s).
+// One launch covers all 12 (axis, field) pairs: blockIdx.z = axis * 4 +
+// field (the x faces first, whose accesses are the slowest), a block
+// kSetBndX threads along b by kSetBndRows rows a, and each thread writes
+// both walls of its axis from one decode, in 32-bit index arithmetic:
+//   x faces: the row (k, j) = (a, b): i = 0 from i = 1, i = n + 1 from n;
+//   y faces: (k, i) = (a, b): j = 0 from j = 1, j = n + 1 from n;
+//   z faces: (j, i) = (a, b): k = 0 from k = 1, k = n + 1 from n;
+// with a, b in [1, n].  Along b the y and z faces' cells are consecutive
+// in memory, so those accesses coalesce; an x-face thread's four cells lie
+// in its own row, two 32-byte sectors a row.
+//
+// What bounds it on an H100: bytes.  The useful ones are 2 x 24 n^2 cells
+// (~7 MB at 192^3 f32, ~2 us at 3.35 TB/s); the sectors the layout makes
+// it touch are ~2.4x that at f32 (the x faces' 8 n^2 sectors, each read
+// and written, 18.9 MB at 192^3).  Those scattered sectors set the pace:
+// at 192^3 f32 a build that wrote the x faces alone took 0.0082 of the
+// launch's 0.0098 ms, one that wrote the y and z faces alone 0.0029
+// (NVIDIA H100 80GB HBM3, 700 W; PERF.md row 13).
 #include <cuda_runtime.h>
 
 #include <stddef.h>
 
+#include "tiles.cuh"
+
+// The block: threads along b, rows a (tools/tune_tiles_torch.py sweep
+// --set set_bnd builds other values with -D).
+#ifndef FST_SET_BND_X
+#define FST_SET_BND_X 32
+#endif
+#ifndef FST_SET_BND_ROWS
+#define FST_SET_BND_ROWS 8
+#endif
+
 namespace fst {
 namespace {
 
+constexpr int kSetBndX = FST_SET_BND_X;
+constexpr int kSetBndRows = FST_SET_BND_ROWS;
+constexpr int kSetBndPairs = 12;  // 3 axes x 4 fields
+
 template <typename T>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kSetBndX * kSetBndRows)
 set_bnd_kernel(T* __restrict__ u, T* __restrict__ v, T* __restrict__ w,
                T* __restrict__ d, int n) {
-  const long long per_face = (long long)n * n;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= 24 * per_face) return;
-  const int field = (int)(t / (6 * per_face));
-  const int face = (int)(t / per_face % 6);
-  const int rem = (int)(t % per_face);
-  const int a = rem / n + 1, b = rem % n + 1;
-  const int axis = face >> 1;           // 0: x, 1: y, 2: z
-  const int wall = (face & 1) ? n + 1 : 0;
-  const int src = (face & 1) ? n : 1;
-  int k = a, j = b, i = b, ks = a, js = b, is = b;
-  if (axis == 0) {        // (k, j) = (a, b)
-    i = wall;
-    is = src;
-  } else if (axis == 1) { // (k, i) = (a, b)
-    j = wall;
-    js = src;
-  } else {                // (j, i) = (a, b)
-    j = js = a;
-    k = wall;
-    ks = src;
-  }
+  const int b = blockIdx.x * kSetBndX + threadIdx.x + 1;
+  const int a = blockIdx.y * kSetBndRows + threadIdx.y + 1;
+  if (a > n || b > n) return;
+  const int axis = blockIdx.z >> 2, field = blockIdx.z & 3;
   T* g = field == 0 ? u : (field == 1 ? v : (field == 2 ? w : d));
   const size_t N = (size_t)n + 2;
-  const T val = g[((size_t)ks * N + js) * N + is];
-  g[((size_t)k * N + j) * N + i] = field == axis ? -val : val;
+  size_t base, stride;  // the wall cell at a = 0 of the axis, its step
+  if (axis == 0) {
+    base = ((size_t)a * N + b) * N;
+    stride = 1;
+  } else if (axis == 1) {
+    base = (size_t)a * N * N + b;
+    stride = N;
+  } else {
+    base = (size_t)a * N + b;
+    stride = N * N;
+  }
+  const T lo = g[base + stride];
+  const T hi = g[base + (size_t)n * stride];
+  const bool neg = field == axis;
+  g[base] = neg ? -lo : lo;
+  g[base + (size_t)(n + 1) * stride] = neg ? -hi : hi;
+}
+
+dim3 set_bnd_grid(int n) {
+  return dim3((unsigned)((n + kSetBndX - 1) / kSetBndX),
+              (unsigned)((n + kSetBndRows - 1) / kSetBndRows), kSetBndPairs);
 }
 
 template <typename T>
 int launch_set_bnd(T* u, T* v, T* w, T* d, int n, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const long long threads = 24LL * n * n;
-  const int block = 256;
-  set_bnd_kernel<T><<<(unsigned)((threads + block - 1) / block), block, 0,
+  set_bnd_kernel<T><<<set_bnd_grid(n), dim3(kSetBndX, kSetBndRows), 0,
                       (cudaStream_t)stream>>>(u, v, w, d, n);
   return (int)cudaGetLastError();
 }
@@ -70,6 +99,16 @@ int launch_set_bnd(T* u, T* v, T* w, T* d, int n, int device, void* stream) {
 }  // namespace fst
 
 extern "C" {
+
+// The launch for an (n+2)^3 volume: blocks, threads a block, and the
+// block's extent along b (tile_x) and a (tile_y).
+int fst_stam3d_set_bnd_blocks(int n, fst::TileLaunch* out) {
+  const dim3 g = fst::set_bnd_grid(n);
+  *out = fst::TileLaunch{(int)(g.x * g.y * g.z), fst::kSetBndX *
+                         fst::kSetBndRows, fst::kSetBndX, fst::kSetBndRows,
+                         0, 0};
+  return 0;
+}
 
 int fst_stam3d_set_bnd_f32(float* u, float* v, float* w, float* d, int n,
                            int device, void* stream) {

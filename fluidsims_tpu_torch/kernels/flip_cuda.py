@@ -22,9 +22,11 @@ versions, and the 'cuda' engine's step built on them.
   (solvers/flip_apic.py::_grid_phase).
 * `g2p(cfg, pos, vel, u_prev, v_prev, u_proj, v_proj, flip)` —
   csrc/flip_g2p.cu, which replaces flip_pallas.py::_g2p_kernel: per
-  particle the samples, the FLIP/PIC blend, the APIC affine matrix, the
-  advection with restitution walls and the density raster.  Plain
-  version: `g2p_plain` (solvers/flip_apic.py::_g2p).
+  particle the samples (each node of the projected field loaded once, from
+  a window about the particle's cell), the FLIP/PIC blend, the APIC affine
+  matrix, the advection with restitution walls and the density raster
+  (adds grouped by cell within a warp); `g2p_launch` reports its blocks
+  and threads.  Plain version: `g2p_plain` (solvers/flip_apic.py::_g2p).
 * `make_step_cuda(cfg)` — the 'cuda' engine's step: solvers/flip_apic.py::
   _step on the three kernels, one launch of each a step; around them only
   the memset of the raster.
@@ -63,7 +65,8 @@ from ._common import grid_syncs as _grid_syncs
 
 __all__ = ["LAUNCHES", "reset_launches", "p2g", "p2g_plain", "grid_phase",
            "grid_phase_plain", "g2p", "g2p_plain", "make_step_cuda", "load",
-           "grid_launch", "grid_syncs", "p2g_launch", "p2g_stats"]
+           "grid_launch", "grid_syncs", "p2g_launch", "p2g_stats",
+           "g2p_launch"]
 
 LAUNCHES = LaunchCounter("p2g", "grid", "g2p")
 reset_launches = LAUNCHES.reset
@@ -93,6 +96,9 @@ def load() -> ctypes.CDLL:
         fn.restype = I
         fn = getattr(lib, f"fst_flip_g2p_{sfx}")
         fn.argtypes = [P] * 11 + [L, I, D, D, I, P]
+        fn.restype = I
+        fn = getattr(lib, f"fst_flip_g2p_blocks_{sfx}")
+        fn.argtypes = [L, ctypes.POINTER(TileLaunch)]
         fn.restype = I
     lib.fst_cuda_error_string.argtypes = [I]
     lib.fst_cuda_error_string.restype = ctypes.c_char_p
@@ -271,6 +277,19 @@ def grid_phase(cfg, mass, u, v):
 # ------------------------------------ G2P ------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def g2p_launch(n_p: int, dtype: torch.dtype) -> TileLaunch:
+    """The G2P's launch for n_p particles of `dtype`, as the library
+    computes it: blocks (grid) and threads a block."""
+    return tile_launch(load(), f"fst_flip_g2p_blocks_{_SUFFIX[dtype]}", n_p)
+
+
+def _pair_aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data does not start on an (x, y)
+    pair's boundary: the kernel reads a pair as one vector."""
+    return t if t.data_ptr() % (2 * t.element_size()) == 0 else t.clone()
+
+
 def g2p_plain(cfg, pos, vel, u_prev, v_prev, u_proj, v_proj, flip=None):
     """Plain PyTorch version of the G2P kernel: (pos, vel, affine_x,
     affine_y, density)."""
@@ -291,6 +310,7 @@ def g2p(cfg, pos, vel, u_prev, v_prev, u_proj, v_proj, flip=None):
                         f"particles {pos.dtype} on {pos.device}")
     n, dev = cfg.grid, pos.device
     flip = float(cfg.flip if flip is None else flip)
+    pos, vel = _pair_aligned(pos), _pair_aligned(vel)
     parts = torch.empty((4, n_p, 2), dtype=pos.dtype, device=dev)
     density = torch.zeros((n, n), dtype=torch.int32, device=dev)
     lib = load()

@@ -11,7 +11,9 @@ PyTorch versions, and the 'cuda' engine's step built on them.
   `advect_plain` (solvers/stam3d.py::_advect_gather).
 * `set_bnd(u, v, w, d)` — csrc/stam3d_set_bnd.cu, which replaces
   stam3d_pallas.py::_set_bnd_kernel: the reflective faces of the four
-  fields, in place.  Plain version: `set_bnd_plain`.
+  fields, in place, all 12 (axis, field) pairs in one launch, a thread both
+  walls of its axis (`set_bnd_launch` reports the blocks, threads and the
+  block's extent).  Plain version: `set_bnd_plain`.
 * `lin_solve(cfg, x, x0, a, c)` — the reference's Jacobi ping-pong
   (js_cuda3d.cu:297-313) over `jacobi` sweeps, between a copy of x and a
   scratch volume with a zero ring; `make_step_cuda(cfg)` — the 'cuda'
@@ -37,11 +39,11 @@ import torch
 from ..ops.scalar import div
 from ..solvers import stam3d as s3
 from . import _build
-from ._common import LaunchCounter, on_cpu
+from ._common import LaunchCounter, TileLaunch, on_cpu, tile_launch
 
 __all__ = ["LAUNCHES", "reset_launches", "jacobi", "jacobi_plain", "advect",
            "advect_plain", "set_bnd", "set_bnd_plain", "lin_solve",
-           "make_step_cuda", "load"]
+           "make_step_cuda", "load", "set_bnd_launch"]
 
 LAUNCHES = LaunchCounter("jacobi", "advect", "set_bnd")
 reset_launches = LAUNCHES.reset
@@ -66,6 +68,8 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, f"fst_stam3d_{name}_{sfx}")
             fn.argtypes = argtypes + [I, P]
             fn.restype = ctypes.c_int
+    lib.fst_stam3d_set_bnd_blocks.argtypes = [I, ctypes.POINTER(TileLaunch)]
+    lib.fst_stam3d_set_bnd_blocks.restype = ctypes.c_int
     lib.fst_cuda_error_string.argtypes = [ctypes.c_int]
     lib.fst_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -181,6 +185,14 @@ def set_bnd_plain(u, v, w, d):
                                ((-1, I, I), (-2, I, I), sz)):
             f[dst] = -f[src] if sign < 0 else f[src]
     return u, v, w, d
+
+
+@functools.lru_cache(maxsize=None)
+def set_bnd_launch(n: int) -> TileLaunch:
+    """set_bnd's launch on (n+2)^3 volumes, as the library computes it:
+    blocks (grid), threads a block, and the block's extent along a face
+    row (tile_x) and across rows (tile_y)."""
+    return tile_launch(load(), "fst_stam3d_set_bnd_blocks", n)
 
 
 def set_bnd(u, v, w, d):

@@ -5,8 +5,8 @@ tiles.
     python tools/tune_tiles_torch.py [check] [time] [sweep] [phases]
         [sass] [diff A B]
         [--root DIR] [--out PATH] [--define NAME=VALUE ...] [--only KEY ...]
-        [--fmad] [--dump DIR]
-        [--set tiles|hypersonic|mhd|sph|flip|lbm|p2g|gs]
+        [--fmad] [--dump DIR] [--inputs DIR]
+        [--set tiles|hypersonic|mhd|sph|flip|lbm|p2g|gs|g2p|set_bnd]
 
 The kernels: the Burgers and shallow-water K-step kernels
 (csrc/burgers_multistep.cu, csrc/shallow_water_multistep.cu, TPU kernel
@@ -17,8 +17,9 @@ csrc/hypersonic3d_step.cu, #2), the GLM-MHD K-step kernel
 (csrc/sph_density.cu, #14; csrc/sph_forces.cu, #15), the FLIP grid phase
 (csrc/flip_grid.cu, #17), the LBM K-step kernel (csrc/lbm_multistep.cu,
 #6), the MPM and FLIP P2Gs (csrc/mpm_p2g.cu, #19; csrc/flip_p2g.cu, #16;
-both csrc/p2g_tiles.cuh) and the Gray–Scott K-step kernel
-(csrc/gray_scott_multistep.cu, #4).
+both csrc/p2g_tiles.cuh), the Gray–Scott K-step kernel
+(csrc/gray_scott_multistep.cu, #4), the FLIP G2P (csrc/flip_g2p.cu, #18)
+and the stam3d set_bnd (csrc/stam3d_set_bnd.cu, #13).
 
 * check — each kernel against its plain version on the card: Burgers and
   shallow water on 200x75 and 5x3 (every option), k = 1 within 1e-5
@@ -45,7 +46,10 @@ both csrc/p2g_tiles.cuh) and the Gray–Scott K-step kernel
   window), with and without a drive override; the Gray–Scott K-step
   kernel bitwise equal to K plain steps and to K one-step launches at
   K = 1, 3, 16 and 32 on 37x23, 200x75, 256x128 and 20x17 (narrower than
-  the window), f32 and f64, with and without feed=0.04, kill=0.058.
+  the window), f32 and f64, with and without feed=0.04, kill=0.058; the
+  FLIP G2P bitwise equal to its plain version, the raster counting every
+  particle, and set_bnd bitwise equal, on chip_smoke.py's phase-19 and
+  phase-15 cases (G2P_CHECK, SET_BND_CHECK_N; this tree's chip_smoke.py).
   Raises on the first failure.
 * time — ms a launch by CUDA events (a warm-up, then the mean over a run
   of launches back to back) at the shapes chip_smoke.py's main runs use:
@@ -75,9 +79,24 @@ both csrc/p2g_tiles.cuh) and the Gray–Scott K-step kernel
   device time a launch of the P2G kernel and of all device work a wrapper
   call (the parent's zero fill, the atomic design's memset too; where the
   tree has two designs, each one's), and the host's time a wrapper call
-  (`host_us`).  For the K=1 launches, also the device time a launch (torch.profiler's kernel time over 200 launches) and the
-  host's time a wrapper call (the host clock over 200 calls that queue
-  without a sync), by part.  With --root, the package is imported from
+  (`host_us`); the FLIP G2P ("g2p flip 128 f32", "... 128 f64", "... 512
+  f32") on the inputs of the G2P of the final state of chip_smoke.py's
+  FLIP runs, also as device time and the host's time a wrapper call
+  (`host_us`), bitwise to plain or not, its launch,
+  and digests of those inputs and of its outputs (with --inputs DIR the
+  first process saves the inputs there and the next load them, so two
+  trees are held to each other on the same bits: the P2G's atomics make
+  two runs differ); set_bnd ("set_bnd 192 f32", "... f64") on the four
+  fields of the final state of the stam3d runs (192^3 f32 x 100, f64 x
+  20), also as device time, with digests of that state and of the
+  output; the MPM grid update (#20) and G2P (#21) on the P2G grids of the
+  final state of the MPM runs ("mpm 96 f32", "mpm 96 f64", "mpm 512
+  f32"; "<key> grid", "<key> g2p"), also as device time; and "p2g switch":
+  each P2G design's device time a wrapper call on FLIP and MPM runs of
+  65,536-262,144 particles, where FST_P2G_TILED_FROM should lie.  For the
+  K=1 launches, also the device time a launch (torch.profiler's kernel
+  time over 200 launches) and the host's time a wrapper call (the host
+  clock over 200 calls that queue without a sync), by part.  With --root, the package is imported from
   DIR (an unpacked tree of another commit), so two commits are timed with
   one script on one card, each in its own process.
 * sweep — the same times over candidate tiles: each candidate is a build
@@ -110,7 +129,11 @@ both csrc/p2g_tiles.cuh) and the Gray–Scott K-step kernel
   (csrc/lbm_multistep.cu FST_LBM_SMEM, FST_LBM_THREADS); `--set p2g` the
   P2Gs' tiles, particles a chunk and threads a block (csrc/mpm_p2g.cu
   FST_MPM_P2G_TILE_X, _Y, FST_MPM_P2G_CHUNK, FST_MPM_P2G_THREADS;
-  csrc/flip_p2g.cu FST_FLIP_P2G_...), timed by their device time.
+  csrc/flip_p2g.cu FST_FLIP_P2G_...), timed by their device time; `--set
+  g2p` the FLIP G2P's threads a block (csrc/flip_g2p.cu FST_G2P_THREADS,
+  FST_G2P_F64_THREADS; pass --inputs so that every build times the same
+  inputs); `--set set_bnd` the set_bnd block (csrc/stam3d_set_bnd.cu
+  FST_SET_BND_X, FST_SET_BND_ROWS).
 * phases — the tiled P2Gs' phase times on the final states that `time`
   uses: a build with -DFST_P2G_STAMPS (csrc/p2g_tiles.cuh), in which
   block 0 stamps %globaltimer at the launch's start and after each of
@@ -121,7 +144,9 @@ both csrc/p2g_tiles.cuh) and the Gray–Scott K-step kernel
 * sass — the atomic instructions of the built library's P2G kernels in
   `cuobjdump -sass`, and of a probe of float and double atomicAdd on
   shared memory built for the same target: ATOMS.CAST.SPIN is a
-  compare-and-swap loop, ATOMS.ADD a native shared-memory add.
+  compare-and-swap loop, ATOMS.ADD a native shared-memory add; and the
+  number of SASS instructions of the FLIP G2P and set_bnd kernels with
+  their commonest opcodes (--root: another tree's).
 * --fmad — build with -fmad=true in place of -fmad=false: how much of a
   kernel's time the unfused multiplies and adds take.  A measurement
   only; the shipped build and every bitwise bar keep -fmad=false.
@@ -141,6 +166,7 @@ from __future__ import annotations
 import argparse
 import collections
 import hashlib
+import importlib.util
 import json
 import re
 import subprocess
@@ -752,10 +778,28 @@ def sass_atomics(cuobjdump: Path, binary: Path, fragment: str) -> dict:
     return out
 
 
+def sass_opcodes(cuobjdump: Path, binary: Path, fragment: str) -> dict:
+    """The SASS instructions of each kernel of `binary` whose name holds
+    `fragment`: their number and the ten commonest opcodes."""
+    text = subprocess.run([str(cuobjdump), "-sass", str(binary)],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if fragment in name:
+            ops = collections.Counter(m.split(".")[0] for m in re.findall(
+                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)", part))
+            out[name] = {"instructions": sum(ops.values()),
+                         **dict(ops.most_common(10))}
+            log(f"[sass] {name[:100]}: {out[name]}")
+    return out
+
+
 def sass(build) -> dict:
     """The atomic instructions of the built library's P2G kernels, and of
     a probe of float and double atomicAdd on shared memory built for the
-    library's target."""
+    library's target; the instruction counts of the FLIP G2P and set_bnd
+    kernels."""
     nvcc = Path(build.find_nvcc())
     cuobjdump = nvcc.parent / "cuobjdump"
     lib = build._lib_path(build.find_nvcc())  # the one this process built
@@ -765,7 +809,9 @@ def sass(build) -> dict:
     subprocess.run([str(nvcc), *build.NVCC_FLAGS[:2], "-cubin", "-o",
                     str(cubin), str(src)], check=True, capture_output=True)
     return {"p2g": sass_atomics(cuobjdump, lib, "p2g"),
-            "shared_add": sass_atomics(cuobjdump, cubin, "shared_add")}
+            "shared_add": sass_atomics(cuobjdump, cubin, "shared_add"),
+            "g2p": sass_opcodes(cuobjdump, lib, "10g2p_kernel"),
+            "set_bnd": sass_opcodes(cuobjdump, lib, "set_bnd_kernel")}
 
 
 def p2g_timings(m, dev, only, dump) -> dict:
@@ -1107,6 +1153,178 @@ def gs_timings(m, dev, only, dump) -> dict:
     return res
 
 
+def smoke():
+    """This tool's own tree's chip_smoke.py (whatever --root is): the case
+    lists and checks of the G2P and set_bnd that `check` runs."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_g2p(m, dev) -> list:
+    """The FLIP G2P bitwise equal to its plain version, the raster counting
+    every particle: chip_smoke.py's phase-19 cases (G2P_CHECK)."""
+    cs = smoke()
+    errs = {"g2p": 0.0, "g2p_bitwise": [0, 0]}
+    cs.check_g2p_cases(m.fk, m.fa, dev, errs)
+    torch.cuda.synchronize()
+    return [{"case": f"g2p {cs.G2P_CHECK}, f32 and f64, two blends",
+             "bitwise": errs["g2p_bitwise"]}]
+
+
+def check_set_bnd(m, dev) -> list:
+    """stam3d set_bnd bitwise equal to its plain version: chip_smoke.py's
+    phase-15 cases (SET_BND_CHECK_N)."""
+    cs = smoke()
+    errs = {"set_bnd_bitwise": 0}
+    cs.check_set_bnd_cases(m.sc, dev, errs)
+    torch.cuda.synchronize()
+    return [{"case": f"set_bnd n = {cs.SET_BND_CHECK_N}, f32 and f64",
+             "bitwise": errs["set_bnd_bitwise"]}]
+
+
+# The FLIP G2P (#18) at chip_smoke.py's FLIP runs: (key, particles, grid,
+# dtype, steps of the run, launches timed).
+G2P_RUNS = (("g2p flip 128 f32", 65536, 128, "float32", 1000, 200),
+            ("g2p flip 128 f64", 65536, 128, "float64", 200, 200),
+            ("g2p flip 512 f32", 1 << 20, 512, "float32", 200, 100))
+G2P_KEYS = tuple(r[0] for r in G2P_RUNS)
+
+
+def g2p_inputs(m, dev, key, cfg, steps, inputs) -> list:
+    """(pos, vel, u_prev, v_prev, u_proj, v_proj) of the G2P on the final
+    state of a G2P_RUNS run: from `inputs`/<key>.pt where saved, else from
+    the run (its P2G's atomics land in no fixed order, so two runs differ
+    in their last bits), saved there for the next process."""
+    path = Path(inputs) / (key.replace(" ", "_") + ".pt") if inputs else None
+    if path is not None and path.is_file():
+        return [t.to(dev) for t in torch.load(path)]
+    out = m.fa.run(cfg, m.fa.init(cfg, dev), steps)
+    grids = m.fk.p2g(cfg, out.pos, out.vel, out.affine_x, out.affine_y)
+    got = [out.pos, out.vel, *m.fk.grid_phase(cfg, *grids)]
+    if path is not None:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save([t.cpu() for t in got], path)
+    return got
+
+
+def g2p_timings(m, dev, only, dump, inputs) -> dict:
+    """ms a launch of the FLIP G2P by CUDA events and torch.profiler on the
+    inputs of g2p_inputs, whether it is bitwise to its plain version
+    there, its launch where the tree reports it, and the digests of the
+    inputs and the outputs (`inputs` shared by two trees: the same bits)."""
+    res = {}
+    for key, n_p, n, dtype, steps, reps in G2P_RUNS:
+        if only is not None and key not in only:
+            continue
+        cfg = m.fa.FlipApicConfig(particles=n_p, grid=n, dtype=dtype)
+        args = g2p_inputs(m, dev, key, cfg, steps, inputs)
+        call = lambda: m.fk.g2p(cfg, *args)  # noqa: E731
+        res[key] = time_ms(call, reps)
+        res[key + " device"] = device_ms(call, reps, "::g2p_kernel")
+        res[key + " host_us"] = host_us(call, reps)
+        got = list(call())
+        res[key + " bitwise to plain"] = all(
+            bits_equal(a, b) for a, b in zip(got, m.fk.g2p_plain(cfg, *args)))
+        if hasattr(m.fk, "g2p_launch"):
+            res[key + " launch"] = json.dumps(
+                m.fk.g2p_launch(n_p, cfg.torch_dtype).asdict())
+        record(res, key, args, got, dump)
+    return res
+
+
+# The stam3d set_bnd (#13) at chip_smoke.py's stam3d runs: (key, n, dtype,
+# steps of the run, launches timed).
+SET_BND_RUNS = (("set_bnd 192 f32", 192, "float32", 100, 200),
+                ("set_bnd 192 f64", 192, "float64", 20, 200))
+SET_BND_KEYS = tuple(r[0] for r in SET_BND_RUNS)
+
+
+def set_bnd_timings(m, dev, only, dump) -> dict:
+    """ms a launch of set_bnd by CUDA events and torch.profiler on the
+    four fields of each stam3d run's final state (in place: a second
+    launch writes the bits of the first), its launch where the tree
+    reports it, and the digests of the run's final state (all eight
+    fields: no atomics, so two trees give the same bits) and of one
+    launch's output."""
+    res = {}
+    for key, n, dtype, steps, reps in SET_BND_RUNS:
+        if only is not None and key not in only:
+            continue
+        cfg = m.s3.Stam3DConfig(n=n, dtype=dtype)
+        out = m.s3.run(cfg, m.s3.init(cfg, dev), steps)
+        bnd = [f.clone() for f in (out.u, out.v, out.w, out.d)]
+        call = lambda: m.sc.set_bnd(*bnd)  # noqa: E731
+        res[key] = time_ms(call, reps)
+        res[key + " device"] = device_ms(call, reps, "set_bnd_kernel")
+        ref = [f.clone() for f in (out.u, out.v, out.w, out.d)]
+        m.sc.set_bnd_plain(*ref)
+        res[key + " bitwise to plain"] = all(
+            bits_equal(a, b) for a, b in zip(bnd, ref))
+        if hasattr(m.sc, "set_bnd_launch"):
+            res[key + " launch"] = json.dumps(m.sc.set_bnd_launch(n).asdict())
+        record(res, key, list(out[:8]), bnd, dump)
+    return res
+
+
+# The MPM grid update (#20) and G2P (#21) at chip_smoke.py's MPM runs:
+# (key, particles, grid, dtype, steps of the run, launches timed).
+MPM_RUNS = (("mpm 96 f32", 32768, 96, "float32", 1000, 200),
+            ("mpm 96 f64", 32768, 96, "float64", 200, 200),
+            ("mpm 512 f32", 1 << 20, 512, "float32", 200, 100))
+MPM_KEYS = tuple(r[0] for r in MPM_RUNS)
+
+
+def mpm_timings(m, dev, only, dump) -> dict:
+    """ms a launch of the MPM grid update ("<key> grid") and G2P ("<key>
+    g2p") by CUDA events and torch.profiler on the P2G grids of each MPM
+    run's final state."""
+    res = {}
+    for key, n_p, n, dtype, steps, reps in MPM_RUNS:
+        if only is not None and key not in only:
+            continue
+        cfg = m.mp.MPMConfig(n=n_p, gx=n, gy=n, dtype=dtype)
+        out = m.mp.run(cfg, m.mp.init(cfg, dev), steps)
+        grids = m.mpk.p2g(cfg, out.pos, out.vel, out.F, out.Jp)
+        vels = m.mpk.grid_update(cfg, *grids)
+        for name, call, frag in (
+                ("grid", lambda: m.mpk.grid_update(cfg, *grids),
+                 "mpm_grid_kernel"),
+                ("g2p", lambda: m.mpk.g2p(cfg, out.pos, out.F, out.Jp, *vels),
+                 "mpm_g2p_kernel")):
+            res[f"{key} {name}"] = time_ms(call, reps)
+            res[f"{key} {name} device"] = device_ms(call, reps, frag)
+    return res
+
+
+# Where the P2G designs cross (FST_P2G_TILED_FROM, csrc/p2g_tiles.cuh):
+# particles, with the grid that keeps chip_smoke.py's particles a cell
+# (FLIP 4, MPM 32,768 on 96^2), each run 200 steps.
+P2G_SWITCH = (65536, 131072, 196608, 262144)
+
+
+def p2g_switch_timings(m, dev, only) -> dict:
+    """Device time a wrapper call of each P2G design (all device work:
+    the atomic design's memset too) on the final state of FLIP and MPM
+    runs of P2G_SWITCH's particles: keys "p2g switch <solver> <particles>
+    <design>"."""
+    res = {}
+    if only is not None and "p2g switch" not in only:
+        return res
+    for n_p in P2G_SWITCH:
+        for solver in ("flip", "mpm"):
+            n = round((n_p / 4) ** 0.5 if solver == "flip"
+                      else 96 * (n_p / 32768) ** 0.5)
+            cfg, parts, mod = p2g_run(m, dev, solver, n_p, n, "float32", 200)
+            for design in p2g_designs(mod):
+                call = lambda: mod._p2g(cfg, *parts, design=design)  # noqa
+                res[f"p2g switch {solver} {n_p} on {n}^2 {design}"] = \
+                    device_call_ms(call, 100)
+    return res
+
+
 def diff(a: str, b: str) -> dict:
     """Key by key, two dumps' final states and step outputs: bitwise equal
     or not, the cells whose bits differ, and the max |a - b| over the
@@ -1140,12 +1358,13 @@ def checks(m, dev, only=None) -> list:
     parts = ((check, KSTEP_KEYS + SOLVE_KEYS), (check_hyp, HYP_KEYS),
              (check_mhd, MHD_KEYS), (check_sph, SPH_KEYS),
              (check_flip, FLIP_KEYS), (check_lbm, LBM_KEYS),
-             (check_p2g, P2G_KEYS), (check_gs, GS_KEYS))
+             (check_p2g, P2G_KEYS), (check_gs, GS_KEYS),
+             (check_g2p, G2P_KEYS), (check_set_bnd, SET_BND_KEYS))
     return [c for fn, keys in parts if only is None or set(keys) & set(only)
             for c in fn(m, dev)]
 
 
-def timings(m, dev, only=None, dump=None) -> dict:
+def timings(m, dev, only=None, dump=None, inputs=None) -> dict:
     """ms a launch at the main runs' shapes (only: the keys to time)."""
     res = hyp_timings(m, dev, only, dump)
     res.update(mhd_timings(m, dev, only, dump))
@@ -1154,6 +1373,10 @@ def timings(m, dev, only=None, dump=None) -> dict:
     res.update(lbm_timings(m, dev, only, dump))
     res.update(p2g_timings(m, dev, only, dump))
     res.update(gs_timings(m, dev, only, dump))
+    res.update(g2p_timings(m, dev, only, dump, inputs))
+    res.update(set_bnd_timings(m, dev, only, dump))
+    res.update(mpm_timings(m, dev, only, dump))
+    res.update(p2g_switch_timings(m, dev, only))
     runs = (("burgers 512 f32 K=16", m.bg, m.bk.burgers_multistep,
              dict(nx=512, ny=512), 16, 50),
             ("burgers 512 f32 K=1", m.bg, m.bk.burgers_multistep,
@@ -1259,6 +1482,11 @@ P2G_VARIANTS = (((16, 16), 512, 256, (16, 16), 512, 256),
                 ((8, 8), 512, 256, (8, 8), 512, 256),
                 ((32, 32), 512, 256, (32, 32), 512, 256),
                 ((16, 16), 128, 128, (16, 16), 128, 128))
+# The FLIP G2P sweep: (threads a block at f32, at f64) of each build, the
+# sources' first.
+G2P_VARIANTS = ((64, 256), (128, 256), (256, 128), (32, 512))
+# The set_bnd sweep: (threads along a face row, rows) of each build.
+SET_BND_VARIANTS = ((32, 8), (32, 4), (64, 4), (128, 2))
 KSTEP_KEYS = ("burgers 512 f32 K=16", "burgers 4096 f32 K=16",
               "burgers 512 f64 K=16", "sw 512 f32 K=8", "sw 4096 f32 K=8",
               "sw 512 f64 K=8")
@@ -1345,9 +1573,20 @@ def p2g_variants() -> list[tuple[dict, tuple]]:
             for a, ca, ta, b, cb, tb in P2G_VARIANTS]
 
 
+def g2p_variants() -> list[tuple[dict, tuple]]:
+    return [({"FST_G2P_THREADS": t32, "FST_G2P_F64_THREADS": t64}, G2P_KEYS)
+            for t32, t64 in G2P_VARIANTS]
+
+
+def set_bnd_variants() -> list[tuple[dict, tuple]]:
+    return [({"FST_SET_BND_X": x, "FST_SET_BND_ROWS": rows}, SET_BND_KEYS)
+            for x, rows in SET_BND_VARIANTS]
+
+
 SWEEPS = {"tiles": variants, "hypersonic": hyp_variants, "mhd": mhd_variants,
           "sph": sph_variants, "flip": flip_variants, "lbm": lbm_variants,
-          "p2g": p2g_variants, "gs": gs_variants}
+          "p2g": p2g_variants, "gs": gs_variants, "g2p": g2p_variants,
+          "set_bnd": set_bnd_variants}
 
 
 def sweep(args) -> list:
@@ -1359,6 +1598,8 @@ def sweep(args) -> list:
     for defines, keys in SWEEPS[args.set]():
         cmd = [sys.executable, __file__, "time", "--root", args.root,
                "--out", str(tmp), "--only", *keys]
+        if args.inputs:
+            cmd += ["--inputs", args.inputs]
         for name, value in defines.items():
             cmd += ["--define", f"{name}={value}"]
         proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -1397,6 +1638,9 @@ def main(argv=None) -> int:
     ap.add_argument("--fmad", action="store_true",
                     help="build with -fmad=true (a measurement only)")
     ap.add_argument("--dump", help="save the hypersonic outputs here")
+    ap.add_argument("--inputs",
+                    help="keep the G2P keys' inputs here (saved by the "
+                    "first process, loaded by the next)")
     ap.add_argument("--set", default="tiles", choices=sorted(SWEEPS),
                     help="the kernels whose tiles `sweep` varies")
     args = ap.parse_args(argv)
@@ -1460,12 +1704,14 @@ def main(argv=None) -> int:
     from fluidsims_tpu_torch.solvers import mpm as mp
     from fluidsims_tpu_torch.kernels import gray_scott_cuda as gk
     from fluidsims_tpu_torch.solvers import gray_scott as gs
+    from fluidsims_tpu_torch.kernels import stam3d_cuda as sc
+    from fluidsims_tpu_torch.solvers import stam3d as s3
 
     m = types.SimpleNamespace(bk=bk, swk=swk, s2k=s2k, bg=bg, sw=sw, hk=hk,
                               hk3=hk3, h2=h2, h3=h3, interop=interop,
                               cfl_dt=cfl_dt, mk=mk, sk=sk, mhd=mhd, ts=ts,
                               fk=fk, lk=lk, fa=fa, lbm=lbm, mpk=mpk, mp=mp,
-                              gk=gk, gs=gs)
+                              gk=gk, gs=gs, sc=sc, s3=s3)
     log(f"[device] {smi}; package from {Path(bk.__file__).parents[1]}")
     dev = torch.device("cuda", 0)
     bk.load()
@@ -1480,7 +1726,8 @@ def main(argv=None) -> int:
                                        "forces_kernel", "11grid_kernel",
                                        "lbm_multistep_kernel", "p2g",
                                        "gs_multistep_kernel",
-                                       "density_kernel")
+                                       "density_kernel", "10g2p_kernel",
+                                       "set_bnd_kernel")
                         for u in _build.ptxas_usage(name)]
         for u in res["ptxas"]:
             log(f"[build] ptxas {u}")
@@ -1491,7 +1738,7 @@ def main(argv=None) -> int:
     if "sass" in args.what:
         res["sass"] = sass(_build)
     if "time" in args.what:
-        res["time"] = timings(m, dev, args.only, args.dump)
+        res["time"] = timings(m, dev, args.only, args.dump, args.inputs)
         for key, v in res["time"].items():
             log(f"[time] {key}: " + (v if isinstance(v, str) else
                                       f"{v:.2f} us a call" if "host" in key
