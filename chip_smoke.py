@@ -25,7 +25,12 @@ failure of which ends the run with a non-zero exit:
              plain versions at these full shapes (same bars as phase 3).
 5. physics — fluid cells finite, min rho >= 1e-25, min p > 0, and a bow
              shock (rho > 1.5) upstream of the body after the 2048^2 run.
-6. sph_kernels — the three SPH kernels (bin, density, forces + integrate)
+6. sph_kernels — the bin alone on its adversarial cases (BIN_CHECK: all
+             4,096 particles in one cell, f32 and f64; a cell of 3,000 at
+             2^16, more than one sorted chunk of the kernel; 2^20 from
+             init on 256^2, whose top is empty), each output bitwise equal
+             to the plain version or the script fails, cases counted; then
+             the three SPH kernels (bin, density, forces + integrate)
              against their plain PyTorch versions on the same inputs, f32
              and f64, on 4096 particles from init plus seeded velocity
              noise: the binning bitwise, density and forces max|err| /
@@ -52,9 +57,13 @@ failure of which ends the run with a non-zero exit:
              engine's (which drops the particles past a cell's K slots);
              overflow_count 0 (the cuda engine keeps every pair); physics
              (finite, in the box, mean height below the initial one, tau
-             > 0); then, from each run's final state, each kernel against
-             its plain version at that shape (same bars), per-launch times
-             and the pair counts.
+             > 0); the bin's two launches as its grid query reports
+             them, and the first one's grid syncs as the kernel counted
+             them (equal to the query's or the script fails); then, from
+             each run's final state, each kernel against its plain
+             version at that shape (same bars), per-launch times (the bin
+             and density also as torch.profiler's device time) and the
+             pair counts.
 8. hyp3d_kernels — the two 3-D hypersonic kernels (cell update, masked
              max wavespeed) against their plain PyTorch versions, f32 and
              f64, both outflow modes, on a non-cubic 24x40x56 (z, y, x) grid,
@@ -163,7 +172,11 @@ failure of which ends the run with a non-zero exit:
              (the cells JAX's default dense-shift advection would have
              capped); then from each final state every kernel against its
              plain version at full shape and per-launch times.
-17. stam2d_kernels — the two 2-D stable-fluids kernels (the whole
+17. stam2d_kernels — the advection at n = 1, 2 and 3 (ADVECT_CHECK_N's
+             first sizes: fields narrower than a warp), one field and the
+             velocity pair, f32 and f64, bitwise equal to the plain
+             version or the script fails; then the two 2-D stable-fluids
+             kernels (the whole
              Jacobi solve in one cooperative launch, the exact bilinear
              advection of one or two fields) against their plain PyTorch
              versions, f32 and f64, at n=512, 200 and 37 on seeded fields
@@ -301,7 +314,13 @@ the library reports them, and
 first one's bits; the SPH density line (#14) the same for its kernel
 (`block`, `repeat_bitwise`), `ms_device`, `ms_device_1048576`
 (torch.profiler's device time a launch) and `ptxas` (each lane count's
-registers and spills).  The lines of the two hypersonic step kernels
+registers and spills); the SPH bin's line (#22) `ms_device` and
+`ms_device_1048576` (both launches), `launch` (each main run's launches
+as the grid query reports them, and the grid syncs the kernel counted),
+`bitwise_cases` (phase 6's BIN_CHECK cases, [bitwise, cases]) and
+`ptxas`; the stam2d advection's line (#10) `ptxas` and `bitwise_cases`
+(phase 17's cases at n = 1-3).  The lines of the two hypersonic step
+kernels
 (#1, #2) carry `tiling` at the main
 runs' shapes: the blocks, threads a block, tile, halo and dynamic shared
 memory that the library's launch query reports, and ptxas's registers,
@@ -586,10 +605,11 @@ def time_launches(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def device_ms(fn, n: int, fragment: str) -> float | None:
+def device_ms(fn, n: int, fragment: str | tuple) -> float | None:
     """Device time a call of fn() by torch.profiler: the kernels whose name
-    holds `fragment` over n calls, after one warm-up call; None where the
-    profiler records no such kernel."""
+    holds `fragment` (or one of a tuple of them) over n calls, after one
+    warm-up call; None where the profiler records no such kernel."""
+    fragments = (fragment,) if isinstance(fragment, str) else fragment
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
@@ -599,7 +619,7 @@ def device_ms(fn, n: int, fragment: str) -> float | None:
         torch.cuda.synchronize()
     us = [e.time_range.end - e.time_range.start for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA
-          and fragment in e.name]
+          and any(f in e.name for f in fragments)]
     return sum(us) / n / 1e3 if us else None
 
 
@@ -849,6 +869,58 @@ def crowded_pool(sk, ts, cfg, device, rng, crowd: int = 1500):
     return pos.to(device), vel.to(device), hood
 
 
+# The bin's adversarial cases (phase 6; tools/tune_tiles_torch.py check
+# runs them too): (name, particles, rain, particles packed into cell (3, 2),
+# dtypes).  All particles in one cell; a cell of more members than the
+# kernel sorts in one chunk at 2^16; 2^20 from init on 256^2, the top of
+# the box empty.
+BIN_CHECK = (("one cell", 4096, False, 4096, ("float32", "float64")),
+             ("crowded 2^16", 65536, False, 3000, ("float32", "float64")),
+             ("2^20 rain on 256^2", 1 << 20, True, 0, ("float32",)))
+
+
+def bin_case(ts, n: int, rain: bool, crowd: int, dtype: str, device, rng):
+    """(cfg, pos, vel): init() with `crowd` particles packed into cell (3,
+    2) and seeded velocity noise."""
+    cfg = ts.SPHConfig(n=n, rain=rain, dtype=dtype)
+    pos = ts.init(cfg, torch.device("cpu")).pos.clone()
+    c = cfg.grid().cell
+    for k, at in ((0, 3.5), (1, 2.5)):
+        pos[:crowd, k] = torch.tensor(
+            at * c + 0.45 * c * rng.uniform(-1, 1, crowd), dtype=pos.dtype)
+    vel = torch.tensor(0.5 * rng.standard_normal((n, 2)),
+                       dtype=cfg.torch_dtype)
+    return cfg, pos.to(device), vel.to(device)
+
+
+def check_bin_cases(sk, ts, device, errs) -> None:
+    """Each BIN_CHECK case's bin bitwise equal to binning_plain in all five
+    outputs, or the script fails; the cases counted in
+    errs["bin_bitwise"]."""
+    rng = np.random.default_rng(SEED + 22)
+    ok = errs.setdefault("bin_bitwise", [0, 0])
+    for name, n, rain, crowd, dtypes in BIN_CHECK:
+        for dtype in dtypes:
+            cfg, pos, vel = bin_case(ts, n, rain, crowd, dtype, device, rng)
+            got = sk.binning(cfg, pos, vel)
+            ref = sk.binning_plain(cfg, pos, vel)
+            for field, x, y in zip(got._fields, got, ref):
+                if not bits_equal(x, y):
+                    raise AssertionError(f"bin {name} {dtype}: {field} "
+                                         "differs from the plain version")
+            counts = torch.bincount(ref.cid.long(),
+                                    minlength=ref.starts.numel() - 1)
+            empty = int((counts == 0).sum())
+            if rain and not empty:
+                raise AssertionError(f"bin {name}: no empty cell")
+            ok[0] += 1
+            ok[1] += 1
+            g = cfg.grid()
+            log(f"[sph] bin {name} {dtype} (n={n}, {g.Gx}x{g.Gy} cells, "
+                f"largest {int(counts.max())}, {empty} empty): bitwise equal "
+                "to the plain version")
+
+
 def check_sph_exact(sk, ts, cfg, pos, vel, what: str, errs: dict) -> dict:
     """Density and forces + integrate of the kernels against the 'exact'
     engine's all-pairs functions on the same state (the kernels' density
@@ -890,6 +962,7 @@ def plain_sph_step(sk, ts, cfg):
 
 def phase_sph_kernels(sk, ts, device) -> dict:
     errs = {"density": 0.0, "forces": 0.0, "rel": {}}
+    check_bin_cases(sk, ts, device, errs)
     rng = np.random.default_rng(SEED)
     for dtype in ("float32", "float64"):
         for n, cap in ((4096, 0), (512, 8)):
@@ -983,6 +1056,16 @@ def phase_sph_main(sk, ts, device, smi, errs, runs=SPH_RUNS) -> dict:
             f"({steps / wall:.1f} steps/s); plain torch engine {p_steps} "
             f"step(s) {p_rate:.3f} M particle-steps/s; launches {launches}")
         phys = check_sph_physics(ts, cfg, st0, out)
+        g = cfg.grid()
+        shape = sk.bin_launch(cfg.n, g.Gx * g.Gy, cfg.torch_dtype,
+                              device.index)
+        syncs = sk.bin_grid_syncs(cfg, cfg.torch_dtype, device)
+        if syncs != shape.grid_syncs:
+            raise AssertionError(f"bin n={n}: the kernel counted {syncs} "
+                                 f"grid syncs, want {shape.grid_syncs}")
+        log(f"[sph] bin n={cfg.n}: a cooperative and a plain launch a call "
+            f"{shape.asdict()}, {syncs} grid syncs as the kernel counted "
+            "them")
 
         key = f"n={cfg.n} final state f32"
         errs["rel"][key] = check_sph_call(sk, cfg, out.pos, out.vel, key,
@@ -1003,6 +1086,9 @@ def phase_sph_main(sk, ts, device, smi, errs, runs=SPH_RUNS) -> dict:
                                           2 if big else 5),
             "density_device": device_ms(lambda: sk.density(cfg, b), 20,
                                         "density_kernel"),
+            "bin_device": device_ms(
+                lambda: sk.binning(cfg, out.pos, out.vel), 20,
+                ("bin_kernel", "bin_rank_kernel")),
         }
         bounds = sph_bounds(sk, cfg, b)
         log(f"[sph] per launch at n={cfg.n} f32 on {smi}: " + ", ".join(
@@ -1010,7 +1096,9 @@ def phase_sph_main(sk, ts, device, smi, errs, runs=SPH_RUNS) -> dict:
             f"(bound {bounds[k][0]:.4f} ms, {bounds[k][1]})"
             for k in ("bin", "density", "forces")) + f"; pairs {bounds['pairs']}")
         res[n] = {"launches": launches, "times": times, "bounds": bounds,
-                     "rate": rate, "plain_rate": p_rate, "physics": phys}
+                  "rate": rate, "plain_rate": p_rate, "physics": phys,
+                  "bin_launch": {**shape.asdict(),
+                                 "grid_syncs_counted": syncs}}
     return res
 
 
@@ -2628,6 +2716,37 @@ def check_stam2d_advect(s2k, cfg, qs, uu, vv, what, errs) -> tuple:
     return worst, bit
 
 
+# The advection's bitwise cases (phase 17 runs the ragged ones, 1-3; the
+# rest are phase 17's own sizes; tools/tune_tiles_torch.py check runs
+# them all).
+ADVECT_CHECK_N = (1, 2, 3, 37, 200, 512)
+
+
+def check_advect_cases(s2k, s2, device, errs, sizes=ADVECT_CHECK_N) -> None:
+    """The advection of one field and of the velocity pair at each n of
+    `sizes`, f32 and f64, on seeded fields with back-traces past the edge,
+    bitwise equal to the plain version or the script fails; the cases
+    counted in errs["advect_bitwise"]."""
+    ok = errs.setdefault("advect_bitwise", 0)
+    for n in sizes:
+        for dtype in ("float32", "float64"):
+            cfg = s2.Stam2DConfig(n=n, dtype=dtype)
+            q, u, v = stam2d_fields(n, cfg.torch_dtype, device, SEED + 10 * n,
+                                    3)
+            uu, vv = (2.0 * (2.0 * f - 1.0) for f in (u, v))
+            for qs in ((q,), (uu, vv)):
+                got = s2k.advect(cfg, qs, uu, vv)
+                ref = s2k.advect_plain(cfg, qs, uu, vv)
+                if not all(bits_equal(a, b) for a, b in zip(got, ref)):
+                    raise AssertionError(f"advect n={n} {dtype} ({len(qs)} "
+                                         "fields): not bitwise equal to the "
+                                         "plain version")
+                ok += 1
+    errs["advect_bitwise"] = ok
+    log(f"[stam2d] advect n = {sizes}, f32 and f64, one field and the "
+        "velocity pair: bitwise equal to the plain version")
+
+
 def stam2d_reach(s2, cfg, vv) -> tuple[int, int]:
     """(cells whose back-trace moves past 16 rows, cells whose back-trace
     leaves the grid before the clamp) for row velocity vv."""
@@ -2642,6 +2761,7 @@ def stam2d_reach(s2, cfg, vv) -> tuple[int, int]:
 
 def phase_stam2d_kernels(s2k, s2, device) -> dict:
     errs = {"lin_solve": 0.0, "advect": 0.0, "rel": {}}
+    check_advect_cases(s2k, s2, device, errs, sizes=(1, 2, 3))
     for dtype in ("float32", "float64"):
         # the solve alone on a 1-cell field and on a ragged 65^2 one (more
         # tiles than a block row), at 1, h and h + 1 sweeps (h: sweeps a
@@ -4017,6 +4137,13 @@ def main() -> int:
                 "ms_device_1048576": b["times"]["density_device"],
                 "ptxas": _build.ptxas_usage("density_kernel")}
                if name == "density" else {}),
+            **({"ms_device": a["times"]["bin_device"],
+                "ms_device_1048576": b["times"]["bin_device"],
+                "launch": {"65536": a["bin_launch"],
+                           "1048576": b["bin_launch"]},
+                "bitwise_cases": sph_errs["bin_bitwise"],
+                "ptxas": _build.ptxas_usage("sph_bin_cu")}
+               if name == "bin" else {}),
             "launches_65536": a["launches"][name],
             "launches_1048576": b["launches"][name],
             "ms_1048576": b["times"][name],
@@ -4059,6 +4186,8 @@ def main() -> int:
     kernels[-1]["launch"] = {"192^3": sc.set_bnd_launch(192).asdict(),
                              "ptxas": _build.ptxas_usage("set_bnd_kernel")}
     kernels.extend(stam2d_kernel_lines(stam2d_res, stam2d_errs, design))
+    kernels[-1]["ptxas"] = _build.ptxas_usage("stam2d_advect_cu")
+    kernels[-1]["bitwise_cases"] = stam2d_errs["advect_bitwise"]
     kernels.extend(transfer_kernel_lines(
         "flip", FLIP_RUNS, {"p2g": 82, "grid": 126, "g2p": 171}, flip_res,
         flip_errs))

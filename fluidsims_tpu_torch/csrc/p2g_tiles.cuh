@@ -177,34 +177,6 @@ struct P2GArgs {
   P2GTiling t;
 };
 
-// Inclusive scan of v over the block (blockDim.x a multiple of 32, at most
-// 1024); *total gets the block's sum.  Called by every thread of the block.
-__device__ __forceinline__ unsigned long long block_scan(
-    unsigned long long v, unsigned long long* total) {
-  __shared__ unsigned long long warp_sums[32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-  for (int o = 1; o < 32; o <<= 1) {
-    const unsigned long long u = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += u;
-  }
-  if (lane == 31) warp_sums[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    unsigned long long s = lane < warps ? warp_sums[lane] : 0ull;
-    for (int o = 1; o < 32; o <<= 1) {
-      const unsigned long long u = __shfl_up_sync(0xffffffffu, s, o);
-      if (lane >= o) s += u;
-    }
-    if (lane < warps) warp_sums[lane] = s;
-  }
-  __syncthreads();
-  if (warp > 0) v += warp_sums[warp - 1];
-  *total = warp_sums[warps - 1];
-  __syncthreads();  // warp_sums is free for the next call
-  return v;
-}
-
 // Exclusive scan of a[0, n) in shared memory, in place, by the block:
 // each thread a strip of consecutive entries.  Called by every thread.
 __device__ __forceinline__ void block_exclusive_scan(int* a, int n) {

@@ -3,8 +3,10 @@
 // flip_grid.cu, cooperative; lbm_multistep.cu, a plain launch): the
 // Burgers and shallow-water kernels' tile, the launch report of a grid
 // query (TileLaunch), a grid group that counts its syncs, a tile's window
-// of a grid in shared memory (wrapped or clamped at the edges), and loops
-// that spread a rectangle of the window over the block's threads.
+// of a grid in shared memory (wrapped or clamped at the edges), loops
+// that spread a rectangle of the window over the block's threads, and a
+// scan over a block's threads (block_scan: the P2Gs' and the SPH bin's,
+// p2g_tiles.cuh and sph_bin.cu).
 //
 // A tile of tile_x x tile_y cells with a halo of `halo` cells has a window
 // of (tile_x + 2 halo) x (tile_y + 2 halo) cells, row-major with row
@@ -221,6 +223,34 @@ __device__ __forceinline__ void load_periodic(const Window& w, int ny,
   load_window<NF>(w.wy, w.wx, [&](int ly, int lx) {
     return (long long)wrap1(w.oy + ly, ny) * nx + wrap1(w.ox + lx, nx);
   }, g, s);
+}
+
+// Inclusive scan of v over the block (blockDim.x a multiple of 32, at most
+// 1024); *total gets the block's sum.  Called by every thread of the block.
+__device__ __forceinline__ unsigned long long block_scan(
+    unsigned long long v, unsigned long long* total) {
+  __shared__ unsigned long long warp_sums[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned long long u = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += u;
+  }
+  if (lane == 31) warp_sums[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    unsigned long long s = lane < warps ? warp_sums[lane] : 0ull;
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned long long u = __shfl_up_sync(0xffffffffu, s, o);
+      if (lane >= o) s += u;
+    }
+    if (lane < warps) warp_sums[lane] = s;
+  }
+  __syncthreads();
+  if (warp > 0) v += warp_sums[warp - 1];
+  *total = warp_sums[warps - 1];
+  __syncthreads();  // warp_sums is free for the next call
+  return v;
 }
 
 // i clamped to [0, n).

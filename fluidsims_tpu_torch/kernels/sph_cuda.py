@@ -3,8 +3,11 @@ versions, and the 'cuda' engine built on them.
 
 * `binning(cfg, pos, vel) -> Binned` — csrc/sph_bin.cu, which replaces the
   TPU kernel fluidsims_tpu/ops/rank_pallas.py::_kernel: each particle's
-  rank in its cell, and the particles sorted by (cell, particle index).
-  Plain version: `binning_plain` (one packed-key sort).
+  rank in its cell, and the particles sorted by (cell, particle index), in
+  a cooperative launch and a plain one (`bin_launch` reports them,
+  `bin_grid_syncs` the syncs the first counted; the scratch kept per
+  launch shape and stream, as `_common.tile_scratch` says).  Plain
+  version: `binning_plain` (one packed-key sort).
 * `density(cfg, b) -> rp` — csrc/sph_density.cu, which replaces
   fluidsims_tpu/kernels/sph_pallas.py::_density_kernel: (rho, p / rho^2)
   per sorted position; the forces kernel's blocks, with positions alone
@@ -43,10 +46,12 @@ import torch
 from ..ops import cell_dense as cd
 from ..solvers import sph as sph_mod
 from . import _build
-from ._common import LaunchCounter, on_cpu
+from ._common import LaunchCounter, on_cpu, tile_launch, tile_scratch
+from ._common import grid_syncs as _grid_syncs
 
 __all__ = ["LAUNCHES", "reset_launches", "Binned", "binning", "binning_plain",
-           "pair_chunks", "density", "density_plain", "pair_density",
+           "BinLaunch", "bin_launch", "bin_grid_syncs", "pair_chunks",
+           "density", "density_plain", "pair_density",
            "density_eos", "pair_forces", "forces",
            "forces_plain", "BlockShape", "density_shape", "forces_shape",
            "make_step_cuda", "load"]
@@ -90,6 +95,24 @@ class BlockShape(ctypes.Structure):
         return {name: getattr(self, name) for name, _ in self._fields_}
 
 
+class BinLaunch(ctypes.Structure):
+    """Mirror of fst::BinLaunch (csrc/sph_bin.cu): the bin's two launches
+    as its grid query reports them: the cooperative launch's blocks,
+    threads a block and grid syncs; the second launch's blocks and the
+    first of them that rank the listed cells; the most members of a cell
+    ranked by counting in its slots' blocks (count_cap) and sorted at once
+    (block_cap); dynamic shared memory a block of the second launch and
+    the int32 words of scratch."""
+
+    _fields_ = [(name, ctypes.c_int) for name in
+                ("grid", "threads", "grid_syncs", "rank_grid", "sort_blocks",
+                 "count_cap", "block_cap", "smem_bytes")] + [
+                     ("scratch_ints", ctypes.c_longlong)]
+
+    def asdict(self) -> dict:
+        return {name: getattr(self, name) for name, _ in self._fields_}
+
+
 @functools.lru_cache(maxsize=None)
 def _params(cfg) -> _Params:
     """The kernels' constants, formed from Python floats as the TPU kernels
@@ -117,7 +140,7 @@ def load() -> ctypes.CDLL:
     tail = [ctypes.POINTER(_Params)]
     for sfx in _SUFFIX.values():
         for name, argtypes in (
-                ("bin", [P, P] + tail + [P] * 7),
+                ("bin", [P, P] + tail + [P] * 7 + [ctypes.c_int] * 2),
                 ("density", [P, P] + tail + [P]),
                 ("forces", [P] * 5 + tail + [P, P])):
             fn = getattr(lib, f"fst_sph_{name}_{sfx}")
@@ -127,6 +150,9 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, f"fst_sph_{name}_shape_{sfx}")
             fn.argtypes = [ctypes.c_int, ctypes.POINTER(BlockShape)]
             fn.restype = None
+        fn = getattr(lib, f"fst_sph_bin_shape_{sfx}")
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(BinLaunch)]
+        fn.restype = ctypes.c_int
     lib.fst_cuda_error_string.argtypes = [ctypes.c_int]
     lib.fst_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -189,6 +215,38 @@ def binning_plain(cfg, pos, vel) -> Binned:
                   fields=torch.cat([pos, vel], 1)[order])
 
 
+@functools.lru_cache(maxsize=None)
+def bin_launch(n: int, M: int, dtype: torch.dtype, index: int) -> BinLaunch:
+    """The bin's launch over n particles and M cells on device `index`, as
+    the library's grid query computes it (asked once per shape)."""
+    return tile_launch(load(), f"fst_sph_bin_shape_{_SUFFIX[dtype]}", n, M,
+                       index, kind=BinLaunch)
+
+
+def _bin_scratch(n: int, M: int, dtype: torch.dtype, shape: BinLaunch,
+                 device: torch.device, stream: int) -> tuple:
+    # One scratch a launch shape: a launch leaves its counts at 0 for the
+    # next launch on the scratch, and the layout follows (n, M, grid)
+    # (csrc/sph_bin.cu bin_layout).
+    return tile_scratch(("sph_bin", n, M, dtype, shape.grid),
+                        shape.scratch_ints, torch.int32, device, stream)
+
+
+def _bin_shape(cfg, dtype: torch.dtype, device: torch.device) -> tuple:
+    g = cfg.grid()
+    M = g.Gx * g.Gy
+    return M, bin_launch(cfg.n, M, dtype, device.index)
+
+
+def bin_grid_syncs(cfg, dtype: torch.dtype, device: torch.device) -> int:
+    """The grid syncs that the last bin of cfg's particles of `dtype` on
+    the device's current stream made, as the kernel counted them."""
+    M, shape = _bin_shape(cfg, dtype, device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    return _grid_syncs(_bin_scratch(cfg.n, M, dtype, shape, device,
+                                    stream)[1])
+
+
 def binning(cfg, pos, vel) -> Binned:
     """Rank-in-cell binning: the kernel on CUDA tensors, the plain version
     on CPU tensors."""
@@ -196,19 +254,21 @@ def binning(cfg, pos, vel) -> Binned:
         return binning_plain(cfg, pos, vel)
     n = cfg.n
     _check(cfg, pos=(pos, None, (n, 2)), vel=(vel, None, (n, 2)))
-    g = cfg.grid()
-    M = g.Gx * g.Gy
-    i32 = {"dtype": torch.int32, "device": pos.device}
+    dev = pos.device
+    M, shape = _bin_shape(cfg, pos.dtype, dev)
+    scratch, words = _bin_scratch(
+        n, M, pos.dtype, shape, dev,
+        torch.cuda.current_stream(dev).cuda_stream)
+    i32 = {"dtype": torch.int32, "device": dev}
     out = Binned(cid=torch.empty(n, **i32), rank=torch.empty(n, **i32),
                  starts=torch.empty(M + 1, **i32),
                  order=torch.empty(n, **i32),
-                 fields=torch.empty((n, 4), dtype=pos.dtype, device=pos.device))
-    counts = torch.empty(M, **i32)
-    bucket = torch.empty(n, **i32)
-    _launch("bin", pos.dtype, pos.device, pos.data_ptr(), vel.data_ptr(),
-            ctypes.byref(_params(cfg)), out.cid.data_ptr(), counts.data_ptr(),
-            out.starts.data_ptr(), bucket.data_ptr(), out.order.data_ptr(),
-            out.rank.data_ptr(), out.fields.data_ptr())
+                 fields=torch.empty((n, 4), dtype=pos.dtype, device=dev))
+    _launch("bin", pos.dtype, dev, pos.data_ptr(), vel.data_ptr(),
+            ctypes.byref(_params(cfg)), out.cid.data_ptr(),
+            out.starts.data_ptr(), out.order.data_ptr(), out.rank.data_ptr(),
+            out.fields.data_ptr(), scratch.data_ptr(), words.data_ptr(),
+            shape.grid, shape.sort_blocks)
     return out
 
 

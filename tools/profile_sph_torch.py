@@ -13,8 +13,9 @@ steps, each from init:
   three times (the median is used; all three are kept, as the host's
   share of a step varies from run to run);
 * `torch.profiler` over the same run: the device time of each SPH kernel
-  (bin = its count, scan, fill and rank kernels and the memset before
-  them; density; forces) and of the small torch ops (dt, the clock, rain),
+  (bin = its cooperative `bin_kernel` and `bin_rank_kernel`, or in older
+  trees its count, scan, fill and rank kernels and the memset before them;
+  density; forces) and of the small torch ops (dt, the clock, rain),
   each as a share of the device time and per step, and the time per
   launch of every device kernel by name; the device busy share
   (union of kernel intervals over the span from the first kernel's start
@@ -43,8 +44,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from fluidsims_tpu_torch.solvers import sph as ts  # noqa: E402
 
 RUNS = ((65536, False, 200), (1 << 20, True, 50))
-GROUPS = (("bin", ("count_kernel", "scan_kernel", "fill_kernel", "rank_kernel",
-                   "Memset")),
+GROUPS = (("bin", ("bin_kernel", "bin_rank_kernel", "count_kernel",
+                   "scan_kernel", "fill_kernel", "rank_kernel", "Memset")),
           ("density", ("density_kernel",)),
           ("forces", ("forces_kernel",)))
 

@@ -6,7 +6,7 @@ tiles.
         [sass] [diff A B]
         [--root DIR] [--out PATH] [--define NAME=VALUE ...] [--only KEY ...]
         [--fmad] [--dump DIR] [--inputs DIR]
-        [--set tiles|hypersonic|mhd|sph|flip|lbm|p2g|gs|g2p|set_bnd]
+        [--set tiles|hypersonic|mhd|sph|flip|lbm|p2g|gs|g2p|set_bnd|bin]
 
 The kernels: the Burgers and shallow-water K-step kernels
 (csrc/burgers_multistep.cu, csrc/shallow_water_multistep.cu, TPU kernel
@@ -18,8 +18,10 @@ csrc/hypersonic3d_step.cu, #2), the GLM-MHD K-step kernel
 (csrc/flip_grid.cu, #17), the LBM K-step kernel (csrc/lbm_multistep.cu,
 #6), the MPM and FLIP P2Gs (csrc/mpm_p2g.cu, #19; csrc/flip_p2g.cu, #16;
 both csrc/p2g_tiles.cuh), the Gray–Scott K-step kernel
-(csrc/gray_scott_multistep.cu, #4), the FLIP G2P (csrc/flip_g2p.cu, #18)
-and the stam3d set_bnd (csrc/stam3d_set_bnd.cu, #13).
+(csrc/gray_scott_multistep.cu, #4), the FLIP G2P (csrc/flip_g2p.cu, #18),
+the stam3d set_bnd (csrc/stam3d_set_bnd.cu, #13), the SPH bin
+(csrc/sph_bin.cu, #22) and the stam2d advection (csrc/stam2d_advect.cu,
+#10).
 
 * check — each kernel against its plain version on the card: Burgers and
   shallow water on 200x75 and 5x3 (every option), k = 1 within 1e-5
@@ -49,8 +51,13 @@ and the stam3d set_bnd (csrc/stam3d_set_bnd.cu, #13).
   the window), f32 and f64, with and without feed=0.04, kill=0.058; the
   FLIP G2P bitwise equal to its plain version, the raster counting every
   particle, and set_bnd bitwise equal, on chip_smoke.py's phase-19 and
-  phase-15 cases (G2P_CHECK, SET_BND_CHECK_N; this tree's chip_smoke.py).
-  Raises on the first failure.
+  phase-15 cases (G2P_CHECK, SET_BND_CHECK_N; this tree's chip_smoke.py);
+  the SPH bin bitwise equal to its plain version in all five outputs on
+  chip_smoke.py's phase-6 cases (BIN_CHECK: 4,096 particles in one cell, a
+  cell of 3,000 at 2^16, 2^20 on 256^2 with empty cells), and the stam2d
+  advection of one field and of the velocity pair bitwise equal at n = 1,
+  2, 3, 37, 200 and 512, f32 and f64 (ADVECT_CHECK_N).  Raises on the
+  first failure.
 * time — ms a launch by CUDA events (a warm-up, then the mean over a run
   of launches back to back) at the shapes chip_smoke.py's main runs use:
   Burgers 512^2 f32 K=16 and K=1, 4096^2 f32 K=16, 512^2 f64 K=16;
@@ -93,7 +100,16 @@ and the stam3d set_bnd (csrc/stam3d_set_bnd.cu, #13).
   final state of the MPM runs ("mpm 96 f32", "mpm 96 f64", "mpm 512
   f32"; "<key> grid", "<key> g2p"), also as device time; and "p2g switch":
   each P2G design's device time a wrapper call on FLIP and MPM runs of
-  65,536-262,144 particles, where FST_P2G_TILED_FROM should lie.  For the
+  65,536-262,144 particles, where FST_P2G_TILED_FROM should lie; the SPH
+  bin ("bin 65536 f32", "bin 1048576 f32 rain") on the final state of
+  chip_smoke.py's SPH runs: events, device time a call in all and by
+  kernel ("<key> device parts"), the host's time a wrapper call, how full
+  the cells are, bitwise to plain or not, its launch and grid syncs, and
+  digests of the state and the outputs; the stam2d advection ("advect
+  512 f32", "advect 512 f64") on the final state of the stam2d runs (400
+  steps each), the velocity pair and the density ("<key> density") as the
+  step calls them: events, device time, host time, bitwise to plain or
+  not, and digests of the state and the outputs.  For the
   K=1 launches, also the device time a launch (torch.profiler's kernel
   time over 200 launches) and the host's time a wrapper call (the host
   clock over 200 calls that queue without a sync), by part.  With --root, the package is imported from
@@ -133,9 +149,13 @@ and the stam3d set_bnd (csrc/stam3d_set_bnd.cu, #13).
   g2p` the FLIP G2P's threads a block (csrc/flip_g2p.cu FST_G2P_THREADS,
   FST_G2P_F64_THREADS; pass --inputs so that every build times the same
   inputs); `--set set_bnd` the set_bnd block (csrc/stam3d_set_bnd.cu
-  FST_SET_BND_X, FST_SET_BND_ROWS).
-* phases — the tiled P2Gs' phase times on the final states that `time`
-  uses: a build with -DFST_P2G_STAMPS (csrc/p2g_tiles.cuh), in which
+  FST_SET_BND_X, FST_SET_BND_ROWS); `--set bin` the SPH bin's threads a
+  block (csrc/sph_bin.cu FST_BIN_THREADS).
+* phases — the tiled P2Gs' and the SPH bin's phase times on the final
+  states that `time` uses (--only: those keys' alone; the bin's count,
+  starts, fill and ranks from a build with -DFST_BIN_STAMPS,
+  csrc/sph_bin.cu): a build with -DFST_P2G_STAMPS (csrc/p2g_tiles.cuh), in
+  which
   block 0 stamps %globaltimer at the launch's start and after each of
   its three grid syncs and every block its end, launched 55 times; the
   mean over the last 50 of the count (with the zeroing of the grids), the
@@ -710,7 +730,7 @@ def p2g_run(m, dev, solver, n_p, n, dtype, steps) -> tuple:
 P2G_PHASES = ("count", "scan", "fill", "chunks")
 
 
-def p2g_phases(m, dev, reps: int = 50) -> dict:
+def p2g_phases(m, dev, only=None, reps: int = 50) -> dict:
     """Mean us of each phase of the tiled P2G on each P2G_RUNS run's final
     state, from the stamps of a build with -DFST_P2G_STAMPS (csrc/
     p2g_tiles.cuh): the count (with the zeroing of the grids), the scan,
@@ -718,6 +738,8 @@ def p2g_phases(m, dev, reps: int = 50) -> dict:
     end); 5 launches, then the mean over `reps`."""
     res = {}
     for key, solver, n_p, n, dtype, steps, _ in P2G_RUNS:
+        if only is not None and key not in only:
+            continue
         cfg, parts, mod = p2g_run(m, dev, solver, n_p, n, dtype, steps)
         size = (n, n) if solver == "mpm" else (n,)
         launch = mod.p2g_launch(n_p, *size, cfg.torch_dtype, dev.index,
@@ -737,6 +759,44 @@ def p2g_phases(m, dev, reps: int = 50) -> dict:
         res[key] = {**{f"{k}_us": v for k, v in zip(P2G_PHASES, us)},
                     "total_us": sum(us), "grid": launch.grid,
                     **mod.p2g_stats(cfg, n_p, cfg.torch_dtype, dev, "tiled")}
+        log(f"[phases] {key}: {res[key]}")
+    return res
+
+
+# The SPH bin's phases, between its stamps (csrc/sph_bin.cu FST_BIN_STAMPS).
+BIN_PHASES = ("count", "starts", "fill", "rank")
+
+
+def bin_phases(m, dev, only=None, reps: int = 50) -> dict:
+    """Mean us of each phase of the SPH bin on each BIN_RUNS run's final
+    state, from the stamps of a build with -DFST_BIN_STAMPS: the count and
+    the starts (each block's slice and the sums before it, with the list),
+    each to the grid sync after it, the fill (to the cooperative launch's
+    end) and the ranks (the second launch, to its last block's end); 5
+    calls, then the mean over `reps`."""
+    res = {}
+    for key, n_p, rain, steps, _ in BIN_RUNS:
+        if only is not None and key not in only:
+            continue
+        cfg = m.ts.SPHConfig(n=n_p, rain=rain)
+        out = m.ts.run(cfg, m.ts.init(cfg, dev), steps)
+        g = cfg.grid()
+        shape = m.sk.bin_launch(n_p, g.Gx * g.Gy, cfg.torch_dtype, dev.index)
+        words = m.sk._bin_scratch(n_p, g.Gx * g.Gy, cfg.torch_dtype, shape,
+                                  dev,
+                                  torch.cuda.current_stream(dev).cuda_stream)[1]
+        acc = torch.zeros(len(BIN_PHASES), dtype=torch.float64)
+        for r in range(reps + 5):
+            torch.cuda.synchronize()
+            words.zero_()
+            m.sk.binning(cfg, out.pos, out.vel)
+            torch.cuda.synchronize()
+            w = words.cpu().double()
+            if r >= 5:
+                acc += w[1:5] - w[0:4]
+        us = (acc / reps / 1e3).tolist()
+        res[key] = {**{f"{k}_us": v for k, v in zip(BIN_PHASES, us)},
+                    "total_us": sum(us), "grid": shape.grid}
         log(f"[phases] {key}: {res[key]}")
     return res
 
@@ -1174,6 +1234,28 @@ def check_g2p(m, dev) -> list:
              "bitwise": errs["g2p_bitwise"]}]
 
 
+def check_bin(m, dev) -> list:
+    """The SPH bin bitwise equal to its plain version in all five outputs:
+    chip_smoke.py's phase-6 cases (BIN_CHECK)."""
+    cs = smoke()
+    errs = {}
+    cs.check_bin_cases(m.sk, m.ts, dev, errs)
+    torch.cuda.synchronize()
+    return [{"case": f"bin {[c[0] for c in cs.BIN_CHECK]}",
+             "bitwise": errs["bin_bitwise"]}]
+
+
+def check_advect(m, dev) -> list:
+    """The stam2d advection bitwise equal to its plain version, one field
+    and the velocity pair, f32 and f64: chip_smoke.py's ADVECT_CHECK_N."""
+    cs = smoke()
+    errs = {}
+    cs.check_advect_cases(m.s2k, m.s2, dev, errs)
+    torch.cuda.synchronize()
+    return [{"case": f"advect n = {cs.ADVECT_CHECK_N}",
+             "bitwise": errs["advect_bitwise"]}]
+
+
 def check_set_bnd(m, dev) -> list:
     """stam3d set_bnd bitwise equal to its plain version: chip_smoke.py's
     phase-15 cases (SET_BND_CHECK_N)."""
@@ -1269,6 +1351,119 @@ def set_bnd_timings(m, dev, only, dump) -> dict:
     return res
 
 
+def device_parts(fn, n: int) -> dict:
+    """Device time a call of fn by torch.profiler, by kernel name (without
+    its namespaces, template arguments and parameters): ms a call of each,
+    over n calls."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = collections.defaultdict(float)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            m = re.search(r"::(\w+)[<(]", e.name)
+            name = m.group(1) if m else e.name.split(" (")[0].strip()
+            out[name] += (e.time_range.end - e.time_range.start) / n / 1e3
+    return dict(out)
+
+
+# The SPH bin (#22) at chip_smoke.py's SPH runs: (key, particles, rain,
+# steps of the run, calls timed).
+BIN_RUNS = (("bin 65536 f32", 65536, False, 200, 200),
+            ("bin 1048576 f32 rain", 1 << 20, True, 50, 100))
+BIN_KEYS = tuple(r[0] for r in BIN_RUNS)
+
+
+def cell_stats(b, M: int) -> dict:
+    """How full the cells of a binning are: the empty ones, the largest,
+    and the cells of more than 32, 256 and 2048 members with the
+    particles they hold."""
+    counts = torch.bincount(b.cid.long(), minlength=M)
+    out = {"cells": M, "empty": int((counts == 0).sum()),
+           "largest": int(counts.max())}
+    for edge in (32, 256, 2048):
+        big = counts > edge
+        out[f"over {edge}"] = [int(big.sum()), int(counts[big].sum())]
+    return out
+
+
+def bin_timings(m, dev, only, dump) -> dict:
+    """ms a call of the bin by CUDA events, its device time (all device
+    work of a call: the parent's memset and four kernels, or this tree's
+    two launches) in all and by kernel, and the host's time a
+    wrapper call, on the final state of each SPH run; whether it is
+    bitwise to its plain version there, how full the cells are, its
+    launch and grid syncs where the tree reports them, and the digests of
+    the run's final state and of the bin's outputs."""
+    res = {}
+    for key, n_p, rain, steps, reps in BIN_RUNS:
+        if only is not None and key not in only:
+            continue
+        cfg = m.ts.SPHConfig(n=n_p, rain=rain)
+        out = m.ts.run(cfg, m.ts.init(cfg, dev), steps)
+        call = lambda: m.sk.binning(cfg, out.pos, out.vel)  # noqa: E731
+        res[key] = time_ms(call, reps)
+        parts = device_parts(call, reps)
+        res[key + " device"] = sum(parts.values())
+        res[key + " device parts"] = json.dumps(parts)
+        res[key + " host_us"] = host_us(call, reps)
+        got = call()
+        res[key + " bitwise to plain"] = all(
+            bits_equal(a, b) for a, b in zip(
+                got, m.sk.binning_plain(cfg, out.pos, out.vel)))
+        g = cfg.grid()
+        res[key + " cells"] = json.dumps(cell_stats(got, g.Gx * g.Gy))
+        if hasattr(m.sk, "bin_launch"):
+            res[key + " launch"] = json.dumps(m.sk.bin_launch(
+                n_p, g.Gx * g.Gy, cfg.torch_dtype, dev.index).asdict())
+            res[key + " grid syncs"] = json.dumps(
+                m.sk.bin_grid_syncs(cfg, cfg.torch_dtype, dev))
+        record(res, key, [out.pos, out.vel], list(got), dump)
+    return res
+
+
+# The stam2d advection (#10) at chip_smoke.py's stam2d runs: (key, dtype,
+# steps of the run, calls timed).
+ADVECT_RUNS = (("advect 512 f32", "float32", 400, 400),
+               ("advect 512 f64", "float64", 400, 400))
+ADVECT_KEYS = tuple(r[0] for r in ADVECT_RUNS)
+
+
+def advect_timings(m, dev, only, dump) -> dict:
+    """ms a launch of the advection by CUDA events and torch.profiler on
+    the final state of each stam2d run, as the step makes it: the
+    velocity pair (the key) and the density ("<key> density"); whether
+    each is bitwise to its plain version, and the digests of the run's
+    final state (no atomics: two trees give the same bits) and of both
+    launches' outputs."""
+    res = {}
+    for key, dtype, steps, reps in ADVECT_RUNS:
+        if only is not None and key not in only:
+            continue
+        cfg = m.s2.Stam2DConfig(dtype=dtype)
+        out = m.s2.run(cfg, m.s2.init(cfg, dev), steps)
+        calls = {"": ((out.u0, out.v0), out.u0, out.v0),
+                 " density": ((out.d0,), out.u, out.v)}
+        got = []
+        for part, (qs, uu, vv) in calls.items():
+            call = lambda: m.s2k.advect(cfg, qs, uu, vv)  # noqa: E731
+            res[key + part] = time_ms(call, reps)
+            res[key + part + " device"] = device_ms(call, reps,
+                                                    "advect_kernel")
+            res[key + part + " host_us"] = host_us(call, reps)
+            outs = call()
+            res[key + part + " bitwise to plain"] = all(
+                bits_equal(a, b) for a, b in zip(
+                    outs, m.s2k.advect_plain(cfg, qs, uu, vv)))
+            got += list(outs)
+        record(res, key, list(out[:6]), got, dump)
+    return res
+
+
 # The MPM grid update (#20) and G2P (#21) at chip_smoke.py's MPM runs:
 # (key, particles, grid, dtype, steps of the run, launches timed).
 MPM_RUNS = (("mpm 96 f32", 32768, 96, "float32", 1000, 200),
@@ -1359,7 +1554,8 @@ def checks(m, dev, only=None) -> list:
              (check_mhd, MHD_KEYS), (check_sph, SPH_KEYS),
              (check_flip, FLIP_KEYS), (check_lbm, LBM_KEYS),
              (check_p2g, P2G_KEYS), (check_gs, GS_KEYS),
-             (check_g2p, G2P_KEYS), (check_set_bnd, SET_BND_KEYS))
+             (check_g2p, G2P_KEYS), (check_set_bnd, SET_BND_KEYS),
+             (check_bin, BIN_KEYS), (check_advect, ADVECT_KEYS))
     return [c for fn, keys in parts if only is None or set(keys) & set(only)
             for c in fn(m, dev)]
 
@@ -1376,6 +1572,8 @@ def timings(m, dev, only=None, dump=None, inputs=None) -> dict:
     res.update(g2p_timings(m, dev, only, dump, inputs))
     res.update(set_bnd_timings(m, dev, only, dump))
     res.update(mpm_timings(m, dev, only, dump))
+    res.update(bin_timings(m, dev, only, dump))
+    res.update(advect_timings(m, dev, only, dump))
     res.update(p2g_switch_timings(m, dev, only))
     runs = (("burgers 512 f32 K=16", m.bg, m.bk.burgers_multistep,
              dict(nx=512, ny=512), 16, 50),
@@ -1487,6 +1685,8 @@ P2G_VARIANTS = (((16, 16), 512, 256, (16, 16), 512, 256),
 G2P_VARIANTS = ((64, 256), (128, 256), (256, 128), (32, 512))
 # The set_bnd sweep: (threads along a face row, rows) of each build.
 SET_BND_VARIANTS = ((32, 8), (32, 4), (64, 4), (128, 2))
+# The SPH bin sweep: threads a block of each build.
+BIN_VARIANTS = (512, 256, 1024, 128)
 KSTEP_KEYS = ("burgers 512 f32 K=16", "burgers 4096 f32 K=16",
               "burgers 512 f64 K=16", "sw 512 f32 K=8", "sw 4096 f32 K=8",
               "sw 512 f64 K=8")
@@ -1583,10 +1783,14 @@ def set_bnd_variants() -> list[tuple[dict, tuple]]:
             for x, rows in SET_BND_VARIANTS]
 
 
+def bin_variants() -> list[tuple[dict, tuple]]:
+    return [({"FST_BIN_THREADS": t}, BIN_KEYS) for t in BIN_VARIANTS]
+
+
 SWEEPS = {"tiles": variants, "hypersonic": hyp_variants, "mhd": mhd_variants,
           "sph": sph_variants, "flip": flip_variants, "lbm": lbm_variants,
           "p2g": p2g_variants, "gs": gs_variants, "g2p": g2p_variants,
-          "set_bnd": set_bnd_variants}
+          "set_bnd": set_bnd_variants, "bin": bin_variants}
 
 
 def sweep(args) -> list:
@@ -1658,7 +1862,7 @@ def main(argv=None) -> int:
         # the stamps are a build of their own, timed by nothing else
         if set(args.what) & {"check", "time", "sweep"}:
             raise SystemExit("phases runs alone or with sass")
-        args.define.append("FST_P2G_STAMPS=1")
+        args.define += ["FST_P2G_STAMPS=1", "FST_BIN_STAMPS=1"]
     if not torch.cuda.is_available():
         raise SystemExit("tune_tiles_torch: needs a CUDA GPU")
     smi = subprocess.run(
@@ -1706,12 +1910,13 @@ def main(argv=None) -> int:
     from fluidsims_tpu_torch.solvers import gray_scott as gs
     from fluidsims_tpu_torch.kernels import stam3d_cuda as sc
     from fluidsims_tpu_torch.solvers import stam3d as s3
+    from fluidsims_tpu_torch.solvers import stam2d as s2
 
     m = types.SimpleNamespace(bk=bk, swk=swk, s2k=s2k, bg=bg, sw=sw, hk=hk,
                               hk3=hk3, h2=h2, h3=h3, interop=interop,
                               cfl_dt=cfl_dt, mk=mk, sk=sk, mhd=mhd, ts=ts,
                               fk=fk, lk=lk, fa=fa, lbm=lbm, mpk=mpk, mp=mp,
-                              gk=gk, gs=gs, sc=sc, s3=s3)
+                              gk=gk, gs=gs, sc=sc, s3=s3, s2=s2)
     log(f"[device] {smi}; package from {Path(bk.__file__).parents[1]}")
     dev = torch.device("cuda", 0)
     bk.load()
@@ -1727,23 +1932,26 @@ def main(argv=None) -> int:
                                        "lbm_multistep_kernel", "p2g",
                                        "gs_multistep_kernel",
                                        "density_kernel", "10g2p_kernel",
-                                       "set_bnd_kernel")
+                                       "set_bnd_kernel", "sph_bin_cu",
+                                       "stam2d_advect_cu")
                         for u in _build.ptxas_usage(name)]
         for u in res["ptxas"]:
             log(f"[build] ptxas {u}")
     if "check" in args.what:
         res["check"] = checks(m, dev, args.only)
     if "phases" in args.what:
-        res["phases"] = p2g_phases(m, dev)
+        res["phases"] = {**p2g_phases(m, dev, args.only),
+                         **bin_phases(m, dev, args.only)}
     if "sass" in args.what:
         res["sass"] = sass(_build)
     if "time" in args.what:
         res["time"] = timings(m, dev, args.only, args.dump, args.inputs)
         for key, v in res["time"].items():
-            log(f"[time] {key}: " + (v if isinstance(v, str) else
-                                      f"{v:.2f} us a call" if "host" in key
-                                      else f"{v:.3e}" if "rel" in key
-                                      else f"{v:.4f} ms a launch"))
+            log(f"[time] {key}: " + (
+                str(v) if isinstance(v, (str, bool))
+                else f"{v:.2f} us a call" if "host" in key
+                else f"{v:.3e}" if "rel" in key
+                else f"{v:.4f} ms a launch"))
     Path(args.out).write_text(json.dumps(res, indent=1))
     log(json.dumps(res.get("time", {})))
     return 0
