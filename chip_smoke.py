@@ -608,19 +608,29 @@ def time_launches(fn, n: int) -> float:
 def device_ms(fn, n: int, fragment: str | tuple) -> float | None:
     """Device time a call of fn() by torch.profiler: the kernels whose name
     holds `fragment` (or one of a tuple of them) over n calls, after one
-    warm-up call; None where the profiler records no such kernel."""
+    warm-up call; a profile that recorded no such kernel is taken again,
+    up to three times, and None where none did."""
     fragments = (fragment,) if isinstance(fragment, str) else fragment
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.end - e.time_range.start for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and any(f in e.name for f in fragments)]
-    return sum(us) / n / 1e3 if us else None
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and any(f in e.name for f in fragments)]
+        if us:
+            return sum(us) / n / 1e3
+    return None
+
+
+def ms_text(v: float | None) -> str:
+    """A device time for a log line: "not recorded" where the profiler
+    recorded none."""
+    return "not recorded" if v is None else f"{v:.4f} ms"
 
 
 def run_timed(h2, cfg, s, steps, **engine):
@@ -1728,12 +1738,13 @@ def phase_stencil_main(gs, lbm, gk, lk, device, smi, errs,
             f"ms vs plain {times['multistep_plain']:.4f} ms (bound "
             f"{bounds['multistep'][0]:.4f} ms, {bounds['multistep'][1]})")
         if solver == "gs":
+            one = times["step_device"]
             log(f"[stencil] {key} final state: device time a launch "
-                f"(torch.profiler) one-step {times['step_device']:.4f} ms, "
-                f"K-step (K={kk}) {times['multistep_device']:.4f} ms, "
+                f"(torch.profiler) one-step {ms_text(one)}, "
+                f"K-step (K={kk}) {ms_text(times['multistep_device'])}, "
                 f"{kk} one-step launches "
-                f"{kk * times['step_device']:.4f} ms; K-step launch "
-                f"{gk.launch_shape(cfg, kk).asdict()}")
+                f"{ms_text(None if one is None else kk * one)}; K-step "
+                f"launch {gk.launch_shape(cfg, kk).asdict()}")
         res[key] = {"launches": got, "times": times, "bounds": bounds,
                     "rate": rate, "plain_rate": p_rate, "k": kk,
                     "physics": phys}
@@ -3607,26 +3618,30 @@ def flip_tiling(fk, fa, build, device) -> dict:
 
 def p2g_device_line(times: dict) -> str:
     """The P2G's device times beside its events time, for a log line."""
-    def ms(v):
-        return "not recorded" if v is None else f"{v:.4f} ms"
-    return (f"P2G {times['p2g']:.4f} ms by events, {ms(times['p2g_device'])} "
-            f"of device time (atomic design {ms(times['p2g_device_atomic'])},"
-            f" tiled {ms(times['p2g_device_tiled'])})")
+    return (f"P2G {times['p2g']:.4f} ms by events, "
+            f"{ms_text(times['p2g_device'])} of device time (atomic design "
+            f"{ms_text(times['p2g_device_atomic'])}, tiled "
+            f"{ms_text(times['p2g_device_tiled'])})")
 
 
-def transfer_kernel_lines(solver: str, runs, lines: dict, res,
-                          errs) -> list:
-    """The {"kernels": [...]} entries of a particle solver's three kernels
-    (csrc/{solver}_{kernel}.cu): times and bounds from the final state of
-    its first run (f32 at the default size), those of the f64 and 2^20
-    runs beside them; launches summed over the three runs.  `lines` gives
-    each kernel's line in fluidsims_tpu/kernels/{solver}_pallas.py."""
+def transfer_kernel_lines(solver: str, runs, lines: dict, res, errs,
+                          fused=None) -> list:
+    """The {"kernels": [...]} entries of a particle solver's kernels
+    (csrc/{solver}_{kernel}.cu), one for each TPU kernel of `lines`, which
+    gives its line in fluidsims_tpu/kernels/{solver}_pallas.py: times and
+    bounds from the final state of its first run (f32 at the default
+    size), those of the f64 and 2^20 runs beside them; launches summed
+    over the three runs.  `fused` maps a TPU kernel to the port's kernel
+    that does its work in the same launch: its entry carries that
+    kernel's source, launches, times and bound."""
+    fused = fused or {}
     keys = [f"{n_p} {n}^2 {dtype}" for n_p, n, dtype, _, _ in runs]
     a = res[keys[0]]
     out = []
-    for name, line in lines.items():
+    for tpu, line in lines.items():
+        name = fused.get(tpu, tpu)
         entry = {
-            "name": f"{solver}_{name}", "route": "cuda",
+            "name": f"{solver}_{tpu}", "route": "cuda",
             "source": f"fluidsims_tpu_torch/csrc/{solver}_{name}.cu",
             "replaces": f"fluidsims_tpu/kernels/{solver}_pallas.py:{line}",
             "launches": sum(res[k]["launches"][name] for k in keys),
@@ -3634,6 +3649,8 @@ def transfer_kernel_lines(solver: str, runs, lines: dict, res,
             "ms": a["times"][name], "plain_ms": a["times"][name + "_plain"],
             "bound_ms": a["bounds"][name][0], "bound_by": a["bounds"][name][1],
             "library_ms": None}
+        if name != tpu:
+            entry["fused_into"] = f"{solver}_{name}"
         if name == "p2g":
             entry.update({f"ms_{k.removeprefix('p2g_')}": a["times"][k]
                           for k in a["times"] if k.startswith("p2g_device")})
@@ -3657,8 +3674,9 @@ def transfer_kernel_lines(solver: str, runs, lines: dict, res,
     return out
 
 
-# Three kernels (TPU kernels #19-#21), kernels/mpm_cuda.py; `mk` below is
-# the wrapper module, `mp` the solver.
+# Two kernels for the three TPU kernels #19-#21, kernels/mpm_cuda.py: the
+# P2G (#19) and the G2P that updates each node it gathers (#20 and #21 in
+# one launch); `mk` below is the wrapper module, `mp` the solver.
 
 # mpm_p2g.cu: per particle the two base nodes and fractions (8), the two
 # weight triples (18), snow's clamp of Fe (6), the stress (33: det and its
@@ -3668,8 +3686,10 @@ def transfer_kernel_lines(solver: str, runs, lines: dict, res,
 # three weighted values (5) and three atomic adds (3).  The offsets inside
 # the grid are counted from this run's particles.
 MPM_P2G_OPS = (8 + 18 + 6 + 33 + 2 + 6, 17)
-# mpm_grid.cu: per node the mass test (1); per node with mass the floor,
-# two divisions, gravity and the two sticky-band tests (8).
+# mpm_g2p.cu's grid update (mpm.cuh mpm_node_velocity), counted once a
+# node though the kernel forms a node's velocity at each of its gathers:
+# per node the mass test (1); per node with mass the floor, two
+# divisions, gravity and the two sticky-band tests (8).
 MPM_GRID_OPS = (1, 8)
 # mpm_g2p.cu per particle: base nodes and fractions (8), weights (18), the
 # x offsets (6), per offset (9) w, dposy, w g (2), v (2) and C (12), then
@@ -3706,12 +3726,38 @@ def mpm_particles(cfg, device, seed):
             (pos, rng.standard_normal((n, 2)), F, rng.uniform(0.5, 1.5, n))]
 
 
+def mpm_synthetic_grids(cfg, device, seed):
+    """Seeded P2G-like grids: mass uniform in [0, 3) with a third of the
+    nodes empty (beside particles that gather them), momenta 50 N, so
+    that every sticky band holds outward and inward velocities."""
+    rng = np.random.default_rng(seed)
+    shape = (cfg.gy, cfg.gx)
+    return [torch.tensor(a, dtype=cfg.torch_dtype, device=device) for a in (
+        rng.uniform(0.0, 3.0, shape) * (rng.random(shape) > 0.33),
+        50.0 * rng.standard_normal(shape), 50.0 * rng.standard_normal(shape))]
+
+
+def mpm_cell_order(cfg, pos):
+    """The particles' order by base cell, row by row (base clipped to one
+    cell past each wall): the particles of a G2P block then gather a
+    compact box of nodes, which the kernel forms in a window in shared
+    memory, where particles in no order make its blocks form each node
+    where a particle gathers it."""
+    base = torch.floor(pos * (1.0 / cfg.dx) - 0.5).long()
+    key = (base[:, 1].clamp(-1, cfg.gy) * (cfg.gx + 2)
+           + base[:, 0].clamp(-1, cfg.gx))
+    return torch.argsort(key, stable=True)
+
+
 def check_mpm_call(mk, cfg, parts, what, errs):
-    """The three kernels against their plain versions: P2G on the
-    particles (the design the wrapper picks, and each design) within
-    STEP_TOL relative to each grid's max; the grid update on the kernel's
-    P2G grids and G2P on the kernel's node velocities, both bitwise.
-    Returns {kernel: (rel, bitwise)} and the kernel's P2G grids."""
+    """The two kernels against their plain versions: P2G on the particles
+    (the design the wrapper picks, and each design) within STEP_TOL
+    relative to each grid's max; the G2P, which updates the nodes it
+    gathers, bitwise equal to g2p_plain (the G2P of grid_update_plain's
+    node velocities) on the kernel's P2G grids and on synthetic grids,
+    for the particles in their order and sorted by base cell (both of the
+    kernel's paths).  Returns {kernel: (rel, bitwise)} and the kernel's
+    P2G grids."""
     pos, vel, F, Jp = parts
     tol = STEP_TOL[pos.dtype]
     label = f"mpm {what}"
@@ -3720,17 +3766,25 @@ def check_mpm_call(mk, cfg, parts, what, errs):
     plain = mk.p2g_plain(cfg, pos, vel, F, Jp)
     out["p2g"] = transfer_rel(grids, plain, label, tol, errs, "p2g")
     out.update(check_p2g_designs(mk, cfg, parts, plain, label, tol, errs))
-    vels = mk.grid_update(cfg, *grids)
-    out["grid"] = transfer_rel(vels, mk.grid_update_plain(cfg, *grids),
-                               label, tol, errs, "grid", bitwise=True)
-    out["g2p"] = transfer_rel(mk.g2p(cfg, pos, F, Jp, *vels),
-                              mk.g2p_plain(cfg, pos, F, Jp, *vels), label,
-                              tol, errs, "g2p", bitwise=True)
+    syn = mpm_synthetic_grids(cfg, pos.device, cfg.n + cfg.gx)
+    order = mpm_cell_order(cfg, pos)
+    srt = [t[order].contiguous() for t in (pos, F, Jp)]
+    for key, g2p_parts, g in (("g2p", (pos, F, Jp), grids),
+                              ("g2p_synthetic", (pos, F, Jp), syn),
+                              ("g2p_sorted", srt, grids),
+                              ("g2p_sorted_synthetic", srt, syn)):
+        out[key] = transfer_rel(mk.g2p(cfg, *g2p_parts, *g),
+                                mk.g2p_plain(cfg, *g2p_parts, *g),
+                                f"{label} ({key})", tol, errs, "g2p",
+                                bitwise=True)
+        errs["g2p_bitwise"][0] += out[key][1]
+        errs["g2p_bitwise"][1] += 1
     return out, grids
 
 
 def phase_mpm_kernels(mk, mp, device) -> dict:
-    errs = {"p2g": 0.0, "grid": 0.0, "g2p": 0.0, "rel": {}, "edges": {}}
+    errs = {"p2g": 0.0, "g2p": 0.0, "rel": {}, "edges": {},
+            "g2p_bitwise": [0, 0]}
     for dtype in ("float32", "float64"):
         for gx, gy in ((96, 96), (37, 53)):
             cfg = mp.MPMConfig(n=4 * gx * gy, gx=gx, gy=gy, dtype=dtype)
@@ -3770,8 +3824,9 @@ def phase_mpm_kernels(mk, mp, device) -> dict:
             errs["rel"][key] = worst
             log(f"[mpm] {key}, {4 * gx * gy} particles (8 on the walls), "
                 f"mud, snow and sand: kernels vs plain max rel err {worst} "
-                f"(tol {STEP_TOL[cfg.torch_dtype]:g}; grid update and G2P "
-                f"bitwise required); bitwise cases of {len(cases)}: {bits}")
+                f"(tol {STEP_TOL[cfg.torch_dtype]:g}; the G2P with its grid "
+                f"update bitwise required, on the P2G grids and on "
+                f"synthetic ones); bitwise cases of {len(cases)}: {bits}")
     for dtype in ("float32", "float64"):
         cfg = mp.MPMConfig(dtype=dtype)
         if mp.resolve_engine(cfg, device) != "cuda":
@@ -3804,10 +3859,10 @@ def mpm_offsets_in_grid(cfg, pos) -> int:
 
 
 def mpm_bounds(cfg, pos, mass) -> dict:
-    """bound_ms of the three kernels at cfg's shape: P2G reads pos, vel, F
-    and Jp and writes three grids; the grid update reads three grids and
-    writes two; G2P reads pos, F, Jp and two grids and writes pos, vel, F
-    and Jp."""
+    """bound_ms of the two kernels at cfg's shape: P2G reads pos, vel, F
+    and Jp and writes three grids; G2P reads pos, F, Jp and the three
+    grids and writes pos, vel, F and Jp, its operations the G2P's a
+    particle and the grid update's once a node."""
     n_p, dtype = pos.shape[0], cfg.torch_dtype
     T = torch.finfo(dtype).bits // 8
     cells = cfg.gx * cfg.gy
@@ -3817,9 +3872,9 @@ def mpm_bounds(cfg, pos, mass) -> dict:
     massive = int((mass > 0).sum())
     return {
         "p2g": bound(9 * n_p * T + 3 * cells * T, p0 * n_p + p1 * nz, dtype),
-        "grid": bound(5 * cells * T, g0 * cells + g1 * massive, dtype),
-        "g2p": bound(16 * n_p * T + 2 * cells * T,
-                     MPM_G2P_OPS_PER_PARTICLE * n_p, dtype),
+        "g2p": bound(16 * n_p * T + 3 * cells * T,
+                     MPM_G2P_OPS_PER_PARTICLE * n_p + g0 * cells
+                     + g1 * massive, dtype),
         "offsets_in_grid": nz, "nodes_with_mass": massive}
 
 
@@ -3896,7 +3951,7 @@ def phase_mpm_main(mk, mp, device, smi, errs, runs=MPM_RUNS) -> dict:
         mk.reset_launches()
         out, wall = run_timed(mp, cfg, st0, steps)
         launches = dict(mk.LAUNCHES)
-        want = {"p2g": steps, "grid": steps, "g2p": steps}
+        want = {"p2g": steps, "g2p": steps}
         if launches != want:
             raise AssertionError(f"launches {launches} in {steps} steps, "
                                  f"want {want}")
@@ -3921,16 +3976,14 @@ def phase_mpm_main(mk, mp, device, smi, errs, runs=MPM_RUNS) -> dict:
         log(f"[mpm] {key} final state: kernels vs plain (rel err, bitwise) "
             f"{checks}")
 
-        vels = mk.grid_update(cfg, *grids)
-        g2p_in = (out.pos, out.F, out.Jp, *vels)
+        g2p_in = (out.pos, out.F, out.Jp, *grids)
         times = {
             "p2g": time_launches(lambda: mk.p2g(cfg, *parts), 100),
             **p2g_device_times(mk, cfg, parts),
             "p2g_plain": time_launches(lambda: mk.p2g_plain(cfg, *parts), 5),
-            "grid": time_launches(lambda: mk.grid_update(cfg, *grids), 100),
-            "grid_plain": time_launches(
-                lambda: mk.grid_update_plain(cfg, *grids), 5),
             "g2p": time_launches(lambda: mk.g2p(cfg, *g2p_in), 100),
+            "g2p_device": device_ms(lambda: mk.g2p(cfg, *g2p_in), 100,
+                                    "mpm_g2p_kernel"),
             "g2p_plain": time_launches(lambda: mk.g2p_plain(cfg, *g2p_in),
                                        5),
         }
@@ -3938,7 +3991,9 @@ def phase_mpm_main(mk, mp, device, smi, errs, runs=MPM_RUNS) -> dict:
         log(f"[mpm] per launch at {key} on {smi}: " + ", ".join(
             f"{k} {times[k]:.4f} ms vs plain {times[k + '_plain']:.4f} ms "
             f"(bound {bounds[k][0]:.5f} ms, {bounds[k][1]})"
-            for k in ("p2g", "grid", "g2p"))
+            for k in ("p2g", "g2p"))
+            + f"; G2P with the grid update {ms_text(times['g2p_device'])} "
+            f"of device time"
             + f"; {bounds['offsets_in_grid']} P2G offsets inside the grid, "
             f"{bounds['nodes_with_mass']} nodes with mass; "
             + p2g_device_line(times))
@@ -4203,10 +4258,12 @@ def main() -> int:
     kernels[-3]["edge_cases"] = flip_errs["edges"]
     kernels.extend(transfer_kernel_lines(
         "mpm", MPM_RUNS, {"p2g": 42, "grid": 78, "g2p": 101}, mpm_res,
-        mpm_errs))
+        mpm_errs, fused={"grid": "g2p"}))
     kernels[-3]["tiling"] = p2g_tiling(mpk, "MPMParticles", MPM_RUNS,
                                        _build, device)
     kernels[-3]["edge_cases"] = mpm_errs["edges"]
+    kernels[-1]["bitwise_cases"] = mpm_errs["g2p_bitwise"]
+    kernels[-1]["ptxas"] = _build.ptxas_usage("mpm_g2p_kernel")
     if len(kernels) != 25:
         raise AssertionError(f"{len(kernels)} kernel lines, want 25")
     log(f"[hyp3d] steps/s: 64^3 f32 {a3['rate']:.2f} (plain "

@@ -1,16 +1,15 @@
 // What the MLS-MPM particle kernels share (mpm_p2g.cu, mpm_g2p.cu): the
 // particle's base node and fraction, the quadratic B-spline weights, the
-// elastic part Fe of F (snow's clamp) and the stress, each written once in
-// the operation order of the plain PyTorch version (solvers/mpm.py::
-// _base_frac, _bspline_w, _elastic, _plastic_and_stress), so that with
-// -fmad=false the kernels round as it does.
+// elastic part Fe of F (snow's clamp), the stress and the grid update of
+// one node, each written once in the operation order of the plain PyTorch
+// version (solvers/mpm.py::_base_frac, _bspline_w, _elastic,
+// _plastic_and_stress, _grid_update), so that with -fmad=false the kernels
+// round as it does.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace fst {
-
-constexpr int kMPMThreads = 256;  // threads a block of the MPM kernels
 
 // jnp.clip / torch.clamp: NaN passes through.
 template <typename T>
@@ -50,6 +49,7 @@ struct MPMConsts {
   T c4;           // 4 inv_dx
   T dt;
   T x_lo, x_hi, y_hi;  // 2 dx, (Gx - 3) dx, (Gy - 3) dx
+  T gdt;          // gravity * dt
 };
 
 // The base node and fraction on one axis: xp = p inv_dx, fb = floor(xp -
@@ -112,6 +112,28 @@ __device__ __forceinline__ Mat2<T> mpm_stress(Mat2<T> Fe, T Jp,
   s.a11 = (mu * (Fe.a10 * Fe.a10 + Fe.a11 * Fe.a11 - T(1)) + llj) *
           c.stress_c;
   return s;
+}
+
+// The grid update of one node (k_grid_update, tau_mpm.cu:185-198) from its
+// P2G sums m, mx, my at node (x, y): where m > 0, u = mx / max(m, 1e-30)
+// and v = my / max(m, 1e-30) - gravity dt (true divisions), then u = 0
+// where the node is in the 3 columns of a side wall and u points out of
+// it, v likewise in the 3 rows of the floor and the lid; u = v = 0 where
+// there is no mass (NaN mass included).
+template <typename T>
+__device__ __forceinline__ void mpm_node_velocity(T m, T mx, T my, int x,
+                                                  int y,
+                                                  const MPMConsts<T>& c,
+                                                  T& u, T& v) {
+  u = T(0);
+  v = T(0);
+  if (m > T(0)) {
+    const T fm = mpm_max(m, T(1e-30));
+    u = mx / fm;
+    v = my / fm - c.gdt;
+    if ((x < 3 && u < T(0)) || (x > c.gx - 4 && u > T(0))) u = T(0);
+    if ((y < 3 && v < T(0)) || (y > c.gy - 4 && v > T(0))) v = T(0);
+  }
 }
 
 }  // namespace fst

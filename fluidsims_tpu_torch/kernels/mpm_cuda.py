@@ -14,26 +14,28 @@ versions, and the 'cuda' engine's step built on them.
   `p2g_launch` reports the design, tile, chunk, blocks, threads, shared
   memory and grid syncs, `p2g_stats` what the last launch counted.  Plain
   version: `p2g_plain` (solvers/mpm.py::_p2g, `index_add_`).
-* `grid_update(cfg, mass, mom_x, mom_y)` — csrc/mpm_grid.cu, which
-  replaces mpm_pallas.py::_grid_kernel: normalize, gravity, the sticky
-  bands, one thread a node.  Plain version: `grid_update_plain`
-  (solvers/mpm.py::_grid_update).
-* `g2p(cfg, pos, F, Jp, gu, gv)` — csrc/mpm_g2p.cu, which replaces
-  mpm_pallas.py::_g2p_kernel: per particle the gathered velocity and C,
-  the F, Jp and position updates.  Plain version: `g2p_plain`
-  (solvers/mpm.py::_g2p).
+* `g2p(cfg, pos, F, Jp, mass, mom_x, mom_y)` — csrc/mpm_g2p.cu, which
+  replaces both mpm_pallas.py::_grid_kernel and ::_g2p_kernel: the
+  velocities of the nodes a block's particles gather formed from the P2G
+  sums (normalize, gravity, the sticky bands) once into a window in
+  shared memory, or where each is gathered for a block whose particles
+  spread wide, then per particle the velocity and C, the F, Jp and
+  position updates; no node velocity reaches device memory.  Plain
+  version: `g2p_plain`
+  (solvers/mpm.py::_grid_g2p: `_g2p` of `grid_update_plain`, which is
+  solvers/mpm.py::_grid_update).
 * `make_step_cuda(cfg)` — the 'cuda' engine's step: solvers/mpm.py::_step
-  on the three kernels, one launch of each a step and no other device
+  on the two kernels, one launch of each a step and no other device
   work.
 
 The plain versions are the 'scatter' engine's functions, so that engine is
-their composition.  The grid update and G2P are bitwise equal to their
-plain versions for equal inputs (same operation order, true divisions,
-the library built with -fmad=false); P2G's adds land in no fixed order
-and it calls CUDA's exp and log, so it matches its plain version to
-rounding.  Every constant the kernels take (inv_dx, the stress scale,
-gravity*dt, the clip bounds) is formed in Python doubles as JAX forms it
-and rounded once to the dtype.
+their composition.  The G2P is bitwise equal to its plain version for
+equal grids (the grid update's operations at each node in the same order,
+true divisions, the library built with -fmad=false); P2G's adds land in
+no fixed order and it calls CUDA's exp and log, so it matches its plain
+version to rounding.  Every constant the kernels take (inv_dx, the stress
+scale, gravity*dt, the clip bounds) is formed in Python doubles as JAX
+forms it and rounded once to the dtype.
 
 The wrappers take the plain version for CPU tensors only, uncounted.  For
 CUDA tensors they check device, dtype, shape and contiguity, launch on the
@@ -58,11 +60,11 @@ from ._common import (P2G_DESIGNS, LaunchCounter, P2GLaunch,
                       check_tensors, on_cpu, tile_launch, tile_scratch)
 from ._common import grid_syncs as _grid_syncs
 
-__all__ = ["LAUNCHES", "reset_launches", "p2g", "p2g_plain", "grid_update",
+__all__ = ["LAUNCHES", "reset_launches", "p2g", "p2g_plain",
            "grid_update_plain", "g2p", "g2p_plain", "make_step_cuda", "load",
            "p2g_launch", "p2g_stats"]
 
-LAUNCHES = LaunchCounter("p2g", "grid", "g2p")
+LAUNCHES = LaunchCounter("p2g", "g2p")
 reset_launches = LAUNCHES.reset
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -71,7 +73,8 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 def _consts_struct(ctype):
     """ctypes twin of csrc/mpm.cuh's MPMConsts<T>."""
     names = ("inv_dx", "dx", "pm", "fe_lo", "fe_hi", "hardening", "mu0",
-             "lambda0", "stress_c", "c4", "dt", "x_lo", "x_hi", "y_hi")
+             "lambda0", "stress_c", "c4", "dt", "x_lo", "x_hi", "y_hi",
+             "gdt")
     return type(f"MPMConsts_{ctype.__name__}", (ctypes.Structure,), {
         "_fields_": [("gx", ctypes.c_int), ("gy", ctypes.c_int),
                      ("material", ctypes.c_int)]
@@ -87,8 +90,7 @@ def load() -> ctypes.CDLL:
     """Build (first use) and load the kernel library, with typed entry
     points."""
     lib = _build.load_library()
-    P, I, L, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-        ctypes.c_double
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for dtype, sfx in _SUFFIX.items():
         C = ctypes.POINTER(_CONSTS[dtype])
         fn = getattr(lib, f"fst_mpm_p2g_blocks_{sfx}")
@@ -97,11 +99,8 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, f"fst_mpm_p2g_{sfx}")
         fn.argtypes = [P] * 9 + [L, C, I, I, I, P]
         fn.restype = I
-        fn = getattr(lib, f"fst_mpm_grid_{sfx}")
-        fn.argtypes = [P] * 5 + [I, I, D, I, P]
-        fn.restype = I
         fn = getattr(lib, f"fst_mpm_g2p_{sfx}")
-        fn.argtypes = [P] * 9 + [L, C, I, P]
+        fn.argtypes = [P] * 10 + [L, C, I, P]
         fn.restype = I
     lib.fst_cuda_error_string.argtypes = [I]
     lib.fst_cuda_error_string.restype = ctypes.c_char_p
@@ -122,7 +121,8 @@ def consts(cfg: mpm.MPMConfig, dtype: torch.dtype):
         mu0=cfg.mu0, lambda0=cfg.lambda0,
         stress_c=-4.0 * inv_dx * inv_dx * cfg.dt * cfg.volume,
         c4=4.0 * inv_dx, dt=cfg.dt, x_lo=2.0 * dx,
-        x_hi=(cfg.gx - 3.0) * dx, y_hi=(cfg.gy - 3.0) * dx)
+        x_hi=(cfg.gx - 3.0) * dx, y_hi=(cfg.gy - 3.0) * dx,
+        gdt=cfg.gravity * cfg.dt)
 
 
 def _dtype_of(ref: torch.Tensor) -> torch.dtype:
@@ -240,67 +240,47 @@ def _p2g(cfg, pos, vel, F, Jp, *, design):
     return grids[0], grids[1], grids[2]
 
 
-# -------------------------------- grid update --------------------------------
+# ------------------------------ grid update + G2P ----------------------------
 
 
 def grid_update_plain(cfg, mass, mom_x, mom_y):
-    """Plain PyTorch version of the grid-update kernel: (gu, gv)."""
+    """The node velocities (gu, gv) of the P2G grids, plain PyTorch: the
+    grid update that `g2p` makes at the nodes it gathers."""
     return mpm._grid_update(cfg, mass, mom_x, mom_y)
 
 
-def grid_update(cfg, mass, mom_x, mom_y):
-    """(gu, gv), each (Gy, Gx), from the P2G grids: the kernel on CUDA
-    tensors, the plain version on CPU tensors."""
-    if on_cpu(mass):
-        return grid_update_plain(cfg, mass, mom_x, mom_y)
-    _check_grids(cfg, mass, mass=mass, mom_x=mom_x, mom_y=mom_y)
-    dev = mass.device
-    out = torch.empty((2, cfg.gy, cfg.gx), dtype=mass.dtype, device=dev)
-    lib = load()
-    code = getattr(lib, f"fst_mpm_grid_{_SUFFIX[mass.dtype]}")(
-        mass.data_ptr(), mom_x.data_ptr(), mom_y.data_ptr(),
-        out[0].data_ptr(), out[1].data_ptr(), cfg.gx, cfg.gy,
-        float(cfg.gravity * cfg.dt), dev.index, _stream(dev))
-    _raise_if(code, lib, "grid update kernel launch")
-    LAUNCHES["grid"] += 1
-    return out[0], out[1]
+def g2p_plain(cfg, pos, F, Jp, mass, mom_x, mom_y):
+    """Plain PyTorch version of the G2P kernel: (pos, vel, F, Jp) of the
+    G2P on `grid_update_plain`'s node velocities."""
+    return mpm._grid_g2p(cfg, pos, F, Jp, mass, mom_x, mom_y)
 
 
-# ------------------------------------ G2P ------------------------------------
-
-
-def g2p_plain(cfg, pos, F, Jp, gu, gv):
-    """Plain PyTorch version of the G2P kernel: (pos, vel, F, Jp)."""
-    return mpm._g2p(cfg, pos, F, Jp, gu, gv)
-
-
-def g2p(cfg, pos, F, Jp, gu, gv):
-    """The particles' new (pos, vel, F, Jp) from the node velocities: the
-    kernel on CUDA tensors, the plain version on CPU tensors.  The outputs
-    are views of one fresh buffer, each contiguous."""
+def g2p(cfg, pos, F, Jp, mass, mom_x, mom_y):
+    """The particles' new (pos, vel, F, Jp) from the P2G grids (mass,
+    mom_x, mom_y), the grid update made at the nodes the particles
+    gather: the kernel on CUDA tensors, the plain version on CPU tensors.
+    The outputs are views of one fresh buffer, each contiguous."""
     if on_cpu(pos):
-        return g2p_plain(cfg, pos, F, Jp, gu, gv)
+        return g2p_plain(cfg, pos, F, Jp, mass, mom_x, mom_y)
     n_p = _check_particles(pos, F, Jp)
-    _check_grids(cfg, pos, gu=gu, gv=gv)
+    _check_grids(cfg, pos, mass=mass, mom_x=mom_x, mom_y=mom_y)
     dev = pos.device
     buf = torch.empty(9 * n_p, dtype=pos.dtype, device=dev)
     out = (buf[:2 * n_p].view(n_p, 2), buf[2 * n_p:4 * n_p].view(n_p, 2),
            buf[4 * n_p:8 * n_p].view(n_p, 2, 2), buf[8 * n_p:])
     lib = load()
     code = getattr(lib, f"fst_mpm_g2p_{_SUFFIX[pos.dtype]}")(
-        pos.data_ptr(), F.data_ptr(), Jp.data_ptr(), gu.data_ptr(),
-        gv.data_ptr(), *(o.data_ptr() for o in out), n_p,
-        ctypes.byref(consts(cfg, pos.dtype)), dev.index, _stream(dev))
+        pos.data_ptr(), F.data_ptr(), Jp.data_ptr(), mass.data_ptr(),
+        mom_x.data_ptr(), mom_y.data_ptr(), *(o.data_ptr() for o in out),
+        n_p, ctypes.byref(consts(cfg, pos.dtype)), dev.index, _stream(dev))
     _raise_if(code, lib, "g2p kernel launch")
     LAUNCHES["g2p"] += 1
     return out
 
 
 def make_step_cuda(cfg):
-    """Step (state, grid_reduce) -> state on the three kernels:
-    solvers/mpm.py::_step with `p2g`, `grid_update` and `g2p`, one launch
-    of each."""
+    """Step (state, grid_reduce) -> state on the two kernels:
+    solvers/mpm.py::_step with `p2g` and `g2p`, one launch of each."""
     return lambda s, grid_reduce=None: mpm._step(
-        cfg, s, functools.partial(p2g, cfg),
-        functools.partial(grid_update, cfg), functools.partial(g2p, cfg),
+        cfg, s, functools.partial(p2g, cfg), functools.partial(g2p, cfg),
         grid_reduce)

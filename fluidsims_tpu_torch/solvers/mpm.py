@@ -14,15 +14,17 @@ dx = boxX/(Gx-1) (step_mpm :327).
 
 Engines (`resolve_engine`):
 
-* 'cuda' — three hand-written CUDA kernels (kernels/mpm_cuda.py): the
-  atomic P2G, the grid update and the per-particle G2P; the 'scatter'
-  semantics, no cell capacity, no particle dropped.  The default on a
-  CUDA device; on CPU tensors it raises.
+* 'cuda' — two hand-written CUDA kernels (kernels/mpm_cuda.py): the P2G,
+  and the per-particle G2P that updates each node it gathers (the grid
+  update and the G2P in one launch); the 'scatter' semantics, no cell
+  capacity, no particle dropped.  The default on a CUDA device; on CPU
+  tensors it raises.
 * 'scatter' — JAX's exact scatter/gather formulation, split at JAX's own
   section lines into `_p2g` (`index_add_`; a target outside the grid is
   dropped, not clipped), `_grid_update` and `_g2p` (gathered at clipped
-  indices, the weight of an out-of-grid target 0).  These three are the
-  CUDA kernels' plain versions; `_step` composes them.
+  indices, the weight of an out-of-grid target 0).  `_p2g` and
+  `_grid_g2p` (`_g2p` of `_grid_update`'s node velocities) are the CUDA
+  kernels' plain versions; `_step` composes them.
 * 'dense' — `_step_dense`, JAX's cell-dense engine: particles binned into
   (Gy, Gx, K) slots, transfers as dense sums and static shifts; particles
   past a cell's K = `capacity` slots keep their state and are counted by
@@ -314,23 +316,28 @@ def _g2p(cfg, pos, F, Jp, gu, gv):
     return (torch.stack([x, y], -1), torch.stack([nvx, nvy], -1), newF, Jp)
 
 
-def _step(cfg, s, p2g, grid_update, g2p, grid_reduce=None) -> MPMState:
-    """One step on the given transfers: `p2g(pos, vel, F, Jp)`,
-    `grid_update(mass, mom_x, mom_y)` and `g2p(pos, F, Jp, gu, gv)`.
-    `grid_reduce` merges partial P2G grids (the multi-device hook).  The
-    state's tensors are not written."""
+def _grid_g2p(cfg, pos, F, Jp, mass, mom_x, mom_y):
+    """The grid update and G2P from the P2G grids: `_g2p` on
+    `_grid_update`'s node velocities.  Returns (pos, vel, F, Jp)."""
+    return _g2p(cfg, pos, F, Jp, *_grid_update(cfg, mass, mom_x, mom_y))
+
+
+def _step(cfg, s, p2g, g2p, grid_reduce=None) -> MPMState:
+    """One step on the given transfers: `p2g(pos, vel, F, Jp)` and
+    `g2p(pos, F, Jp, mass, mom_x, mom_y)`, the grid update and G2P from
+    the P2G grids.  `grid_reduce` merges partial P2G grids (the
+    multi-device hook) before the G2P reads them.  The state's tensors are
+    not written."""
     grids = p2g(s.pos, s.vel, s.F, s.Jp)
     if grid_reduce is not None:
         grids = grid_reduce(grids)
-    gu, gv = grid_update(*grids)
-    return MPMState(*g2p(s.pos, s.F, s.Jp, gu, gv))
+    return MPMState(*g2p(s.pos, s.F, s.Jp, *grids))
 
 
 def _step_scatter(cfg: MPMConfig, s: MPMState, grid_reduce=None) -> MPMState:
     """The exact engine (JAX's `_step_scatter`, :122-251)."""
     return _step(cfg, s, functools.partial(_p2g, cfg),
-                 functools.partial(_grid_update, cfg),
-                 functools.partial(_g2p, cfg), grid_reduce)
+                 functools.partial(_grid_g2p, cfg), grid_reduce)
 
 
 def _cell_index(cfg, base):

@@ -304,7 +304,7 @@ def test_matches_loop_oracle_f64(material, engine):
     assert np.abs(s.vel.numpy() - orc.vel).max() < 1e-12
     assert np.abs(s.F.numpy() - orc.F).max() < 1e-12
     assert np.abs(s.Jp.numpy() - orc.Jp).max() < 1e-12
-    assert mk.LAUNCHES == {"p2g": 0, "grid": 0, "g2p": 0}
+    assert mk.LAUNCHES == {"p2g": 0, "g2p": 0}
 
 
 def test_wrappers_match_jax_pallas_interpret():
@@ -431,20 +431,20 @@ def test_wrappers_on_cpu_are_the_plain_versions_uncounted(material, dtype):
     grids = mk.p2g(cfg, pos, vel, F, Jp)
     for g, r in zip(grids, tm._p2g(cfg, pos, vel, F, Jp)):
         assert torch.equal(g, r)
-    vels = mk.grid_update(cfg, *grids)
-    for g, r in zip(vels, mk.grid_update_plain(cfg, *grids)):
+    vels = mk.grid_update_plain(cfg, *grids)
+    for g, r in zip(vels, tm._grid_update(cfg, *grids)):
         assert torch.equal(g, r)
-    for g, r in zip(mk.g2p(cfg, pos, F, Jp, *vels),
+    for g, r in zip(mk.g2p(cfg, pos, F, Jp, *grids),
                     tm._g2p(cfg, pos, F, Jp, *vels)):
         assert torch.equal(g, r)
-    assert mk.LAUNCHES == {"p2g": 0, "grid": 0, "g2p": 0}
+    assert mk.LAUNCHES == {"p2g": 0, "g2p": 0}
 
 
 def test_wrapper_checks():
     cfg = tm.MPMConfig(n=16, gx=16, gy=12)
     s = tm.init(cfg, CPU)
     assert mk._check_particles(s.pos, s.F, s.Jp, vel=s.vel) == 16
-    mk._check_grids(cfg, s.pos, gu=torch.zeros(12, 16))       # accepted
+    mk._check_grids(cfg, s.pos, mass=torch.zeros(12, 16))     # accepted
     with pytest.raises(TypeError, match="vel is"):
         mk._check_particles(s.pos, s.F, s.Jp, vel=s.vel.double())
     with pytest.raises(ValueError, match=r"\(np, 2\)"):
@@ -458,15 +458,15 @@ def test_wrapper_checks():
     with pytest.raises(TypeError, match="no kernel"):
         mk._check_particles(s.pos.half(), s.F, s.Jp)
     with pytest.raises(ValueError, match="shape"):
-        mk._check_grids(cfg, s.pos, gu=torch.zeros(16, 12))
+        mk._check_grids(cfg, s.pos, mass=torch.zeros(16, 12))
     meta = [f.to("meta") for f in s]
     with pytest.raises(ValueError, match="unsupported device"):
         mk.p2g(cfg, *meta)
-    with pytest.raises(ValueError, match="unsupported device"):
-        mk.grid_update(cfg, *(torch.zeros(12, 16, device="meta"),) * 3)
+    with pytest.raises(ValueError, match="mom_y on cpu"):
+        mk._check_grids(cfg, meta[0], mom_y=torch.zeros(12, 16))
     with pytest.raises(ValueError, match="unsupported device"):
         mk.g2p(cfg, meta[0], meta[2], meta[3],
-               *(torch.zeros(12, 16, device="meta"),) * 2)
+               *(torch.zeros(12, 16, device="meta"),) * 3)
 
 
 def test_kernel_constants_round_once_from_double():

@@ -9,9 +9,9 @@ solvers.mpm.run with engine 'auto' (the CUDA kernels): MPMConfig()
 512^2 f32 x 200 steps, each from init: the unprofiled step time and M
 particle-steps/s, and under torch.profiler the device time of each kernel
 (the P2G, group "MPMParticles": the tiled design at 2^20 particles, the
-atomic one at 32,768; the grid update, G2P) and of the rest (the atomic
-design's memset of the P2G grids), the busy and idle shares
-(tools/profile_torch_common.py says how each is read).
+atomic one at 32,768; the G2P with its grid update, "mpm_g2p_kernel") and
+of the rest (the atomic design's memset of the P2G grids), the busy and
+idle shares (tools/profile_torch_common.py says how each is read).
 
 Imports torch and the port only.  Writes JSON to `--out` (default
 build/profile_mpm_torch.json).
@@ -30,7 +30,7 @@ from fluidsims_tpu_torch.solvers import mpm  # noqa: E402
 from profile_torch_common import Run, main  # noqa: E402
 
 RUNS = ((32768, 96, "float32", 1000), (1 << 20, 512, "float32", 200))
-GROUPS = ("MPMParticles", "mpm_grid_kernel", "mpm_g2p_kernel")
+GROUPS = ("MPMParticles", "mpm_g2p_kernel")
 
 
 def _make_go(n_p: int, g: int, dtype: str):

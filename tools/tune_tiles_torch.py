@@ -6,7 +6,8 @@ tiles.
         [sass] [diff A B]
         [--root DIR] [--out PATH] [--define NAME=VALUE ...] [--only KEY ...]
         [--fmad] [--dump DIR] [--inputs DIR]
-        [--set tiles|hypersonic|mhd|sph|flip|lbm|p2g|gs|g2p|set_bnd|bin]
+        [--set tiles|hypersonic|mhd|sph|flip|lbm|p2g|gs|g2p|set_bnd|bin|
+               mpm]
 
 The kernels: the Burgers and shallow-water K-step kernels
 (csrc/burgers_multistep.cu, csrc/shallow_water_multistep.cu, TPU kernel
@@ -20,8 +21,9 @@ csrc/hypersonic3d_step.cu, #2), the GLM-MHD K-step kernel
 both csrc/p2g_tiles.cuh), the Gray–Scott K-step kernel
 (csrc/gray_scott_multistep.cu, #4), the FLIP G2P (csrc/flip_g2p.cu, #18),
 the stam3d set_bnd (csrc/stam3d_set_bnd.cu, #13), the SPH bin
-(csrc/sph_bin.cu, #22) and the stam2d advection (csrc/stam2d_advect.cu,
-#10).
+(csrc/sph_bin.cu, #22), the stam2d advection (csrc/stam2d_advect.cu,
+#10) and the MPM G2P with its grid update (csrc/mpm_g2p.cu, #20 and
+#21).
 
 * check — each kernel against its plain version on the card: Burgers and
   shallow water on 200x75 and 5x3 (every option), k = 1 within 1e-5
@@ -54,10 +56,12 @@ the stam3d set_bnd (csrc/stam3d_set_bnd.cu, #13), the SPH bin
   phase-15 cases (G2P_CHECK, SET_BND_CHECK_N; this tree's chip_smoke.py);
   the SPH bin bitwise equal to its plain version in all five outputs on
   chip_smoke.py's phase-6 cases (BIN_CHECK: 4,096 particles in one cell, a
-  cell of 3,000 at 2^16, 2^20 on 256^2 with empty cells), and the stam2d
+  cell of 3,000 at 2^16, 2^20 on 256^2 with empty cells), the stam2d
   advection of one field and of the velocity pair bitwise equal at n = 1,
-  2, 3, 37, 200 and 512, f32 and f64 (ADVECT_CHECK_N).  Raises on the
-  first failure.
+  2, 3, 37, 200 and 512, f32 and f64 (ADVECT_CHECK_N), and the MPM kernels
+  by chip_smoke.py's phase 21 (the G2P with its grid update bitwise equal
+  to its plain version on every case; trees whose G2P reads the P2G
+  grids).  Raises on the first failure.
 * time — ms a launch by CUDA events (a warm-up, then the mean over a run
   of launches back to back) at the shapes chip_smoke.py's main runs use:
   Burgers 512^2 f32 K=16 and K=1, 4096^2 f32 K=16, 512^2 f64 K=16;
@@ -96,9 +100,17 @@ the stam3d set_bnd (csrc/stam3d_set_bnd.cu, #13), the SPH bin
   two runs differ); set_bnd ("set_bnd 192 f32", "... f64") on the four
   fields of the final state of the stam3d runs (192^3 f32 x 100, f64 x
   20), also as device time, with digests of that state and of the
-  output; the MPM grid update (#20) and G2P (#21) on the P2G grids of the
-  final state of the MPM runs ("mpm 96 f32", "mpm 96 f64", "mpm 512
-  f32"; "<key> grid", "<key> g2p"), also as device time; and "p2g switch":
+  output; the MPM G2P with its grid update (#20 and #21, one launch) on
+  the P2G grids of the final state of the MPM runs ("mpm 96 f32", "mpm
+  96 f64", "mpm 512 f32"; "<key> g2p", and for a tree that launches the
+  grid update on its own, as the parent of that design does, "<key>
+  grid" too), also as device time and the host's time a wrapper call,
+  and the step's part ("<key> step") as events and device time in all,
+  bitwise to the plain G2P of the plain grid update or not, with digests
+  of the inputs and outputs (--inputs DIR as for the FLIP G2P); "mpm
+  switch": that step part's device time on the final state of MPM runs
+  of 65,536-524,288 particles (where a tree with one launch and one with
+  two cross); and "p2g switch":
   each P2G design's device time a wrapper call on FLIP and MPM runs of
   65,536-262,144 particles, where FST_P2G_TILED_FROM should lie; the SPH
   bin ("bin 65536 f32", "bin 1048576 f32 rain") on the final state of
@@ -150,7 +162,9 @@ the stam3d set_bnd (csrc/stam3d_set_bnd.cu, #13), the SPH bin
   FST_G2P_F64_THREADS; pass --inputs so that every build times the same
   inputs); `--set set_bnd` the set_bnd block (csrc/stam3d_set_bnd.cu
   FST_SET_BND_X, FST_SET_BND_ROWS); `--set bin` the SPH bin's threads a
-  block (csrc/sph_bin.cu FST_BIN_THREADS).
+  block (csrc/sph_bin.cu FST_BIN_THREADS); `--set mpm` the MPM G2P's
+  threads a block and window (csrc/mpm_g2p.cu FST_MPM_G2P_THREADS,
+  FST_MPM_G2P_WINDOW; pass --inputs).
 * phases — the tiled P2Gs' and the SPH bin's phase times on the final
   states that `time` uses (--only: those keys' alone; the bin's count,
   starts, fill and ranks from a build with -DFST_BIN_STAMPS,
@@ -1472,26 +1486,156 @@ MPM_RUNS = (("mpm 96 f32", 32768, 96, "float32", 1000, 200),
 MPM_KEYS = tuple(r[0] for r in MPM_RUNS)
 
 
-def mpm_timings(m, dev, only, dump) -> dict:
-    """ms a launch of the MPM grid update ("<key> grid") and G2P ("<key>
-    g2p") by CUDA events and torch.profiler on the P2G grids of each MPM
-    run's final state."""
+def mpm_inputs(m, dev, key, cfg, steps, inputs) -> list:
+    """(pos, F, Jp, mass, mom_x, mom_y): the P2G grids of the final state
+    of an MPM_RUNS run and its particles, from `inputs`/<key>.pt where
+    saved, else from the run (its P2G's adds land in no fixed order, so
+    two runs differ in their last bits), saved there for the next
+    process."""
+    path = Path(inputs) / (key.replace(" ", "_") + ".pt") if inputs else None
+    if path is not None and path.is_file():
+        return [t.to(dev) for t in torch.load(path)]
+    out = m.mp.run(cfg, m.mp.init(cfg, dev), steps)
+    got = [out.pos, out.F, out.Jp,
+           *m.mpk.p2g(cfg, out.pos, out.vel, out.F, out.Jp)]
+    if path is not None:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save([t.cpu() for t in got], path)
+    return got
+
+
+def mpm_window_shape(m) -> tuple[int, int] | None:
+    """(threads a block, nodes a block's window) of the tree's MPM G2P as
+    built (the source's defaults, or --define's), or None for a G2P
+    without a window."""
+    from fluidsims_tpu_torch.kernels import _build
+    src = (Path(m.mpk.__file__).parents[1] / "csrc" / "mpm_g2p.cu").read_text()
+    shape = []
+    for name in ("FST_MPM_G2P_THREADS", "FST_MPM_G2P_WINDOW"):
+        got = re.search(rf"#define {name} (\d+)", src)
+        if got is None:
+            return None
+        for flag in _build.NVCC_FLAGS:
+            got = re.match(rf"-D{name}=(\d+)", flag) or got
+        shape.append(int(got.group(1)))
+    return tuple(shape)
+
+
+def mpm_windows(cfg, pos, threads: int, window: int) -> dict:
+    """The G2P's blocks on these particles as csrc/mpm_g2p.cu forms them:
+    each block's box of the in-grid nodes its particles gather, how many
+    blocks form it in a window (at most `window` nodes), and the box's
+    nodes at the median and at most."""
+    base = torch.floor(pos * (1.0 / cfg.dx) - 0.5).long()
+    lo = base.clamp(min=0)
+    hi = torch.minimum(base + 2, torch.tensor([cfg.gx - 1, cfg.gy - 1],
+                                              device=pos.device))
+    empty = (lo > hi).any(1, keepdim=True)
+    big = 1 << 30
+    lo = torch.where(empty, big, lo)
+    hi = torch.where(empty, -big, hi)
+    pad = -pos.shape[0] % threads
+    lo = torch.cat([lo, lo.new_full((pad, 2), big)]).view(-1, threads, 2)
+    hi = torch.cat([hi, hi.new_full((pad, 2), -big)]).view(-1, threads, 2)
+    side = (hi.amax(1) - lo.amin(1) + 1).clamp(min=0)
+    nodes = side[:, 0] * side[:, 1]
+    return {"blocks": nodes.numel(),
+            "windowed": int(((nodes > 0) & (nodes <= window)).sum()),
+            "median_nodes": int(nodes.median()),
+            "most_nodes": int(nodes.max())}
+
+
+def mpm_step(m, cfg, pos, F, Jp, grids):
+    """The step's grid update and G2P on the P2G grids: the tree's one
+    call, or, for a tree with a grid-update launch, its two back to
+    back."""
+    if hasattr(m.mpk, "grid_update"):
+        return lambda: m.mpk.g2p(cfg, pos, F, Jp,
+                                 *m.mpk.grid_update(cfg, *grids))
+    return lambda: m.mpk.g2p(cfg, pos, F, Jp, *grids)
+
+
+# Where the one launch and the parent's two cross: particles, with the grid
+# that keeps MPMConfig()'s particles a cell (32,768 on 96^2), each run 200
+# steps from init.
+MPM_SWITCH = (65536, 131072, 262144, 524288)
+
+
+def mpm_switch_timings(m, dev, only) -> dict:
+    """Device time of a step's grid update and G2P (one launch, or the
+    parent's two) on the P2G grids of the final state of MPM runs of
+    MPM_SWITCH's particles: keys "mpm switch <particles> on <grid>^2"."""
+    res = {}
+    if only is not None and "mpm switch" not in only:
+        return res
+    for n_p in MPM_SWITCH:
+        n = round(96 * (n_p / 32768) ** 0.5)
+        cfg = m.mp.MPMConfig(n=n_p, gx=n, gy=n)
+        out = m.mp.run(cfg, m.mp.init(cfg, dev), 200)
+        grids = m.mpk.p2g(cfg, out.pos, out.vel, out.F, out.Jp)
+        step = mpm_step(m, cfg, out.pos, out.F, out.Jp, grids)
+        res[f"mpm switch {n_p} on {n}^2"] = sum(
+            device_parts(step, 100).values())
+    return res
+
+
+def mpm_timings(m, dev, only, dump, inputs) -> dict:
+    """The MPM grid update and G2P of a step on the inputs of mpm_inputs:
+    a tree whose G2P reads the P2G grids times its one launch ("<key>
+    g2p"), a tree with a grid-update launch both ("<key> grid", "<key>
+    g2p"), each by CUDA events, torch.profiler's device time and the
+    host's time a wrapper call (`host_us`); and for both kinds the step's
+    part ("<key> step": the one call, or the two back to back) by events
+    and as device time in all, whether its outputs are bitwise those of
+    the G2P of the plain grid update's node velocities, the G2P blocks'
+    windows where the tree's kernel forms them ("<key> windows"), and the
+    digests of the inputs and the outputs (`inputs` shared by two trees:
+    the same bits)."""
     res = {}
     for key, n_p, n, dtype, steps, reps in MPM_RUNS:
         if only is not None and key not in only:
             continue
         cfg = m.mp.MPMConfig(n=n_p, gx=n, gy=n, dtype=dtype)
-        out = m.mp.run(cfg, m.mp.init(cfg, dev), steps)
-        grids = m.mpk.p2g(cfg, out.pos, out.vel, out.F, out.Jp)
-        vels = m.mpk.grid_update(cfg, *grids)
-        for name, call, frag in (
-                ("grid", lambda: m.mpk.grid_update(cfg, *grids),
-                 "mpm_grid_kernel"),
-                ("g2p", lambda: m.mpk.g2p(cfg, out.pos, out.F, out.Jp, *vels),
-                 "mpm_g2p_kernel")):
+        args = mpm_inputs(m, dev, key, cfg, steps, inputs)
+        pos, F, Jp, *grids = args
+        step = mpm_step(m, cfg, pos, F, Jp, grids)
+        calls = {"g2p": (step, "mpm_g2p_kernel")}
+        if hasattr(m.mpk, "grid_update"):
+            vels = m.mpk.grid_update(cfg, *grids)
+            calls = {"grid": (lambda: m.mpk.grid_update(cfg, *grids),
+                              "mpm_grid_kernel"),
+                     "g2p": (lambda: m.mpk.g2p(cfg, pos, F, Jp, *vels),
+                             "mpm_g2p_kernel")}
+        for name, (call, frag) in calls.items():
             res[f"{key} {name}"] = time_ms(call, reps)
             res[f"{key} {name} device"] = device_ms(call, reps, frag)
+            res[f"{key} {name} host_us"] = host_us(call, reps)
+        shape = mpm_window_shape(m)
+        if shape is not None:
+            res[f"{key} windows"] = json.dumps(mpm_windows(cfg, pos, *shape))
+        res[f"{key} step"] = time_ms(step, reps)
+        parts = device_parts(step, reps)
+        res[f"{key} step device"] = sum(parts.values())
+        res[f"{key} step device parts"] = json.dumps(parts)
+        got = list(step())
+        res[f"{key} bitwise to plain"] = all(
+            bits_equal(a, b) for a, b in zip(got, m.mp._g2p(
+                cfg, pos, F, Jp, *m.mp._grid_update(cfg, *grids))))
+        record(res, key, args, got, dump)
     return res
+
+
+def check_mpm(m, dev) -> list:
+    """chip_smoke.py's phase 21 on a tree whose G2P reads the P2G grids:
+    the P2G within its bars, the G2P with its grid update bitwise equal to
+    g2p_plain on every case, 5 cuda steps against scatter (none for a
+    tree with a grid-update launch)."""
+    if hasattr(m.mpk, "grid_update"):
+        return []
+    errs = smoke().phase_mpm_kernels(m.mpk, m.mp, dev)
+    torch.cuda.synchronize()
+    return [{"case": "mpm phase 21", "g2p_bitwise": errs["g2p_bitwise"],
+             "rel": errs["rel"]}]
 
 
 # Where the P2G designs cross (FST_P2G_TILED_FROM, csrc/p2g_tiles.cuh):
@@ -1555,7 +1699,8 @@ def checks(m, dev, only=None) -> list:
              (check_flip, FLIP_KEYS), (check_lbm, LBM_KEYS),
              (check_p2g, P2G_KEYS), (check_gs, GS_KEYS),
              (check_g2p, G2P_KEYS), (check_set_bnd, SET_BND_KEYS),
-             (check_bin, BIN_KEYS), (check_advect, ADVECT_KEYS))
+             (check_bin, BIN_KEYS), (check_advect, ADVECT_KEYS),
+             (check_mpm, MPM_KEYS))
     return [c for fn, keys in parts if only is None or set(keys) & set(only)
             for c in fn(m, dev)]
 
@@ -1571,10 +1716,11 @@ def timings(m, dev, only=None, dump=None, inputs=None) -> dict:
     res.update(gs_timings(m, dev, only, dump))
     res.update(g2p_timings(m, dev, only, dump, inputs))
     res.update(set_bnd_timings(m, dev, only, dump))
-    res.update(mpm_timings(m, dev, only, dump))
+    res.update(mpm_timings(m, dev, only, dump, inputs))
     res.update(bin_timings(m, dev, only, dump))
     res.update(advect_timings(m, dev, only, dump))
     res.update(p2g_switch_timings(m, dev, only))
+    res.update(mpm_switch_timings(m, dev, only))
     runs = (("burgers 512 f32 K=16", m.bg, m.bk.burgers_multistep,
              dict(nx=512, ny=512), 16, 50),
             ("burgers 512 f32 K=1", m.bg, m.bk.burgers_multistep,
@@ -1687,6 +1833,10 @@ G2P_VARIANTS = ((64, 256), (128, 256), (256, 128), (32, 512))
 SET_BND_VARIANTS = ((32, 8), (32, 4), (64, 4), (128, 2))
 # The SPH bin sweep: threads a block of each build.
 BIN_VARIANTS = (512, 256, 1024, 128)
+# The MPM G2P sweep: (threads a block, nodes a block's window) of each
+# build, the source's first.
+MPM_G2P_VARIANTS = ((256, 1024), (128, 1024), (64, 1024), (512, 1024),
+                    (256, 512))
 KSTEP_KEYS = ("burgers 512 f32 K=16", "burgers 4096 f32 K=16",
               "burgers 512 f64 K=16", "sw 512 f32 K=8", "sw 4096 f32 K=8",
               "sw 512 f64 K=8")
@@ -1787,10 +1937,16 @@ def bin_variants() -> list[tuple[dict, tuple]]:
     return [({"FST_BIN_THREADS": t}, BIN_KEYS) for t in BIN_VARIANTS]
 
 
+def mpm_variants() -> list[tuple[dict, tuple]]:
+    return [({"FST_MPM_G2P_THREADS": t, "FST_MPM_G2P_WINDOW": w}, MPM_KEYS)
+            for t, w in MPM_G2P_VARIANTS]
+
+
 SWEEPS = {"tiles": variants, "hypersonic": hyp_variants, "mhd": mhd_variants,
           "sph": sph_variants, "flip": flip_variants, "lbm": lbm_variants,
           "p2g": p2g_variants, "gs": gs_variants, "g2p": g2p_variants,
-          "set_bnd": set_bnd_variants, "bin": bin_variants}
+          "set_bnd": set_bnd_variants, "bin": bin_variants,
+          "mpm": mpm_variants}
 
 
 def sweep(args) -> list:
@@ -1815,9 +1971,10 @@ def sweep(args) -> list:
         got = json.loads(tmp.read_text())
         for key, ms in got["time"].items():
             # the keys' ms a launch and, where timed, their device time (a
-            # P2G key's, each design's)
+            # P2G key's, each design's; an MPM key's G2P and step)
             base = key.removesuffix(" device")
-            for design in (" tiled", " atomic", " density"):
+            for design in (" tiled", " atomic", " density", " g2p",
+                           " step"):
                 base = base.removesuffix(design)
             if not isinstance(ms, float) or base not in keys or (
                     base != key and not key.endswith(" device")):
@@ -1933,7 +2090,7 @@ def main(argv=None) -> int:
                                        "gs_multistep_kernel",
                                        "density_kernel", "10g2p_kernel",
                                        "set_bnd_kernel", "sph_bin_cu",
-                                       "stam2d_advect_cu")
+                                       "stam2d_advect_cu", "mpm_g2p_kernel")
                         for u in _build.ptxas_usage(name)]
         for u in res["ptxas"]:
             log(f"[build] ptxas {u}")
