@@ -282,6 +282,33 @@ failure of which ends the run with a non-zero exit:
              CUDA events and the P2G's device time by torch.profiler (each
              design's too), and bounds (MPM_*_OPS; the P2G's targets inside
              the grid counted from the state).
+23. nbody_kernels — no earlier phase launched the n-body kernel; then the
+             exact repulsion kernel against its plain PyTorch version,
+             f32 and f64, 2-D and 3-D, on n=2, 257 (ragged against the
+             256-body tile), 4096 seeded bodies at scale 100 with two
+             coincident and the init layout of max_number=8192, every
+             target and the rows 1::3: per body, the error over
+             sum_j |w_ij| |d_ij| (in f64) of the f64 kernel against the
+             f64 plain version <= 1e-12 and of the f32 kernel against the
+             f64 plain version of the same f32 positions <= 1e-5 (the f32
+             plain version's own error logged beside); then 5 steps of
+             solvers.nbody_graph.run through the kernel (5 launches)
+             against 5 through the plain hook at 8192, 2-D and 3-D, f32
+             and f64, within 5e-4 / 1e-10 of the layout's extent.
+24. nbody_main — solvers.nbody_graph.run with the exact engine on CUDA
+             tensors at GraphLayoutConfig(max_number=2^17) (131,072
+             bodies, bench.py's nbody_131072_exact size): 2-D f32 x 20
+             (bench.py's count), 3-D f32 x 20, 2-D f64 x 10; exactly one
+             kernel launch a step; steps/s beside the plain hook's (2
+             steps); physics (finite, pos[0] and vel[0] exactly 0, every
+             |v| <= max_speed (1 + 1e-6), the extent beside the init
+             radius 20 sqrt(n)); from each final state the kernel against
+             the plain version at full shape (phase 23's bars), ms a launch
+             by CUDA events, device time by torch.profiler, the bound
+             (NBODY_OPS_PER_PAIR); then the grid engine, plain PyTorch on
+             the card, at 2^17 (far field only) and 2^15 (near field), 2-D
+             f32 x 10, with physics, steps/s and no kernel launch; and no
+             other module's kernel launched on the n-body path.
 
 Every kernel's line in {"kernels": [...]} carries bound_ms, the least time
 the card could take for its work at the main path's shape: the larger of
@@ -4004,6 +4031,313 @@ def phase_mpm_main(mk, mp, device, smi, errs, runs=MPM_RUNS) -> dict:
     return res
 
 
+# -------------------------------- n-body layout -------------------------------
+#
+# One kernel, kernels/nbody_cuda.py (no TPU kernel: JAX computes the exact
+# repulsion as plain XLA); `nk` below is the wrapper module, `ng` the
+# solver.
+
+# nbody_repulsion.cu per pair: the differences (dims), the squares and
+# their sum (2 dims - 1), the softening (1), rsqrt (1), inv^3 (2), the
+# repulsion factor (1), w d (dims) and the partial sums (dims).
+NBODY_OPS_PER_PAIR = {2: 14, 3: 19}
+# per body, normalized by sum_j |w_ij| |d_ij| in f64: the f64 kernel
+# against the f64 plain version, the f32 kernel against the f64 plain
+# version of the same f32 positions
+NBODY_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# whole runs, of the layout's extent
+NBODY_TRAJ_TOL = {torch.float32: 5e-4, torch.float64: 1e-10}
+NBODY_RUNS = ((2, "float32", 20), (3, "float32", 20), (2, "float64", 10))
+NBODY_MAX_NUMBER = 1 << 17
+
+
+def nbody_body_err(nk, cfg, got, ref64, pos, rows) -> float:
+    """max over targets of |got_i - ref_i|_inf / sum_j |w_ij| |d_ij|, the
+    scale in f64 on the positions the forces were computed from."""
+    scale = nk.term_scale(cfg, pos.double(),
+                          None if rows is None else rows.double())
+    err = (got.double() - ref64).abs().amax(dim=-1)
+    return float((err / scale.clamp_min(1e-300)).max())
+
+
+def check_nbody_call(nk, cfg, pos, rows, what: str, errs: dict,
+                     plain_too: bool = True) -> dict:
+    """The kernel (in cfg's dtype) against the f64 plain version of the
+    same positions, within NBODY_TOL, and (`plain_too`) the plain version
+    in cfg's dtype beside it; every value finite."""
+    dt = cfg.torch_dtype
+    got = nk.repulsion_exact(cfg, pos, rows)
+    torch.cuda.synchronize()
+    c64 = cfg.replace(dtype="float64")
+    ref64 = nk.repulsion_exact_plain(c64, pos.double(),
+                                     None if rows is None else rows.double())
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite force")
+    err = nbody_body_err(nk, cfg, got, ref64, pos, rows)
+    if not err <= NBODY_TOL[dt]:
+        raise AssertionError(f"{what}: kernel per-body err {err:.3e} > "
+                             f"{NBODY_TOL[dt]:g}")
+    out = {"kernel": err}
+    if plain_too and dt == torch.float32:
+        out["plain_f32"] = nbody_body_err(
+            nk, cfg, nk.repulsion_exact_plain(cfg, pos, rows), ref64, pos,
+            rows)
+    key = "f32" if dt == torch.float32 else "f64"
+    errs[key] = max(errs.get(key, 0.0), err)
+    errs["cases"] += 1
+    return out
+
+
+def nbody_inputs(ng, cfg, n: int, device, rng):
+    """(label, positions) of the checks: n seeded bodies at scale 100 with
+    two coincident where n > 3, or the init layout of cfg."""
+    if n is None:
+        return "init", ng.init(cfg, device).pos
+    p = rng.normal(scale=100.0, size=(n, cfg.dims))
+    if n > 3:
+        p[n // 2] = p[1]
+    return f"n={n}", torch.tensor(p, dtype=cfg.torch_dtype, device=device)
+
+
+def phase_nbody_kernels(nk, ng, device) -> dict:
+    t_phase = time.perf_counter()
+    if any(nk.LAUNCHES.values()):
+        raise AssertionError(f"an earlier path launched the n-body kernel: "
+                             f"{nk.LAUNCHES}")
+    errs = {"cases": 0, "rel": {}}
+    rng = np.random.default_rng(SEED)
+    for dims in (2, 3):
+        for dtype in ("float32", "float64"):
+            for n in (2, 257, 4096, None):
+                cfg = ng.GraphLayoutConfig(max_number=8192, dims=dims,
+                                           dtype=dtype)
+                label, pos = nbody_inputs(ng, cfg, n, device, rng)
+                for rows in (None, pos[1::3].contiguous()):
+                    what = (f"{dims}-D {dtype} {label}"
+                            + ("" if rows is None else " rows 1::3"))
+                    errs["rel"][what] = check_nbody_call(nk, cfg, pos, rows,
+                                                         what, errs)
+    worst32 = max(v.get("plain_f32", 0.0) for v in errs["rel"].values())
+    log(f"[nbody] kernel vs the f64 plain version on {errs['cases']} cases "
+        f"(2-D/3-D, f32/f64, n=2, 257, 4096 with two coincident, the "
+        f"8192 init; all targets and rows 1::3): per-body err / sum|terms| "
+        f"f32 {errs['f32']:.3e} (tol 1e-5; the f32 plain version's own "
+        f"{worst32:.3e}), f64 {errs['f64']:.3e} (tol 1e-12)")
+
+    # 5 steps through the kernel against 5 through the plain hook
+    errs["traj"] = {}
+    for dims in (2, 3):
+        for dtype in ("float32", "float64"):
+            cfg = ng.GraphLayoutConfig(max_number=8192, dims=dims,
+                                       dtype=dtype)
+            s0 = ng.init(cfg, device)
+            before = nk.LAUNCHES["repulsion"]
+            a = ng.run(cfg, s0, 5)
+            if nk.LAUNCHES["repulsion"] - before != 5:
+                raise AssertionError("5 steps made "
+                                     f"{nk.LAUNCHES['repulsion'] - before} "
+                                     "launches")
+            b = ng.run(cfg, s0, 5, repulsion=lambda p, c=cfg:
+                       nk.repulsion_exact_plain(c, p))
+            if nk.LAUNCHES["repulsion"] - before != 5:
+                raise AssertionError("the plain hook launched the kernel")
+            extent = float(b.pos.abs().max())
+            r = float((a.pos - b.pos).abs().max()) / extent
+            rv = float((a.vel - b.vel).abs().max()) * cfg.dt / extent
+            tol = NBODY_TRAJ_TOL[cfg.torch_dtype]
+            if not (r <= tol and rv <= tol):
+                raise AssertionError(f"5 steps {dims}-D {dtype}: pos {r:.3e} "
+                                     f"vel dt {rv:.3e} of the extent > {tol:g}")
+            errs["traj"][f"{dims}-D {dtype}"] = max(r, rv)
+    log(f"[nbody] 5 steps at 8192 through the kernel vs the plain hook "
+        f"(of the extent; tol 5e-4 f32, 1e-10 f64): {errs['traj']}; phase "
+        f"23 took {time.perf_counter() - t_phase:.1f} s")
+    return errs
+
+
+def check_nbody_physics(cfg, out, steps: int) -> dict:
+    """Finite; root pinned at exactly 0; every |v| within the clamp; the
+    extent beside the init radius 20 sqrt(n)."""
+    if not (bool(torch.isfinite(out.pos).all())
+            and bool(torch.isfinite(out.vel).all())):
+        raise AssertionError("non-finite positions or velocities")
+    if bool(out.pos[0].any()) or bool(out.vel[0].any()):
+        raise AssertionError(f"root not pinned: {out.pos[0]} {out.vel[0]}")
+    vmax = float(torch.linalg.vector_norm(out.vel.double(), dim=-1).max())
+    if not vmax <= cfg.max_speed * (1 + 1e-6):
+        raise AssertionError(f"max |v| {vmax} past the clamp")
+    if int(out.steps) != steps:
+        raise AssertionError(f"steps {int(out.steps)}, want {steps}")
+    return {"extent": float(out.pos.abs().max()),
+            "init_radius": 20.0 * float(np.sqrt(cfg.n_bodies)),
+            "max_speed": vmax}
+
+
+def time_once(fn) -> float:
+    """ms of one call of fn() by CUDA events (no warm-up: for the plain
+    versions, whose warm-up the runs before have made)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def device_ms_each(fn, n: int, fragment: str) -> tuple[float | None, int]:
+    """(device ms a launch, launches recorded) by torch.profiler (host and
+    device activities) over n calls of fn() that each launch one kernel
+    whose name holds `fragment`, after one warm-up call: the mean over the
+    launches the profile recorded (profiles of a few long launches have
+    been seen to miss some, or all, of them); a profile that recorded none
+    is taken again, up to three times, and (None, 0) where none did."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and fragment in e.name]
+        if us:
+            return sum(us) / len(us) / 1e3, len(us)
+    return None, 0
+
+
+def nbody_bound(cfg, nt: int, n: int) -> tuple[float, str]:
+    """bound_ms of a launch of nt targets over n sources."""
+    item = 4 if cfg.dtype == "float32" else 8
+    bytes_moved = (2 * nt + n) * cfg.dims * item
+    return bound(bytes_moved, float(nt) * n * NBODY_OPS_PER_PAIR[cfg.dims],
+                 cfg.torch_dtype)
+
+
+def refuse_plain(*args, **kwargs):
+    """Stands in for the plain repulsion while the main path runs: the
+    exact engine on CUDA tensors must never reach it."""
+    raise AssertionError("the main path called the plain repulsion")
+
+
+def phase_nbody_main(nk, ng, device, smi, errs, others) -> dict:
+    t_phase = time.perf_counter()
+    res = {}
+    for dims, dtype, steps in NBODY_RUNS:
+        cfg = ng.GraphLayoutConfig(max_number=NBODY_MAX_NUMBER, dims=dims,
+                                   dtype=dtype)
+        key = f"{dims}-D {dtype}"
+        s0 = ng.init(cfg, device)
+        ng.run(cfg, s0, 1)    # warm-up (the incidence's first build)
+        nk.reset_launches()
+        plain_fn = ng._repulsion_exact
+        ng._repulsion_exact = refuse_plain
+        try:
+            out, wall = run_timed(ng, cfg, s0, steps)
+        finally:
+            ng._repulsion_exact = plain_fn
+        launches = dict(nk.LAUNCHES)
+        if launches != {"repulsion": steps}:
+            raise AssertionError(f"{key}: launches {launches} in {steps} "
+                                 "steps")
+        p_steps = 2
+        plain = {"repulsion": lambda p, c=cfg: nk.repulsion_exact_plain(c, p)}
+        _, p_wall = run_timed(ng, cfg, s0, p_steps, **plain)
+        if dict(nk.LAUNCHES) != launches:
+            raise AssertionError("the plain hook launched the kernel")
+        rate, p_rate = steps / wall, p_steps / p_wall
+        phys = check_nbody_physics(cfg, out, steps)
+        log(f"[nbody] {cfg.n_bodies} bodies {key} exact on {smi}: {steps} "
+            f"steps in {wall:.3f} s, {rate:.2f} steps/s; plain hook "
+            f"{p_steps} steps {p_rate:.3f} steps/s; launches {launches}; "
+            f"extent {phys['extent']:.1f} (init radius "
+            f"{phys['init_radius']:.1f}), max |v| {phys['max_speed']:.3f}, "
+            "root pinned, finite")
+        chk = check_nbody_call(nk, cfg, out.pos, None, key + " final state",
+                               errs, plain_too=False)
+        errs["rel"][key + " final state"] = chk
+        pos = out.pos
+        dev_ms, recorded = device_ms_each(
+            lambda: nk.repulsion_exact(cfg, pos), 5, "nbody_repulsion_kernel")
+        times = {
+            "repulsion": time_launches(lambda: nk.repulsion_exact(cfg, pos),
+                                       5),
+            "repulsion_device": dev_ms,
+            "repulsion_plain": time_once(
+                lambda: nk.repulsion_exact_plain(cfg, pos)),
+        }
+        bnd = nbody_bound(cfg, cfg.n_bodies, cfg.n_bodies)
+        log(f"[nbody] per launch at {key} on {smi}: kernel "
+            f"{times['repulsion']:.4f} ms by events, "
+            f"{ms_text(times['repulsion_device'])} of device time ({recorded} "
+            "of 5 launches recorded), plain "
+            f"{times['repulsion_plain']:.4f} ms (bound {bnd[0]:.4f} ms, "
+            f"{bnd[1]}); final state per-body err {chk}")
+        res[key] = {"launches": launches, "times": times, "bound": bnd,
+                    "rate": rate, "plain_rate": p_rate, "physics": phys}
+
+    # the grid engine: plain PyTorch on the card, no kernel launch
+    for n, steps in ((NBODY_MAX_NUMBER, 10), (1 << 15, 10)):
+        cfg = ng.GraphLayoutConfig(max_number=n, engine="grid")
+        s0 = ng.init(cfg, device)
+        ng.run(cfg, s0, 1)    # warm-up
+        before = dict(nk.LAUNCHES)
+        out, wall = run_timed(ng, cfg, s0, steps)
+        if dict(nk.LAUNCHES) != before:
+            raise AssertionError("the grid engine launched the kernel")
+        phys = check_nbody_physics(cfg, out, steps)
+        near = "far field only" if n > cfg.near_field_max else "near field"
+        log(f"[nbody] grid engine {n} bodies 2-D f32 ({near}) on {smi}: "
+            f"{steps} steps {steps / wall:.2f} steps/s, extent "
+            f"{phys['extent']:.1f}, no kernel launch")
+        res[f"grid {n}"] = {"rate": steps / wall, "physics": phys}
+    if any(any(m.LAUNCHES.values()) for m in others):
+        raise AssertionError(f"the n-body path launched other kernels: "
+                             f"{[dict(m.LAUNCHES) for m in others]}")
+    log(f"[nbody] phase 24 took {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
+def nbody_kernel_line(res, errs) -> dict:
+    """The {"kernels": [...]} entry of the n-body kernel: times and bound
+    from the final state of the 2-D f32 run at 2^17, those of the 3-D f32
+    and 2-D f64 runs beside them; launches summed over the three runs."""
+    keys = [f"{d}-D {dt}" for d, dt, _ in NBODY_RUNS]
+    a = res[keys[0]]
+    entry = {
+        "name": "nbody_repulsion", "route": "cuda",
+        "source": "fluidsims_tpu_torch/csrc/nbody_repulsion.cu",
+        # JAX computes the exact repulsion as plain XLA; no Pallas kernel
+        "replaces": "fluidsims_tpu/solvers/nbody_graph.py:209",
+        "launches": sum(res[k]["launches"]["repulsion"] for k in keys),
+        "max_abs_err": max(errs["f32"], errs["f64"]),
+        "ms": a["times"]["repulsion"],
+        "plain_ms": a["times"]["repulsion_plain"],
+        "bound_ms": a["bound"][0], "bound_by": a["bound"][1],
+        "library_ms": None,
+        "ms_device": a["times"]["repulsion_device"],
+        "steps_per_s": a["rate"], "plain_steps_per_s": a["plain_rate"],
+        "max_err_per_body": {"f32": errs["f32"], "f64": errs["f64"]},
+        "err_cases": errs["cases"], "traj_err": errs["traj"],
+        "grid_engine_steps_per_s": {k: v["rate"] for k, v in res.items()
+                                    if k.startswith("grid")}}
+    for k, tag in zip(keys[1:], ("3d_f32", "f64")):
+        r = res[k]
+        entry.update({f"launches_{tag}": r["launches"]["repulsion"],
+                      f"ms_{tag}": r["times"]["repulsion"],
+                      f"ms_device_{tag}": r["times"]["repulsion_device"],
+                      f"plain_ms_{tag}": r["times"]["repulsion_plain"],
+                      f"bound_ms_{tag}": r["bound"][0],
+                      f"bound_by_{tag}": r["bound"][1],
+                      f"steps_per_s_{tag}": r["rate"],
+                      f"plain_steps_per_s_{tag}": r["plain_rate"]})
+    return entry
+
+
 def main() -> int:
     smi = phase_device()
     from fluidsims_tpu_torch import interop, regression
@@ -4035,6 +4369,8 @@ def main() -> int:
     from fluidsims_tpu_torch.solvers import flip_apic as fa
     from fluidsims_tpu_torch.kernels import mpm_cuda as mpk
     from fluidsims_tpu_torch.solvers import mpm as mp
+    from fluidsims_tpu_torch.kernels import nbody_cuda as nk
+    from fluidsims_tpu_torch.solvers import nbody_graph as ng
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -4050,6 +4386,7 @@ def main() -> int:
     s2k.load()
     fk.load()
     mpk.load()
+    nk.load()
     errs = phase_kernels(h2, hk, interop, cfl_dt, device)
     sk.reset_launches()
     main_res = phase_main(h2, hk, regression, cfl_dt, device, smi, errs)
@@ -4125,6 +4462,11 @@ def main() -> int:
     if any(any(o.values()) for o in others):
         raise AssertionError(f"the mpm path launched other kernels: "
                              f"{others}")
+    nbody_errs = phase_nbody_kernels(nk, ng, device)
+    others = (hk, sk, hk3, gk, lk, bk, swk, mk, sc, s2k, fk, mpk)
+    for m in others:
+        m.reset_launches()
+    nbody_res = phase_nbody_main(nk, ng, device, smi, nbody_errs, others)
 
     tiling = hyp_tiling(hk, hk3, _build)
     t = main_res["times"]
@@ -4264,8 +4606,9 @@ def main() -> int:
     kernels[-3]["edge_cases"] = mpm_errs["edges"]
     kernels[-1]["bitwise_cases"] = mpm_errs["g2p_bitwise"]
     kernels[-1]["ptxas"] = _build.ptxas_usage("mpm_g2p_kernel")
-    if len(kernels) != 25:
-        raise AssertionError(f"{len(kernels)} kernel lines, want 25")
+    kernels.append(nbody_kernel_line(nbody_res, nbody_errs))
+    if len(kernels) != 26:
+        raise AssertionError(f"{len(kernels)} kernel lines, want 26")
     log(f"[hyp3d] steps/s: 64^3 f32 {a3['rate']:.2f} (plain "
         f"{a3['plain_rate']:.3f}), 256^3 f32 {b3['rate']:.2f} (plain "
         f"{b3['plain_rate']:.4f}); th3cs 64^3 "
@@ -4288,6 +4631,12 @@ def main() -> int:
         f"{a['plain_rate']:.4f}), n=1048576 {b['rate']:.3f} (plain "
         f"{b['plain_rate']:.4f}); pairs {a['bounds']['pairs']} / "
         f"{b['bounds']['pairs']}")
+    log("[nbody] steps/s at 131072 bodies: " + ", ".join(
+        f"{k} {r['rate']:.2f} (plain {r['plain_rate']:.3f})"
+        for k, r in nbody_res.items() if not k.startswith("grid"))
+        + "; grid engine " + ", ".join(
+            f"{k.split()[1]} {r['rate']:.2f}" for k, r in nbody_res.items()
+            if k.startswith("grid")))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

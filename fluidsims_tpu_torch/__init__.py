@@ -25,8 +25,12 @@ fluids (`solvers.stam2d`), whose whole Jacobi solve and exact advection
 run as two more (`kernels.stam2d_cuda`), and FLIP/APIC
 (`solvers.flip_apic`), whose atomic P2G, grid phase and G2P run as three
 more (`kernels.flip_cuda`), and MLS-MPM (`solvers.mpm`), whose atomic P2G,
-grid update and G2P run as three more (`kernels.mpm_cuda`); the sources
-are in `csrc/`.  Kernels build
+grid update and G2P run as three more (`kernels.mpm_cuda`), and the
+prime-graph n-body layout (`solvers.nbody_graph`, `ops.cell_list`), whose
+exact all-pairs repulsion runs as one more (`kernels.nbody_cuda`), with
+its native Barnes–Hut host engine (`solvers.nbody_native`, the port's own
+`native/nbody_bh.c`) and terminal views (`render.points`,
+`core.interactive`); the sources are in `csrc/`.  Kernels build
 with nvcc at first use; on
 CPU tensors every kernel wrapper takes its plain PyTorch version.  Entry points
 (`init`, `interop.*_from_numpy`) put their tensors on the GPU unless

@@ -13,11 +13,13 @@
     python -m fluidsims_tpu_torch.cli stam2d --n 512 --steps 400
     python -m fluidsims_tpu_torch.cli flip --particles 65536 --steps 200
     python -m fluidsims_tpu_torch.cli mpm --n 32768 --material snow --steps 500
+    python -m fluidsims_tpu_torch.cli nbody --steps 20
 
 Ports of the `hypersonic2d`, `sph`, `hypersonic3d`, `th3cs`, `gray-scott`,
-`lbm`, `burgers`, `shallow-water`, `mhd`, `stam3d`, `stam2d`, `flip` and
-`mpm` subcommands of fluidsims_tpu.cli with the same physics flags and
-defaults, headless.  All run on `--device cuda` unless asked for the CPU.
+`lbm`, `burgers`, `shallow-water`, `mhd`, `stam3d`, `stam2d`, `flip`,
+`mpm` and `nbody` subcommands of fluidsims_tpu.cli with the same physics
+flags and defaults, headless but for `nbody`'s terminal views.  All run on
+`--device cuda` unless asked for the CPU.
 
 hypersonic2d, hypersonic3d: `--impl cuda` (default) steps through the CUDA
 kernels and needs `--device cuda`; `--impl torch` steps through their
@@ -74,6 +76,16 @@ CLI defaults to dense); it prints the engine, steps/s and M
 particle-steps/s, the mean height of the final state and the overflow
 count.  JAX's `--cols`/`--rows` only size its terminal frames, which are
 not ported.  The warm-up is one step.
+
+nbody: the prime-graph layout of 2^17 bodies by default; engine `exact`
+steps the all-pairs repulsion through its CUDA kernel on a GPU (its plain
+version on the CPU), `grid` the grid-monopole approximation in plain
+PyTorch; `--native` runs the threaded Barnes–Hut engine on the host
+(`--threads`, `--theta`).  It prints JAX's two report lines (steps/s and
+the layout's extent) after a line naming the engine and device, and with
+`--render` the final frame; `--render --stride N --steps M` animates a
+live view for M steps and `--interactive` runs it until 'q', with JAX's
+keys.  The warm-up is one step.
 """
 
 from __future__ import annotations
@@ -471,6 +483,209 @@ def cmd_mpm(args):
     return out
 
 
+def _nbody_live(args, cfg, device):
+    """Live terminal view of the relaxing layout with the reference's
+    camera keys: pause, refit, reset, colour cycle, +/- frame stride,
+    pan/zoom in 2-D (number_fluid2d.c:805-888), orbit yaw/pitch/zoom in
+    3-D (number_fluid3d.c:909-958)."""
+    import numpy as np
+
+    from .core.interactive import interactive_loop
+    from .render import points as rp
+    from .solvers import nbody_graph as ng
+
+    schemes = list(rp.SCHEMES)
+    box = {"scheme": args.scheme, "cam": None}
+    three_d = cfg.dims == 3
+
+    if args.native:
+        from .solvers import nbody_native as nn
+
+        p0, v0, edges = ng.init_arrays(cfg)
+        eng = nn.BHEngine(cfg, edges, n_threads=args.threads or None,
+                          theta=args.theta)
+        eng.__enter__()
+        eng.set_state(p0, v0)
+
+        def make_runner():
+            def run(state, n):
+                eng.run(n)
+                return eng.get_state()[0]
+
+            return run
+
+        state0 = p0
+        n_edges = len(edges)
+
+        def reset(ctx):
+            eng.set_state(p0, v0)
+            ctx.state = p0
+            box["cam"] = None
+    else:
+        s0 = ng.init(cfg, device)
+
+        def make_runner():
+            return lambda st, n: ng.run(cfg, st, n)
+
+        state0 = s0
+        n_edges = int(s0.edges.shape[0])
+
+        def reset(ctx):
+            ctx.state = s0
+            box["cam"] = None
+
+    def pos_of(state):
+        return state if args.native else state.pos.cpu().numpy()
+
+    def frame(state):
+        pos = pos_of(state)
+        if box["cam"] is None:
+            box["cam"] = (rp.fit_orbit(pos) if three_d
+                          else rp.camera_fit(pos, args.cols, args.rows))
+        if three_d:
+            return rp.render_points_3d(pos, args.cols, args.rows,
+                                       scheme=box["scheme"],
+                                       color=not args.no_color,
+                                       camera=box["cam"])
+        return rp.render_points(pos, args.cols, args.rows,
+                                scheme=box["scheme"],
+                                color=not args.no_color, camera=box["cam"])
+
+    def pan(dx, dy):
+        def h(ctx):
+            cam = box["cam"]
+            if isinstance(cam, rp.Camera2D):
+                cam.tx += dx * args.cols * 0.15 / cam.zoom
+                cam.ty += dy * args.rows * 0.3 / cam.zoom
+        return h
+
+    def zoom(f):
+        def h(ctx):
+            cam = box["cam"]
+            if isinstance(cam, rp.Camera2D):
+                cam.zoom = min(max(cam.zoom * f, 1e-9), 1e9)
+            elif isinstance(cam, rp.OrbitCamera):
+                cam.distance = max(cam.distance / f, 1e-6)
+        return h
+
+    def orbit(dyaw, dpitch):
+        def h(ctx):
+            cam = box["cam"]
+            if isinstance(cam, rp.OrbitCamera):
+                cam.yaw += dyaw
+                cam.pitch = min(max(cam.pitch + dpitch, -1.55), 1.55)
+        return h
+
+    def stride_mul(f):
+        def h(ctx):
+            ctx.stride = min(max(int(ctx.stride * f), 1), 64)
+        return h
+
+    keys = {
+        "p": ("pause", lambda ctx: setattr(ctx, "paused", not ctx.paused)),
+        " ": ("step", lambda ctx: setattr(ctx, "step_once", True)),
+        "r": ("refit", lambda ctx: box.update(cam=None)),
+        "b": ("reset", reset),
+        "c": ("colors", lambda ctx: box.update(
+            scheme=schemes[(schemes.index(box["scheme"]) + 1)
+                           % len(schemes)])),
+        "z": ("zoom+", zoom(1.12)),
+        "x": ("zoom-", zoom(1 / 1.12)),
+        "+": ("stride*2", stride_mul(2)),
+        "-": ("stride/2", stride_mul(0.5)),
+    }
+    if three_d:
+        keys.update({
+            "a": ("yaw-", orbit(-0.1, 0)),
+            "d": ("yaw+", orbit(0.1, 0)),
+            "w": ("pitch+", orbit(0, 0.1)),
+            "s": ("pitch-", orbit(0, -0.1)),
+        })
+    else:
+        keys.update({
+            "h": ("pan-l", pan(-1, 0)),
+            "l": ("pan-r", pan(1, 0)),
+            "j": ("pan-d", pan(0, -1)),
+            "k": ("pan-u", pan(0, 1)),
+        })
+
+    def status(ctx):
+        cam = box["cam"]
+        view = (f"yaw={cam.yaw:.2f} pitch={cam.pitch:.2f} "
+                f"dist={cam.distance:.0f}" if isinstance(cam, rp.OrbitCamera)
+                else f"zoom={cam.zoom:.3g}" if cam else "")
+        return (f"{cfg.n_bodies} nodes {n_edges} edges "
+                f"stride={ctx.stride} [{box['scheme']}] {view}")
+
+    try:
+        return interactive_loop(
+            state0, make_runner, frame, keys,
+            stride=max(args.stride, 1), max_steps=args.steps or None,
+            status_fn=status, input_fn=args.input_fn)
+    finally:
+        if args.native:
+            eng.__exit__(None, None, None)
+
+
+def cmd_nbody(args):
+    import time as _time
+
+    import numpy as np
+
+    from .core.device import resolve_device
+    from .solvers import nbody_graph as ng
+
+    device = resolve_device(args.device)
+    cfg = ng.GraphLayoutConfig(max_number=args.max_number, dims=args.dims,
+                               grid_res=args.grid_res, engine=args.engine,
+                               dtype=args.dtype)
+    # --interactive runs until 'q' (and implies --render); --render
+    # --stride alone animates but stays bounded by --steps
+    if args.interactive or (args.render and args.stride and args.steps):
+        return _nbody_live(args, cfg, device)
+    if args.native:
+        # host path: the native engine touches no device
+        from .solvers import nbody_native as nn
+
+        p0, v0, edges = ng.init_arrays(cfg)
+        with nn.BHEngine(cfg, edges, n_threads=args.threads or None,
+                         theta=args.theta) as eng:
+            eng.set_state(p0, v0)
+            t0 = _time.perf_counter()
+            eng.run(args.steps)
+            wall = _time.perf_counter() - t0
+            pos, _ = eng.get_state()
+        n_edges = len(edges)
+        print(f"nbody engine=native theta={args.theta} device=host")
+        out = pos
+    else:
+        # one warm-up step (the kernel's build and first launch) untimed
+        out, res = _bench_run(lambda st, n: ng.run(cfg, st, n),
+                              ng.init(cfg, device), args.steps, 1,
+                              cfg.n_bodies)
+        wall = res["wall_s"]
+        pos = out.pos.cpu().numpy()
+        n_edges = int(out.edges.shape[0])
+        print(f"nbody engine={cfg.engine} {cfg.dtype} "
+              f"device={_device_name(device)}")
+    rate = args.steps / wall if wall > 0 else 0.0
+    print(f"nbody: {args.steps} steps, {cfg.n_bodies} nodes, "
+          f"{n_edges} edges -> {rate:.1f} steps/s")
+    print(f"layout extent: {np.abs(pos).max():.1f}")
+    if args.render:
+        from .render.points import render_points, render_points_3d
+
+        if cfg.dims == 3:
+            print(render_points_3d(pos, W=args.cols, H=args.rows,
+                                   scheme=args.scheme,
+                                   color=not args.no_color))
+        else:
+            print(render_points(pos, W=args.cols, H=args.rows,
+                                scheme=args.scheme,
+                                color=not args.no_color))
+    return out
+
+
 def _engine_args(p, block_k: int) -> None:
     p.add_argument("--engine", choices=("auto", "cuda", "torch"),
                    default="auto",
@@ -790,6 +1005,45 @@ def build_parser():
     p.add_argument("--device", default="cuda",
                    help="cuda, cuda:N or cpu; a missing GPU is an error")
     p.set_defaults(fn=cmd_mpm)
+
+    p = sub.add_parser("nbody",
+                       help="prime-graph force layout (number_fluid2d/3d)")
+    p.add_argument("--max-number", type=int, default=1 << 17)
+    p.add_argument("--dims", type=int, default=2, choices=[2, 3])
+    p.add_argument("--grid-res", type=int, default=32)
+    p.add_argument("--native", action="store_true",
+                   help="use the native threaded Barnes-Hut engine on the "
+                        "host (fluidsims_tpu_torch/native/nbody_bh.c)")
+    p.add_argument("--threads", type=int, default=None,
+                   help="worker threads for --native (default: CPU count)")
+    p.add_argument("--theta", type=float, default=0.75,
+                   help="BH multipole acceptance for --native (0 = exact)")
+    p.add_argument("--engine", choices=("exact", "grid"), default="exact",
+                   help="repulsion: exact all-pairs (the CUDA kernel on a "
+                        "GPU, default) or the grid-monopole approximation")
+    p.add_argument("--scheme", default="mint",
+                   choices=("mint", "index", "log", "radius", "xor"),
+                   help="point color scheme (number_fluid2d.c:146-161)")
+    p.add_argument("--cols", type=int, default=100)
+    p.add_argument("--rows", type=int, default=40)
+    p.add_argument("--no-color", action="store_true",
+                   help="plain half-blocks without ANSI colors")
+    p.add_argument("--steps", type=int, default=100,
+                   help="number of physics steps")
+    p.add_argument("--stride", type=int, default=0,
+                   help="with --render: steps per live frame (0 = only the "
+                        "final frame)")
+    p.add_argument("--render", action="store_true",
+                   help="print terminal frames")
+    p.add_argument("--headless", action="store_true",
+                   help="benchmark mode (no rendering)")
+    p.add_argument("--interactive", action="store_true",
+                   help="key-driven live view until 'q' (implies --render)")
+    p.add_argument("--dtype", default="float32",
+                   choices=("float32", "float64"))
+    p.add_argument("--device", default="cuda",
+                   help="cuda, cuda:N or cpu; a missing GPU is an error")
+    p.set_defaults(fn=cmd_nbody, input_fn=None)
     return ap
 
 

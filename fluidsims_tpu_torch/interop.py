@@ -11,7 +11,8 @@ the engines.  `hyp3d_state_from_numpy` / `hyp3d_state_to_numpy` and
 the `gs_*`, `lbm_*`, `burgers_*`, `sw_*`, `mhd_*`, `stam3d_*` and
 `stam2d_*` functions for Gray–Scott, the D2Q9 LBM, Burgers, shallow water,
 GLM-MHD and the 3-D and 2-D stable fluids, the `flip_*` functions for
-FLIP/APIC and the `mpm_*` functions for MLS-MPM.
+FLIP/APIC, the `mpm_*` functions for MLS-MPM and the `nbody_*` functions
+for the prime-graph layout.
 Nothing here imports the JAX package.
 
 Every `device=None` means the GPU, as for the solvers' `init`.
@@ -32,6 +33,7 @@ from .solvers.hypersonic3d import Hypersonic3DConfig, Hypersonic3DState
 from .solvers.lbm import LBMConfig, LBMState
 from .solvers.mhd import ConsM, MHDConfig, MHDState
 from .solvers.mpm import MPMConfig, MPMState
+from .solvers.nbody_graph import GraphLayoutConfig, GraphLayoutState
 from .solvers.shallow_water import ShallowWaterConfig, ShallowWaterState
 from .solvers.sph import SPHConfig, SPHState
 from .solvers.stam2d import Stam2DConfig, Stam2DState
@@ -52,7 +54,9 @@ __all__ = ["state_from_numpy", "state_to_numpy", "sph_state_from_numpy",
            "stam2d_state_to_numpy", "stam2d_config_from_dict",
            "flip_state_from_numpy", "flip_state_to_numpy",
            "flip_config_from_dict", "mpm_state_from_numpy",
-           "mpm_state_to_numpy", "mpm_config_from_dict"]
+           "mpm_state_to_numpy", "mpm_config_from_dict",
+           "nbody_state_from_numpy", "nbody_state_to_numpy",
+           "nbody_config_from_dict"]
 
 # JAX engine name -> port engine name
 _ENGINES = {"auto": "auto", "pallas": "cuda", "hybrid": "cuda",
@@ -414,3 +418,35 @@ def mpm_config_from_dict(fields: dict) -> MPMConfig:
     particles past a cell's K slots; the port's 'cuda' engine has the
     'scatter' semantics and drops none."""
     return _config(MPMConfig, fields)
+
+
+def nbody_state_from_numpy(pos, vel, edges, steps, *, dtype: torch.dtype,
+                           device=None) -> GraphLayoutState:
+    """Build a graph-layout state from (n, dims) pos and vel, the (m, 2)
+    edge list and the step count.  The arrays are copied; edges become
+    int32 and the count a 0-d int32 tensor."""
+    device = _device(device)
+    pos, vel = (torch.tensor(np.ascontiguousarray(f), dtype=dtype,
+                             device=device) for f in (pos, vel))
+    edges = torch.tensor(np.asarray(edges, np.int32), device=device)
+    if (pos.dim() != 2 or pos.shape[1] not in (2, 3)
+            or vel.shape != pos.shape or edges.dim() != 2
+            or edges.shape[1] != 2):
+        raise ValueError("pos and vel must be (n, 2) or (n, 3) alike and "
+                         "edges (m, 2), got "
+                         f"{[tuple(f.shape) for f in (pos, vel, edges)]}")
+    return GraphLayoutState(
+        pos=pos, vel=vel, edges=edges,
+        steps=torch.tensor(int(np.asarray(steps)), dtype=torch.int32,
+                           device=device))
+
+
+def nbody_state_to_numpy(state: GraphLayoutState):
+    """(pos, vel, edges, steps) as numpy, copied to the host."""
+    return tuple(f.detach().cpu().numpy() for f in state)
+
+
+def nbody_config_from_dict(fields: dict) -> GraphLayoutConfig:
+    """The port's GraphLayoutConfig for the fields of a JAX
+    GraphLayoutConfig (`asdict()`); the engines have the same names."""
+    return GraphLayoutConfig(**fields)

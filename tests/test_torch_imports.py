@@ -63,9 +63,13 @@ def test_every_module_listed():
                 "kernels.mhd_cuda", "ops.scalar", "ops.gather",
                 "solvers.stam3d", "kernels.stam3d_cuda", "solvers.stam2d",
                 "kernels.stam2d_cuda", "solvers.flip_apic",
-                "kernels.flip_cuda", "solvers.mpm", "kernels.mpm_cuda"):
+                "kernels.flip_cuda", "solvers.mpm", "kernels.mpm_cuda",
+                "ops.cell_list", "solvers.nbody_native", "render",
+                "render.points", "core.interactive"):
         assert f"fluidsims_tpu_torch.{mod}" in MODULES
-    assert len(MODULES) >= 47
+    assert "fluidsims_tpu_torch.solvers.nbody_graph" in MODULES
+    assert "fluidsims_tpu_torch.kernels.nbody_cuda" in MODULES
+    assert len(MODULES) >= 58
 
 
 @pytest.mark.parametrize("mod", MODULES)

@@ -37,7 +37,8 @@ def test_imports_without_cuda_and_counts_start_at_zero():
             "shallow_water_multistep.cu", "mhd_multistep.cu",
             "stam3d_jacobi.cu", "stam3d_advect.cu", "stam3d_set_bnd.cu",
             "stam2d_lin_solve.cu", "stam2d_advect.cu", "flip_p2g.cu",
-            "flip_grid.cu", "flip_g2p.cu", "mpm_p2g.cu", "mpm_g2p.cu")}
+            "flip_grid.cu", "flip_g2p.cu", "mpm_p2g.cu", "mpm_g2p.cu",
+            "nbody_repulsion.cu")}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
