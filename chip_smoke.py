@@ -75,9 +75,14 @@ failure of which ends the run with a non-zero exit:
              input: step max|err|/max|ref| <= 1e-5 (f32) / 1e-12 (f64)
              with non-finite cells in the same places, the step's
              bitwise-equal calls counted (here and in phase 9), the
-             wavespeed bitwise; then 5 steps of the CUDA engine against
-             the plain engine at f32 on the first two grids (<= 5e-4
-             relative).
+             wavespeed bitwise; the wavespeed also bitwise on 9x13x19,
+             3x7x5 and 17x31x33 (cell counts no multiple of 4) as tensors
+             and as views into larger buffers (all six at one odd offset;
+             at offsets that differ), and on 64^3 and 256^3, f32 and f64,
+             launched back to back twice in turn (each shape's own
+             scratch, the counter left at 0); then 5 steps of the CUDA
+             engine against the plain engine at f32 on the first two
+             grids (<= 5e-4 relative).
 9. hyp3d_main — solvers.hypersonic3d.run with the CUDA engine:
              default_config(64) f32 x 400 steps (bench.py's hypersonic3d_64
              and the reference's size) and default_config(256) f32 x 20;
@@ -282,16 +287,23 @@ failure of which ends the run with a non-zero exit:
              CUDA events and the P2G's device time by torch.profiler (each
              design's too), and bounds (MPM_*_OPS; the P2G's targets inside
              the grid counted from the state).
-23. nbody_kernels — no earlier phase launched the n-body kernel; then the
+23. nbody_kernels — no earlier phase launched the n-body kernel; ptxas's
+             registers and spills of the n-body and 3-D wavespeed kernels
+             logged; then the
              exact repulsion kernel against its plain PyTorch version,
              f32 and f64, 2-D and 3-D, on n=2, 257 (ragged against the
-             256-body tile), 4096 seeded bodies at scale 100 with two
+             tile), 4096 seeded bodies at scale 100 with two
              coincident and the init layout of max_number=8192, every
              target and the rows 1::3: per body, the error over
              sum_j |w_ij| |d_ij| (in f64) of the f64 kernel against the
              f64 plain version <= 1e-12 and of the f32 kernel against the
              f64 plain version of the same f32 positions <= 1e-5 (the f32
-             plain version's own error logged beside); then 5 steps of
+             plain version's own error logged beside); the same bars on
+             the launch shapes that hit every tail of each dtype's launch
+             (nt = threads x targets - 1 and + 1, n = a tile - 1 and + 1,
+             rows fewer than a block's threads); at softening 0 the self
+             pairs' forces non-finite where the plain version's are, and
+             targets off the bodies within the bars; then 5 steps of
              solvers.nbody_graph.run through the kernel (5 launches)
              against 5 through the plain hook at 8192, 2-D and 3-D, f32
              and f64, within 5e-4 / 1e-10 of the layout's extent.
@@ -353,7 +365,11 @@ runs' shapes: the blocks, threads a block, tile, halo and dynamic shared
 memory that the library's launch query reports, and ptxas's registers,
 static shared memory, stack and spills of each instantiation; and
 `bitwise_cases`, [step calls bitwise equal to the plain version, step
-calls] over phases 3-4 and 8-9, with the calls that were not.  The two
+calls] over phases 3-4 and 8-9, with the calls that were not; the 3-D
+wavespeed's line `bitwise_cases` (phase 8's edge and back-to-back cases)
+and `ptxas`; the n-body line `tail_cases` (phase 23's tails), `launch`
+(threads, targets a thread, blocks and unroll at 2^17,
+per dtype, as the library reports them) and `ptxas`.  The two
 P2G lines (#16, #19) carry `ms_device` (torch.profiler's device time a
 call of the design the wrapper picks, beside `ms`, the CUDA events' time
 of the call), `ms_device_atomic` and `ms_device_tiled` (each design), the
@@ -1231,6 +1247,87 @@ def plain3(hk3, cfg) -> dict:
 HYP3D_KERNEL_GRIDS = ((24, 40, 56), (32, 32, 32), (9, 13, 19), (3, 7, 5))
 
 
+def wavespeed_inputs(h3, cfg, device, seed: int, offsets=None):
+    """(q1, solid): the prims of init(cfg) on the device with seeded
+    multiplicative noise on every field and a NaN velocity at a fluid cell;
+    with `offsets` (cells, one for each of r, u, v, w, p and the mask), each
+    tensor a contiguous view that starts that many cells into a larger
+    buffer."""
+    s = h3.init(cfg, device)
+    q = h3._decode(cfg, *s[:6])
+    gen = torch.Generator(device=device).manual_seed(seed)
+    f = [x * (1 + 0.2 * torch.randn(x.shape, generator=gen, device=device,
+                                    dtype=x.dtype)) for x in q]
+    fluid = (~s.solid).nonzero()
+    f[2][tuple(fluid[len(fluid) // 3])] = float("nan")
+    solid = s.solid
+    if offsets is not None:
+        def at(x, o):
+            buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=device)
+            view = buf[o:o + x.numel()].view(x.shape)
+            view.copy_(x)
+            return view
+        f[:5] = [at(x, o) for x, o in zip(f[:5], offsets[:5])]
+        solid = at(solid, offsets[5])
+    return h3.PrimT(*f), solid
+
+
+def check_wavespeed(hk3, cfg, q1, solid, what: str) -> None:
+    """The wavespeed kernel bitwise equal to its plain version."""
+    wk = hk3.wavespeed(cfg, q1, solid)
+    wp = hk3.wavespeed_plain(cfg, q1, solid)
+    if not torch.equal(wk.view(1), wp.view(1)):
+        raise AssertionError(f"hyp3d wavespeed {what}: kernel {float(wk)!r} "
+                             f"!= plain {float(wp)!r}")
+
+
+# The wavespeed's views (cells into a larger buffer of r, u, v, w, p and
+# the mask): all at one odd offset (cells before the first vector), and at
+# offsets that differ (no vectors)
+WAVESPEED_OFFSETS = ((1, 1, 1, 1, 1, 1), (0, 1, 2, 3, 1, 2))
+
+
+def check_wavespeed_cases(h3, hk3, device) -> int:
+    """The wavespeed kernel bitwise equal to its plain version on grids
+    whose cell count is no multiple of 4 (ragged tails) and on views at the
+    WAVESPEED_OFFSETS, f32 and f64; then on 64^3 and 256^3, f32 and f64,
+    launched back to back twice in turn (each shape and dtype keeps its
+    own scratch, and each launch leaves its counter at 0 for the next):
+    the cases it ran."""
+    cases = 0
+    for dtype in ("float32", "float64"):
+        for nz, ny, nx in ((9, 13, 19), (3, 7, 5), (17, 31, 33)):
+            cfg = h3.Hypersonic3DConfig(nx=nx, ny=ny, nz=nz, dx=1.0 / nx,
+                                        dy=1.0 / ny, dz=1.0 / nz, dtype=dtype)
+            for offsets in (None,) + WAVESPEED_OFFSETS:
+                q1, solid = wavespeed_inputs(h3, cfg, device, SEED + cases,
+                                             offsets)
+                check_wavespeed(hk3, cfg, q1, solid,
+                                f"{nz}x{ny}x{nx} {dtype} views {offsets}")
+                cases += 1
+    runs = []
+    for n in (64, 256):
+        for dtype in ("float32", "float64"):
+            cfg = h3.default_config(n, dtype=dtype)
+            runs.append((cfg, *wavespeed_inputs(h3, cfg, device, SEED + n)))
+    got = [[hk3.wavespeed(cfg, q1, solid) for cfg, q1, solid in runs]
+           for _ in range(2)]
+    for k, (cfg, q1, solid) in enumerate(runs):
+        want = hk3.wavespeed_plain(cfg, q1, solid)
+        for rnd in got:
+            if not torch.equal(rnd[k].view(1), want.view(1)):
+                raise AssertionError(
+                    f"hyp3d wavespeed back to back {cfg.nx}^3 "
+                    f"{cfg.dtype}: kernel {float(rnd[k])!r} != plain "
+                    f"{float(want)!r}")
+            cases += 1
+    log(f"[hyp3d] wavespeed bitwise equal to its plain version in {cases} "
+        "more cases: 9x13x19, 3x7x5, 17x31x33 f32/f64, as tensors and as "
+        f"views at offsets {WAVESPEED_OFFSETS}; 64^3 and 256^3 f32/f64 "
+        "back to back, twice in turn")
+    return cases
+
+
 def phase_hyp3d_kernels(h3, hk3, interop, device) -> dict:
     errs = {"step": 0.0, "wavespeed": 0.0, "rel": {}, "trajectory": {}}
     for dtype in ("float32", "float64"):
@@ -1255,6 +1352,7 @@ def phase_hyp3d_kernels(h3, hk3, interop, device) -> dict:
     ok, n, differ = errs["bitwise"]
     log(f"[hyp3d] step kernel bitwise equal to its plain version in {ok} of "
         f"{n} calls; not in {differ}")
+    errs["wavespeed_cases"] = check_wavespeed_cases(h3, hk3, device)
     for nz, ny, nx in HYP3D_KERNEL_GRIDS[:2]:
         cfg = h3.Hypersonic3DConfig(nx=nx, ny=ny, nz=nz, dx=1.0 / nx,
                                     dy=1.0 / ny, dz=1.0 / nz)
@@ -4037,9 +4135,13 @@ def phase_mpm_main(mk, mp, device, smi, errs, runs=MPM_RUNS) -> dict:
 # repulsion as plain XLA); `nk` below is the wrapper module, `ng` the
 # solver.
 
-# nbody_repulsion.cu per pair: the differences (dims), the squares and
-# their sum (2 dims - 1), the softening (1), rsqrt (1), inv^3 (2), the
-# repulsion factor (1), w d (dims) and the partial sums (dims).
+# The function's operations a pair, as the plain version writes them
+# (solvers/nbody_graph.py::_repulsion_exact): the differences (dims), the
+# squares and their sum (2 dims - 1), the softening (1), rsqrt (1), inv^3
+# (2), the repulsion factor (1), w d (dims) and the sums (dims).  The
+# kernel issues fewer (fused multiply-adds, the repulsion once a target);
+# the bound counts the function's, so that every design of the kernel is
+# held to one bound.
 NBODY_OPS_PER_PAIR = {2: 14, 3: 19}
 # per body, normalized by sum_j |w_ij| |d_ij| in f64: the f64 kernel
 # against the f64 plain version, the f32 kernel against the f64 plain
@@ -4099,12 +4201,80 @@ def nbody_inputs(ng, cfg, n: int, device, rng):
     return f"n={n}", torch.tensor(p, dtype=cfg.torch_dtype, device=device)
 
 
+def nbody_tail_cases(shape: dict) -> list:
+    """(n, nt or None for every body) of the launch shapes that hit each
+    tail of the kernel's launch `shape` (threads a block = sources a tile,
+    targets a thread): nt a whole block's targets - 1 and + 1, n a tile -
+    1 and + 1, and rows fewer than one block's threads."""
+    T, K = shape["threads"], shape["targets"]
+    return list(dict.fromkeys([(T * K - 1, None), (T * K + 1, None),
+                               (T - 1, None), (T + 1, None),
+                               (T * K + 1, T // 2 + 1)]))
+
+
+def check_nbody_tails(nk, ng, device, rng, errs) -> dict:
+    """The kernel within NBODY_TOL on nbody_tail_cases of each dtype's
+    launch, 2-D and 3-D (seeded bodies, two coincident)."""
+    out = {}
+    for dtype in ("float32", "float64"):
+        shape = nk.repulsion_launch(1, getattr(torch, dtype))
+        for dims in (2, 3):
+            for n, nt in nbody_tail_cases(shape):
+                cfg = ng.GraphLayoutConfig(max_number=max(n, 2), dims=dims,
+                                           dtype=dtype)
+                _, pos = nbody_inputs(ng, cfg, n, device, rng)
+                rows = None if nt is None else pos[:nt].contiguous()
+                what = f"{dims}-D {dtype} n={n}" + (
+                    "" if rows is None else f" rows :{nt}")
+                out[what] = check_nbody_call(nk, cfg, pos, rows, what, errs,
+                                             plain_too=False)["kernel"]
+    log(f"[nbody] tails (nt = threads x targets +- 1, n = tile +- 1, rows "
+        f"fewer than a block's threads) of the launches "
+        f"{nk.repulsion_launch(1, torch.float32)} (f32), "
+        f"{nk.repulsion_launch(1, torch.float64)} (f64): {len(out)} cases, "
+        f"worst per-body err {max(out.values()):.3e}")
+    return out
+
+
+def check_nbody_softening0(nk, ng, device, rng, errs) -> int:
+    """At softening 0 a target's self pair (d = 0, rsqrt(0) = inf) makes
+    its force non-finite in the plain version: the kernel leaves the same
+    targets non-finite, and on targets off the bodies (all finite) stays
+    within NBODY_TOL; f32 and f64, 2-D and 3-D.  The cases it ran."""
+    cases = 0
+    for dtype in ("float32", "float64"):
+        for dims in (2, 3):
+            cfg = ng.GraphLayoutConfig(max_number=257, dims=dims,
+                                       dtype=dtype, softening=0.0)
+            _, pos = nbody_inputs(ng, cfg, 257, device, rng)
+            got = nk.repulsion_exact(cfg, pos)
+            ref = nk.repulsion_exact_plain(cfg, pos)
+            if bool(torch.isfinite(ref).any()) or not torch.equal(
+                    torch.isfinite(got), torch.isfinite(ref)):
+                raise AssertionError(f"softening 0 {dims}-D {dtype}: the "
+                                     "kernel's non-finite forces differ "
+                                     "from the plain version's")
+            off = (pos[:64] + 0.37).contiguous()
+            check_nbody_call(nk, cfg, pos, off,
+                             f"softening 0 {dims}-D {dtype} off the bodies",
+                             errs, plain_too=False)
+            cases += 2
+    return cases
+
+
 def phase_nbody_kernels(nk, ng, device) -> dict:
     t_phase = time.perf_counter()
     if any(nk.LAUNCHES.values()):
         raise AssertionError(f"an earlier path launched the n-body kernel: "
                              f"{nk.LAUNCHES}")
     errs = {"cases": 0, "rel": {}}
+    from fluidsims_tpu_torch.kernels import _build
+    for name in ("nbody_repulsion_kernel", "wavespeed3_kernel"):
+        for u in _build.ptxas_usage(name):
+            log(f"[build] ptxas {u['kernel']}: {u['registers']} registers, "
+                f"{u['static_smem']} bytes static shared memory, stack "
+                f"{u['stack']}, spill stores {u['spill_stores']}, spill "
+                f"loads {u['spill_loads']}")
     rng = np.random.default_rng(SEED)
     for dims in (2, 3):
         for dtype in ("float32", "float64"):
@@ -4123,6 +4293,11 @@ def phase_nbody_kernels(nk, ng, device) -> dict:
         f"8192 init; all targets and rows 1::3): per-body err / sum|terms| "
         f"f32 {errs['f32']:.3e} (tol 1e-5; the f32 plain version's own "
         f"{worst32:.3e}), f64 {errs['f64']:.3e} (tol 1e-12)")
+    errs["tails"] = check_nbody_tails(nk, ng, device, rng, errs)
+    errs["softening0"] = check_nbody_softening0(nk, ng, device, rng, errs)
+    log(f"[nbody] softening 0: the self pairs non-finite as in the plain "
+        f"version, targets off the bodies within the bars "
+        f"({errs['softening0']} cases)")
 
     # 5 steps through the kernel against 5 through the plain hook
     errs["traj"] = {}
@@ -4302,10 +4477,11 @@ def phase_nbody_main(nk, ng, device, smi, errs, others) -> dict:
     return res
 
 
-def nbody_kernel_line(res, errs) -> dict:
+def nbody_kernel_line(nk, build, res, errs) -> dict:
     """The {"kernels": [...]} entry of the n-body kernel: times and bound
     from the final state of the 2-D f32 run at 2^17, those of the 3-D f32
-    and 2-D f64 runs beside them; launches summed over the three runs."""
+    and 2-D f64 runs beside them; launches summed over the three runs; the
+    launch at 2^17 and ptxas's report."""
     keys = [f"{d}-D {dt}" for d, dt, _ in NBODY_RUNS]
     a = res[keys[0]]
     entry = {
@@ -4323,6 +4499,11 @@ def nbody_kernel_line(res, errs) -> dict:
         "steps_per_s": a["rate"], "plain_steps_per_s": a["plain_rate"],
         "max_err_per_body": {"f32": errs["f32"], "f64": errs["f64"]},
         "err_cases": errs["cases"], "traj_err": errs["traj"],
+        "tail_cases": errs["tails"],
+        "launch": {dt: nk.repulsion_launch(NBODY_MAX_NUMBER,
+                                           getattr(torch, dt))
+                   for dt in ("float32", "float64")},
+        "ptxas": build.ptxas_usage("nbody_repulsion_kernel"),
         "grid_engine_steps_per_s": {k: v["rate"] for k, v in res.items()
                                     if k.startswith("grid")}}
     for k, tag in zip(keys[1:], ("3d_f32", "f64")):
@@ -4569,6 +4750,8 @@ def main() -> int:
             "plain_ms_256": b3["times"][name + "_plain"],
             "bound_ms_256": b3["bounds"][name][0],
             "bound_by_256": b3["bounds"][name][1]})
+    kernels[-1]["bitwise_cases"] = hyp3d_errs["wavespeed_cases"]
+    kernels[-1]["ptxas"] = _build.ptxas_usage("wavespeed3_kernel")
     kernels[-2]["max_rel_err"] = hyp3d_errs["rel"]
     kernels[-2]["bitwise_cases"] = hyp3d_errs["bitwise"][:2]
     kernels[-2]["not_bitwise"] = hyp3d_errs["bitwise"][2]
@@ -4606,7 +4789,7 @@ def main() -> int:
     kernels[-3]["edge_cases"] = mpm_errs["edges"]
     kernels[-1]["bitwise_cases"] = mpm_errs["g2p_bitwise"]
     kernels[-1]["ptxas"] = _build.ptxas_usage("mpm_g2p_kernel")
-    kernels.append(nbody_kernel_line(nbody_res, nbody_errs))
+    kernels.append(nbody_kernel_line(nk, _build, nbody_res, nbody_errs))
     if len(kernels) != 26:
         raise AssertionError(f"{len(kernels)} kernel lines, want 26")
     log(f"[hyp3d] steps/s: 64^3 f32 {a3['rate']:.2f} (plain "

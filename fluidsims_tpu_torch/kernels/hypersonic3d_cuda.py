@@ -11,7 +11,11 @@ PyTorch versions.
   slab sponges).
 * `wavespeed(cfg, q1, solid) -> 0-d tensor` — csrc/
   hypersonic3d_wavespeed.cu: the masked max over fluid cells of
-  (|u|+a)/dx + (|v|+a)/dy + (|w|+a)/dz, on the device.  Plain version:
+  (|u|+a)/dx + (|v|+a)/dy + (|w|+a)/dz, on the device, in one launch:
+  16-byte loads, warp reductions, the blocks' maxima met in one word of a
+  two-word scratch that `_wavespeed_scratch` keeps per device, stream and
+  grid shape, and taken by the last block to finish (the kernel leaves
+  both words at 0 for the next launch on it).  Plain version:
   `wavespeed_plain` (max_wavespeed of the solver).
 
 The wrappers take the plain version for CPU tensors only.  For CUDA
@@ -30,7 +34,7 @@ import torch
 from ..solvers import hypersonic3d as h3
 from ..solvers.hypersonic3d import HALO, PrimT
 from . import _build
-from ._common import LaunchCounter, on_cpu
+from ._common import LaunchCounter, on_cpu, tile_scratch
 
 __all__ = ["LAUNCHES", "reset_launches", "step_core", "step_core_plain",
            "step_launch", "Tile3Launch", "wavespeed", "wavespeed_plain",
@@ -96,7 +100,7 @@ def load() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(Tile3Launch)]
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"fst_hyp3d_wavespeed_{sfx}")
-        fn.argtypes = [P] * 7 + [ctypes.POINTER(_Params), ctypes.c_int, P]
+        fn.argtypes = [P] * 8 + [ctypes.POINTER(_Params), ctypes.c_int, P]
         fn.restype = ctypes.c_int
     lib.fst_cuda_error_string.argtypes = [ctypes.c_int]
     lib.fst_cuda_error_string.restype = ctypes.c_char_p
@@ -211,6 +215,14 @@ def wavespeed_plain(cfg, q1: PrimT, solid) -> torch.Tensor:
     return h3.max_wavespeed(cfg, q1, solid)
 
 
+def _wavespeed_scratch(cfg, device: torch.device, stream: int) -> torch.Tensor:
+    """The two words (the max bits so far, the blocks done) of the
+    wavespeed launches of cfg's grid and dtype on one stream: zeroed when
+    made, and left at 0 by each launch for the next."""
+    return tile_scratch(("hyp3d_wavespeed", cfg.nz, cfg.ny, cfg.nx,
+                         cfg.torch_dtype), 2, torch.int64, device, stream)[0]
+
+
 def wavespeed(cfg, q1: PrimT, solid) -> torch.Tensor:
     """The masked max wavespeed of `q1` as a 0-d tensor on its device: the
     kernel on CUDA tensors, the plain version on CPU tensors."""
@@ -223,8 +235,9 @@ def wavespeed(cfg, q1: PrimT, solid) -> torch.Tensor:
     params = _params(cfg)
     with torch.cuda.device(solid.device):
         stream = torch.cuda.current_stream().cuda_stream
+        scratch = _wavespeed_scratch(cfg, solid.device, stream)
         code = fn(*(f.data_ptr() for f in q1[:5]), solid.data_ptr(),
-                  out.data_ptr(), ctypes.byref(params),
+                  out.data_ptr(), scratch.data_ptr(), ctypes.byref(params),
                   solid.device.index or 0, stream)
     _raise_on_error(lib, code, "hypersonic3d wavespeed")
     LAUNCHES["wavespeed"] += 1

@@ -3,8 +3,10 @@ wrapper and plain PyTorch version.
 
 * `repulsion_exact(cfg, pos, rows=None) -> (nt, dims)` — csrc/
   nbody_repulsion.cu: the all-pairs sum over every body of `pos` for each
-  target (the rows of `rows`, or `pos` itself), one thread a target,
-  sources staged through shared memory a tile at a time, one launch.  The
+  target (the rows of `rows`, or `pos` itself), several targets a thread,
+  sources staged through shared memory a tile at a time as one vector
+  each, fused multiply-adds, the repulsion factor applied once to a
+  target's sum, one launch (`repulsion_launch` reports its shape).  The
   JAX package computes this as plain XLA (fluidsims_tpu/solvers/
   nbody_graph.py::_repulsion_exact); no Pallas kernel is replaced.  Plain
   version: `repulsion_exact_plain` (solvers/nbody_graph._repulsion_exact,
@@ -32,7 +34,7 @@ from . import _build
 from ._common import LaunchCounter, on_cpu, raise_if
 
 __all__ = ["LAUNCHES", "reset_launches", "repulsion_exact",
-           "repulsion_exact_plain", "term_scale", "load"]
+           "repulsion_exact_plain", "repulsion_launch", "term_scale", "load"]
 
 LAUNCHES = LaunchCounter("repulsion")
 reset_launches = LAUNCHES.reset
@@ -50,6 +52,8 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, f"fst_nbody_repulsion_{sfx}")
         fn.argtypes = [P, I, P, I, I, D, D, P, I, P]
         fn.restype = ctypes.c_int
+    lib.fst_nbody_repulsion_launch.argtypes = [I, I, P]
+    lib.fst_nbody_repulsion_launch.restype = ctypes.c_int
     lib.fst_cuda_error_string.argtypes = [ctypes.c_int]
     lib.fst_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -71,6 +75,21 @@ def _check(cfg, pos: torch.Tensor, rows: torch.Tensor | None) -> None:
                              f"got {tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+_LAUNCH_FIELDS = ("threads", "targets", "blocks", "unroll")
+
+
+def repulsion_launch(nt: int, dtype: torch.dtype) -> dict:
+    """The kernel's launch for nt targets, as the library computes it:
+    threads a block (= sources a tile), targets a thread, blocks and
+    sources a step of a full tile's loop."""
+    lib = load()
+    shape = (ctypes.c_int * len(_LAUNCH_FIELDS))()
+    raise_if(lib.fst_nbody_repulsion_launch(nt, int(dtype == torch.float64),
+                                            shape),
+             lib, "nbody repulsion launch query")
+    return dict(zip(_LAUNCH_FIELDS, shape))
 
 
 def repulsion_exact_plain(cfg, pos: torch.Tensor,

@@ -7,7 +7,7 @@ tiles.
         [--root DIR] [--out PATH] [--define NAME=VALUE ...] [--only KEY ...]
         [--fmad] [--dump DIR] [--inputs DIR]
         [--set tiles|hypersonic|mhd|sph|flip|lbm|p2g|gs|g2p|set_bnd|bin|
-               mpm]
+               mpm|nbody|ws3]
 
 The kernels: the Burgers and shallow-water K-step kernels
 (csrc/burgers_multistep.cu, csrc/shallow_water_multistep.cu, TPU kernel
@@ -22,8 +22,10 @@ both csrc/p2g_tiles.cuh), the Gray–Scott K-step kernel
 (csrc/gray_scott_multistep.cu, #4), the FLIP G2P (csrc/flip_g2p.cu, #18),
 the stam3d set_bnd (csrc/stam3d_set_bnd.cu, #13), the SPH bin
 (csrc/sph_bin.cu, #22), the stam2d advection (csrc/stam2d_advect.cu,
-#10) and the MPM G2P with its grid update (csrc/mpm_g2p.cu, #20 and
-#21).
+#10), the MPM G2P with its grid update (csrc/mpm_g2p.cu, #20 and
+#21), and two kernels that stand in for no Pallas kernel: the n-body
+exact repulsion (csrc/nbody_repulsion.cu) and the 3-D masked max
+wavespeed (csrc/hypersonic3d_wavespeed.cu).
 
 * check — each kernel against its plain version on the card: Burgers and
   shallow water on 200x75 and 5x3 (every option), k = 1 within 1e-5
@@ -61,7 +63,11 @@ the stam3d set_bnd (csrc/stam3d_set_bnd.cu, #13), the SPH bin
   2, 3, 37, 200 and 512, f32 and f64 (ADVECT_CHECK_N), and the MPM kernels
   by chip_smoke.py's phase 21 (the G2P with its grid update bitwise equal
   to its plain version on every case; trees whose G2P reads the P2G
-  grids).  Raises on the first failure.
+  grids); the n-body repulsion by chip_smoke.py's phase 23 (its cases
+  and the launch tails, within 1e-5 / 1e-12 per body, and 5 steps
+  against the plain hook); the 3-D wavespeed by phase 8's wavespeed
+  cases (ragged cell counts, views at odd offsets, 64^3 and 256^3 f32 and
+  f64 back to back, all bitwise).  Raises on the first failure.
 * time — ms a launch by CUDA events (a warm-up, then the mean over a run
   of launches back to back) at the shapes chip_smoke.py's main runs use:
   Burgers 512^2 f32 K=16 and K=1, 4096^2 f32 K=16, 512^2 f64 K=16;
@@ -121,7 +127,18 @@ the stam3d set_bnd (csrc/stam3d_set_bnd.cu, #13), the SPH bin
   512 f32", "advect 512 f64") on the final state of the stam2d runs (400
   steps each), the velocity pair and the density ("<key> density") as the
   step calls them: events, device time, host time, bitwise to plain or
-  not, and digests of the state and the outputs.  For the
+  not, and digests of the state and the outputs; the n-body repulsion
+  ("nbody 2-D f32", "nbody 3-D f32", "nbody 2-D f64") on the positions
+  of the final state of chip_smoke.py's phase-24 runs (2^17 bodies, 20,
+  20 and 10 steps; with --inputs DIR the first process saves them and the
+  next load them, since two trees' kernels round differently): events,
+  device time, the error per body over sum |terms| against the f64 plain
+  version, the launch, and digests of the positions and the forces; the
+  3-D wavespeed ("wavespeed3 64^3 f32", "wavespeed3 256^3 f32") on the
+  step's output from the final state of chip_smoke.py's 3-D runs (400
+  and 20 steps): events, the host's time a wrapper call, device time a
+  call in all and by kernel (the parent's memset too), bitwise to plain
+  or not, and digests.  For the
   K=1 launches, also the device time a launch (torch.profiler's kernel
   time over 200 launches) and the host's time a wrapper call (the host
   clock over 200 calls that queue without a sync), by part.  With --root, the package is imported from
@@ -164,7 +181,11 @@ the stam3d set_bnd (csrc/stam3d_set_bnd.cu, #13), the SPH bin
   FST_SET_BND_X, FST_SET_BND_ROWS); `--set bin` the SPH bin's threads a
   block (csrc/sph_bin.cu FST_BIN_THREADS); `--set mpm` the MPM G2P's
   threads a block and window (csrc/mpm_g2p.cu FST_MPM_G2P_THREADS,
-  FST_MPM_G2P_WINDOW; pass --inputs).
+  FST_MPM_G2P_WINDOW; pass --inputs); `--set nbody` the n-body
+  kernel's threads and targets a thread of each dtype and unroll
+  (csrc/nbody_repulsion.cu FST_NBODY_THREADS, _TARGETS, _F64_THREADS,
+  _F64_TARGETS, _UNROLL; pass --inputs); `--set ws3` the 3-D wavespeed's threads a block
+  (csrc/hypersonic3d_wavespeed.cu FST_WS3_THREADS).
 * phases — the tiled P2Gs' and the SPH bin's phase times on the final
   states that `time` uses (--only: those keys' alone; the bin's count,
   starts, fill and ranks from a build with -DFST_BIN_STAMPS,
@@ -179,8 +200,9 @@ the stam3d set_bnd (csrc/stam3d_set_bnd.cu, #13), the SPH bin
   `cuobjdump -sass`, and of a probe of float and double atomicAdd on
   shared memory built for the same target: ATOMS.CAST.SPIN is a
   compare-and-swap loop, ATOMS.ADD a native shared-memory add; and the
-  number of SASS instructions of the FLIP G2P and set_bnd kernels with
-  their commonest opcodes (--root: another tree's).
+  number of SASS instructions of the FLIP G2P, set_bnd, n-body and 3-D
+  wavespeed kernels with their commonest opcodes (--root: another
+  tree's).
 * --fmad — build with -fmad=true in place of -fmad=false: how much of a
   kernel's time the unfused multiplies and adds take.  A measurement
   only; the shipped build and every bitwise bar keep -fmad=false.
@@ -872,8 +894,8 @@ def sass_opcodes(cuobjdump: Path, binary: Path, fragment: str) -> dict:
 def sass(build) -> dict:
     """The atomic instructions of the built library's P2G kernels, and of
     a probe of float and double atomicAdd on shared memory built for the
-    library's target; the instruction counts of the FLIP G2P and set_bnd
-    kernels."""
+    library's target; the instruction counts of the FLIP G2P, set_bnd,
+    n-body and 3-D wavespeed kernels."""
     nvcc = Path(build.find_nvcc())
     cuobjdump = nvcc.parent / "cuobjdump"
     lib = build._lib_path(build.find_nvcc())  # the one this process built
@@ -885,7 +907,9 @@ def sass(build) -> dict:
     return {"p2g": sass_atomics(cuobjdump, lib, "p2g"),
             "shared_add": sass_atomics(cuobjdump, cubin, "shared_add"),
             "g2p": sass_opcodes(cuobjdump, lib, "10g2p_kernel"),
-            "set_bnd": sass_opcodes(cuobjdump, lib, "set_bnd_kernel")}
+            "set_bnd": sass_opcodes(cuobjdump, lib, "set_bnd_kernel"),
+            "nbody": sass_opcodes(cuobjdump, lib, "nbody_repulsion_kernel"),
+            "wavespeed3": sass_opcodes(cuobjdump, lib, "wavespeed3_kernel")}
 
 
 def p2g_timings(m, dev, only, dump) -> dict:
@@ -1664,6 +1688,114 @@ def p2g_switch_timings(m, dev, only) -> dict:
     return res
 
 
+# The n-body exact repulsion at chip_smoke.py's phase 24 runs: (key, dims,
+# dtype, steps of the run, launches timed), 2^17 bodies.
+NBODY_RUNS = (("nbody 2-D f32", 2, "float32", 20, 10),
+              ("nbody 3-D f32", 3, "float32", 20, 10),
+              ("nbody 2-D f64", 2, "float64", 10, 5))
+NBODY_KEYS = tuple(r[0] for r in NBODY_RUNS)
+NBODY_N = 1 << 17
+
+
+def nbody_inputs(m, dev, key, cfg, steps, inputs) -> torch.Tensor:
+    """The positions of the final state of an NBODY_RUNS run: from
+    `inputs`/<key>.pt where saved, else from the run through this tree's
+    kernel (two trees' kernels round differently, so their runs differ),
+    saved there for the next process."""
+    path = Path(inputs) / (key.replace(" ", "_") + ".pt") if inputs else None
+    if path is not None and path.is_file():
+        return torch.load(path).to(dev)
+    pos = m.ng.run(cfg, m.ng.init(cfg, dev), steps).pos
+    if path is not None:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(pos.cpu(), path)
+    return pos
+
+
+def nbody_timings(m, dev, only, dump, inputs) -> dict:
+    """ms a launch of the n-body repulsion by CUDA events and
+    torch.profiler's device time on the positions of nbody_inputs, the
+    error per body over sum |terms| against the f64 plain version there,
+    the launch where the tree reports it, and the digests of the positions
+    and the forces (`inputs` shared by two trees: the same positions)."""
+    res = {}
+    for key, dims, dtype, steps, reps in NBODY_RUNS:
+        if only is not None and key not in only:
+            continue
+        cfg = m.ng.GraphLayoutConfig(max_number=NBODY_N, dims=dims,
+                                     dtype=dtype)
+        pos = nbody_inputs(m, dev, key, cfg, steps, inputs)
+        call = lambda: m.nk.repulsion_exact(cfg, pos)  # noqa: E731
+        res[key] = time_ms(call, reps)
+        res[key + " device"] = device_ms(call, reps, "nbody_repulsion_kernel")
+        got = call()
+        ref64 = m.nk.repulsion_exact_plain(cfg.replace(dtype="float64"),
+                                           pos.double())
+        scale = m.nk.term_scale(cfg, pos.double())
+        res[key + " err per body"] = float(
+            ((got.double() - ref64).abs().amax(-1) / scale).max())
+        if hasattr(m.nk, "repulsion_launch"):
+            res[key + " launch"] = json.dumps(
+                m.nk.repulsion_launch(NBODY_N, cfg.torch_dtype))
+        record(res, key, [pos], [got], dump)
+    return res
+
+
+def check_nbody(m, dev) -> list:
+    """chip_smoke.py's phase 23: the kernel within 1e-5 (f32) / 1e-12 (f64)
+    per body on its cases and tails, 5 steps against the plain hook."""
+    errs = smoke().phase_nbody_kernels(m.nk, m.ng, dev)
+    torch.cuda.synchronize()
+    return [{"case": "nbody phase 23", "f32": errs["f32"],
+             "f64": errs["f64"], "cases": errs["cases"],
+             "traj": errs["traj"]}]
+
+
+# The 3-D masked max wavespeed at chip_smoke.py's 3-D runs: (key, n,
+# steps of the run, launches timed).
+WS3_RUNS = (("wavespeed3 64^3 f32", 64, 400, 400),
+            ("wavespeed3 256^3 f32", 256, 20, 100))
+WS3_KEYS = tuple(r[0] for r in WS3_RUNS)
+
+
+def ws3_timings(m, dev, only, dump) -> dict:
+    """ms a call of the 3-D wavespeed by CUDA events, the host's time a
+    wrapper call, and its device time a
+    call in all and by kernel (a memset where the tree makes one) on the
+    step's output from the final state of chip_smoke.py's 3-D runs, bitwise
+    to plain or not, and the digests of that state and of the result (no
+    atomics in the step: two trees give the same state)."""
+    res = {}
+    for key, n, steps, reps in WS3_RUNS:
+        if only is not None and key not in only:
+            continue
+        cfg = m.h3.default_config(n)
+        out = m.h3.run(cfg, m.h3.init(cfg, dev), steps)
+        sp = m.h3.solid_pad_of(cfg, dev)
+        qp = m.h3._padded_prims(cfg, m.h3._decode(cfg, *out[:6]), sp)
+        q1 = m.hk3.step_core(cfg, qp, sp, torch.full((), 1e-6, device=dev),
+                             torch.full((), 1.0, device=dev))
+        call = lambda: m.hk3.wavespeed(cfg, q1, out.solid)  # noqa: E731
+        res[key] = time_ms(call, reps)
+        res[key + " host_us"] = host_us(call, reps)
+        parts = device_parts(call, reps)
+        res[key + " device"] = sum(parts.values())
+        res[key + " device parts"] = json.dumps(parts)
+        got = call()
+        res[key + " bitwise to plain"] = bits_equal(
+            got, m.hk3.wavespeed_plain(cfg, q1, out.solid))
+        record(res, key, list(out[:6]), [got], dump)
+    return res
+
+
+def check_ws3(m, dev) -> list:
+    """chip_smoke.py's wavespeed cases of phase 8: ragged cell counts,
+    views, 64^3 and 256^3 f32 and f64 back to back, all bitwise."""
+    cases = smoke().check_wavespeed_cases(m.h3, m.hk3, dev)
+    torch.cuda.synchronize()
+    return [{"case": "wavespeed3 phase 8 cases", "bitwise": cases}]
+
+
 def diff(a: str, b: str) -> dict:
     """Key by key, two dumps' final states and step outputs: bitwise equal
     or not, the cells whose bits differ, and the max |a - b| over the
@@ -1700,7 +1832,8 @@ def checks(m, dev, only=None) -> list:
              (check_p2g, P2G_KEYS), (check_gs, GS_KEYS),
              (check_g2p, G2P_KEYS), (check_set_bnd, SET_BND_KEYS),
              (check_bin, BIN_KEYS), (check_advect, ADVECT_KEYS),
-             (check_mpm, MPM_KEYS))
+             (check_mpm, MPM_KEYS), (check_nbody, NBODY_KEYS),
+             (check_ws3, WS3_KEYS))
     return [c for fn, keys in parts if only is None or set(keys) & set(only)
             for c in fn(m, dev)]
 
@@ -1721,6 +1854,8 @@ def timings(m, dev, only=None, dump=None, inputs=None) -> dict:
     res.update(advect_timings(m, dev, only, dump))
     res.update(p2g_switch_timings(m, dev, only))
     res.update(mpm_switch_timings(m, dev, only))
+    res.update(nbody_timings(m, dev, only, dump, inputs))
+    res.update(ws3_timings(m, dev, only, dump))
     runs = (("burgers 512 f32 K=16", m.bg, m.bk.burgers_multistep,
              dict(nx=512, ny=512), 16, 50),
             ("burgers 512 f32 K=1", m.bg, m.bk.burgers_multistep,
@@ -1837,6 +1972,16 @@ BIN_VARIANTS = (512, 256, 1024, 128)
 # build, the source's first.
 MPM_G2P_VARIANTS = ((256, 1024), (128, 1024), (64, 1024), (512, 1024),
                     (256, 512))
+# The n-body sweep: (threads, targets a thread) f32, the same f64, and
+# sources a step of a full tile's loop, of each build, the source's first.
+# (Two staging buffers and the library's f64 rsqrt were also timed: both
+# slower, and gone from the source; PERF.md says by how much.)
+NBODY_VARIANTS = (((256, 2), (512, 1), 16), ((128, 4), (128, 2), 16),
+                  ((256, 2), (256, 1), 8), ((128, 2), (128, 1), 8),
+                  ((256, 2), (512, 1), 32))
+# The 3-D wavespeed sweep: threads a block of each build, the source's
+# first.
+WS3_VARIANTS = (256, 512, 128)
 KSTEP_KEYS = ("burgers 512 f32 K=16", "burgers 4096 f32 K=16",
               "burgers 512 f64 K=16", "sw 512 f32 K=8", "sw 4096 f32 K=8",
               "sw 512 f64 K=8")
@@ -1942,11 +2087,22 @@ def mpm_variants() -> list[tuple[dict, tuple]]:
             for t, w in MPM_G2P_VARIANTS]
 
 
+def nbody_variants() -> list[tuple[dict, tuple]]:
+    return [({"FST_NBODY_THREADS": a[0], "FST_NBODY_TARGETS": a[1],
+              "FST_NBODY_F64_THREADS": b[0], "FST_NBODY_F64_TARGETS": b[1],
+              "FST_NBODY_UNROLL": unroll}, NBODY_KEYS)
+            for a, b, unroll in NBODY_VARIANTS]
+
+
+def ws3_variants() -> list[tuple[dict, tuple]]:
+    return [({"FST_WS3_THREADS": t}, WS3_KEYS) for t in WS3_VARIANTS]
+
+
 SWEEPS = {"tiles": variants, "hypersonic": hyp_variants, "mhd": mhd_variants,
           "sph": sph_variants, "flip": flip_variants, "lbm": lbm_variants,
           "p2g": p2g_variants, "gs": gs_variants, "g2p": g2p_variants,
           "set_bnd": set_bnd_variants, "bin": bin_variants,
-          "mpm": mpm_variants}
+          "mpm": mpm_variants, "nbody": nbody_variants, "ws3": ws3_variants}
 
 
 def sweep(args) -> list:
@@ -2068,12 +2224,15 @@ def main(argv=None) -> int:
     from fluidsims_tpu_torch.kernels import stam3d_cuda as sc
     from fluidsims_tpu_torch.solvers import stam3d as s3
     from fluidsims_tpu_torch.solvers import stam2d as s2
+    from fluidsims_tpu_torch.kernels import nbody_cuda as nk
+    from fluidsims_tpu_torch.solvers import nbody_graph as ng
 
     m = types.SimpleNamespace(bk=bk, swk=swk, s2k=s2k, bg=bg, sw=sw, hk=hk,
                               hk3=hk3, h2=h2, h3=h3, interop=interop,
                               cfl_dt=cfl_dt, mk=mk, sk=sk, mhd=mhd, ts=ts,
                               fk=fk, lk=lk, fa=fa, lbm=lbm, mpk=mpk, mp=mp,
-                              gk=gk, gs=gs, sc=sc, s3=s3, s2=s2)
+                              gk=gk, gs=gs, sc=sc, s3=s3, s2=s2, nk=nk,
+                              ng=ng)
     log(f"[device] {smi}; package from {Path(bk.__file__).parents[1]}")
     dev = torch.device("cuda", 0)
     bk.load()
@@ -2090,7 +2249,9 @@ def main(argv=None) -> int:
                                        "gs_multistep_kernel",
                                        "density_kernel", "10g2p_kernel",
                                        "set_bnd_kernel", "sph_bin_cu",
-                                       "stam2d_advect_cu", "mpm_g2p_kernel")
+                                       "stam2d_advect_cu", "mpm_g2p_kernel",
+                                       "nbody_repulsion_kernel",
+                                       "wavespeed3_kernel")
                         for u in _build.ptxas_usage(name)]
         for u in res["ptxas"]:
             log(f"[build] ptxas {u}")
