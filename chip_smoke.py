@@ -321,6 +321,40 @@ failure of which ends the run with a non-zero exit:
              the card, at 2^17 (far field only) and 2^15 (near field), 2-D
              f32 x 10, with physics, steps/s and no kernel launch; and no
              other module's kernel launched on the n-body path.
+25. driver_surface — the CLI's driver surface on the card, every kernel
+             counter set to 0 first: (a) each of the 12 grid and particle
+             subcommands (DRIVER_CASES, small sizes, --device cuda, the
+             K-step solvers at --block-k 2) through cli.main four ways:
+             --render --stride 2 --steps 4, --png where JAX's CLI has an
+             RGB export (a PNG of the grid's rows), --interactive with a
+             non-tty stdin, --save-state then --load-state; each exits 0,
+             prints its engine (engine=cuda / impl=cuda) and writes its
+             files; nbody --save-state/--load-state and regression
+             --write-baseline then verifying; every kernel of the 26
+             launched in these runs (the counts go into each kernel line
+             as launches_driver_surface); (b) the flagship's 7 views at
+             2048^2 f32 after 200 steps against the same functions on a
+             CPU copy of the state (masks equal, normalized field within
+             DRIVER_VIEW_TOL absolute; render_rgba of two modes within one
+             level), the ms of a frame's view + copy, colormap and PNG,
+             `hypersonic2d --png f.png --stride 50 --steps 200` at 2048^2
+             writing 4 PNGs of 2048x2048 with exactly 200 launches of each
+             of its two kernels, its steps/s beside the headless run's;
+             (c) resume through the CLI: 100 steps against 50,
+             --save-state, --load-state, 50 more: hypersonic2d 2048^2 f32
+             bitwise; FLIP 65,536 on 128^2 (its atomic P2G adds in no
+             fixed order): 50 steps in memory, saved and loaded on the
+             card bitwise, then one step from each within FLIP_STEP_TOL
+             relative; and over the CLI's 50 steps on, where the dynamics
+             grow the rounding, within FLIP_RESUME_SPREAD times the worst
+             relative spread of three straight runs' pairs, its
+             checkpoint's load + save on the card bitwise; (d) the
+             streamed th3cs 64^3 export (8 frames x 4 steps, each frame
+             readable as it lands) and the native writer's file
+             byte-identical to export_4spl's, the ms of the Python and
+             the native writer at 64^3 x 60 frames, and the hypersonic2d
+             serve frame function at 2048^2: 8 frames through
+             Stream4splWriter, read back equal.
 
 Every kernel's line in {"kernels": [...]} carries bound_ms, the least time
 the card could take for its work at the main path's shape: the larger of
@@ -377,7 +411,11 @@ same for the f64 and 2^20 runs, `tiling` (the launch the library's grid
 query reports at each main run's size: the picked and the tiled design,
 and ptxas's report of both kernels) and `edge_cases` (phases 19 and 21's
 crowded and wall cases, the two shapes of one scratch size and the grid of
-many tiles: rel errs and the tiled launch's stats).
+many tiles: rel errs and the tiled launch's stats).  Every line carries
+`launches_driver_surface` (phase 25's launches of its kernel), and the
+flagship step's line `driver_surface`: phase 25's ms a frame by part,
+steps/s of the strided PNG run and the headless run, and the resume
+results.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -4519,6 +4557,522 @@ def nbody_kernel_line(nk, build, res, errs) -> dict:
     return entry
 
 
+# ------------------------------ driver surface -------------------------------
+
+# Phase 25's runs of every solver subcommand, at small sizes on the card:
+# subcommand -> (flags, the rows of its --png frame, or None where JAX's
+# CLI has no RGB export).  The K-step solvers take --block-k 2, so that a
+# 4-step run launches their K-step kernels as well as the one-step ones.
+DRIVER_CASES = {
+    "gray-scott": (["--nx", "64", "--ny", "64", "--block-k", "2"], 64),
+    "burgers": (["--nx", "64", "--ny", "64", "--block-k", "2"], 64),
+    "shallow-water": (["--nx", "64", "--ny", "64", "--block-k", "2"], 64),
+    "lbm": (["--nx", "64", "--ny", "32", "--radius", "6", "--block-k", "2"],
+            32),
+    "hypersonic2d": (["--nx", "256", "--ny", "128"], 128),
+    "hypersonic3d": (["--n", "32"], None),
+    "mhd": (["--nx", "64", "--ny", "48", "--block-k", "2"], 48),
+    "stam2d": (["--n", "64"], 64),
+    "stam3d": (["--n", "32", "--cols", "40", "--rows", "12"], None),
+    "sph": (["--n", "4096", "--cols", "40", "--rows", "12"], None),
+    "flip": (["--particles", "4096", "--grid", "64"], None),
+    "mpm": (["--n", "4096", "--gx", "64", "--gy", "64", "--cols", "40",
+             "--rows", "12"], None),
+}
+# kernel line source (csrc file) -> (launch counter module, its counters)
+DRIVER_COUNTERS = {
+    "hypersonic2d_step.cu": ("hk", ("step",)),
+    "hypersonic2d_wavespeed.cu": ("hk", ("wavespeed",)),
+    "sph_bin.cu": ("sk", ("bin",)), "sph_density.cu": ("sk", ("density",)),
+    "sph_forces.cu": ("sk", ("forces",)),
+    "hypersonic3d_step.cu": ("hk3", ("step",)),
+    "hypersonic3d_wavespeed.cu": ("hk3", ("wavespeed",)),
+    "gray_scott_step.cu": ("gk", ("step",)),
+    "gray_scott_multistep.cu": ("gk", ("multistep",)),
+    "lbm_step.cu": ("lk", ("step",)), "lbm_multistep.cu": ("lk", ("multistep",)),
+    "burgers_multistep.cu": ("bk", ("step", "multistep")),
+    "shallow_water_multistep.cu": ("swk", ("step", "multistep")),
+    "mhd_multistep.cu": ("mk", ("step", "multistep")),
+    "stam3d_jacobi.cu": ("sc", ("jacobi",)),
+    "stam3d_advect.cu": ("sc", ("advect",)),
+    "stam3d_set_bnd.cu": ("sc", ("set_bnd",)),
+    "stam2d_lin_solve.cu": ("s2k", ("lin_solve",)),
+    "stam2d_advect.cu": ("s2k", ("advect",)),
+    "flip_p2g.cu": ("fk", ("p2g",)), "flip_grid.cu": ("fk", ("grid",)),
+    "flip_g2p.cu": ("fk", ("g2p",)),
+    "mpm_p2g.cu": ("mpk", ("p2g",)), "mpm_g2p.cu": ("mpk", ("g2p",)),
+    "nbody_repulsion.cu": ("nk", ("repulsion",)),
+}
+DRIVER_VIEW_TOL = 1e-5         # normalized view, card against CPU, absolute
+# FLIP resume, one step: a step from the checkpoint loaded on the card
+# against a step from the in-memory state it was saved from, relative to
+# each float leaf's max; the P2G's atomics round to 1.07e-6 at f32
+FLIP_STEP_TOL = 1e-5
+# FLIP resume, 50 steps on (a sanity bound): the resumed run may differ
+# from a straight one by at most this many times what two straight runs
+# differ by (the worst of three pairs, at least the floor), since the
+# dynamics grow the atomics' rounding; a resume that lost a field would
+# differ by O(1)
+FLIP_RESUME_SPREAD = 10.0
+FLIP_RESUME_FLOOR = 1e-6
+FLIP_STRAIGHT_RUNS = 3
+
+
+def cli_run(cli, argv: list) -> str:
+    """cli.main(argv) with a non-tty stdin; its stdout.  Fails unless it
+    returns 0 (or exits with code 0, as `regression` does)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    stdin = sys.stdin
+    sys.stdin = io.StringIO()           # isatty() False: no raw mode
+    try:
+        with contextlib.redirect_stdout(out):
+            try:
+                rc = cli.main(argv)
+            except SystemExit as e:
+                rc = e.code
+    finally:
+        sys.stdin = stdin
+    if rc != 0:
+        raise AssertionError(f"{' '.join(argv)}: exit {rc}\n{out.getvalue()}")
+    return out.getvalue()
+
+
+def png_size(path) -> tuple[int, int]:
+    data = open(path, "rb").read(24)
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    return tuple(int.from_bytes(data[i:i + 4], "big") for i in (16, 20))
+
+
+def driver_flags(cli, d, smi) -> None:
+    """(a): each subcommand four ways on the card; nbody's checkpoint;
+    regression write then verify."""
+    from pathlib import Path
+
+    for cmd, (flags, rows) in DRIVER_CASES.items():
+        base = [cmd, *flags, "--device", "cuda"]
+        engine = "impl=cuda" if cmd.startswith("hypersonic") \
+            else "engine=cuda"
+        t0 = time.perf_counter()
+        outs = [cli_run(cli, base + ["--render", "--stride", "2", "--steps",
+                                     "4"])]
+        name = {"flip": "flip-apic"}.get(cmd, cmd)
+        if f"[{name}] step 4/4" not in outs[0]:
+            raise AssertionError(f"{cmd} --render --stride 2: no live frame")
+        png = Path(d) / f"{cmd}.png"
+        if rows:
+            outs.append(cli_run(cli, base + ["--steps", "2", "--png",
+                                             str(png)]))
+            if not png.is_file() or png_size(png)[1] != rows:
+                raise AssertionError(f"{cmd} --png wrote no frame of {rows} "
+                                     "rows")
+        outs.append(cli_run(cli, base + ["--interactive", "--stride", "1",
+                                         "--steps", "2"]))
+        if "step 2" not in outs[-1]:
+            raise AssertionError(f"{cmd} --interactive did not run 2 steps")
+        ck = Path(d) / f"{cmd}.npz"
+        outs.append(cli_run(cli, base + ["--steps", "2", "--save-state",
+                                         str(ck)]))
+        outs.append(cli_run(cli, base + ["--steps", "2", "--load-state",
+                                         str(ck)]))
+        if not ck.is_file() or f"resumed from {ck}" not in outs[-1]:
+            raise AssertionError(f"{cmd}: no checkpoint written or resumed")
+        for o in outs:
+            if engine not in o:
+                raise AssertionError(f"{cmd}: a run did not print {engine}:"
+                                     f"\n{o}")
+        log(f"[driver] {cmd} on {smi}: --render --stride, "
+            f"{'--png, ' if rows else ''}--interactive, --save-state and "
+            f"--load-state, each exit 0 with {engine}, "
+            f"{time.perf_counter() - t0:.2f} s")
+    ck = Path(d) / "nbody.npz"
+    nb = ["nbody", "--max-number", "4096", "--steps", "2", "--device",
+          "cuda"]
+    o = cli_run(cli, nb + ["--save-state", str(ck)])
+    o += cli_run(cli, nb + ["--load-state", str(ck)])
+    if not ck.is_file() or "resumed from" not in o or "engine=exact" not in o:
+        raise AssertionError(f"nbody checkpoint:\n{o}")
+    base = Path(d) / "baseline.txt"
+    reg = ["regression", "--nx", "256", "--ny", "128", "--steps", "8",
+           "--baseline", str(base), "--device", "cuda"]
+    o = cli_run(cli, reg + ["--write-baseline"])
+    o += cli_run(cli, reg)
+    if "Failed: 0" not in o:
+        raise AssertionError(f"regression verify:\n{o}")
+    log(f"[driver] nbody --save-state/--load-state and regression "
+        f"--write-baseline then verify on {smi}: each exit 0")
+
+
+def driver_views(cli, h2, hk, views, d, smi) -> dict:
+    """(b): the flagship's views at 2048^2 f32 after 200 steps, card
+    against a CPU copy; the strided PNG run's files and launches; the time
+    a frame of view + copy + colormap + PNG."""
+    from pathlib import Path
+
+    from fluidsims_tpu_torch.core.metrics import device_timer
+    from fluidsims_tpu_torch.io.png import write_png
+    from fluidsims_tpu_torch.render.colormap import jet
+
+    cfg = h2.default_config(nx=2048, ny=2048)
+    st = h2.run(cfg, h2.init(cfg, torch.device("cuda")), 200)
+    cpu = h2.Hypersonic2DState(
+        U=type(st.U)(*(f.cpu() for f in st.U)), mask=st.mask.cpu(),
+        t=st.t.cpu())
+    errs = {}
+    for mode in views.VIEW_MODES:
+        t, solid = views.normalized_to_host(cfg, st, mode)
+        tc, solid_c = views.normalized_to_host(cfg, cpu, mode)
+        if not np.array_equal(solid, solid_c):
+            raise AssertionError(f"view {mode}: the masks differ")
+        err = float(np.max(np.abs(t.astype(np.float64) - tc)))
+        if not err <= DRIVER_VIEW_TOL:
+            raise AssertionError(f"view {mode}: card vs CPU {err:.3e} > "
+                                 f"{DRIVER_VIEW_TOL}")
+        errs[mode] = {"max_abs_err": err}
+        if mode in ("schlieren", "mach"):
+            a = views.render_rgba(cfg, st, mode).astype(int)
+            b = views.render_rgba(cfg, cpu, mode).astype(int)
+            lev = int(np.abs(a - b).max())
+            if lev > 1:
+                raise AssertionError(f"render_rgba {mode}: {lev} levels off")
+            errs[mode]["rgba_levels"] = lev
+    log(f"[driver] 2048^2 f32 views after 200 steps, card vs CPU copy: "
+        f"masks equal, normalized max abs err "
+        f"{max(e['max_abs_err'] for e in errs.values()):.3e} (tol "
+        f"{DRIVER_VIEW_TOL:g}), render_rgba (schlieren, mach) within "
+        f"{max(e.get('rgba_levels', 0) for e in errs.values())} level(s): "
+        f"{errs}")
+
+    # one frame's parts, as the CLI's --png makes it (schlieren), each
+    # bracketed by synchronisation
+    parts = {"view_copy": [], "colormap": [], "png": []}
+    held, dev = {}, torch.device("cuda")
+    for i in range(4):
+        with device_timer(held, "view_copy", dev):
+            t, solid = views.normalized_to_host(cfg, st, "schlieren")
+        with device_timer(held, "colormap", dev):
+            img = jet(np.clip(t, 0, 1))
+            img[solid] = 0
+        with device_timer(held, "png", dev):
+            write_png(Path(d) / "frame.png", img)
+        if i:
+            for k in parts:
+                parts[k].append(held[k] * 1e3)
+    frame_ms = {k: float(np.median(v)) for k, v in parts.items()}
+
+    argv = ["hypersonic2d", "--nx", "2048", "--ny", "2048", "--steps", "200",
+            "--device", "cuda"]
+    hk.reset_launches()
+    png = Path(d) / "flag.png"
+    o = cli_run(cli, argv + ["--png", str(png), "--stride", "50"])
+    launches = dict(hk.LAUNCHES)
+    if launches != {"step": 200, "wavespeed": 200}:
+        raise AssertionError(f"--png --stride 50: launches {launches}")
+    for i in range(4):
+        if png_size(Path(d) / f"flag_{i:04d}.png") != (2048, 2048):
+            raise AssertionError(f"flag_{i:04d}.png is not 2048x2048")
+    if (Path(d) / "flag_0004.png").exists():
+        raise AssertionError("more than 4 PNGs")
+    live = float(re.search(r"([0-9.]+) steps/s", o).group(1))
+    o = cli_run(cli, argv)
+    headless = float(re.search(r"([0-9.]+) steps/s", o).group(1))
+    total = sum(frame_ms.values())
+    log(f"[driver] hypersonic2d 2048^2 f32 --png f.png --stride 50 --steps "
+        f"200 on {smi}: 4 PNGs of 2048x2048, launches {launches}; "
+        f"{live:.1f} steps/s with the frames, {headless:.1f} steps/s "
+        f"headless; a frame {total:.1f} ms (view + copy "
+        f"{frame_ms['view_copy']:.1f}, colormap {frame_ms['colormap']:.1f}, "
+        f"PNG {frame_ms['png']:.1f})")
+    return {"views": errs, "frame_ms": frame_ms, "frame_ms_total": total,
+            "steps_per_s_png_stride_50": live, "steps_per_s_headless":
+            headless, "launches_png_run": launches}
+
+
+def npz_leaves(path) -> dict:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def leaf_rel_errs(a: dict, b: dict) -> dict:
+    """Per float leaf of two checkpoints: max |a - b| / max |a|."""
+    errs = {}
+    for k in sorted(a):
+        if k.startswith("leaf_") and a[k].dtype.kind == "f":
+            scale = max(float(np.max(np.abs(a[k]))), 1e-30)
+            errs[k] = float(np.max(np.abs(a[k].astype(np.float64) - b[k])))
+            errs[k] /= scale
+    return errs
+
+
+def state_rel_errs(a, b) -> dict:
+    """Per float leaf of two states: max |a - b| / max |a|."""
+    from fluidsims_tpu_torch.core import checkpoint
+
+    return leaf_rel_errs(
+        {f"leaf_{i}": x.cpu().numpy()
+         for i, x in enumerate(checkpoint.flatten(a))},
+        {f"leaf_{i}": x.cpu().numpy()
+         for i, x in enumerate(checkpoint.flatten(b))})
+
+
+def flip_resume_step(d, smi) -> dict:
+    """FLIP's tight resume check: 50 steps in memory, save, load onto the
+    card (bitwise to the state saved), then one step from the loaded state
+    against one from the in-memory state, within FLIP_STEP_TOL; a second
+    step from the in-memory state reads the atomics' own spread."""
+    from pathlib import Path
+
+    from fluidsims_tpu_torch.core import checkpoint
+    from fluidsims_tpu_torch.solvers import flip_apic as fa
+
+    cfg = fa.FlipApicConfig(particles=65536, grid=128)
+    dev = torch.device("cuda")
+    mid = fa.run(cfg, fa.init(cfg, dev), 50)
+    path = Path(d) / "flip_mem.npz"
+    checkpoint.save_state(path, mid)
+    loaded = checkpoint.load_state(path, fa.init(cfg, dev))
+    for x, y in zip(checkpoint.flatten(mid), checkpoint.flatten(loaded)):
+        if not (y.device == x.device and y.dtype == x.dtype
+                and torch.equal(x, y)):
+            raise AssertionError("flip: the state loaded on the card is not "
+                                 "the state saved")
+    a, b, c = (fa.step(cfg, s) for s in (mid, loaded, mid))
+    errs, noise = state_rel_errs(a, b), state_rel_errs(a, c)
+    worst = max(errs.values())
+    if not worst <= FLIP_STEP_TOL:
+        raise AssertionError(f"flip: one step from the loaded state vs the "
+                             f"in-memory one, rel err {worst:.3e} > "
+                             f"{FLIP_STEP_TOL:g}: {errs}")
+    if int(a.density.sum()) != int(b.density.sum()):
+        raise AssertionError("flip: one step from the loaded state rasters "
+                             "another particle total")
+    moved = int((a.density != b.density).sum())
+    log(f"[driver] resume flip 65536 128^2 f32 one step on {smi}: the "
+        f"checkpoint loaded on the card bitwise the state saved; a step from "
+        f"it vs from the in-memory state max rel err {worst:.3e} (tol "
+        f"{FLIP_STEP_TOL:g}), two steps from the in-memory state "
+        f"{max(noise.values()):.3e}; {moved} raster cells differ, totals "
+        "equal")
+    return {"load_bitwise": True, "step_rel_err": errs,
+            "step_rel_err_same_state": noise, "step_raster_cells_differ":
+            moved}
+
+
+def driver_resume(cli, d, smi) -> dict:
+    """(c): 100 steps straight against 50, --save-state, --load-state, 50.
+    The flagship's kernels are bitwise from call to call, so there the two
+    files must be equal.  FLIP's P2G adds in no fixed order: its resume is
+    held tight over one step (flip_resume_step); over the 50 steps on,
+    where the dynamics grow the rounding, the resumed run is held to
+    FLIP_RESUME_SPREAD times the spread of straight runs (the worst of
+    FLIP_STRAIGHT_RUNS runs' pairs, at least FLIP_RESUME_FLOOR), the
+    density rasters to equal particle totals, and the CLI's checkpoint to
+    a bitwise load + save on the card."""
+    import itertools
+    from pathlib import Path
+
+    from fluidsims_tpu_torch.core import checkpoint
+    from fluidsims_tpu_torch.solvers import flip_apic as fa
+
+    res = {}
+    for key, argv in (
+            ("hypersonic2d 2048^2 f32", ["hypersonic2d", "--nx", "2048",
+                                         "--ny", "2048"]),
+            ("flip 65536 128^2 f32", ["flip", "--particles", "65536",
+                                      "--grid", "128"])):
+        full, mid, end, again = (Path(d) / f"{k}.npz"
+                                 for k in ("full", "mid", "end", "again"))
+        base = argv + ["--device", "cuda"]
+        cli_run(cli, base + ["--steps", "100", "--save-state", str(full)])
+        cli_run(cli, base + ["--steps", "50", "--save-state", str(mid)])
+        cli_run(cli, base + ["--steps", "50", "--load-state", str(mid),
+                             "--save-state", str(end)])
+        a, b = npz_leaves(full), npz_leaves(end)
+        if sorted(a) != sorted(b):
+            raise AssertionError(f"{key}: the files hold other arrays")
+        if key.startswith("hypersonic2d"):
+            same = all(np.array_equal(a[k], b[k]) for k in a)
+            if not same:
+                raise AssertionError(f"{key}: resume not bitwise")
+            res[key] = {"bitwise": True}
+            log(f"[driver] resume {key} on {smi}: 100 steps == 50 + save + "
+                "load + 50, bitwise")
+            continue
+        res[key] = step = flip_resume_step(d, smi)
+        # the CLI checkpoint's round trip through the card is exact
+        like = fa.init(fa.FlipApicConfig(particles=65536, grid=128),
+                       torch.device("cuda"))
+        checkpoint.save_state(again, checkpoint.load_state(mid, like))
+        m1, m2 = npz_leaves(mid), npz_leaves(again)
+        if not all(np.array_equal(m1[k], m2[k]) for k in m1):
+            raise AssertionError(f"{key}: load + save on the card changed "
+                                 "the checkpoint")
+        straight = [a]
+        for _ in range(FLIP_STRAIGHT_RUNS - 1):
+            cli_run(cli, base + ["--steps", "100", "--save-state",
+                                 str(again)])
+            straight.append(npz_leaves(again))
+        spreads = [max(leaf_rel_errs(x, y).values())
+                   for x, y in itertools.combinations(straight, 2)]
+        errs = leaf_rel_errs(a, b)
+        dens = "leaf_4"
+        moved = int(np.sum(a[dens] != b[dens]))
+        if a[dens].sum() != b[dens].sum():
+            raise AssertionError(f"{key}: the density rasters count other "
+                                 "particle totals")
+        worst, ref = max(errs.values()), max(spreads)
+        bar = FLIP_RESUME_SPREAD * max(ref, FLIP_RESUME_FLOOR)
+        if not worst <= bar:
+            raise AssertionError(f"{key}: resume rel err {worst:.3e} > "
+                                 f"{bar:.3e} ({FLIP_RESUME_SPREAD:g} x the "
+                                 f"straight runs' {ref:.3e}): {errs}")
+        step.update({"rel_err": errs, "straight_pairs_rel_err": spreads,
+                     "raster_cells_differ": moved,
+                     "checkpoint_bitwise": True})
+        log(f"[driver] resume {key} on {smi}: 100 steps vs 50 + save + load "
+            f"+ 50, max rel err {worst:.3e}; the {len(spreads)} pairs of "
+            f"{len(straight)} straight 100-step runs differ by "
+            f"{', '.join(f'{x:.3e}' for x in spreads)} (the atomic P2G adds "
+            f"in no fixed order; bar {bar:.3e}); {moved} raster cells "
+            "differ, particle totals equal; the checkpoint's load + save on "
+            "the card bitwise")
+    return res
+
+
+def driver_streams(h2, h3, th3cs, views, d, smi) -> dict:
+    """(d): the streamed th3cs export against the batch one; the
+    hypersonic2d serve frames through the stream writer, read back."""
+    from pathlib import Path
+
+    from fluidsims_tpu_torch.io import fourspl, fourspl_native
+    from fluidsims_tpu_torch.io.live4spl import (Stream4splWriter,
+                                                 read_4spl_partial)
+
+    t0 = time.perf_counter()
+    if not fourspl_native.native_available():
+        raise AssertionError("no C compiler built native/fourspl.c")
+    build_s = time.perf_counter() - t0
+    cfg = h3.default_config(64)
+    dev = torch.device("cuda")
+    batch, stream = Path(d) / "b.4spl", Path(d) / "s.4spl"
+    vid = th3cs.export_4spl(batch, cfg, frames=8, steps_per_frame=4,
+                            device=dev)
+    fourspl_native.write_4spl_native(Path(d) / "n.4spl", vid)
+    if (Path(d) / "n.4spl").read_bytes() != batch.read_bytes():
+        raise AssertionError("th3cs: the native writer's file differs from "
+                             "export_4spl's")
+    seen = []
+    th3cs.export_4spl_streamed(
+        stream, cfg, frames=8, steps_per_frame=4, device=dev,
+        on_frame=lambda i, n: seen.append(read_4spl_partial(stream).frames))
+    if seen != list(range(1, 9)):
+        raise AssertionError(f"stream published frames {seen}")
+    if stream.read_bytes() != batch.read_bytes():
+        raise AssertionError("th3cs: the streamed file differs from the batch "
+                             "export")
+    log(f"[driver] th3cs 64^3 8 frames x 4 steps on {smi}: the streamed "
+        "file and the native writer's byte-identical to export_4spl's "
+        "(Python writer), each frame readable as it landed")
+    writers = time_writers(fourspl, fourspl_native, vid, d)
+    log(f"[driver] .4spl writers at th3cs's 64^3 x 60 frames (15.7 MB, "
+        f"warm page cache), ms a file, median of 5 (min): Python "
+        f"{writers['python_ms']:.2f} ({writers['python_min_ms']:.2f}), "
+        f"native {writers['native_ms']:.2f} ({writers['native_min_ms']:.2f}); "
+        f"the native writer built in {build_s:.2f} s")
+
+    cfg2 = h2.default_config(nx=2048, ny=2048)
+    s0 = h2.init(cfg2, dev)
+    frame_fn, (wc, hc) = views.stream_frame_fn(
+        cfg2, lambda st, n: h2.run(cfg2, st, n), "schlieren", 4, 256)
+    path = Path(d) / "h2.4spl"
+    frames = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Stream4splWriter(path, wc, hc, 1, fourspl.heat_palette(256)) as w:
+        st = s0
+        for _ in range(8):
+            st, q = frame_fn(st)
+            frames.append(q.cpu().numpy())
+            w.append(frames[-1])
+    wall = time.perf_counter() - t0
+    got = read_4spl_partial(path)
+    if got.frames != 8 or got.indices.shape[1:] != (1, hc, wc):
+        raise AssertionError(f"hypersonic2d stream: {got.frames} frames of "
+                             f"{got.indices.shape[1:]}")
+    if not np.array_equal(got.indices, np.stack(frames)):
+        raise AssertionError("hypersonic2d stream: frames read back differ")
+    if not len(np.unique(got.indices[-1])) > 1:
+        raise AssertionError("hypersonic2d stream: a flat last frame")
+    log(f"[driver] hypersonic2d 2048^2 serve frames ({wc}x{hc}, 4 steps "
+        f"each) on {smi}: 8 frames through Stream4splWriter in {wall:.3f} s, "
+        "read back equal")
+    return {"th3cs_stream_bitwise": True, "hyp2d_stream_frames": 8,
+            "hyp2d_stream_s": wall, "writers": writers,
+            "native_build_s": build_s}
+
+
+def time_writers(fourspl, fourspl_native, vid, d) -> dict:
+    """ms a file of the Python and the native .4spl writer on th3cs's
+    default 64^3 x 60 frames (`vid`'s frames repeated), alternated, 5
+    each; the two files must be equal."""
+    from pathlib import Path
+
+    big = fourspl.Splat4DVideo(
+        width=vid.width, height=vid.height, depth=vid.depth, frames=60,
+        palette=vid.palette, flags=vid.flags,
+        indices=np.resize(vid.indices, (60,) + vid.indices.shape[1:]))
+    paths = {"python": Path(d) / "wp.4spl", "native": Path(d) / "wn.4spl"}
+    fns = {"python": fourspl.write_4spl,
+           "native": fourspl_native.write_4spl_native}
+    ms = {k: [] for k in fns}
+    for _ in range(5):
+        for k, fn in fns.items():
+            t0 = time.perf_counter()
+            fn(paths[k], big)
+            ms[k].append((time.perf_counter() - t0) * 1e3)
+    if paths["python"].read_bytes() != paths["native"].read_bytes():
+        raise AssertionError("the .4spl writers disagree at 64^3 x 60")
+    out = {}
+    for k, v in ms.items():
+        out[f"{k}_ms"] = float(np.median(v))
+        out[f"{k}_min_ms"] = float(min(v))
+    return out
+
+
+def phase_driver_surface(mods: dict, smi) -> dict:
+    """Phase 25: the driver surface on the card, (a)-(d); every kernel
+    counter set to 0 before and read after."""
+    import tempfile
+
+    from fluidsims_tpu_torch import cli
+    from fluidsims_tpu_torch.render import views
+    from fluidsims_tpu_torch.solvers import hypersonic2d as h2
+    from fluidsims_tpu_torch.solvers import hypersonic3d as h3
+    from fluidsims_tpu_torch.solvers import th3cs
+
+    t_phase = time.perf_counter()
+    for m in mods.values():
+        m.reset_launches()
+    with tempfile.TemporaryDirectory() as d:
+        driver_flags(cli, d, smi)
+        launches = {src: sum(mods[m].LAUNCHES[k] for k in keys)
+                    for src, (m, keys) in DRIVER_COUNTERS.items()}
+        idle = [src for src, n in launches.items() if n == 0]
+        if idle:
+            raise AssertionError(f"the driver surface runs launched no "
+                                 f"{idle}")
+        res = {"launches": launches,
+               "views": driver_views(cli, h2, mods["hk"], views, d, smi),
+               "resume": driver_resume(cli, d, smi),
+               "streams": driver_streams(h2, h3, th3cs, views, d, smi)}
+    log(f"[driver] (a) launches by kernel source: {launches}")
+    log(f"[driver] phase 25 took {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 def main() -> int:
     smi = phase_device()
     from fluidsims_tpu_torch import interop, regression
@@ -4648,6 +5202,10 @@ def main() -> int:
     for m in others:
         m.reset_launches()
     nbody_res = phase_nbody_main(nk, ng, device, smi, nbody_errs, others)
+    driver_res = phase_driver_surface(
+        {"hk": hk, "sk": sk, "hk3": hk3, "gk": gk, "lk": lk, "bk": bk,
+         "swk": swk, "mk": mk, "sc": sc, "s2k": s2k, "fk": fk, "mpk": mpk,
+         "nk": nk}, smi)
 
     tiling = hyp_tiling(hk, hk3, _build)
     t = main_res["times"]
@@ -4792,6 +5350,14 @@ def main() -> int:
     kernels.append(nbody_kernel_line(nk, _build, nbody_res, nbody_errs))
     if len(kernels) != 26:
         raise AssertionError(f"{len(kernels)} kernel lines, want 26")
+    for line in kernels:
+        src = line["source"].rsplit("/", 1)[1]
+        line["launches_driver_surface"] = driver_res["launches"][src]
+    kernels[0]["driver_surface"] = {
+        k: driver_res["views"][k] for k in (
+            "frame_ms", "frame_ms_total", "steps_per_s_png_stride_50",
+            "steps_per_s_headless")}
+    kernels[0]["driver_surface"]["resume"] = driver_res["resume"]
     log(f"[hyp3d] steps/s: 64^3 f32 {a3['rate']:.2f} (plain "
         f"{a3['plain_rate']:.3f}), 256^3 f32 {b3['rate']:.2f} (plain "
         f"{b3['plain_rate']:.4f}); th3cs 64^3 "

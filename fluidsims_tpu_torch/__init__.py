@@ -24,13 +24,20 @@ set_bnd run as three more (`kernels.stam3d_cuda`), and the 2-D stable
 fluids (`solvers.stam2d`), whose whole Jacobi solve and exact advection
 run as two more (`kernels.stam2d_cuda`), and FLIP/APIC
 (`solvers.flip_apic`), whose atomic P2G, grid phase and G2P run as three
-more (`kernels.flip_cuda`), and MLS-MPM (`solvers.mpm`), whose atomic P2G,
-grid update and G2P run as three more (`kernels.mpm_cuda`), and the
+more (`kernels.flip_cuda`), and MLS-MPM (`solvers.mpm`), whose P2G and
+G2P (with the grid update) run as two more (`kernels.mpm_cuda`), and the
 prime-graph n-body layout (`solvers.nbody_graph`, `ops.cell_list`), whose
 exact all-pairs repulsion runs as one more (`kernels.nbody_cuda`), with
 its native Barnes–Hut host engine (`solvers.nbody_native`, the port's own
 `native/nbody_bh.c`) and terminal views (`render.points`,
-`core.interactive`); the sources are in `csrc/`.  Kernels build
+`core.interactive`); the sources are in `csrc/`.  Around them: the
+flagship's view modes (`render.views`, `render.colormap`,
+`render.terminal`), PNG frames (`io.png`), the live `.4spl` stream
+(`io.live4spl`, `io.fourspl_native`), checkpoints (`core.checkpoint`),
+metrics (`core.metrics`), the CPU reference solvers
+(`solvers.hypersonic2d_cpu`, `solvers.hypersonic2d_cpu_native`,
+`solvers.stam2d_cpu`) and all 16 subcommands of the CLI (`cli`), each
+solver one with the JAX CLI's common flags.  Kernels build
 with nvcc at first use; on
 CPU tensors every kernel wrapper takes its plain PyTorch version.  Entry points
 (`init`, `interop.*_from_numpy`) put their tensors on the GPU unless

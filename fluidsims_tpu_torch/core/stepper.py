@@ -1,4 +1,5 @@
-"""Step drivers: the multi-step loop and the headless benchmark.
+"""Step drivers: the multi-step loop, the frame loop and the headless
+benchmark.
 
 Port of fluidsims_tpu.core.stepper.  JAX compiles a batch of steps into one
 `lax.scan`; PyTorch runs eagerly, so the loop is a Python loop that only
@@ -15,7 +16,8 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["run_steps", "run_split", "benchmark"]
+__all__ = ["run_steps", "run_split", "frame_loop", "device_of", "sync",
+           "benchmark"]
 
 
 def run_steps(step_fn: Callable[[Any], Any], state: Any, n_steps: int):
@@ -35,7 +37,27 @@ def run_split(block_fn: Callable[[Any], Any], step_fn: Callable[[Any], Any],
     return run_steps(step_fn, run_steps(block_fn, state, n_blocks), rem)
 
 
-def _device_of(state: Any) -> torch.device:
+def frame_loop(
+    step_fn: Callable[[Any], Any],
+    state: Any,
+    n_frames: int,
+    steps_per_frame: int,
+    on_frame: Callable[[int, Any], None] | None = None,
+):
+    """Host-side frame loop: `steps_per_frame` steps, then
+    `on_frame(f, state)`, `n_frames` times; returns the final state.
+
+    The counterpart of the reference's render loop.  The loop itself never
+    syncs the host: what `on_frame` reads back (a frame, a checkpoint) is
+    the frame's only device-to-host traffic."""
+    for f in range(n_frames):
+        state = run_steps(step_fn, state, steps_per_frame)
+        if on_frame is not None:
+            on_frame(f, state)
+    return state
+
+
+def device_of(state: Any) -> torch.device:
     """The device of the first tensor found in a (nested) tuple state."""
     stack = [state]
     while stack:
@@ -47,7 +69,8 @@ def _device_of(state: Any) -> torch.device:
     raise TypeError("state holds no tensor")
 
 
-def _sync(device: torch.device) -> None:
+def sync(device: torch.device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -73,14 +96,14 @@ def benchmark(
     if run_fn is None:
         def run_fn(st, n):
             return run_steps(step_fn, st, n)
-    device = _device_of(state)
+    device = device_of(state)
     warm = run_fn(state, max(1, warmup_steps))
-    _sync(device)
+    sync(device)
     del warm
 
     t0 = time.perf_counter()
     out = run_fn(state, steps)
-    _sync(device)
+    sync(device)
     dt = time.perf_counter() - t0
     del out
 

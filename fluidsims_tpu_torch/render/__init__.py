@@ -1,2 +1,3 @@
-"""Terminal renderers of the port (NumPy only): `points`, the graph
-layouts' point clouds."""
+"""Renderers of the port: `points` (the graph layouts' point clouds),
+`terminal` and `colormap` (NumPy copies of the JAX package's), and `views`
+(the flagship's view modes, in torch on the state's device)."""

@@ -36,6 +36,7 @@ from ..ops import euler2d as e2
 from ..ops.euler2d import Cons, Prim
 from ..ops.riemann import hllc
 from ..ops.sdf import sd_sphere_cone_capsule, spherecone_xb
+from ..ops.shift import shift_clamped
 
 __all__ = [
     "Hypersonic2DConfig",
@@ -175,6 +176,41 @@ def init(cfg: Hypersonic2DConfig, device=None) -> Hypersonic2DState:
     U = e2.c_where(mask, solid, fluid)
     return Hypersonic2DState(
         U=U, mask=mask, t=torch.zeros((), dtype=cfg.torch_dtype, device=device))
+
+
+# ---------------------------------------------------------------------------
+# Branch-free neighbor access with boundary conditions (the views' sampler)
+# ---------------------------------------------------------------------------
+
+
+def _neighbor(cfg, U: Cons, mask, center_prim: Prim, dy: int, dx: int) -> Cons:
+    """Whole-grid neighbor_or_wall (tau_hypersonic_cuda.cu:266-290):
+    y edge-clamped; x<0 -> inflow; x>=nx -> last column (edge clamp);
+    in-bounds solid neighbor -> no-slip ghost of the center cell.  Runs on
+    the state's device."""
+    Un = Cons(*(shift_clamped(f, dy, dx) for f in U))
+    mn = shift_clamped(mask, dy, dx)
+
+    ghost = e2.prim_to_cons(e2.wall_ghost(center_prim), cfg.gamma)
+
+    col = torch.arange(cfg.nx, device=mask.device) + dx
+    if dx != 0:
+        # The wall-ghost substitution only applies where the x-neighbor was
+        # in-bounds (the reference checks x bounds before the mask).
+        sel = mn & ((col >= 0) & (col < cfg.nx))[None, :]
+    else:
+        sel = mn
+    out = e2.c_where(sel, ghost, Un)
+
+    if dx < 0:
+        # First |dx| columns read past the inflow boundary.
+        infl = inflow_cons(cfg, mask.device)
+        out = e2.c_where((col < 0)[None, :], _bcast(infl, out.rho.shape), out)
+    return out
+
+
+def _bcast(c: Cons, shape) -> Cons:
+    return Cons(*(f.expand(shape) for f in c))
 
 
 # ---------------------------------------------------------------------------

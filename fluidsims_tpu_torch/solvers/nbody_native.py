@@ -6,9 +6,9 @@ nbody_graph.py, the reference's pthread worker pool + quadtree/octree
 The source is the port's own copy, fluidsims_tpu_torch/native/nbody_bh.c.
 It is built with the system C compiler (cc, gcc or clang: -O2 -shared
 -fPIC -lpthread -lm) at first use into build/fluidsims_tpu_torch/ beside
-the package, named by a hash of the source and the compiler, and loaded
-with ctypes.  The engine runs on the host in float64 and touches no
-device; `run_native` hands its result back as the port's state on the
+the package, named by a hash of the source, the compiler and the flags
+(core/native.py), and loaded with ctypes.  The engine runs on the host in
+float64 and touches no device; `run_native` hands its result back as the port's state on the
 caller's device.  `theta` is the multipole-acceptance knob (0 = exact
 pairwise, the reference uses 0.75).
 """
@@ -17,67 +17,39 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from ..kernels._build import build_dir
+from ..core.native import COMPILERS, load_c
+from ..core.native import source_path as native_source
 from .nbody_graph import GraphLayoutConfig, GraphLayoutState
 
 __all__ = ["native_available", "run_native", "BHEngine", "source_path"]
 
-_COMPILERS = ("cc", "gcc", "clang")
-
 
 def source_path() -> Path:
-    return Path(__file__).resolve().parents[1] / "native" / "nbody_bh.c"
-
-
-def _compile(cc: str, src: Path) -> Path:
-    """Build `src` with `cc` into the build directory (once per source and
-    compiler) and return the library's path."""
-    h = hashlib.sha256(cc.encode() + b"\0" + src.read_bytes())
-    lib = build_dir() / f"libnbody_bh_{h.hexdigest()[:16]}.so"
-    if not lib.is_file():
-        lib.parent.mkdir(parents=True, exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
-            out = Path(tmp) / lib.name
-            subprocess.run([cc, "-O2", "-shared", "-fPIC", str(src), "-o",
-                            str(out), "-lpthread", "-lm"],
-                           check=True, capture_output=True)
-            os.replace(out, lib)  # atomic: a concurrent loader sees all
-    return lib
+    return native_source("nbody_bh")
 
 
 @functools.lru_cache(maxsize=None)
 def _load():
     """The typed library, or None where no C compiler can build it."""
-    src = source_path()
-    for name in _COMPILERS:
-        cc = shutil.which(name)
-        if cc is None:
-            continue
-        try:
-            lib = ctypes.CDLL(str(_compile(cc, src)))
-        except (subprocess.CalledProcessError, OSError):
-            continue
-        dbl_p = ctypes.POINTER(ctypes.c_double)
-        i32_p = ctypes.POINTER(ctypes.c_int32)
-        lib.bh_create.restype = ctypes.c_void_p
-        lib.bh_create.argtypes = [ctypes.c_int, ctypes.c_int, i32_p,
-                                  ctypes.c_int, dbl_p, ctypes.c_int]
-        lib.bh_destroy.argtypes = [ctypes.c_void_p]
-        lib.bh_set_state.argtypes = [ctypes.c_void_p, dbl_p, dbl_p]
-        lib.bh_get_state.argtypes = [ctypes.c_void_p, dbl_p, dbl_p]
-        lib.bh_run.argtypes = [ctypes.c_void_p, ctypes.c_int]
-        return lib
-    return None
+    lib = load_c("nbody_bh", (("-O2",),), ("-lpthread", "-lm"))
+    if lib is None:
+        return None
+    dbl_p = ctypes.POINTER(ctypes.c_double)
+    i32_p = ctypes.POINTER(ctypes.c_int32)
+    lib.bh_create.restype = ctypes.c_void_p
+    lib.bh_create.argtypes = [ctypes.c_int, ctypes.c_int, i32_p,
+                              ctypes.c_int, dbl_p, ctypes.c_int]
+    lib.bh_destroy.argtypes = [ctypes.c_void_p]
+    lib.bh_set_state.argtypes = [ctypes.c_void_p, dbl_p, dbl_p]
+    lib.bh_get_state.argtypes = [ctypes.c_void_p, dbl_p, dbl_p]
+    lib.bh_run.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    return lib
 
 
 def native_available() -> bool:
@@ -98,7 +70,7 @@ class BHEngine:
         lib = _load()
         if lib is None:
             raise RuntimeError("native nbody_bh library unavailable (no C "
-                               f"compiler among {_COMPILERS} built "
+                               f"compiler among {COMPILERS} built "
                                f"{source_path()})")
         self._lib = lib
         self.cfg = cfg

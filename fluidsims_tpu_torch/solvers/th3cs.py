@@ -14,6 +14,13 @@ cross to the host.  The engine is what the caller names: "cuda" steps
 through the CUDA kernels (their wrappers launch them on a GPU or raise),
 "torch" through their plain versions.  Nothing switches engines on a
 failure.
+
+`export_4spl` writes the file at the end through the Python writer of
+io/fourspl.py, which zlib's CRC-32 makes faster than the native writer of
+io/fourspl_native.py (a byte-table CRC-32 loop, kept for the C API; both
+give the same bytes; PERF.md §6).  `export_4spl_streamed` appends each
+frame as it lands (io/live4spl.py), so a polling viewer shows the run
+live, and ends with the same bytes.
 """
 
 from __future__ import annotations
@@ -27,7 +34,8 @@ from ..core.device import resolve_device
 from ..io import fourspl
 from . import hypersonic3d as h3
 
-__all__ = ["ENGINES", "make_frame_fn", "export_4spl", "stream_frames"]
+__all__ = ["ENGINES", "make_frame_fn", "export_4spl", "export_4spl_streamed",
+           "stream_frames"]
 
 ENGINES = ("cuda", "torch")
 
@@ -58,6 +66,17 @@ def make_frame_fn(cfg, steps_per_frame: int, engine: str = "cuda"):
     return frame_fn
 
 
+def _start(cfg, device, engine):
+    """(cfg, initial state) of an export on `device` (None: the GPU)."""
+    cfg = cfg or h3.default_config()
+    if device is None:
+        device = resolve_device("cuda")
+    if engine == "cuda" and torch.device(device).type != "cuda":
+        raise ValueError("engine 'cuda' runs the CUDA kernels and needs a "
+                         "CUDA device; use engine 'torch' on the CPU")
+    return cfg, h3.init(cfg, device)
+
+
 def export_4spl(
     path,
     cfg: h3.Hypersonic3DConfig | None = None,
@@ -70,13 +89,7 @@ def export_4spl(
 ) -> fourspl.Splat4DVideo:
     """Run the 3-D solver and export the schlieren volume video to `path`.
     `device=None` means the GPU.  Returns the video written."""
-    cfg = cfg or h3.default_config()
-    if device is None:
-        device = resolve_device("cuda")
-    if engine == "cuda" and torch.device(device).type != "cuda":
-        raise ValueError("engine 'cuda' runs the CUDA kernels and needs a "
-                         "CUDA device; use engine 'torch' on the CPU")
-    state = h3.init(cfg, device)
+    cfg, state = _start(cfg, device, engine)
     frame_fn = make_frame_fn(cfg, steps_per_frame, engine)
     out = []
     stream_frames(frame_fn, state, frames, out, verbose=verbose)
@@ -87,6 +100,34 @@ def export_4spl(
     )
     fourspl.write_4spl(path, video)
     return video
+
+
+def export_4spl_streamed(
+    path,
+    cfg: h3.Hypersonic3DConfig | None = None,
+    frames: int = 60,
+    steps_per_frame: int = 4,
+    p_size: int = 256,
+    device=None,
+    engine: str = "cuda",
+    verbose: bool = False,
+    on_frame=None,
+) -> None:
+    """Run the 3-D solver and stream the schlieren video: each frame is
+    appended to `path` (and published through the header's frame count)
+    the moment it lands, so a polling viewer (viewer/index.html?live=1)
+    shows the shock forming while the solver runs.  After the final frame
+    the footer is written and the file is byte-identical to
+    `export_4spl`'s.  `on_frame(i, total)` fires after frame i is on
+    disk."""
+    from ..io.live4spl import Stream4splWriter
+
+    cfg, state = _start(cfg, device, engine)
+    frame_fn = make_frame_fn(cfg, steps_per_frame, engine)
+    with Stream4splWriter(path, cfg.nx, cfg.ny, cfg.nz,
+                          fourspl.heat_palette(p_size)) as wtr:
+        stream_frames(frame_fn, state, frames, wtr, verbose=verbose,
+                      on_frame=on_frame)
 
 
 def stream_frames(frame_fn, state, frames: int, wtr, verbose: bool = False,
