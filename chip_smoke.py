@@ -355,6 +355,27 @@ failure of which ends the run with a non-zero exit:
              the native writer at 64^3 x 60 frames, and the hypersonic2d
              serve frame function at 2048^2: 8 frames through
              Stream4splWriter, read back equal.
+26. parallel — the sharded runners of fluidsims_tpu_torch/parallel: the
+             compute mode (nvidia-smi); p1 (the inflow + wavespeed
+             kernel) at inflow columns 0, 2 (rank 0's extended slab) and
+             -1 (none) bitwise equal to its plain version; then (a) every
+             runner at world 1 on 'nccl' in this process at the main
+             path's widths (PARALLEL_RUNS: the flagship 8192x1024 f64, 3-D
+             64^3, Gray–Scott 2048^2 at K = 16, LBM 2048x1024 at K = 8,
+             Burgers and shallow water 512^2, MHD 320x220, FLIP 65,536 on
+             128^2, MPM 32,768 on 96^2, n-body 2^17), every counter set to
+             0 before each sharded run and read after it, each equal to
+             the one-device run on the card bitwise (FLIP and MPM, whose
+             P2G adds with atomics, within FLIP_TRAJ_TOL / MPM_TRAJ_TOL;
+             the n-body layout bitwise where two one-device runs are), and
+             every kernel that the runners drive (PARALLEL_KERNELS)
+             launched; (b) the 1-D runners at world 2 and the 2x2 mesh at
+             world 4 on 'gloo', the ranks sharing cuda:0 (launch.spawn),
+             each within its bar of PARALLEL_RUNS; a line {"parallel":
+             ...} with each run's world, backend, steps, largest relative
+             error, bitwise flag, each rank's launches and the host
+             clock's steps/s (at world 2 and 4 gloo-staged on one card, no
+             scaling figure).  A failed rank fails the run.
 
 Every kernel's line in {"kernels": [...]} carries bound_ms, the least time
 the card could take for its work at the main path's shape: the larger of
@@ -412,11 +433,14 @@ query reports at each main run's size: the picked and the tiled design,
 and ptxas's report of both kernels) and `edge_cases` (phases 19 and 21's
 crowded and wall cases, the two shapes of one scratch size and the grid of
 many tiles: rel errs and the tiled launch's stats).  Every line carries
-`launches_driver_surface` (phase 25's launches of its kernel), and the
+`launches_driver_surface` (phase 25's launches of its kernel) and
+`launches_parallel` (phase 26's launches at world 1), p1's line
+`inflow_col_cases` (phase 26's bitwise cases), and the
 flagship step's line `driver_surface`: phase 25's ms a frame by part,
 steps/s of the strided PNG run and the headless run, and the resume
 results.
 
+The line before {"kernels": [...]} is {"parallel": {...}} (phase 26).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -5073,6 +5097,220 @@ def phase_driver_surface(mods: dict, smi) -> dict:
     return res
 
 
+# Phase 26: the sharded runners of fluidsims_tpu_torch/parallel.  The
+# flagship at the reference default (8192x1024 f64, as JAX's multi-device
+# dry run), the 3-D solver at 64^3, Gray–Scott at 2048^2 (K = 16) and LBM
+# at 2048x1024 (K = 8) with steps past a multiple of K so both of their
+# kernels launch, Burgers and shallow water at 512^2, MHD at 320x220,
+# FLIP 65,536 on 128^2, MPM 32,768 on 96^2 and the n-body layout at 2^17
+# bodies.  runner -> (config fields, steps at world 1, steps at world 2
+# (4 for the 2x2 mesh), the bar of world 2 on the largest relative error
+# against the one-device run: the CPU tests' bars of the sharded runs
+# against JAX's (tests/test_torch_parallel_*.py))
+PARALLEL_HYP2D = dict(nx=8192, ny=1024, geom_x0=125.0, geom_cy=512.0,
+                      geom_Rb=1024.0 / 12.0, geom_Rn=1024.0 / 24.0,
+                      dtype="float64")
+PARALLEL_RUNS = {
+    "hypersonic2d": (PARALLEL_HYP2D, 20, 5, 2e-6),
+    "hypersonic2d_mesh2d": (PARALLEL_HYP2D, 20, 5, 1e-5),
+    "hypersonic3d": (dict(nx=64, ny=64, nz=64, dx=1 / 64, dy=1 / 64,
+                          dz=1 / 64), 20, 5, 3e-6),
+    "gray_scott": (dict(nx=2048, ny=2048), 35, 19, 1e-6),
+    "lbm": (dict(nx=2048, ny=1024), 19, 11, 1e-6),
+    "burgers": (dict(nx=512, ny=512), 20, 5, 1e-10),
+    "shallow_water": (dict(nx=512, ny=512), 20, 5, 1e-10),
+    "mhd": (dict(nx=320, ny=220), 20, 5, 1e-10),
+    "flip": (dict(particles=65536, grid=128), 5, 5,
+             FLIP_TRAJ_TOL[torch.float32]),
+    "mpm": (dict(n=32768, gx=96, gy=96), 5, 5, MPM_TRAJ_TOL[torch.float32]),
+    "nbody": (dict(max_number=NBODY_MAX_NUMBER), 5, 3, 2e-5),
+}
+# The runners whose one-device run adds with atomics in no fixed order:
+# held at world 1 to the bar above instead of bitwise.  The n-body
+# springs' index_add_ adds with atomics on the card too; it is held
+# bitwise where two one-device runs are bitwise equal.
+PARALLEL_ATOMIC = ("flip", "mpm")
+# kernel-wrapper module (parallel/runners.KERNEL_MODULES) -> this script's
+# short name, as in DRIVER_COUNTERS
+PARALLEL_MODS = {"hypersonic2d_cuda": "hk", "sph_cuda": "sk",
+                 "hypersonic3d_cuda": "hk3", "gray_scott_cuda": "gk",
+                 "lbm_cuda": "lk", "burgers_cuda": "bk",
+                 "shallow_water_cuda": "swk", "mhd_cuda": "mk",
+                 "stam3d_cuda": "sc", "stam2d_cuda": "s2k", "flip_cuda": "fk",
+                 "mpm_cuda": "mpk", "nbody_cuda": "nk"}
+# The kernels that the sharded runners drive: each must
+# launch at world 1.  #7 and #8 step plainly under the sharded runners.
+PARALLEL_KERNELS = ("hypersonic2d_step.cu", "hypersonic2d_wavespeed.cu",
+                    "hypersonic3d_step.cu", "hypersonic3d_wavespeed.cu",
+                    "gray_scott_step.cu", "gray_scott_multistep.cu",
+                    "lbm_step.cu", "lbm_multistep.cu", "flip_p2g.cu",
+                    "flip_grid.cu", "flip_g2p.cu", "mpm_p2g.cu",
+                    "mpm_g2p.cu", "nbody_repulsion.cu")
+
+
+def check_inflow_columns(h2, hk, interop, device) -> list:
+    """p1 with the inflow at columns 0, HALO (rank 0's extended slab) and
+    -1 (none) against its plain version on copies of the same perturbed
+    state, f32 and f64, on 256x128 and 200x75: the wavespeed and every
+    field (the in-place column) bitwise, or the script fails.  Returns
+    [cases bitwise, cases]."""
+    n = 0
+    for dtype in ("float32", "float64"):
+        for nx, ny in HYP2D_KERNEL_GRIDS[:2]:
+            cfg = h2.default_config(nx=nx, ny=ny, dtype=dtype)
+            s = perturbed_state(h2, interop, cfg, device)
+            for col in (0, 2, -1):
+                a, b = clone_U(s.U), clone_U(s.U)
+                wk = hk.inflow_wavespeed(cfg, a, s.mask, col)
+                wp = hk.inflow_wavespeed_plain(cfg, b, s.mask, col)
+                if not (bits_equal(wk, wp) and all(
+                        same(fa, fb) for fa, fb in zip(a, b))):
+                    raise AssertionError(
+                        f"p1 at inflow column {col}, {nx}x{ny} {dtype}: "
+                        f"kernel {float(wk)!r} / plain {float(wp)!r}, or "
+                        "the fields differ")
+                n += 1
+    log(f"[parallel] p1 at inflow columns 0, 2, -1: {n} of {n} cases "
+        "bitwise equal to the plain version")
+    return [n, n]
+
+
+def parallel_cases(world: int) -> list:
+    """The runs of PARALLEL_RUNS at `world` (1: every runner; 2: the 1-D
+    runners; 4: the 2x2 mesh), each compared on rank 0 with the one-device
+    run."""
+    out = []
+    for name, (fields, n1, n2, _) in PARALLEL_RUNS.items():
+        mesh2d = name.endswith("mesh2d")
+        if world == 1 or (world == 4) == mesh2d:
+            out.append(dict(name=name, config=fields,
+                            steps=n1 if world == 1 else n2, dense=True,
+                            mesh2d=((1, 1) if world == 1 else (2, 2))
+                            if mesh2d else None))
+    return out
+
+
+def phase_parallel(hk, h2, interop, device, smi) -> dict:
+    """Phase 26: p1's inflow columns; (a) every runner at world 1 on
+    'nccl' in this process, each equal to the one-device run on the card
+    bitwise (PARALLEL_ATOMIC within its bar), its kernels' launches
+    counted; (b) world 2 (the 1-D runners) and world 4 (the 2x2 mesh) on
+    'gloo', ranks sharing cuda:0 (the collectives staged through the
+    host), within PARALLEL_RUNS' bars.  A failed rank fails the run."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from fluidsims_tpu_torch.parallel import launch, runners
+
+    t_phase = time.perf_counter()
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    log(f"[parallel] compute mode {mode}; {smi}")
+    p1_cases = check_inflow_columns(h2, hk, interop, device)
+
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/rdv",
+                                rank=0, world_size=1)
+        try:
+            # the communicator forms at the first collective: not in a run
+            dist.all_reduce(torch.zeros(1, device=device))
+            torch.cuda.synchronize()
+            res_a = runners.run_cases(parallel_cases(1), device)
+            next(r for r in res_a if r["name"] == "nbody").update(
+                nbody_dense_repeat(runners, device))
+        finally:
+            dist.destroy_process_group()
+    counts = {src: 0 for src in DRIVER_COUNTERS}
+    for r in res_a:
+        for mod, c in r["launches"].items():
+            for src, (m, keys) in DRIVER_COUNTERS.items():
+                if m == PARALLEL_MODS[mod]:
+                    counts[src] += sum(c.get(k, 0) for k in keys)
+    idle = [src for src in PARALLEL_KERNELS if counts[src] == 0]
+    if idle:
+        raise AssertionError(f"the sharded runners launched no {idle}")
+    log_parallel(res_a)
+    for r in res_a:
+        name = r["name"]
+        exact = name not in PARALLEL_ATOMIC and (
+            name != "nbody" or r["dense_repeat_bitwise"])
+        if exact and not r["bitwise"]:
+            raise AssertionError(f"{name} at world 1: not bitwise equal to "
+                                 f"the one-device run (max rel err "
+                                 f"{r['max_rel_err']:.3e})")
+        if r["max_rel_err"] > PARALLEL_RUNS[name][3]:
+            raise AssertionError(f"{name} at world 1: max rel err "
+                                 f"{r['max_rel_err']:.3e} > "
+                                 f"{PARALLEL_RUNS[name][3]:g}")
+
+    res_b = []
+    for world in (2, 4):
+        t0 = time.perf_counter()
+        ranks = launch.spawn(runners.run_cases, world, "gloo",
+                             args=(parallel_cases(world), device),
+                             timeout=600)
+        log(f"[parallel] world {world} on gloo, ranks sharing {device}: "
+            f"{time.perf_counter() - t0:.1f} s with the ranks' start")
+        for i, r in enumerate(ranks[0]):
+            r["launches_per_rank"] = [rk[i]["launches"] for rk in ranks]
+            r["seconds_per_rank"] = [rk[i]["seconds"] for rk in ranks]
+        log_parallel(ranks[0])
+        for r in ranks[0]:
+            bar = PARALLEL_RUNS[r["name"]][3]
+            if r["max_rel_err"] > bar:
+                raise AssertionError(f"{r['name']} at world {world}: max rel "
+                                     f"err {r['max_rel_err']:.3e} > {bar:g}")
+            res_b.append(r)
+
+    log(f"[parallel] phase 26 took {time.perf_counter() - t_phase:.1f} s")
+    return {"counts": counts, "lines": [parallel_line(r)
+                                        for r in res_a + res_b],
+            "compute_mode": mode, "inflow_col_cases": p1_cases}
+
+
+def parallel_line(r: dict) -> dict:
+    """One run's entry of the {"parallel": ...} line."""
+    return {
+        "runner": r["name"], "world": r["world"], "backend": r["backend"],
+        "steps": r["steps"], "max_rel_err": r["max_rel_err"],
+        "bitwise": r["bitwise"],
+        "launches_per_rank": r.get("launches_per_rank", [r["launches"]]),
+        "steps_per_s_host": r["steps"] / max(
+            r.get("seconds_per_rank", [r["seconds"]])),
+        "steps_per_s_note": ("gloo-staged on one card, no scaling figure"
+                             if r["backend"] == "gloo" else
+                             "one rank, first calls included"),
+        **{k: r[k] for k in ("dense_repeat_bitwise", "dense_repeat_rel_err")
+           if k in r}}
+
+
+def log_parallel(results: list) -> None:
+    for r in results:
+        line = parallel_line(r)
+        log(f"[parallel] {r['name']} world {r['world']} {r['backend']}: "
+            f"{r['steps']} steps, max rel err {r['max_rel_err']:.3e}, "
+            f"bitwise {r['bitwise']}, {line['steps_per_s_host']:.2f} "
+            "steps/s (host clock)"
+            + (f"; two one-device runs bitwise {r['dense_repeat_bitwise']}, "
+               f"apart {r['dense_repeat_rel_err']:.3e}"
+               if "dense_repeat_bitwise" in r else ""))
+
+
+def nbody_dense_repeat(runners, device) -> dict:
+    """Whether two one-device n-body runs of PARALLEL_RUNS' case give the
+    same bits (the springs' index_add_ adds with atomics on the card), and
+    how far apart their positions are (runners.max_rel_err's measure)."""
+    fields, n, _, _ = PARALLEL_RUNS["nbody"]
+    r = runners.RUNNERS["nbody"]
+    cfg = r.config(**fields)
+    a = runners.run_dense("nbody", cfg, r.solver.init(cfg, device), n)
+    b = runners.run_dense("nbody", cfg, r.solver.init(cfg, device), n)
+    err, same = runners.max_rel_err("nbody", a, b, 1)
+    return {"dense_repeat_bitwise": same, "dense_repeat_rel_err": err}
+
+
 def main() -> int:
     smi = phase_device()
     from fluidsims_tpu_torch import interop, regression
@@ -5206,6 +5444,7 @@ def main() -> int:
         {"hk": hk, "sk": sk, "hk3": hk3, "gk": gk, "lk": lk, "bk": bk,
          "swk": swk, "mk": mk, "sc": sc, "s2k": s2k, "fk": fk, "mpk": mpk,
          "nk": nk}, smi)
+    parallel_res = phase_parallel(hk, h2, interop, device, smi)
 
     tiling = hyp_tiling(hk, hk3, _build)
     t = main_res["times"]
@@ -5353,6 +5592,8 @@ def main() -> int:
     for line in kernels:
         src = line["source"].rsplit("/", 1)[1]
         line["launches_driver_surface"] = driver_res["launches"][src]
+        line["launches_parallel"] = parallel_res["counts"][src]
+    kernels[1]["inflow_col_cases"] = parallel_res["inflow_col_cases"]
     kernels[0]["driver_surface"] = {
         k: driver_res["views"][k] for k in (
             "frame_ms", "frame_ms_total", "steps_per_s_png_stride_50",
@@ -5386,6 +5627,9 @@ def main() -> int:
         + "; grid engine " + ", ".join(
             f"{k.split()[1]} {r['rate']:.2f}" for k, r in nbody_res.items()
             if k.startswith("grid")))
+    print(json.dumps({"parallel": {
+        "compute_mode": parallel_res["compute_mode"], "card": smi,
+        "runs": parallel_res["lines"]}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,9 @@
 // step kernel read, and no value crosses to the host.
 //
 // In one pass over the grid each thread (grid-stride) writes the inflow
-// state into the fluid cells of column 0, IN PLACE (idempotent), and takes
+// state into the fluid cells of column `inflow_col`, IN PLACE (idempotent;
+// column 0 on one device, the inflow column of an extended slab in a
+// sharded run, none for -1), and takes
 // max(|u|+a, |v|+a) of every cell with the rules of max_wavespeed: a
 // non-finite speed and a solid cell count as 1e-12, and 1e-12 floors the
 // result.  Every value is then a positive finite number, whose bit pattern
@@ -43,7 +45,7 @@ inflow_wavespeed_kernel(T* __restrict__ rho, T* __restrict__ mx,
                         T* __restrict__ my, T* __restrict__ E,
                         const uint8_t* __restrict__ mask,
                         typename Bits<T>::U* __restrict__ out_bits, int ny,
-                        int nx, Gas<T> g, Q4<T> infl) {
+                        int nx, int inflow_col, Gas<T> g, Q4<T> infl) {
   const T floor_s = T(1e-12);
   T best = floor_s;
   const size_t n = (size_t)ny * nx;
@@ -51,7 +53,7 @@ inflow_wavespeed_kernel(T* __restrict__ rho, T* __restrict__ mx,
        i += (size_t)gridDim.x * blockDim.x) {
     if (mask[i]) continue;  // solid: 1e-12, the floor already in `best`
     Q4<T> c;
-    if (i % nx == 0) {  // inflow column, fluid cell
+    if ((int)(i % nx) == inflow_col) {  // inflow column, fluid cell
       c = infl;
       rho[i] = c.r; mx[i] = c.a; my[i] = c.b; E[i] = c.e;
     } else {
@@ -76,7 +78,8 @@ inflow_wavespeed_kernel(T* __restrict__ rho, T* __restrict__ mx,
 
 template <typename T>
 int launch_wavespeed(T* rho, T* mx, T* my, T* E, const uint8_t* mask,
-                     T* out, const Hyp2DParams* p, int device, void* stream) {
+                     T* out, const Hyp2DParams* p, int inflow_col, int device,
+                     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
@@ -91,7 +94,7 @@ int launch_wavespeed(T* rho, T* mx, T* my, T* E, const uint8_t* mask,
                       T(p->infl[3])};
   inflow_wavespeed_kernel<T><<<blocks, kThreads, 0, s>>>(
       rho, mx, my, E, mask, reinterpret_cast<typename Bits<T>::U*>(out),
-      p->ny, p->nx, g, infl);
+      p->ny, p->nx, inflow_col, g, infl);
   return (int)cudaGetLastError();
 }
 
@@ -102,18 +105,18 @@ extern "C" {
 
 int fst_hyp2d_inflow_wavespeed_f32(float* rho, float* mx, float* my, float* E,
                                    const uint8_t* mask, float* out,
-                                   const fst::Hyp2DParams* p, int device,
-                                   void* stream) {
-  return fst::launch_wavespeed<float>(rho, mx, my, E, mask, out, p, device,
-                                      stream);
+                                   const fst::Hyp2DParams* p, int inflow_col,
+                                   int device, void* stream) {
+  return fst::launch_wavespeed<float>(rho, mx, my, E, mask, out, p,
+                                      inflow_col, device, stream);
 }
 
 int fst_hyp2d_inflow_wavespeed_f64(double* rho, double* mx, double* my,
                                    double* E, const uint8_t* mask, double* out,
-                                   const fst::Hyp2DParams* p, int device,
-                                   void* stream) {
-  return fst::launch_wavespeed<double>(rho, mx, my, E, mask, out, p, device,
-                                       stream);
+                                   const fst::Hyp2DParams* p, int inflow_col,
+                                   int device, void* stream) {
+  return fst::launch_wavespeed<double>(rho, mx, my, E, mask, out, p,
+                                       inflow_col, device, stream);
 }
 
 }  // extern "C"

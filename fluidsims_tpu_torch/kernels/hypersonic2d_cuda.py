@@ -7,10 +7,11 @@ and plain PyTorch versions.
   staged in shared memory (`step_launch` reports a launch's blocks,
   threads, tile, halo and shared memory).  Plain version:
   `step_core_plain` (pad_bc + step_core_padded of the solver).
-* `inflow_wavespeed(cfg, U, mask) -> 0-d tensor` — csrc/
-  hypersonic2d_wavespeed.cu: writes the inflow column into `U` in place
-  and returns the max wavespeed, on the device.  Plain version:
-  `inflow_wavespeed_plain` (apply_inflow_ + max_wavespeed).
+* `inflow_wavespeed(cfg, U, mask, inflow_col=0) -> 0-d tensor` — csrc/
+  hypersonic2d_wavespeed.cu: writes the inflow column (`inflow_col`, -1
+  for none) into `U` in place and returns the max wavespeed, on the
+  device.  Plain version: `inflow_wavespeed_plain` (apply_inflow_ +
+  max_wavespeed).
 
 The wrappers take the plain version for CPU tensors only.  For CUDA
 tensors they check device, dtype, shape and contiguity, launch on the
@@ -70,7 +71,8 @@ def load() -> ctypes.CDLL:
                        ctypes.POINTER(TileLaunch)]
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"fst_hyp2d_inflow_wavespeed_{sfx}")
-        fn.argtypes = [P] * 6 + [ctypes.POINTER(_Params), ctypes.c_int, P]
+        fn.argtypes = [P] * 6 + [ctypes.POINTER(_Params), ctypes.c_int,
+                                 ctypes.c_int, P]
         fn.restype = ctypes.c_int
     lib.fst_cuda_error_string.argtypes = [ctypes.c_int]
     lib.fst_cuda_error_string.restype = ctypes.c_char_p
@@ -156,18 +158,23 @@ def step_core(cfg, U: Cons, mask, dt) -> Cons:
     return out
 
 
-def inflow_wavespeed_plain(cfg, U: Cons, mask) -> torch.Tensor:
+def inflow_wavespeed_plain(cfg, U: Cons, mask,
+                           inflow_col: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the wavespeed kernel (inflow in place)."""
-    h2.apply_inflow_(cfg, U, mask)
+    h2.apply_inflow_(cfg, U, mask, inflow_col)
     return h2.max_wavespeed(cfg, U, mask)
 
 
-def inflow_wavespeed(cfg, U: Cons, mask) -> torch.Tensor:
-    """Write the inflow column into `U` (in place) and return the max
-    wavespeed as a 0-d tensor on U's device: the kernel on CUDA tensors,
-    the plain version on CPU tensors."""
+def inflow_wavespeed(cfg, U: Cons, mask, inflow_col: int = 0) -> torch.Tensor:
+    """Write the inflow state into the fluid cells of column `inflow_col`
+    of `U` (in place; -1: no column) and return the max wavespeed as a 0-d
+    tensor on U's device: the kernel on CUDA tensors, the plain version on
+    CPU tensors."""
+    if not -1 <= inflow_col < cfg.nx:
+        raise ValueError(f"inflow_col={inflow_col}: want -1 (none) or a "
+                         f"column in [0, {cfg.nx})")
     if on_cpu(mask):
-        return inflow_wavespeed_plain(cfg, U, mask)
+        return inflow_wavespeed_plain(cfg, U, mask, inflow_col)
     _check(cfg, U, mask)
     lib = load()
     out = torch.empty((), dtype=cfg.torch_dtype, device=mask.device)
@@ -176,7 +183,8 @@ def inflow_wavespeed(cfg, U: Cons, mask) -> torch.Tensor:
     with torch.cuda.device(mask.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(*(f.data_ptr() for f in U), mask.data_ptr(), out.data_ptr(),
-                  ctypes.byref(params), mask.device.index or 0, stream)
+                  ctypes.byref(params), inflow_col, mask.device.index or 0,
+                  stream)
     _raise_on_error(lib, code, "hypersonic2d wavespeed")
     LAUNCHES["wavespeed"] += 1
     return out

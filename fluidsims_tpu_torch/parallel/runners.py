@@ -1,0 +1,210 @@
+"""The sharded runners by name, and one function that runs a list of them
+on a rank: what the tests and chip_smoke.py hand to `launch.spawn`.
+
+Each runner module has the shape of its JAX twin: `shard_state(state,
+mesh)`, `make_sharded_run(cfg, mesh, n_steps)` and `gather_state(local,
+mesh)`.  `RUNNERS` names them with the solver module, the mesh they take
+and the one-device run they are held to.  The τ-clock and MHD runners
+step plainly (see tau_sharded.py), so their one-device run is the plain
+'torch' engine's; every other one is the solver's `run` on the engine it
+picks for the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from dataclasses import dataclass
+from types import ModuleType
+from typing import Callable
+
+import torch
+
+from ..core.stepper import sync
+from ..kernels import (burgers_cuda, flip_cuda, gray_scott_cuda,
+                       hypersonic2d_cuda, hypersonic3d_cuda, lbm_cuda,
+                       mhd_cuda, mpm_cuda, nbody_cuda, shallow_water_cuda,
+                       sph_cuda, stam2d_cuda, stam3d_cuda)
+from ..solvers import (burgers, flip_apic, gray_scott, hypersonic2d,
+                       hypersonic3d, lbm, mhd, mpm, nbody_graph,
+                       shallow_water)
+from . import flip_sharded as fsh
+from . import hypersonic2d_sharded as h2s
+from . import hypersonic2d_sharded2d as h2s2
+from . import hypersonic3d_sharded as h3s
+from . import mhd_sharded as msh
+from . import mpm_sharded as mpsh
+from . import nbody_sharded as nsh
+from . import periodic_sharded as psh
+from . import tau_sharded as tsh
+from .launch import to_numpy, tree_map
+from .mesh import make_mesh_1d
+
+__all__ = ["RUNNERS", "Runner", "make_mesh", "run_sharded", "run_dense",
+           "max_rel_err", "run_cases", "KERNEL_MODULES", "reset_launches",
+           "launches"]
+
+# Every kernel wrapper module of the port, whose LAUNCHES a case reports.
+KERNEL_MODULES = {m.__name__.rsplit(".", 1)[1]: m for m in (
+    hypersonic2d_cuda, hypersonic3d_cuda, gray_scott_cuda, lbm_cuda,
+    burgers_cuda, shallow_water_cuda, mhd_cuda, stam3d_cuda, stam2d_cuda,
+    flip_cuda, mpm_cuda, nbody_cuda, sph_cuda)}
+
+
+def reset_launches() -> None:
+    for mod in KERNEL_MODULES.values():
+        mod.reset_launches()
+
+
+def launches() -> dict:
+    """{kernel module: {kernel: launches since the last reset}}."""
+    return {m: dict(mod.LAUNCHES) for m, mod in KERNEL_MODULES.items()}
+
+
+@dataclass(frozen=True)
+class Runner:
+    solver: ModuleType          # the solver: its `init` and `run`
+    config: type
+    axis: str | None            # the 1-D mesh's axis; None: the (y, x) mesh
+    shard: Callable
+    make_run: Callable
+    gather: Callable
+    dense_engine: str | None = None  # the one-device run's engine, if fixed
+    particles: bool = False          # interleaved particle order
+    held: tuple | None = None        # leaves max_rel_err reads; None: all
+
+
+RUNNERS = {
+    "hypersonic2d": Runner(
+        hypersonic2d, hypersonic2d.Hypersonic2DConfig, "x",
+        h2s.shard_state, h2s.make_sharded_run, h2s.gather_state),
+    "hypersonic2d_mesh2d": Runner(
+        hypersonic2d, hypersonic2d.Hypersonic2DConfig, None,
+        h2s2.shard_state, h2s2.make_sharded_run, h2s2.gather_state),
+    "hypersonic3d": Runner(
+        hypersonic3d, hypersonic3d.Hypersonic3DConfig, "z",
+        h3s.shard_state, h3s.make_sharded_run, h3s.gather_state),
+    "gray_scott": Runner(
+        gray_scott, gray_scott.GrayScottConfig, "x", psh.shard_state,
+        psh.make_sharded_gray_scott_run, psh.gather_state),
+    "lbm": Runner(lbm, lbm.LBMConfig, "x", psh.shard_state,
+                  psh.make_sharded_lbm_run, psh.gather_state),
+    "burgers": Runner(
+        burgers, burgers.BurgersConfig, "x", tsh.shard_burgers,
+        tsh.make_sharded_burgers_run, tsh.gather_burgers,
+        dense_engine="torch"),
+    "shallow_water": Runner(
+        shallow_water, shallow_water.ShallowWaterConfig, "x",
+        tsh.shard_shallow_water, tsh.make_sharded_shallow_water_run,
+        tsh.gather_shallow_water, dense_engine="torch"),
+    "mhd": Runner(mhd, mhd.MHDConfig, "x", msh.shard_state,
+                  msh.make_sharded_run, msh.gather_state,
+                  dense_engine="torch"),
+    "flip": Runner(flip_apic, flip_apic.FlipApicConfig, "p",
+                   fsh.shard_state, fsh.make_sharded_run, fsh.gather_state,
+                   particles=True),
+    "mpm": Runner(mpm, mpm.MPMConfig, "p", mpsh.shard_state,
+                  mpsh.make_sharded_run, mpsh.gather_state, particles=True),
+    "nbody": Runner(nbody_graph, nbody_graph.GraphLayoutConfig, "b",
+                    nsh.shard_state, nsh.make_sharded_run, nsh.gather_state,
+                    held=(0,)),  # the positions, as JAX's test holds them
+}
+
+
+def make_mesh(name: str, device=None, mesh2d: tuple | None = None):
+    """The mesh runner `name` takes over the initialised process group:
+    1-D on its axis, or (y, x) = `mesh2d` for the 2-D mesh."""
+    r = RUNNERS[name]
+    if r.axis is not None:
+        return make_mesh_1d(axis=r.axis, device=device)
+    py, px = mesh2d
+    return h2s2.make_mesh_2d(px, py, device=device)
+
+
+def run_sharded(name: str, cfg, state, n_steps: int, mesh):
+    """`n_steps` sharded steps of a global `state` (the same on every
+    rank): shard, run, gather.  Returns the global result on every rank
+    (particles in interleaved order)."""
+    r = RUNNERS[name]
+    return r.gather(r.make_run(cfg, mesh, n_steps)(r.shard(state, mesh)),
+                    mesh)
+
+
+def run_dense(name: str, cfg, state, n_steps: int):
+    """The one-device run that runner `name` is held to."""
+    r = RUNNERS[name]
+    if r.dense_engine is not None:
+        cfg = dataclasses.replace(cfg, engine=r.dense_engine)
+    return r.solver.run(cfg, state, n_steps)
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
+
+
+def max_rel_err(name: str, got, ref, world: int) -> tuple[float, bool]:
+    """(largest over the float leaves of max|got - ref| / max|ref|, every
+    leaf bitwise equal) of a sharded result against the one-device one,
+    the latter put in interleaved order for the particle runners.  The
+    error reads the runner's `held` leaves only (n-body: the positions,
+    relative to the layout's extent)."""
+    r = RUNNERS[name]
+    perm = None
+    if r.particles:
+        n = _leaves(ref)[0].shape[0]
+        perm = torch.from_numpy(fsh.interleave_perm(n, world))
+    worst, same = 0.0, True
+    for i, (g, f) in enumerate(zip(_leaves(got), _leaves(ref))):
+        if perm is not None and f.ndim >= 1 and f.shape[0] == perm.numel():
+            f = f[perm.to(f.device)]
+        g = g.to(f.device)
+        same = same and bool(torch.equal(g, f))
+        if f.is_floating_point() and (r.held is None or i in r.held):
+            scale = float(f.abs().max()) if f.numel() else 0.0
+            err = float((g - f).abs().max()) if f.numel() else 0.0
+            worst = max(worst, err / scale if scale > 0 else err)
+    return worst, same
+
+
+def run_cases(cases: list, device=None) -> list:
+    """Run each case on this rank (every rank of the process group calls
+    it with the same cases).  A case is a dict: `name` (a key of RUNNERS),
+    `config` (the config's fields), `steps`, optionally `state` (a global
+    state of tensors; default: the solver's `init` on the mesh's device),
+    `mesh2d` ((py, px) for the 2-D mesh), `dense` (also run the one-device
+    run on rank 0 and compare) and `keep` (rank 0 returns the gathered
+    state).  Returns, per case, the seconds of the sharded run (host
+    clock, the device synchronised), the kernels' launches in it and, on
+    rank 0, what `dense` and `keep` ask for."""
+    out = []
+    for case in cases:
+        name = case["name"]
+        r = RUNNERS[name]
+        mesh = make_mesh(name, device, case.get("mesh2d"))
+        cfg = r.config(**case["config"])
+        state = case.get("state")
+        if state is None:
+            state = r.solver.init(cfg, mesh.device)
+        else:
+            state = tree_map(lambda t: t.to(mesh.device), state)
+        sync(mesh.device)
+        reset_launches()
+        t0 = time.perf_counter()
+        got = run_sharded(name, cfg, state, case["steps"], mesh)
+        sync(mesh.device)
+        res = {"name": name, "world": mesh.size, "backend": mesh.backend,
+               "steps": case["steps"], "seconds": time.perf_counter() - t0,
+               "launches": {m: c for m, c in launches().items()
+                            if any(c.values())}}
+        if mesh.rank == 0:
+            if case.get("dense"):
+                ref = run_dense(name, cfg, state, case["steps"])
+                res["max_rel_err"], res["bitwise"] = max_rel_err(
+                    name, got, ref, mesh.size)
+            if case.get("keep"):
+                res["state"] = to_numpy(got)
+        out.append(res)
+        del got, state
+    return out

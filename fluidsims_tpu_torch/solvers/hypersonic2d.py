@@ -385,12 +385,16 @@ def step_core_padded(cfg, Up: Cons, Mp, dt) -> Cons:
 # ---------------------------------------------------------------------------
 
 
-def apply_inflow_(cfg, U: Cons, mask) -> None:
+def apply_inflow_(cfg, U: Cons, mask, col: int = 0) -> None:
     """Inflow left column (k_apply_inflow_left, :772-784), IN PLACE: the
-    fluid cells of column 0 take the inflow state.  Idempotent."""
-    fluid0 = ~mask[:, 0]
+    fluid cells of column `col` take the inflow state.  Idempotent.  A
+    sharded run names the inflow column of its extended slab, or -1 where
+    the slab holds none."""
+    if col < 0:
+        return
+    fluid0 = ~mask[:, col]
     for f, v in zip(U, inflow_cons(cfg, mask.device)):
-        f[:, 0] = torch.where(fluid0, v, f[:, 0])
+        f[:, col] = torch.where(fluid0, v, f[:, col])
 
 
 def max_wavespeed(cfg, U: Cons, mask):

@@ -334,26 +334,30 @@ def _rank_in_cell(cid, n):
 
 
 def step(cfg: GraphLayoutConfig, s: GraphLayoutState,
-         repulsion=None) -> GraphLayoutState:
+         repulsion=None, forces=None) -> GraphLayoutState:
     """One layout step.  `repulsion(pos) -> forces`, where given, replaces
     the engine's repulsion.  Without it the exact engine calls the CUDA
     kernel's wrapper (kernels/nbody_cuda.repulsion_exact: one launch on
     CUDA tensors, the plain `_repulsion_exact` on CPU tensors) and the
-    grid engine `_repulsion_grid`."""
+    grid engine `_repulsion_grid`.  `forces(pos)`, where given, replaces
+    the whole sum of springs and repulsion (the sharded runner's hook)."""
     pos = s.pos.clone()
     pos[0] = 0.0                 # root pinned (worker_step :469-476)
     vel = s.vel.clone()
     vel[0] = 0.0
 
-    if repulsion is not None:
-        rep = repulsion(pos)
-    elif cfg.engine == "exact":
-        from ..kernels import nbody_cuda as nk
-
-        rep = nk.repulsion_exact(cfg, pos)
+    if forces is not None:
+        f = forces(pos)
     else:
-        rep = _repulsion_grid(cfg, pos)
-    f = _spring_forces_static(cfg, pos) + rep
+        if repulsion is not None:
+            rep = repulsion(pos)
+        elif cfg.engine == "exact":
+            from ..kernels import nbody_cuda as nk
+
+            rep = nk.repulsion_exact(cfg, pos)
+        else:
+            rep = _repulsion_grid(cfg, pos)
+        f = _spring_forces_static(cfg, pos) + rep
 
     v = (vel + f * cfg.dt) * cfg.damping
     speed2 = torch.sum(v * v, dim=-1, keepdim=True)

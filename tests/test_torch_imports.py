@@ -72,6 +72,14 @@ def test_every_module_listed():
                 "solvers.hypersonic2d_cpu_native", "solvers.stam2d_cpu"):
         assert f"fluidsims_tpu_torch.{mod}" in MODULES
     assert "fluidsims_tpu_torch.solvers.nbody_graph" in MODULES
+    for mod in ("parallel", "parallel.mesh", "parallel.launch",
+                "parallel.halo", "parallel.hypersonic2d_sharded",
+                "parallel.hypersonic2d_sharded2d",
+                "parallel.hypersonic3d_sharded", "parallel.periodic_sharded",
+                "parallel.tau_sharded", "parallel.mhd_sharded",
+                "parallel.flip_sharded", "parallel.mpm_sharded",
+                "parallel.nbody_sharded", "parallel.runners"):
+        assert f"fluidsims_tpu_torch.{mod}" in MODULES
     assert "fluidsims_tpu_torch.kernels.nbody_cuda" in MODULES
     assert len(MODULES) >= 70
 
