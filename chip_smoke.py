@@ -358,7 +358,10 @@ failure of which ends the run with a non-zero exit:
 26. parallel — the sharded runners of fluidsims_tpu_torch/parallel: the
              compute mode (nvidia-smi); p1 (the inflow + wavespeed
              kernel) at inflow columns 0, 2 (rank 0's extended slab) and
-             -1 (none) bitwise equal to its plain version; then (a) every
+             -1 (none) bitwise equal to its plain version; the SPH
+             kernels over ranges of receivers and windows of cell
+             columns against their plain versions, and the bin on
+             counts that share one scratch bitwise; then (a) every
              runner at world 1 on 'nccl' in this process at the main
              path's widths (PARALLEL_RUNS: the flagship 8192x1024 f64, 3-D
              64^3, Gray–Scott 2048^2 at K = 16, LBM 2048x1024 at K = 8,
@@ -371,7 +374,10 @@ failure of which ends the run with a non-zero exit:
              every kernel that the runners drive (PARALLEL_KERNELS)
              launched; (b) the 1-D runners at world 2 and the 2x2 mesh at
              world 4 on 'gloo', the ranks sharing cuda:0 (launch.spawn),
-             each within its bar of PARALLEL_RUNS; a line {"parallel":
+             with the SPH and spatial particle runners at both (the
+             spatial ones from stirred states: particles must change
+             ranks, none be lost), each within its bar of PARALLEL_RUNS;
+             a line {"parallel":
              ...} with each run's world, backend, steps, largest relative
              error, bitwise flag, each rank's launches and the host
              clock's steps/s (at world 2 and 4 gloo-staged on one card, no
@@ -5124,12 +5130,52 @@ PARALLEL_RUNS = {
              FLIP_TRAJ_TOL[torch.float32]),
     "mpm": (dict(n=32768, gx=96, gy=96), 5, 5, MPM_TRAJ_TOL[torch.float32]),
     "nbody": (dict(max_number=NBODY_MAX_NUMBER), 5, 3, 2e-5),
+    # the SPH and spatial particle runners: world 1 at bench.py's
+    # sizes (SPH 65,536, with rain for the replicated runner and without
+    # for the spatial one, which refuses rain; FLIP 65,536 on 128^2; MPM
+    # 32,768 on 96^2), worlds 2 and 4 at PARALLEL_MULTI's; held to
+    # PARALLEL_LEAF_BARS, sph bitwise at every world
+    "sph": (dict(n=65536), 20, 3, 0.0),
+    "sph_spatial": (dict(n=65536, rain=False), 5, 5, None),
+    "flip_spatial": (dict(particles=65536, grid=128), 5, 5, None),
+    "mpm_spatial": (dict(n=32768, gx=96, gy=96), 5, 30, None),
 }
-# The runners whose one-device run adds with atomics in no fixed order:
-# held at world 1 to the bar above instead of bitwise.  The n-body
-# springs' index_add_ adds with atomics on the card too; it is held
-# bitwise where two one-device runs are bitwise equal.
-PARALLEL_ATOMIC = ("flip", "mpm")
+# Worlds 2 and 4 of the SPH and spatial runners: SPH 16,384 and JAX's test
+# sizes of FLIP and MPM (tests/test_sharded_particles.py; MPM at the dt of
+# tests/test_torch_parallel_spatial.py's migration case)
+PARALLEL_MULTI = {
+    "sph": dict(n=16384, dtau=1e-2),
+    "sph_spatial": dict(n=16384, rain=False, dtau=1e-2),
+    "flip_spatial": dict(particles=4096, grid=32, jacobi=8),
+    "mpm_spatial": dict(n=4096, gx=48, gy=48, dt=4.0e-4),
+}
+# Worlds 2 and 4 of the spatial runners start from init() with (seeded
+# noise of this amplitude, this x drift) added to the velocities, as the
+# CPU tests' migration cases do, so that particles change ranks (FLIP's
+# flow moves them as it starts): each run must move some
+PARALLEL_STIR = {"sph_spatial": (0.5, 0.0), "mpm_spatial": (0.0, 1.0)}
+# The absolute bars of each leaf of the gathered state against the
+# one-device run (runners.max_abs_errs; None: not held): JAX's test bars
+# (tests/test_sharded_particles.py) on the positions (SPH 1e-5; FLIP 2e-5
+# with velocities 2e-4 and the affine matrices 2e-2; MPM 2e-6 with
+# velocities, F and Jp 2e-4), the SPH velocities at 1e-4 and its clock
+# bitwise, the FLIP raster within 4 particles (the replicated FLIP
+# runner's bar there: a particle within rounding of a cell's edge may
+# count in its neighbour)
+PARALLEL_LEAF_BARS = {
+    "sph_spatial": (1e-5, 1e-4, 0.0, 0.0, 0.0, 0.0),
+    "flip_spatial": (2e-5, 2e-4, 2e-2, 2e-2, 4),
+    "mpm_spatial": (2e-6, 2e-4, 2e-4, 2e-4),
+}
+# The runners held at world 1 to their bar instead of bitwise: FLIP's and
+# MPM's one-device runs add with atomics in no fixed order; sph_spatial's
+# window has its own blocks, chunks and lanes; flip_spatial's Jacobi adds
+# a cell's neighbours in JAX's spatial order; mpm_spatial's P2G sums into
+# padded columns.  The n-body springs' index_add_ adds with atomics on the
+# card too; it is held bitwise where two one-device runs are bitwise
+# equal.
+PARALLEL_TO_BAR = ("flip", "mpm", "sph_spatial", "flip_spatial",
+                   "mpm_spatial")
 # kernel-wrapper module (parallel/runners.KERNEL_MODULES) -> this script's
 # short name, as in DRIVER_COUNTERS
 PARALLEL_MODS = {"hypersonic2d_cuda": "hk", "sph_cuda": "sk",
@@ -5139,13 +5185,151 @@ PARALLEL_MODS = {"hypersonic2d_cuda": "hk", "sph_cuda": "sk",
                  "stam3d_cuda": "sc", "stam2d_cuda": "s2k", "flip_cuda": "fk",
                  "mpm_cuda": "mpk", "nbody_cuda": "nk"}
 # The kernels that the sharded runners drive: each must
-# launch at world 1.  #7 and #8 step plainly under the sharded runners.
+# launch at world 1.  #7 and #8 step plainly under the sharded runners;
+# the spatial FLIP and MPM runners compose the dense engine's torch ops.
 PARALLEL_KERNELS = ("hypersonic2d_step.cu", "hypersonic2d_wavespeed.cu",
                     "hypersonic3d_step.cu", "hypersonic3d_wavespeed.cu",
                     "gray_scott_step.cu", "gray_scott_multistep.cu",
                     "lbm_step.cu", "lbm_multistep.cu", "flip_p2g.cu",
                     "flip_grid.cu", "flip_g2p.cu", "mpm_p2g.cu",
-                    "mpm_g2p.cu", "nbody_repulsion.cu")
+                    "mpm_g2p.cu", "nbody_repulsion.cu", "sph_bin.cu",
+                    "sph_density.cu", "sph_forces.cu")
+# The SPH pair kernels over a range of receivers and a window of cell
+# columns (the SPH runners'), on 65,536 particles (64 x 64 cells): ranges
+# whose r0 is off a block's boundary (16 particles a block at 8 lanes),
+# one of a single receiver; windows (gx0, gw) inside and at both walls
+SPH_RANGE_N = 65536
+SPH_RANGES = ((37, 40000), (16387, 65536), (5, 6), (0, 65535))
+SPH_WINDOWS = ((13, 20), (0, 9), (49, 15))
+# Particle counts binned in turn on one scratch (each in (2^15, 2^16]), the
+# first with ((cell column, row), members) packed into single cells
+SPH_BUCKET_NS = (40000, 60000, 33000, 65536)
+SPH_BUCKET_CLUSTERS = (((10, 10), 700), ((40, 30), 2500))
+
+
+def sph_range_inputs(ts, cfg, device, rng):
+    """init() with seeded noise on the positions (0.3 h) and the
+    velocities (0.5)."""
+    pos = ts.init(cfg, torch.device("cpu")).pos.double()
+    pos = torch.clamp(pos + 0.3 * cfg.h * torch.from_numpy(
+        rng.standard_normal((cfg.n, 2))), 0.0, 1.0)
+    vel = torch.from_numpy(0.5 * rng.standard_normal((cfg.n, 2)))
+    return (pos.to(device=device, dtype=cfg.torch_dtype),
+            vel.to(device=device, dtype=cfg.torch_dtype))
+
+
+def check_sph_ranges(sk, ts, device) -> dict:
+    """#14 and #15 over SPH_RANGES against their plain versions over the
+    same ranges (1e-5 / 1e-12 of the largest value) and bitwise against
+    the whole launch's rows; #22 over SPH_WINDOWS bitwise against
+    binning_plain on the same local set, and #14 and #15 over the windows
+    against their plain versions over them; f32 and f64, or the script
+    fails.  Returns the largest errors and the cases."""
+    rng = np.random.default_rng(SEED + 23)
+    out = {"density": 0.0, "forces": 0.0, "bitwise_rows": [0, 0],
+           "bin_bitwise": [0, 0], "cases": 0}
+    for dtype in ("float32", "float64"):
+        cfg = ts.SPHConfig(n=SPH_RANGE_N, rain=False, dtype=dtype)
+        tol = STEP_TOL[cfg.torch_dtype]
+        pos, vel = sph_range_inputs(ts, cfg, device, rng)
+        dt = torch.full((), 1e-3, dtype=pos.dtype, device=device)
+        b = sk.binning(cfg, pos, vel)
+        full = sk.density(cfg, b)
+        fp, fv = sk.forces(cfg, b, full, dt)
+        order = b.order.long()
+
+        def held(what, got, ref, key):
+            err, ab = max(rel_err(got[:, k], ref[:, k]) for k in (0, 1))
+            if not err <= tol:
+                raise AssertionError(f"{what} {dtype}: max rel err "
+                                     f"{err:.3e} > {tol:g}")
+            out[key] = max(out[key], ab)
+            out["cases"] += 1
+
+        for r0, r1 in SPH_RANGES:
+            what = f"sph range [{r0}, {r1})"
+            rp = sk.density(cfg, b, r0, r1)
+            held(f"{what} density", rp, sk.density_plain(cfg, b, r0, r1),
+                 "density")
+            p, v = sk.forces(cfg, b, full, dt, r0, r1)
+            pp, vp = sk.forces_plain(cfg, b, full, dt, r0, r1)
+            mine = order[r0:r1]
+            held(f"{what} forces", torch.cat([p[mine], v[mine]]),
+                 torch.cat([pp[mine], vp[mine]]), "forces")
+            same = (bits_equal(rp, full[r0:r1]) and bits_equal(p[mine],
+                    fp[mine]) and bits_equal(v[mine], fv[mine]))
+            if not same:
+                raise AssertionError(f"{what} {dtype}: the range's rows "
+                                     "differ from the whole launch's")
+            out["bitwise_rows"][0] += 1
+            out["bitwise_rows"][1] += 1
+        g = cfg.grid()
+        col = torch.clamp(torch.floor(pos[:, 0] / torch.full(
+            (), g.cell, dtype=pos.dtype, device=device)), 0, g.Gx - 1)
+        for gx0, gw in SPH_WINDOWS:
+            what = f"sph window of columns [{gx0}, {gx0 + gw})"
+            keep = ((col >= gx0) & (col < gx0 + gw)).nonzero()[:, 0]
+            win = sk.Window(gx0, gw)
+            pl, vl = pos[keep].contiguous(), vel[keep].contiguous()
+            bw = sk.binning(cfg, pl, vl, win)
+            for name, x, y in zip(bw._fields, bw,
+                                  sk.binning_plain(cfg, pl, vl, win)):
+                if not bits_equal(x, y):
+                    raise AssertionError(f"bin {what} {dtype}: {name} "
+                                         "differs from the plain version")
+            out["bin_bitwise"][0] += 1
+            out["bin_bitwise"][1] += 1
+            rp = sk.density(cfg, bw, win=win)
+            held(f"{what} density", rp, sk.density_plain(cfg, bw, win=win),
+                 "density")
+            p, v = sk.forces(cfg, bw, rp, dt, win=win)
+            pp, vp = sk.forces_plain(cfg, bw, rp, dt, win=win)
+            held(f"{what} forces", torch.cat([p, v]), torch.cat([pp, vp]),
+                 "forces")
+    log(f"[parallel] SPH kernels over ranges and windows at {SPH_RANGE_N} "
+        f"particles, f32 and f64: {out['cases']} cases within 1e-5 / 1e-12 "
+        f"of the plain versions (largest abs err density "
+        f"{out['density']:.3e}, forces {out['forces']:.3e}); range rows "
+        f"bitwise to the whole launch's in {out['bitwise_rows'][0]} of "
+        f"{out['bitwise_rows'][1]}; the windowed bin bitwise in "
+        f"{out['bin_bitwise'][0]} of {out['bin_bitwise'][1]}")
+    return out
+
+
+def check_bin_bucket(sk, ts, device) -> list:
+    """#22 on counts that share a scratch (one power of two): first
+    SPH_BUCKET_NS[0] particles with SPH_BUCKET_CLUSTERS packed into single
+    cells (cells of more than the kernel's 512 members are listed), then
+    the other counts, each bin bitwise to binning_plain on the same
+    particles, f32 and f64, or the script fails.  Returns [bins bitwise,
+    bins]."""
+    rng = np.random.default_rng(SEED + 24)
+    n = 0
+    for dtype in ("float32", "float64"):
+        cfg = ts.SPHConfig(n=SPH_RANGE_N, rain=False, dtype=dtype)
+        pos, vel = sph_range_inputs(ts, cfg, device, rng)
+        cell = cfg.grid().cell
+        at = 0
+        for (gx, gy), k in SPH_BUCKET_CLUSTERS:
+            centre = torch.tensor([(gx + 0.5) * cell, (gy + 0.5) * cell],
+                                  dtype=pos.dtype, device=device)
+            pos[at:at + k] = centre + 0.2 * cell * (torch.from_numpy(
+                rng.random((k, 2))).to(device=device, dtype=pos.dtype) - 0.5)
+            at += k
+        for m in SPH_BUCKET_NS:
+            p, v = pos[:m].contiguous(), vel[:m].contiguous()
+            for name, x, y in zip(sk.Binned._fields, sk.binning(cfg, p, v),
+                                  sk.binning_plain(cfg, p, v)):
+                if not bits_equal(x, y):
+                    raise AssertionError(f"bin of {m} particles {dtype} after "
+                                         f"a bin of {SPH_BUCKET_NS[0]}: "
+                                         f"{name} differs from the plain "
+                                         "version")
+            n += 1
+    log(f"[parallel] bin of {SPH_BUCKET_NS} particles in turn (one scratch; "
+        f"the first with cells of {[k for _, k in SPH_BUCKET_CLUSTERS]} "
+        f"members), f32 and f64: {n} of {n} bins bitwise to binning_plain")
+    return [n, n]
 
 
 def check_inflow_columns(h2, hk, interop, device) -> list:
@@ -5175,28 +5359,75 @@ def check_inflow_columns(h2, hk, interop, device) -> list:
     return [n, n]
 
 
-def parallel_cases(world: int) -> list:
+def stirred_state(runners, name: str, fields: dict, world: int):
+    """init() of the runner's solver on the CPU, PARALLEL_STIR's noise
+    (seeded) and drift added to the velocities."""
+    r = runners.RUNNERS[name]
+    st = r.solver.init(r.config(**fields), torch.device("cpu"))
+    amp, drift = PARALLEL_STIR[name]
+    rng = np.random.default_rng(SEED + 26 + world)
+    add = amp * rng.standard_normal(tuple(st.vel.shape)) + [drift, 0.0]
+    return st._replace(vel=st.vel + torch.from_numpy(add).to(st.vel.dtype))
+
+
+def parallel_cases(world: int, runners) -> list:
     """The runs of PARALLEL_RUNS at `world` (1: every runner; 2: the 1-D
-    runners; 4: the 2x2 mesh), each compared on rank 0 with the one-device
-    run."""
+    runners; 4: the 2x2 mesh; 2 and 4: the SPH and spatial runners at
+    PARALLEL_MULTI's sizes, stirred as PARALLEL_STIR says), each compared
+    on rank 0 with the one-device run."""
     out = []
     for name, (fields, n1, n2, _) in PARALLEL_RUNS.items():
         mesh2d = name.endswith("mesh2d")
-        if world == 1 or (world == 4) == mesh2d:
-            out.append(dict(name=name, config=fields,
-                            steps=n1 if world == 1 else n2, dense=True,
-                            mesh2d=((1, 1) if world == 1 else (2, 2))
-                            if mesh2d else None))
+        if world == 1 or (world == 4) == mesh2d or name in PARALLEL_MULTI:
+            if world > 1:
+                fields = PARALLEL_MULTI.get(name, fields)
+            case = dict(name=name, config=fields,
+                        steps=n1 if world == 1 else n2, dense=True,
+                        mesh2d=((1, 1) if world == 1 else (2, 2))
+                        if mesh2d else None)
+            if world > 1 and name in PARALLEL_STIR:
+                case["state"] = stirred_state(runners, name, fields, world)
+            out.append(case)
     return out
 
 
-def phase_parallel(hk, h2, interop, device, smi) -> dict:
-    """Phase 26: p1's inflow columns; (a) every runner at world 1 on
-    'nccl' in this process, each equal to the one-device run on the card
-    bitwise (PARALLEL_ATOMIC within its bar), its kernels' launches
-    counted; (b) world 2 (the 1-D runners) and world 4 (the 2x2 mesh) on
-    'gloo', ranks sharing cuda:0 (the collectives staged through the
-    host), within PARALLEL_RUNS' bars.  A failed rank fails the run."""
+def check_parallel_run(r: dict) -> None:
+    """A run's bars: PARALLEL_RUNS' on the largest relative error (sph:
+    bitwise at every world), PARALLEL_LEAF_BARS' on each leaf, no particle
+    lost, and a spatial run of more than one rank moved particles between
+    ranks."""
+    name, world = r["name"], r["world"]
+    bar = PARALLEL_RUNS[name][3]
+    if name == "sph" and not r["bitwise"]:
+        raise AssertionError(f"sph at world {world}: not bitwise equal to "
+                             "the one-device run")
+    if bar is not None and r["max_rel_err"] > bar:
+        raise AssertionError(f"{name} at world {world}: max rel err "
+                             f"{r['max_rel_err']:.3e} > {bar:g}")
+    for k, (err, leaf_bar) in enumerate(zip(
+            r["max_abs_err"], PARALLEL_LEAF_BARS.get(name, ()))):
+        if leaf_bar is not None and not err <= leaf_bar:
+            raise AssertionError(f"{name} at world {world}: leaf {k} max abs "
+                                 f"err {err!r} > {leaf_bar:g}")
+    if r.get("lost", 0):
+        raise AssertionError(f"{name} at world {world}: {r['lost']} "
+                             "particles lost")
+    if "moved" in r and world > 1 and not r["moved"] > 0:
+        raise AssertionError(f"{name} at world {world}: no particle changed "
+                             "ranks, so the migration carried nothing")
+
+
+def phase_parallel(hk, h2, sk, ts, interop, device, smi) -> dict:
+    """Phase 26: p1's inflow columns; the SPH kernels over ranges and
+    windows, and the bin on counts that share a scratch; (a) every runner at world 1 on 'nccl' in this process, each
+    equal to the one-device run on the card bitwise (PARALLEL_TO_BAR
+    within its bar), its kernels' launches counted, its rate beside the
+    one-device run's; (b) world 2 (the 1-D runners) and world 4 (the 2x2
+    mesh), and both for the SPH and spatial runners, on 'gloo', ranks
+    sharing cuda:0 (the collectives staged through the host), within
+    PARALLEL_RUNS' and PARALLEL_LEAF_BARS' bars, no particle lost, the
+    spatial runners from stirred states, each moving particles between
+    ranks.  A failed rank fails the run."""
     import tempfile
 
     import torch.distributed as dist
@@ -5209,6 +5440,8 @@ def phase_parallel(hk, h2, interop, device, smi) -> dict:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     log(f"[parallel] compute mode {mode}; {smi}")
     p1_cases = check_inflow_columns(h2, hk, interop, device)
+    sph_ranges = check_sph_ranges(sk, ts, device)
+    bin_bucket = check_bin_bucket(sk, ts, device)
 
     with tempfile.TemporaryDirectory() as d:
         dist.init_process_group("nccl", init_method=f"file://{d}/rdv",
@@ -5217,7 +5450,7 @@ def phase_parallel(hk, h2, interop, device, smi) -> dict:
             # the communicator forms at the first collective: not in a run
             dist.all_reduce(torch.zeros(1, device=device))
             torch.cuda.synchronize()
-            res_a = runners.run_cases(parallel_cases(1), device)
+            res_a = runners.run_cases(parallel_cases(1, runners), device)
             next(r for r in res_a if r["name"] == "nbody").update(
                 nbody_dense_repeat(runners, device))
         finally:
@@ -5234,40 +5467,39 @@ def phase_parallel(hk, h2, interop, device, smi) -> dict:
     log_parallel(res_a)
     for r in res_a:
         name = r["name"]
-        exact = name not in PARALLEL_ATOMIC and (
+        exact = name not in PARALLEL_TO_BAR and (
             name != "nbody" or r["dense_repeat_bitwise"])
         if exact and not r["bitwise"]:
             raise AssertionError(f"{name} at world 1: not bitwise equal to "
                                  f"the one-device run (max rel err "
                                  f"{r['max_rel_err']:.3e})")
-        if r["max_rel_err"] > PARALLEL_RUNS[name][3]:
-            raise AssertionError(f"{name} at world 1: max rel err "
-                                 f"{r['max_rel_err']:.3e} > "
-                                 f"{PARALLEL_RUNS[name][3]:g}")
+        check_parallel_run(r)
 
     res_b = []
     for world in (2, 4):
         t0 = time.perf_counter()
         ranks = launch.spawn(runners.run_cases, world, "gloo",
-                             args=(parallel_cases(world), device),
+                             args=(parallel_cases(world, runners), device),
                              timeout=600)
         log(f"[parallel] world {world} on gloo, ranks sharing {device}: "
             f"{time.perf_counter() - t0:.1f} s with the ranks' start")
         for i, r in enumerate(ranks[0]):
             r["launches_per_rank"] = [rk[i]["launches"] for rk in ranks]
             r["seconds_per_rank"] = [rk[i]["seconds"] for rk in ranks]
+        for i, r in enumerate(ranks[0]):
+            if "receivers" in r:
+                r["receivers_per_rank"] = [rk[i]["receivers"]
+                                           for rk in ranks]
         log_parallel(ranks[0])
         for r in ranks[0]:
-            bar = PARALLEL_RUNS[r["name"]][3]
-            if r["max_rel_err"] > bar:
-                raise AssertionError(f"{r['name']} at world {world}: max rel "
-                                     f"err {r['max_rel_err']:.3e} > {bar:g}")
+            check_parallel_run(r)
             res_b.append(r)
 
     log(f"[parallel] phase 26 took {time.perf_counter() - t_phase:.1f} s")
     return {"counts": counts, "lines": [parallel_line(r)
                                         for r in res_a + res_b],
-            "compute_mode": mode, "inflow_col_cases": p1_cases}
+            "compute_mode": mode, "inflow_col_cases": p1_cases,
+            "sph_ranges": sph_ranges, "bin_bucket": bin_bucket}
 
 
 def parallel_line(r: dict) -> dict:
@@ -5282,7 +5514,10 @@ def parallel_line(r: dict) -> dict:
         "steps_per_s_note": ("gloo-staged on one card, no scaling figure"
                              if r["backend"] == "gloo" else
                              "one rank, first calls included"),
-        **{k: r[k] for k in ("dense_repeat_bitwise", "dense_repeat_rel_err")
+        "dense_steps_per_s_host": r["steps"] / r["dense_seconds"],
+        "max_abs_err": r["max_abs_err"],
+        **{k: r[k] for k in ("dense_repeat_bitwise", "dense_repeat_rel_err",
+                             "lost", "moved", "receivers_per_rank")
            if k in r}}
 
 
@@ -5292,7 +5527,13 @@ def log_parallel(results: list) -> None:
         log(f"[parallel] {r['name']} world {r['world']} {r['backend']}: "
             f"{r['steps']} steps, max rel err {r['max_rel_err']:.3e}, "
             f"bitwise {r['bitwise']}, {line['steps_per_s_host']:.2f} "
-            "steps/s (host clock)"
+            f"steps/s (host clock; one device "
+            f"{line['dense_steps_per_s_host']:.2f})"
+            + (f"; lost {r['lost']}, moved {r['moved']}" if "lost" in r
+               else "")
+            + (f"; [halo, all] receivers a rank "
+               f"{r.get('receivers_per_rank', [r['receivers']])}"
+               if "receivers" in r else "")
             + (f"; two one-device runs bitwise {r['dense_repeat_bitwise']}, "
                f"apart {r['dense_repeat_rel_err']:.3e}"
                if "dense_repeat_bitwise" in r else ""))
@@ -5444,7 +5685,7 @@ def main() -> int:
         {"hk": hk, "sk": sk, "hk3": hk3, "gk": gk, "lk": lk, "bk": bk,
          "swk": swk, "mk": mk, "sc": sc, "s2k": s2k, "fk": fk, "mpk": mpk,
          "nk": nk}, smi)
-    parallel_res = phase_parallel(hk, h2, interop, device, smi)
+    parallel_res = phase_parallel(hk, h2, sk, ts, interop, device, smi)
 
     tiling = hyp_tiling(hk, hk3, _build)
     t = main_res["times"]
@@ -5594,6 +5835,17 @@ def main() -> int:
         line["launches_driver_surface"] = driver_res["launches"][src]
         line["launches_parallel"] = parallel_res["counts"][src]
     kernels[1]["inflow_col_cases"] = parallel_res["inflow_col_cases"]
+    ranges = parallel_res["sph_ranges"]
+    for line in kernels:
+        name = line["name"][4:]
+        if line["name"] not in ("sph_bin", "sph_density", "sph_forces"):
+            continue
+        if name == "bin":
+            line["window_bitwise_cases"] = ranges["bin_bitwise"]
+            line["bucket_bitwise_cases"] = parallel_res["bin_bucket"]
+        else:
+            line["max_abs_err"] = max(line["max_abs_err"], ranges[name])
+            line["range_rows_bitwise_cases"] = ranges["bitwise_rows"]
     kernels[0]["driver_surface"] = {
         k: driver_res["views"][k] for k in (
             "frame_ms", "frame_ms_total", "steps_per_s_png_stride_50",

@@ -28,8 +28,11 @@
 namespace fst {
 
 // Host-side parameters, in double, formed by kernels/sph_cuda.py::_params.
+// The cells are a window of whole columns of the grid: Gx columns from
+// global column gx0 (the whole grid: gx0 = 0, Gx its width), every row;
+// the n particles all lie in it.  The walls keep the whole box.
 struct SPHParams {
-  int n, Gx, Gy;
+  int n, Gx, Gy, gx0;
   int use_visc, use_grav, gamma_is_one;
   double cell;        // cell side (2h)
   double inv_h;       // 1 / h
@@ -64,12 +67,13 @@ __device__ __forceinline__ T nmax(T a, T b) {
   return a > b ? a : b;
 }
 
-// Flat cell id gy * Gx + gx: floor(x / cell) with an IEEE division,
-// clamped to the grid (ops/cell_dense.py::_cid).
+// Flat cell id gy * Gx + gx in the window: floor(x / cell) with an IEEE
+// division, less the window's first column, clamped to the window
+// (ops/cell_dense.py::_cid on the whole grid).
 template <typename T>
 __device__ __forceinline__ int cell_of(T x, T y, const SPHParams& p) {
   const T cell = T(p.cell);
-  int gx = (int)floor(x / cell);
+  int gx = (int)floor(x / cell) - p.gx0;
   int gy = (int)floor(y / cell);
   gx = min(max(gx, 0), p.Gx - 1);
   gy = min(max(gy, 0), p.Gy - 1);
@@ -173,6 +177,13 @@ inline int lanes_for(int n, int fewest, int most, long long lane_threads) {
   while (lanes * 2 <= most && (long long)n * lanes * 2 <= lane_threads)
     lanes *= 2;
   return lanes;
+}
+
+// The blocks of the density or the forces kernel over receivers [r0, r1):
+// the blocks of kGroup sorted positions of the whole range [0, n) that
+// hold one of them (the kernels start at block r0 / kGroup).
+inline unsigned range_blocks(int r0, int r1, int group) {
+  return (unsigned)((r1 + group - 1) / group - r0 / group);
 }
 
 }  // namespace fst

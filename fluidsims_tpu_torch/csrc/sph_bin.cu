@@ -36,6 +36,9 @@
 // of bin_rank, so the outputs are the same bits on every run and the pair
 // sums of the next two kernels repeat too.
 //
+// The cells are those of the parameters' window of grid columns (sph.cuh
+// SPHParams: the whole grid by default), and the n particles all lie in it.
+//
 // Outputs: cid and rank in particle order; starts; the sorted order
 // (particle index per position) and fields (n, 4).  Scratch, kept by the
 // wrapper per launch shape and stream: the counts and the slices' sums (0

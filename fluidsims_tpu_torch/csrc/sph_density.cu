@@ -11,8 +11,10 @@
 // reference's linked lists, tau_sph.cu:165-176).  Then, per particle, as
 // sph_pallas.py:103-118 does: s = log(max(rho, 1e-6)), rho = exp(s), the
 // Tait pressure (the gamma_eos == 1 branch skips the power), and p / rho^2,
-// which the forces kernel adds per pair.  Output rp (n, 2) = (rho, p /
-// rho^2) in sorted order, for every particle.
+// which the forces kernel adds per pair.  Output rp (r1 - r0, 2) = (rho,
+// p / rho^2) of the receivers at sorted positions [r0, r1) (every particle
+// by default); their neighbours are every member of their 3x3 cells,
+// wherever those are sorted.
 //
 // What bounds it on an H100: the pair arithmetic, ~15 operations and a
 // square root a candidate (~1,200 candidates a particle on the evolved
@@ -87,10 +89,16 @@ inline int density_lanes(int n) {
 template <typename T>
 constexpr int kChunk = FST_SPH_DENSITY_STAGE_BYTES / (int)sizeof(V2<T>);
 
+// A range [r0, r1) of receivers keeps the blocks of the whole range: block
+// b of a launch is block r0 / kGroup + b of [0, n), which walks and stages
+// the runs of its kGroup sorted positions as that block does, and only the
+// particles in [r0, r1) are live and written.  So a receiver's sum takes
+// the same lanes, chunks and order, and gives the same bits, in any range;
+// a run with no receiver in the range is skipped.
 template <typename T, int kLanes>
 __global__ void __launch_bounds__(kThreads)
 density_kernel(const V4<T>* __restrict__ fields,
-               const int* __restrict__ starts, SPHParams p,
+               const int* __restrict__ starts, SPHParams p, int r0, int r1,
                V2<T>* __restrict__ rp) {
   extern __shared__ __align__(16) unsigned char fst_smem[];
   V2<T>* sp = reinterpret_cast<V2<T>*>(fst_smem);
@@ -99,7 +107,7 @@ density_kernel(const V4<T>* __restrict__ fields,
   constexpr int kGroup = kThreads / kLanes;  // particles a block
   const int lane = threadIdx.x % kLanes, slot = threadIdx.x / kLanes;
   const T inv_h = T(p.inv_h), alpha = T(p.alpha), alpha_q = T(p.alpha_q);
-  const int first = (int)blockIdx.x * kGroup;
+  const int first = (r0 / kGroup + (int)blockIdx.x) * kGroup;
   const int hi = min(first + kGroup, p.n);
 
   // the block's sorted positions [first, hi), row by row: [lo, e) those
@@ -109,12 +117,16 @@ density_kernel(const V4<T>* __restrict__ fields,
     const int c0 = cell_of(head.a, head.b, p);
     const int gy = c0 / p.Gx, gxa = c0 - gy * p.Gx;
     const int e = max(min(__ldg(starts + (gy + 1) * p.Gx), hi), lo + 1);
+    if (e <= r0 || lo >= r1) {  // no receiver of the range in this run
+      lo = e;
+      continue;
+    }
     const V2<T> tail = xy[2 * (e - 1)];
     const int gxb = min(max(cell_of(tail.a, tail.b, p) - gy * p.Gx, gxa),
                         p.Gx - 1);
     const NeighbourRows rows = neighbour_rows(starts, gxa, gxb, gy, p);
     const int s = lo + slot;  // this thread's particle, sorted position
-    const bool live = s < e;
+    const bool live = s < e && s >= r0 && s < r1;
     V2<T> me{};
     int ea[3] = {0, 0, 0}, ee[3] = {0, 0, 0};  // its 3x3 cells' entries
     if (live) {
@@ -161,7 +173,7 @@ density_kernel(const V4<T>* __restrict__ fields,
       const T press =
           nmax(T(p.c0sq_rho0) * (powed - T(1)) / T(p.gamma_eos), T(0));
       const T rs = nmax(rho, T(1e-30));
-      rp[s] = {rho, press / (rs * rs)};
+      rp[s - r0] = {rho, press / (rs * rs)};
     }
     lo = e;
   }
@@ -175,38 +187,38 @@ SPHBlockShape shape_of(int n) {
 
 template <typename T, int kLanes>
 void launch_lanes(const T* fields, const int* starts, const SPHParams* p,
-                  T* rp, size_t smem, void* stream) {
-  const unsigned blocks =
-      (unsigned)((p->n + kThreads / kLanes - 1) / (kThreads / kLanes));
-  density_kernel<T, kLanes><<<blocks, kThreads, smem,
-                              (cudaStream_t)stream>>>(
-      reinterpret_cast<const V4<T>*>(fields), starts, *p,
+                  int r0, int r1, T* rp, size_t smem, void* stream) {
+  density_kernel<T, kLanes><<<range_blocks(r0, r1, kThreads / kLanes),
+                              kThreads, smem, (cudaStream_t)stream>>>(
+      reinterpret_cast<const V4<T>*>(fields), starts, *p, r0, r1,
       reinterpret_cast<V2<T>*>(rp));
 }
 
 template <typename T>
 int launch_density(const T* fields, const int* starts, const SPHParams* p,
-                   T* rp, int device, void* stream) {
+                   int r0, int r1, T* rp, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (p->n < 1) return 0;
+  if (r0 < 0 || r1 > p->n || r0 > r1) return (int)cudaErrorInvalidValue;
+  if (r0 == r1) return 0;
+  // the lanes a particle follow the particle count, not the range
   const SPHBlockShape sh = shape_of<T>(p->n);
   const size_t smem = (size_t)sh.smem_bytes;
   switch (sh.lanes) {
     case 1:
-      launch_lanes<T, 1>(fields, starts, p, rp, smem, stream);
+      launch_lanes<T, 1>(fields, starts, p, r0, r1, rp, smem, stream);
       break;
     case 2:
-      launch_lanes<T, 2>(fields, starts, p, rp, smem, stream);
+      launch_lanes<T, 2>(fields, starts, p, r0, r1, rp, smem, stream);
       break;
     case 4:
-      launch_lanes<T, 4>(fields, starts, p, rp, smem, stream);
+      launch_lanes<T, 4>(fields, starts, p, r0, r1, rp, smem, stream);
       break;
     case 8:
-      launch_lanes<T, 8>(fields, starts, p, rp, smem, stream);
+      launch_lanes<T, 8>(fields, starts, p, r0, r1, rp, smem, stream);
       break;
     default:
-      launch_lanes<T, 16>(fields, starts, p, rp, smem, stream);
+      launch_lanes<T, 16>(fields, starts, p, r0, r1, rp, smem, stream);
   }
   return (int)cudaGetLastError();
 }
@@ -227,16 +239,19 @@ void fst_sph_density_shape_f64(int n, fst::SPHBlockShape* out) {
   *out = fst::shape_of<double>(n);
 }
 
+// rp (r1 - r0, 2): the receivers at sorted positions [r0, r1).
 int fst_sph_density_f32(const float* fields, const int* starts,
-                        const fst::SPHParams* p, float* rp, int device,
-                        void* stream) {
-  return fst::launch_density<float>(fields, starts, p, rp, device, stream);
+                        const fst::SPHParams* p, int r0, int r1, float* rp,
+                        int device, void* stream) {
+  return fst::launch_density<float>(fields, starts, p, r0, r1, rp, device,
+                                    stream);
 }
 
 int fst_sph_density_f64(const double* fields, const int* starts,
-                        const fst::SPHParams* p, double* rp, int device,
-                        void* stream) {
-  return fst::launch_density<double>(fields, starts, p, rp, device, stream);
+                        const fst::SPHParams* p, int r0, int r1, double* rp,
+                        int device, void* stream) {
+  return fst::launch_density<double>(fields, starts, p, r0, r1, rp, device,
+                                     stream);
 }
 
 }  // extern "C"

@@ -14,7 +14,9 @@
 // never goes to the host.  No particle is left out of the pair sums: the
 // TPU engine integrated the particles past a cell's K slots with gravity
 // alone (sph_pallas.py:319-327); with no cell capacity there are none.
-// Output pos and vel (n, 2) in particle order.
+// Output pos and vel (n, 2) in particle order, written for the receivers
+// at sorted positions [r0, r1) (every particle by default); a receiver's
+// neighbours are every member of its 3x3 cells, wherever those are sorted.
 //
 // What bounds it on an H100: the pair arithmetic, ~45 operations a
 // candidate within 2h with an IEEE square root and two or three divisions
@@ -136,11 +138,15 @@ __device__ __forceinline__ void add_pair(const SPHParams& p, const V4<T>& me,
   py += cc * dy;
 }
 
+// A range [r0, r1) of receivers keeps the blocks of the whole range, as
+// the density kernel's does (sph_density.cu): block b of a launch is block
+// r0 / kGroup + b of [0, n), only the particles in [r0, r1) are live and
+// written, and a receiver's sums take the same bits in any range.
 template <typename T, int kLanes>
 __global__ void __launch_bounds__(kThreads)
 forces_kernel(const V4<T>* __restrict__ fields, const V2<T>* __restrict__ rp,
               const int* __restrict__ starts, const int* __restrict__ order,
-              const T* __restrict__ dt_ptr, SPHParams p,
+              const T* __restrict__ dt_ptr, SPHParams p, int r0, int r1,
               T* __restrict__ pos_out, T* __restrict__ vel_out) {
   extern __shared__ __align__(16) unsigned char fst_smem[];
   V4<T>* sf = reinterpret_cast<V4<T>*>(fst_smem);
@@ -149,7 +155,7 @@ forces_kernel(const V4<T>* __restrict__ fields, const V2<T>* __restrict__ rp,
   const int lane = threadIdx.x % kLanes, slot = threadIdx.x / kLanes;
   const T four_h2 = T(p.four_h2);
   const T dt = *dt_ptr;
-  const int first = (int)blockIdx.x * kGroup;
+  const int first = (r0 / kGroup + (int)blockIdx.x) * kGroup;
   const int hi = min(first + kGroup, p.n);
 
   // the block's sorted positions [first, hi), row by row: [lo, e) those
@@ -159,12 +165,16 @@ forces_kernel(const V4<T>* __restrict__ fields, const V2<T>* __restrict__ rp,
     const int c0 = cell_of(head.x, head.y, p);
     const int gy = c0 / p.Gx, gxa = c0 - gy * p.Gx;
     const int e = max(min(__ldg(starts + (gy + 1) * p.Gx), hi), lo + 1);
+    if (e <= r0 || lo >= r1) {  // no receiver of the range in this run
+      lo = e;
+      continue;
+    }
     const V4<T> tail = fields[e - 1];
     const int gxb = min(max(cell_of(tail.x, tail.y, p) - gy * p.Gx, gxa),
                         p.Gx - 1);
     const NeighbourRows rows = neighbour_rows(starts, gxa, gxb, gy, p);
     const int s = lo + slot;  // this thread's particle, sorted position
-    const bool live = s < e;
+    const bool live = s < e && s >= r0 && s < r1;
     V4<T> me{};
     T rho_i = T(0), pt_i = T(0);
     int self = -1;  // its own list entry
@@ -242,42 +252,42 @@ SPHBlockShape shape_of(int n) {
 
 template <typename T, int kLanes>
 void launch_lanes(const T* fields, const T* rp, const int* starts,
-                  const int* order, const T* dt, const SPHParams* p,
-                  T* pos_out, T* vel_out, size_t smem, void* stream) {
-  const unsigned blocks =
-      (unsigned)((p->n + kThreads / kLanes - 1) / (kThreads / kLanes));
-  forces_kernel<T, kLanes><<<blocks, kThreads, smem,
-                             (cudaStream_t)stream>>>(
+                  const int* order, const T* dt, const SPHParams* p, int r0,
+                  int r1, T* pos_out, T* vel_out, size_t smem, void* stream) {
+  forces_kernel<T, kLanes><<<range_blocks(r0, r1, kThreads / kLanes),
+                             kThreads, smem, (cudaStream_t)stream>>>(
       reinterpret_cast<const V4<T>*>(fields),
-      reinterpret_cast<const V2<T>*>(rp), starts, order, dt, *p, pos_out,
-      vel_out);
+      reinterpret_cast<const V2<T>*>(rp), starts, order, dt, *p, r0, r1,
+      pos_out, vel_out);
 }
 
 template <typename T>
 int launch_forces(const T* fields, const T* rp, const int* starts,
-                  const int* order, const T* dt, const SPHParams* p,
-                  T* pos_out, T* vel_out, int device, void* stream) {
+                  const int* order, const T* dt, const SPHParams* p, int r0,
+                  int r1, T* pos_out, T* vel_out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (p->n < 1) return 0;
+  if (r0 < 0 || r1 > p->n || r0 > r1) return (int)cudaErrorInvalidValue;
+  if (r0 == r1) return 0;
+  // the lanes a particle follow the particle count, not the range
   const SPHBlockShape sh = shape_of<T>(p->n);
   const size_t smem = (size_t)sh.smem_bytes;
   switch (sh.lanes) {
     case 1:
-      launch_lanes<T, 1>(fields, rp, starts, order, dt, p, pos_out, vel_out,
-                         smem, stream);
+      launch_lanes<T, 1>(fields, rp, starts, order, dt, p, r0, r1, pos_out,
+                         vel_out, smem, stream);
       break;
     case 2:
-      launch_lanes<T, 2>(fields, rp, starts, order, dt, p, pos_out, vel_out,
-                         smem, stream);
+      launch_lanes<T, 2>(fields, rp, starts, order, dt, p, r0, r1, pos_out,
+                         vel_out, smem, stream);
       break;
     case 4:
-      launch_lanes<T, 4>(fields, rp, starts, order, dt, p, pos_out, vel_out,
-                         smem, stream);
+      launch_lanes<T, 4>(fields, rp, starts, order, dt, p, r0, r1, pos_out,
+                         vel_out, smem, stream);
       break;
     default:
-      launch_lanes<T, 8>(fields, rp, starts, order, dt, p, pos_out, vel_out,
-                         smem, stream);
+      launch_lanes<T, 8>(fields, rp, starts, order, dt, p, r0, r1, pos_out,
+                         vel_out, smem, stream);
   }
   return (int)cudaGetLastError();
 }
@@ -298,20 +308,23 @@ void fst_sph_forces_shape_f64(int n, fst::SPHBlockShape* out) {
   *out = fst::shape_of<double>(n);
 }
 
+// pos_out, vel_out (n, 2): written at order[s] for s in [r0, r1).
 int fst_sph_forces_f32(const float* fields, const float* rp,
                        const int* starts, const int* order, const float* dt,
-                       const fst::SPHParams* p, float* pos_out,
-                       float* vel_out, int device, void* stream) {
-  return fst::launch_forces<float>(fields, rp, starts, order, dt, p, pos_out,
-                                   vel_out, device, stream);
+                       const fst::SPHParams* p, int r0, int r1,
+                       float* pos_out, float* vel_out, int device,
+                       void* stream) {
+  return fst::launch_forces<float>(fields, rp, starts, order, dt, p, r0, r1,
+                                   pos_out, vel_out, device, stream);
 }
 
 int fst_sph_forces_f64(const double* fields, const double* rp,
                        const int* starts, const int* order, const double* dt,
-                       const fst::SPHParams* p, double* pos_out,
-                       double* vel_out, int device, void* stream) {
-  return fst::launch_forces<double>(fields, rp, starts, order, dt, p, pos_out,
-                                    vel_out, device, stream);
+                       const fst::SPHParams* p, int r0, int r1,
+                       double* pos_out, double* vel_out, int device,
+                       void* stream) {
+  return fst::launch_forces<double>(fields, rp, starts, order, dt, p, r0, r1,
+                                    pos_out, vel_out, device, stream);
 }
 
 }  // extern "C"

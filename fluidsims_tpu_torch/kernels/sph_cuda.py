@@ -20,6 +20,17 @@ versions, and the 'cuda' engine built on them.
   chosen from the particle count (`forces_shape` reports the blocks).
   Plain version: `forces_plain`.
 
+Ranges and windows (the multi-device runners, parallel/sph_sharded.py and
+parallel/sph_spatial.py).  `density` and `forces` take a range [lo, hi) of
+sorted positions, the receivers whose sums they form (default every
+particle); their neighbours are every member of their 3x3 cells, wherever
+those are sorted.  The kernels keep the blocks of the whole range over a
+part of it, so a receiver's sums have the same bits in any range.  All
+three take a `Window` of whole cell columns of the grid: the cells of
+columns [gx0, gx0 + gw), every row (default the whole grid).  The
+particles are those handed over (their count the tensors' rows), and
+every one lies in the window; the walls keep the whole box.
+
 Neither the kernels nor their plain versions have a cell capacity: every
 member of the 3x3 cells around a particle enters its pair sums, as in the
 reference's linked lists (tau_sph.cu:165-176), so the 'cuda' engine keeps
@@ -49,7 +60,8 @@ from . import _build
 from ._common import LaunchCounter, on_cpu, tile_launch, tile_scratch
 from ._common import grid_syncs as _grid_syncs
 
-__all__ = ["LAUNCHES", "reset_launches", "Binned", "binning", "binning_plain",
+__all__ = ["LAUNCHES", "reset_launches", "Binned", "Window", "full_window",
+           "binning", "binning_plain",
            "BinLaunch", "bin_launch", "bin_grid_syncs", "pair_chunks",
            "density", "density_plain", "pair_density",
            "density_eos", "pair_forces", "forces",
@@ -72,11 +84,24 @@ class Binned(NamedTuple):
     fields: torch.Tensor  # (n, 4) (x, y, vx, vy) at each sorted position
 
 
+class Window(NamedTuple):
+    """The cells of grid columns [gx0, gx0 + gw), every row."""
+
+    gx0: int
+    gw: int
+
+
+def full_window(cfg) -> Window:
+    """The whole grid of cfg."""
+    return Window(0, cfg.grid().Gx)
+
+
 class _Params(ctypes.Structure):
     """Mirror of fst::SPHParams (csrc/sph.cuh)."""
 
     _fields_ = [(name, ctypes.c_int) for name in
-                ("n", "Gx", "Gy", "use_visc", "use_grav", "gamma_is_one")
+                ("n", "Gx", "Gy", "gx0", "use_visc", "use_grav",
+                 "gamma_is_one")
                 ] + [(name, ctypes.c_double) for name in
                      ("cell", "inv_h", "alpha", "alpha_q", "mass", "inv_rho0",
                       "c0sq_rho0", "gamma_eos", "four_h2", "two_h",
@@ -121,7 +146,7 @@ def _params(cfg) -> _Params:
     h = cfg.h
     alpha = 10.0 / (7.0 * math.pi * h * h)
     return _Params(
-        n=cfg.n, Gx=g.Gx, Gy=g.Gy, use_visc=int(cfg.use_visc),
+        n=cfg.n, Gx=g.Gx, Gy=g.Gy, gx0=0, use_visc=int(cfg.use_visc),
         use_grav=int(cfg.use_grav), gamma_is_one=int(cfg.gamma_eos == 1.0),
         cell=g.cell, inv_h=1.0 / h, alpha=alpha, alpha_q=alpha * 0.25,
         mass=cfg.mass, inv_rho0=1.0 / cfg.rho0,
@@ -129,6 +154,32 @@ def _params(cfg) -> _Params:
         four_h2=(2.0 * h) ** 2, two_h=2.0 * h,
         visc_coef=-cfg.visc_alpha * cfg.c0 * h, eps_h2=0.01 * (h * h),
         gravity=cfg.gravity, box_x=cfg.box_x, box_y=cfg.box_y)
+
+
+def _window_params(cfg, win: Window, n: int) -> _Params:
+    """cfg's constants over the window's cells and n particles."""
+    if win == full_window(cfg) and n == cfg.n:
+        return _params(cfg)
+    p = _Params.from_buffer_copy(_params(cfg))
+    p.n = n
+    p.gx0, p.Gx = win
+    return p
+
+
+def _window(cfg, win: Window | None, n: int) -> Window:
+    win = win or full_window(cfg)
+    Gx = cfg.grid().Gx
+    if n < 1 or win.gw < 1 or win.gx0 < 0 or win.gx0 + win.gw > Gx:
+        raise ValueError(f"{win} with {n} particles is not a window of "
+                         f"{Gx} columns with particles")
+    return win
+
+
+def _range(n: int, lo: int, hi: int | None) -> tuple[int, int]:
+    hi = n if hi is None else hi
+    if not 0 <= lo <= hi <= n:
+        raise ValueError(f"receivers [{lo}, {hi}) outside [0, {n})")
+    return lo, hi
 
 
 @functools.lru_cache(maxsize=None)
@@ -139,10 +190,11 @@ def load() -> ctypes.CDLL:
     P = ctypes.c_void_p
     tail = [ctypes.POINTER(_Params)]
     for sfx in _SUFFIX.values():
+        two = [ctypes.c_int] * 2   # the bin's blocks; a range [r0, r1)
         for name, argtypes in (
-                ("bin", [P, P] + tail + [P] * 7 + [ctypes.c_int] * 2),
-                ("density", [P, P] + tail + [P]),
-                ("forces", [P] * 5 + tail + [P, P])):
+                ("bin", [P, P] + tail + [P] * 7 + two),
+                ("density", [P, P] + tail + two + [P]),
+                ("forces", [P] * 5 + tail + two + [P, P])):
             fn = getattr(lib, f"fst_sph_{name}_{sfx}")
             fn.argtypes = argtypes + [ctypes.c_int, P]
             fn.restype = ctypes.c_int
@@ -175,12 +227,11 @@ def _check(cfg, **tensors) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _binned_specs(cfg, b: Binned) -> dict:
-    g = cfg.grid()
-    n = cfg.n
+def _binned_specs(cfg, b: Binned, win: Window | None = None) -> dict:
+    n, gw = b.fields.shape[0], (win or full_window(cfg)).gw
     i32 = torch.int32
     return {"cid": (b.cid, i32, (n,)), "rank": (b.rank, i32, (n,)),
-            "starts": (b.starts, i32, (g.Gx * g.Gy + 1,)),
+            "starts": (b.starts, i32, (gw * cfg.grid().Gy + 1,)),
             "order": (b.order, i32, (n,)), "fields": (b.fields, None, (n, 4))}
 
 
@@ -200,13 +251,27 @@ def _launch(name: str, dtype, device, *args) -> None:
 # ------------------------------- binning ------------------------------------
 
 
-def binning_plain(cfg, pos, vel) -> Binned:
+def window_cid(cfg, pos, win: Window | None = None) -> torch.Tensor:
+    """Flat cell id gy * gw + gx - gx0 (int64) of each particle in the
+    window's cells, clamped to them (the bin kernel's cell_of; on the whole
+    grid ops/cell_dense.py::_cid)."""
+    gx0, gw = win or full_window(cfg)
+    g = cfg.grid()
+    cell = torch.full((), g.cell, dtype=pos.dtype, device=pos.device)
+    gx = (torch.floor(pos[:, 0] / cell).to(torch.int32) - gx0).clamp(0,
+                                                                     gw - 1)
+    gy = torch.floor(pos[:, 1] / cell).to(torch.int32).clamp(0, g.Gy - 1)
+    return gy.long() * gw + gx.long()
+
+
+def binning_plain(cfg, pos, vel, win: Window | None = None) -> Binned:
     """Plain PyTorch version of the bin kernel."""
     g = cfg.grid()
-    cid = cd._cid(g, pos)
+    M = (win or full_window(cfg)).gw * g.Gy
+    cid = window_cid(cfg, pos, win)
     order, _, slot = cd.sort_by_cell(g, pos, cid)
-    starts = torch.zeros(g.Gx * g.Gy + 1, dtype=torch.int64, device=pos.device)
-    starts[1:] = torch.cumsum(torch.bincount(cid, minlength=g.Gx * g.Gy), 0)
+    starts = torch.zeros(M + 1, dtype=torch.int64, device=pos.device)
+    starts[1:] = torch.cumsum(torch.bincount(cid, minlength=M), 0)
     rank = torch.empty_like(slot)
     rank[order] = slot
     i32 = torch.int32
@@ -215,10 +280,11 @@ def binning_plain(cfg, pos, vel) -> Binned:
                   fields=torch.cat([pos, vel], 1)[order])
 
 
-@functools.lru_cache(maxsize=None)
+@functools.lru_cache(maxsize=1024)
 def bin_launch(n: int, M: int, dtype: torch.dtype, index: int) -> BinLaunch:
     """The bin's launch over n particles and M cells on device `index`, as
-    the library's grid query computes it (asked once per shape)."""
+    the library's grid query computes it (asked once per shape; the shapes
+    of the last 1,024 kept, since a window's count changes a step)."""
     return tile_launch(load(), f"fst_sph_bin_shape_{_SUFFIX[dtype]}", n, M,
                        index, kind=BinLaunch)
 
@@ -232,40 +298,53 @@ def _bin_scratch(n: int, M: int, dtype: torch.dtype, shape: BinLaunch,
                         shape.scratch_ints, torch.int32, device, stream)
 
 
-def _bin_shape(cfg, dtype: torch.dtype, device: torch.device) -> tuple:
-    g = cfg.grid()
-    M = g.Gx * g.Gy
-    return M, bin_launch(cfg.n, M, dtype, device.index)
+def _bin_shape_scratch(n: int, M: int, dtype: torch.dtype,
+                       device: torch.device) -> tuple:
+    # (launch shape, scratch, words) of n particles: the launch shape and
+    # scratch of the power of two n_key >= n.  The kernels' loops stride
+    # over any grid, so every count up to n_key launches n_key's grid and
+    # lays its scratch out alike: the slices' sums and the list at the same
+    # words, which a launch leaves at 0 (the sums) or sets before it reads
+    # them (the list's length, its cells, the bucket).  So runs whose
+    # particle count changes a step (parallel/sph_spatial.py) keep a
+    # scratch or two, not one for each count.
+    n_key = 1 << max(n - 1, 0).bit_length()
+    shape = bin_launch(n_key, M, dtype, device.index)
+    return (shape, *_bin_scratch(
+        n_key, M, dtype, shape, device,
+        torch.cuda.current_stream(device).cuda_stream))
+
+
+def _bin_cells(cfg, win: Window | None) -> int:
+    return (win or full_window(cfg)).gw * cfg.grid().Gy
 
 
 def bin_grid_syncs(cfg, dtype: torch.dtype, device: torch.device) -> int:
     """The grid syncs that the last bin of cfg's particles of `dtype` on
     the device's current stream made, as the kernel counted them."""
-    M, shape = _bin_shape(cfg, dtype, device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    return _grid_syncs(_bin_scratch(cfg.n, M, dtype, shape, device,
-                                    stream)[1])
+    return _grid_syncs(_bin_shape_scratch(cfg.n, _bin_cells(cfg, None),
+                                          dtype, device)[2])
 
 
-def binning(cfg, pos, vel) -> Binned:
-    """Rank-in-cell binning: the kernel on CUDA tensors, the plain version
-    on CPU tensors."""
+def binning(cfg, pos, vel, win: Window | None = None) -> Binned:
+    """Rank-in-cell binning of cfg's particles, or of the window's over
+    its cells: the kernel on CUDA tensors, the plain version on CPU
+    tensors."""
+    n = pos.shape[0]
+    win = _window(cfg, win, n)
     if on_cpu(pos):
-        return binning_plain(cfg, pos, vel)
-    n = cfg.n
+        return binning_plain(cfg, pos, vel, win)
     _check(cfg, pos=(pos, None, (n, 2)), vel=(vel, None, (n, 2)))
     dev = pos.device
-    M, shape = _bin_shape(cfg, pos.dtype, dev)
-    scratch, words = _bin_scratch(
-        n, M, pos.dtype, shape, dev,
-        torch.cuda.current_stream(dev).cuda_stream)
+    M = _bin_cells(cfg, win)
+    shape, scratch, words = _bin_shape_scratch(n, M, pos.dtype, dev)
     i32 = {"dtype": torch.int32, "device": dev}
     out = Binned(cid=torch.empty(n, **i32), rank=torch.empty(n, **i32),
                  starts=torch.empty(M + 1, **i32),
                  order=torch.empty(n, **i32),
                  fields=torch.empty((n, 4), dtype=pos.dtype, device=dev))
     _launch("bin", pos.dtype, dev, pos.data_ptr(), vel.data_ptr(),
-            ctypes.byref(_params(cfg)), out.cid.data_ptr(),
+            ctypes.byref(_window_params(cfg, win, n)), out.cid.data_ptr(),
             out.starts.data_ptr(), out.order.data_ptr(), out.rank.data_ptr(),
             out.fields.data_ptr(), scratch.data_ptr(), words.data_ptr(),
             shape.grid, shape.sort_blocks)
@@ -279,39 +358,42 @@ def binning(cfg, pos, vel) -> Binned:
 CHUNK_PAIRS = 1 << 24
 
 
-def pair_chunks(cfg, b: Binned):
+def pair_chunks(cfg, b: Binned, lo: int = 0, hi: int | None = None,
+                win: Window | None = None):
     """Every pair the pair kernels walk, as (receiver, neighbour) sorted
-    positions: for each sorted position, every member of the 3x3 cells
-    around its cell (itself included), receiver by receiver, in chunks of
-    whole receivers with at most CHUNK_PAIRS pairs (or one receiver).
-    Yields int64 (recv, nbr) tensors."""
-    g = cfg.grid()
+    positions: for each sorted position in [lo, hi) (default every one),
+    every member of the 3x3 cells around its cell (itself included) in
+    the window's cells, receiver by receiver, in chunks of whole receivers
+    with at most CHUNK_PAIRS pairs (or one receiver).  Yields int64
+    (recv, nbr) tensors."""
+    lo, hi = _range(b.fields.shape[0], lo, hi)
+    Gx, Gy = (win or full_window(cfg)).gw, cfg.grid().Gy
     dev = b.fields.device
     starts = b.starts.long()
-    sc = b.cid.long()[b.order.long()]
+    sc = b.cid.long()[b.order.long()[lo:hi]]
     off = torch.tensor(cd.NEIGHBOR_OFFSETS_2D, device=dev)
-    ngx = (sc % g.Gx)[:, None] + off[:, 0]
-    ngy = (sc // g.Gx)[:, None] + off[:, 1]
-    inside = (ngx >= 0) & (ngx < g.Gx) & (ngy >= 0) & (ngy < g.Gy)
-    nc = ngy.clamp(0, g.Gy - 1) * g.Gx + ngx.clamp(0, g.Gx - 1)
-    beg = starts[nc]                                          # (n, 9)
+    ngx = (sc % Gx)[:, None] + off[:, 0]
+    ngy = (sc // Gx)[:, None] + off[:, 1]
+    inside = (ngx >= 0) & (ngx < Gx) & (ngy >= 0) & (ngy < Gy)
+    nc = ngy.clamp(0, Gy - 1) * Gx + ngx.clamp(0, Gx - 1)
+    beg = starts[nc]                                          # (hi - lo, 9)
     cnt = torch.where(inside, starts[nc + 1] - beg, 0)
     per_recv = cnt.sum(1)
     ends = torch.cumsum(per_recv, 0)
-    lo = 0
-    while lo < cfg.n:
-        done = int(ends[lo - 1]) if lo else 0
-        hi = int(torch.searchsorted(ends, done + CHUNK_PAIRS, right=True))
-        hi = min(max(hi, lo + 1), cfg.n)
-        c = cnt[lo:hi].reshape(-1)
-        total = int(ends[hi - 1]) - done
+    a, m = 0, hi - lo
+    while a < m:
+        done = int(ends[a - 1]) if a else 0
+        e = int(torch.searchsorted(ends, done + CHUNK_PAIRS, right=True))
+        e = min(max(e, a + 1), m)
+        c = cnt[a:e].reshape(-1)
+        total = int(ends[e - 1]) - done
         first = torch.cumsum(c, 0) - c
-        recv = torch.arange(lo, hi, device=dev).repeat_interleave(
-            per_recv[lo:hi])
-        nbr = (beg[lo:hi].reshape(-1) - first).repeat_interleave(
+        recv = torch.arange(lo + a, lo + e, device=dev).repeat_interleave(
+            per_recv[a:e])
+        nbr = (beg[a:e].reshape(-1) - first).repeat_interleave(
             c, output_size=total) + torch.arange(total, device=dev)
         yield recv, nbr
-        lo = hi
+        a = e
 
 
 def pair_density(cfg, f, recv, nbr):
@@ -346,12 +428,14 @@ def density_eos(cfg, rho):
     return torch.stack([rho, press / (rs * rs)], -1)
 
 
-def density_plain(cfg, b: Binned):
-    """Plain PyTorch version of the density kernel: (rho, p / rho^2) per
-    sorted position, (n, 2)."""
-    rho = torch.zeros_like(b.fields[:, 0])
-    for recv, nbr in pair_chunks(cfg, b):
-        rho.index_add_(0, recv, pair_density(cfg, b.fields, recv, nbr))
+def density_plain(cfg, b: Binned, lo: int = 0, hi: int | None = None,
+                  win: Window | None = None):
+    """Plain PyTorch version of the density kernel: (rho, p / rho^2) of
+    the receivers at sorted positions [lo, hi), (hi - lo, 2)."""
+    lo, hi = _range(b.fields.shape[0], lo, hi)
+    rho = torch.zeros_like(b.fields[lo:hi, 0])
+    for recv, nbr in pair_chunks(cfg, b, lo, hi, win):
+        rho.index_add_(0, recv - lo, pair_density(cfg, b.fields, recv, nbr))
     return density_eos(cfg, rho)
 
 
@@ -389,21 +473,26 @@ def pair_forces(cfg, f, rp, recv, nbr):
     return c * dx, c * dy
 
 
-def forces_plain(cfg, b: Binned, rp, dt):
+def forces_plain(cfg, b: Binned, rp, dt, lo: int = 0, hi: int | None = None,
+                 win: Window | None = None):
     """Plain PyTorch version of the forces + integrate kernel: (pos, vel)
-    in particle order."""
+    (n, 2) in particle order, written for the receivers at sorted
+    positions [lo, hi) (the other rows are not written)."""
     p = _params(cfg)
     f = b.fields
-    acc = torch.zeros((cfg.n, 2), dtype=f.dtype, device=f.device)
-    for recv, nbr in pair_chunks(cfg, b):
+    lo, hi = _range(f.shape[0], lo, hi)
+    acc = torch.zeros((hi - lo, 2), dtype=f.dtype, device=f.device)
+    for recv, nbr in pair_chunks(cfg, b, lo, hi, win):
         cx, cy = pair_forces(cfg, f, rp, recv, nbr)
-        acc.index_add_(0, recv, torch.stack([cx, cy], -1))
+        acc.index_add_(0, recv - lo, torch.stack([cx, cy], -1))
     if p.use_grav:
         acc = acc - torch.tensor([0.0, p.gravity], dtype=acc.dtype,
                                  device=acc.device)
-    pos_s, vel_s = sph_mod._integrate(cfg, f[:, :2], f[:, 2:], acc, dt)
-    order = b.order.long()
-    pos, vel = torch.empty_like(pos_s), torch.empty_like(vel_s)
+    pos_s, vel_s = sph_mod._integrate(cfg, f[lo:hi, :2], f[lo:hi, 2:], acc,
+                                      dt)
+    order = b.order.long()[lo:hi]
+    pos = torch.empty((f.shape[0], 2), dtype=f.dtype, device=f.device)
+    vel = torch.empty_like(pos)
     pos[order] = pos_s
     vel[order] = vel_s
     return pos, vel
@@ -412,32 +501,49 @@ def forces_plain(cfg, b: Binned, rp, dt):
 # ------------------------------ pair kernels --------------------------------
 
 
-def density(cfg, b: Binned) -> torch.Tensor:
-    """(rho, p / rho^2) per sorted position: the kernel on CUDA tensors,
-    the plain version on CPU tensors."""
+def density(cfg, b: Binned, lo: int = 0, hi: int | None = None,
+            win: Window | None = None) -> torch.Tensor:
+    """(rho, p / rho^2) of the receivers at sorted positions [lo, hi)
+    (default every particle), (hi - lo, 2): the kernel on CUDA tensors, the
+    plain version on CPU tensors."""
+    n = b.fields.shape[0]
+    win = _window(cfg, win, n)
+    lo, hi = _range(n, lo, hi)
     if on_cpu(b.fields):
-        return density_plain(cfg, b)
-    _check(cfg, **_binned_specs(cfg, b))
-    rp = torch.empty((cfg.n, 2), dtype=b.fields.dtype, device=b.fields.device)
+        return density_plain(cfg, b, lo, hi, win)
+    _check(cfg, **_binned_specs(cfg, b, win))
+    rp = torch.empty((hi - lo, 2), dtype=b.fields.dtype,
+                     device=b.fields.device)
+    if lo == hi:   # no receiver: no launch
+        return rp
     _launch("density", rp.dtype, rp.device, b.fields.data_ptr(),
-            b.starts.data_ptr(), ctypes.byref(_params(cfg)), rp.data_ptr())
+            b.starts.data_ptr(), ctypes.byref(_window_params(cfg, win, n)),
+            lo, hi, rp.data_ptr())
     return rp
 
 
-def forces(cfg, b: Binned, rp, dt):
+def forces(cfg, b: Binned, rp, dt, lo: int = 0, hi: int | None = None,
+           win: Window | None = None):
     """Pair forces, gravity and the integrate from the sorted state, `rp`
-    and the 0-d `dt`, returned as (pos, vel) in particle order: the kernel
+    (every sorted position's) and the 0-d `dt`, returned as (pos, vel) in
+    particle order, written for the receivers at sorted positions [lo, hi)
+    (default every particle; the other rows are not written): the kernel
     on CUDA tensors, the plain version on CPU tensors."""
+    n = b.fields.shape[0]
+    win = _window(cfg, win, n)
+    lo, hi = _range(n, lo, hi)
     if on_cpu(b.fields):
-        return forces_plain(cfg, b, rp, dt)
-    n = cfg.n
+        return forces_plain(cfg, b, rp, dt, lo, hi, win)
     _check(cfg, rp=(rp, None, (n, 2)), dt=(dt, None, ()),
-           **_binned_specs(cfg, b))
+           **_binned_specs(cfg, b, win))
     pos = torch.empty((n, 2), dtype=rp.dtype, device=rp.device)
     vel = torch.empty_like(pos)
+    if lo == hi:   # no receiver: no launch
+        return pos, vel
     _launch("forces", rp.dtype, rp.device, b.fields.data_ptr(), rp.data_ptr(),
             b.starts.data_ptr(), b.order.data_ptr(), dt.data_ptr(),
-            ctypes.byref(_params(cfg)), pos.data_ptr(), vel.data_ptr())
+            ctypes.byref(_window_params(cfg, win, n)), lo, hi, pos.data_ptr(),
+            vel.data_ptr())
     return pos, vel
 
 

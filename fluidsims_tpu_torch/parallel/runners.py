@@ -3,11 +3,15 @@ on a rank: what the tests and chip_smoke.py hand to `launch.spawn`.
 
 Each runner module has the shape of its JAX twin: `shard_state(state,
 mesh)`, `make_sharded_run(cfg, mesh, n_steps)` and `gather_state(local,
-mesh)`.  `RUNNERS` names them with the solver module, the mesh they take
-and the one-device run they are held to.  The τ-clock and MHD runners
-step plainly (see tau_sharded.py), so their one-device run is the plain
-'torch' engine's; every other one is the solver's `run` on the engine it
-picks for the device.
+mesh)`; the spatial ones (owner buffers of particles, migration)
+`shard_state(state, cfg, mesh, axis)`, `make_sharded_run(cfg, mesh,
+n_steps, axis)` and `gather_state(local, n, mesh)`, by particle id.  `RUNNERS` names them with the solver module, the mesh they
+take and the one-device run they are held to.  The τ-clock and MHD
+runners step plainly (see tau_sharded.py), so their one-device run is the
+plain 'torch' engine's; the SPH runners' is the 'cuda' engine's (their
+kernels, or those kernels' plain versions on the CPU), the spatial FLIP
+and MPM runners' the 'dense' engine's (the engine they split); every
+other one is the solver's `run` on the engine it picks for the device.
 """
 
 from __future__ import annotations
@@ -27,22 +31,26 @@ from ..kernels import (burgers_cuda, flip_cuda, gray_scott_cuda,
                        sph_cuda, stam2d_cuda, stam3d_cuda)
 from ..solvers import (burgers, flip_apic, gray_scott, hypersonic2d,
                        hypersonic3d, lbm, mhd, mpm, nbody_graph,
-                       shallow_water)
+                       shallow_water, sph)
 from . import flip_sharded as fsh
+from . import flip_spatial as fsp
 from . import hypersonic2d_sharded as h2s
 from . import hypersonic2d_sharded2d as h2s2
 from . import hypersonic3d_sharded as h3s
 from . import mhd_sharded as msh
 from . import mpm_sharded as mpsh
+from . import mpm_spatial as mpsp
 from . import nbody_sharded as nsh
 from . import periodic_sharded as psh
+from . import sph_sharded as ssh
+from . import sph_spatial as ssp
 from . import tau_sharded as tsh
 from .launch import to_numpy, tree_map
-from .mesh import make_mesh_1d
+from .mesh import make_mesh_1d, psum
 
 __all__ = ["RUNNERS", "Runner", "make_mesh", "run_sharded", "run_dense",
-           "max_rel_err", "run_cases", "KERNEL_MODULES", "reset_launches",
-           "launches"]
+           "max_rel_err", "max_abs_errs", "run_cases", "KERNEL_MODULES",
+           "reset_launches", "launches"]
 
 # Every kernel wrapper module of the port, whose LAUNCHES a case reports.
 KERNEL_MODULES = {m.__name__.rsplit(".", 1)[1]: m for m in (
@@ -72,6 +80,7 @@ class Runner:
     dense_engine: str | None = None  # the one-device run's engine, if fixed
     particles: bool = False          # interleaved particle order
     held: tuple | None = None        # leaves max_rel_err reads; None: all
+    spatial: bool = False            # owner buffers, gathered by id
 
 
 RUNNERS = {
@@ -108,6 +117,19 @@ RUNNERS = {
     "nbody": Runner(nbody_graph, nbody_graph.GraphLayoutConfig, "b",
                     nsh.shard_state, nsh.make_sharded_run, nsh.gather_state,
                     held=(0,)),  # the positions, as JAX's test holds them
+    "sph": Runner(sph, sph.SPHConfig, "c", ssh.shard_state,
+                  ssh.make_sharded_run, ssh.gather_state,
+                  dense_engine="cuda"),
+    "sph_spatial": Runner(sph, sph.SPHConfig, "c", ssp.shard_state,
+                          ssp.make_sharded_run, ssp.gather_state,
+                          dense_engine="cuda", spatial=True),
+    "flip_spatial": Runner(flip_apic, flip_apic.FlipApicConfig, "x",
+                           fsp.shard_state, fsp.make_sharded_run,
+                           fsp.gather_state, dense_engine="dense",
+                           spatial=True),
+    "mpm_spatial": Runner(mpm, mpm.MPMConfig, "x", mpsp.shard_state,
+                          mpsp.make_sharded_run, mpsp.gather_state,
+                          dense_engine="dense", spatial=True),
 }
 
 
@@ -124,10 +146,33 @@ def make_mesh(name: str, device=None, mesh2d: tuple | None = None):
 def run_sharded(name: str, cfg, state, n_steps: int, mesh):
     """`n_steps` sharded steps of a global `state` (the same on every
     rank): shard, run, gather.  Returns the global result on every rank
-    (particles in interleaved order)."""
+    (particles in interleaved order, or in particle order for the spatial
+    runners)."""
+    return _run(name, cfg, state, n_steps, mesh)[0]
+
+
+def _run(name: str, cfg, state, n_steps: int, mesh):
+    """(run_sharded's result, what the run reports: a spatial run the
+    particles lost to capacity and those that changed rank (summed over
+    the ranks); the SPH runs [halo receivers, all receivers] of the rank's
+    pair kernels)."""
     r = RUNNERS[name]
-    return r.gather(r.make_run(cfg, mesh, n_steps)(r.shard(state, mesh)),
-                    mesh)
+    info = {}
+    if not r.spatial:
+        run = r.make_run(cfg, mesh, n_steps)
+        got = r.gather(run(r.shard(state, mesh)), mesh)
+    else:
+        local = r.shard(state, cfg, mesh, r.axis)
+        run = r.make_run(cfg, mesh, n_steps, r.axis)
+        out = run(local)
+        ids0, ids1 = local.ids[local.ids >= 0], out.ids[out.ids >= 0]
+        moved = psum(torch.isin(ids1, ids0, invert=True).sum().reshape(1),
+                     mesh)
+        info = {"lost": int(out.lost), "moved": int(moved[0])}
+        got = r.gather(out, _leaves(state)[0].shape[0], mesh)
+    if hasattr(run, "stats"):
+        info["receivers"] = [run.stats["halo"], run.stats["receivers"]]
+    return got, info
 
 
 def run_dense(name: str, cfg, state, n_steps: int):
@@ -144,28 +189,51 @@ def _leaves(tree) -> list:
     return [tree]
 
 
+def _paired(name: str, got, ref, world: int) -> list:
+    """The (sharded, one-device) pairs of leaves, the latter put in
+    interleaved order for the particle runners, both on its device."""
+    perm = None
+    if RUNNERS[name].particles:
+        perm = torch.from_numpy(fsh.interleave_perm(
+            _leaves(ref)[0].shape[0], world))
+    out = []
+    for g, f in zip(_leaves(got), _leaves(ref)):
+        if perm is not None and f.ndim >= 1 and f.shape[0] == perm.numel():
+            f = f[perm.to(f.device)]
+        out.append((g.to(f.device), f))
+    return out
+
+
 def max_rel_err(name: str, got, ref, world: int) -> tuple[float, bool]:
     """(largest over the float leaves of max|got - ref| / max|ref|, every
     leaf bitwise equal) of a sharded result against the one-device one,
     the latter put in interleaved order for the particle runners.  The
     error reads the runner's `held` leaves only (n-body: the positions,
     relative to the layout's extent)."""
-    r = RUNNERS[name]
-    perm = None
-    if r.particles:
-        n = _leaves(ref)[0].shape[0]
-        perm = torch.from_numpy(fsh.interleave_perm(n, world))
+    held = RUNNERS[name].held
     worst, same = 0.0, True
-    for i, (g, f) in enumerate(zip(_leaves(got), _leaves(ref))):
-        if perm is not None and f.ndim >= 1 and f.shape[0] == perm.numel():
-            f = f[perm.to(f.device)]
-        g = g.to(f.device)
+    for i, (g, f) in enumerate(_paired(name, got, ref, world)):
         same = same and bool(torch.equal(g, f))
-        if f.is_floating_point() and (r.held is None or i in r.held):
+        if f.is_floating_point() and (held is None or i in held):
             scale = float(f.abs().max()) if f.numel() else 0.0
             err = float((g - f).abs().max()) if f.numel() else 0.0
             worst = max(worst, err / scale if scale > 0 else err)
     return worst, same
+
+
+def max_abs_errs(name: str, got, ref, world: int) -> list:
+    """max |got - ref| of each float leaf and sum |got - ref| of each
+    other (FLIP's raster: the particles counted in another cell, twice;
+    a bool mask as 0 and 1), as max_rel_err pairs them."""
+    out = []
+    for g, f in _paired(name, got, ref, world):
+        if not f.numel():
+            out.append(None)
+        elif f.is_floating_point():
+            out.append(float((g - f).abs().max()))
+        else:
+            out.append(float((g.long() - f.long()).abs().sum()))
+    return out
 
 
 def run_cases(cases: list, device=None) -> list:
@@ -173,11 +241,13 @@ def run_cases(cases: list, device=None) -> list:
     it with the same cases).  A case is a dict: `name` (a key of RUNNERS),
     `config` (the config's fields), `steps`, optionally `state` (a global
     state of tensors; default: the solver's `init` on the mesh's device),
-    `mesh2d` ((py, px) for the 2-D mesh), `dense` (also run the one-device
-    run on rank 0 and compare) and `keep` (rank 0 returns the gathered
-    state).  Returns, per case, the seconds of the sharded run (host
-    clock, the device synchronised), the kernels' launches in it and, on
-    rank 0, what `dense` and `keep` ask for."""
+    `mesh2d` ((py, px) for the 2-D mesh), `dense` (also run the
+    one-device run on rank 0 and compare) and `keep` (rank 0 returns the
+    gathered state).
+    Returns, per case, the seconds of the sharded run (host clock, the
+    device synchronised), the kernels' launches in it, what a spatial run
+    reports (`_run`) and, on rank 0, what `dense` (with the one-device
+    run's seconds) and `keep` ask for."""
     out = []
     for case in cases:
         name = case["name"]
@@ -192,17 +262,21 @@ def run_cases(cases: list, device=None) -> list:
         sync(mesh.device)
         reset_launches()
         t0 = time.perf_counter()
-        got = run_sharded(name, cfg, state, case["steps"], mesh)
+        got, info = _run(name, cfg, state, case["steps"], mesh)
         sync(mesh.device)
         res = {"name": name, "world": mesh.size, "backend": mesh.backend,
                "steps": case["steps"], "seconds": time.perf_counter() - t0,
                "launches": {m: c for m, c in launches().items()
-                            if any(c.values())}}
+                            if any(c.values())}, **info}
         if mesh.rank == 0:
             if case.get("dense"):
+                t0 = time.perf_counter()
                 ref = run_dense(name, cfg, state, case["steps"])
+                sync(mesh.device)
+                res["dense_seconds"] = time.perf_counter() - t0
                 res["max_rel_err"], res["bitwise"] = max_rel_err(
                     name, got, ref, mesh.size)
+                res["max_abs_err"] = max_abs_errs(name, got, ref, mesh.size)
             if case.get("keep"):
                 res["state"] = to_numpy(got)
         out.append(res)

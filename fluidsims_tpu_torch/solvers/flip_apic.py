@@ -134,6 +134,13 @@ def _w1(x):
     return torch.where(ax < 1.0, 1.0 - ax, torch.zeros_like(ax))
 
 
+def _gshift(a, oy: int, ox: int):
+    """(rows, cols) grid view at offset: out[j, i] = a[j + oy, i + ox],
+    zeros outside the grid (JAX's `_gshift`; parallel/flip_spatial.py
+    shifts its slabs with it)."""
+    return cd.grid_shift(a, oy, ox)
+
+
 def _p2g(cfg, pos, vel, ax, ay, apic=None):
     """Particle-to-grid mass/momentum transfer (k_p2g, :105-131): the CUDA
     atomicAdd as 9 masked `index_add_` scatters.  The target index is

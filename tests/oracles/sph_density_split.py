@@ -17,7 +17,9 @@ density's own constants.  The model builds each lane's sequence of
 neighbours in that order (sph_forces_split.lane_sequences without the
 own-index skip), adds the plain version's pair term (kernels/sph_cuda.py
 pair_density) one position of the sequences at a time, combines the lanes
-the kernel's way and applies the plain version's EOS (density_eos).  The
+the kernel's way and applies the plain version's EOS (density_eos); over
+a range of receivers and a window of cell columns as the forces model
+does.  The
 block shape defaults to the source's constants, read from the source so
 that the model cannot drift from them."""
 
@@ -63,19 +65,23 @@ def kernel_chunk(dtype: torch.dtype, stage_bytes: int = STAGE_BYTES) -> int:
 
 
 def density_split(cfg, b: sk.Binned, threads: int = THREADS,
-                  lanes: int | None = None, chunk: int | None = None):
-    """(rp, chunks): the density kernel's (rho, p / rho^2) per sorted
-    position, the sums split and combined in the kernel's order (lanes,
-    chunk: lanes a particle and candidates a staged chunk, default the
-    kernel's for cfg's count and dtype), with the chunks each position's
-    run staged."""
+                  lanes: int | None = None, chunk: int | None = None,
+                  r0: int = 0, r1: int | None = None,
+                  win: sk.Window | None = None):
+    """(rp, chunks): the density kernel's (rho, p / rho^2) of the sorted
+    positions [r0, r1) (default every one), (r1 - r0, 2), the sums split
+    and combined in the kernel's order (lanes, chunk: lanes a particle and
+    candidates a staged chunk, default the kernel's for the count and
+    dtype), with the chunks each position's run staged."""
     f = b.fields
-    lanes = lanes or kernel_lanes(cfg.n)
+    n = f.shape[0]
+    r1 = n if r1 is None else r1
+    lanes = lanes or kernel_lanes(n)
     chunk = chunk or kernel_chunk(f.dtype)
     seqs, skips, chunks = sph_forces_split.lane_sequences(
-        cfg, b, threads, lanes, chunk, skip_self=False)
-    assert skips == [0] * cfg.n
-    n = cfg.n
+        cfg, b, threads, lanes, chunk, skip_self=False, r0=r0, r1=r1,
+        win=win)
+    assert skips == [0] * n
     longest = max((len(q) for per in seqs for q in per), default=0)
     nbr = torch.full((n, lanes, max(longest, 1)), -1, dtype=torch.long)
     for s, per in enumerate(seqs):
@@ -95,4 +101,4 @@ def density_split(cfg, b: sk.Binned, threads: int = THREADS,
     while o > 0:  # the xor butterfly: lane l adds lane l ^ o's sum
         acc = acc + acc[:, torch.arange(lanes) ^ o]
         o //= 2
-    return sk.density_eos(cfg, acc[:, 0]), chunks
+    return sk.density_eos(cfg, acc[r0:r1, 0]), chunks

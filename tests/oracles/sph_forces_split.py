@@ -10,7 +10,11 @@ chunks of a fixed number of candidates; a particle's own 3x3 cells are a
 contiguous part of each range, which its kLanes lanes walk, lane l the
 entries l, l + kLanes, ... of each part, chunk by chunk, skipping its own
 entry; the lanes' sums are combined by an xor butterfly.  The lanes a
-particle are chosen at launch from the particle count.  The model
+particle are chosen at launch from the particle count.  Over a range [lo,
+hi) of receivers the blocks stay those of the whole range: the first is
+the block that holds lo, a run with no receiver in the range is skipped,
+and only the receivers in the range are live; over a window of cell
+columns the cells are the window's (kernels/sph_cuda.py Window).  The model
 builds each lane's sequence of neighbours in that order, adds the plain
 version's pair terms (kernels/sph_cuda.py pair_forces) one position of the
 sequences at a time, combines the lanes the kernel's way, and integrates
@@ -60,24 +64,30 @@ def kernel_chunk(dtype: torch.dtype, stage_bytes: int = STAGE_BYTES) -> int:
 
 
 def lane_sequences(cfg, b: sk.Binned, threads: int, lanes: int, chunk: int,
-                   skip_self: bool = True):
+                   skip_self: bool = True, r0: int = 0, r1: int | None = None,
+                   win: sk.Window | None = None):
     """(seqs, skips, chunks): seqs[s][l], the sorted positions whose pair
     terms lane l of sorted position s adds, in the kernel's order; skips[s],
     the entries its own-index test skipped (none without `skip_self`: the
     density kernel sums the self pair); chunks[s], the chunks its run
-    staged."""
-    g = cfg.grid()
-    gx_n, gy_n = g.Gx, g.Gy
+    staged; for the receivers s in [r0, r1) (default every one; the others
+    get none) of the window's cells (default the whole grid)."""
+    n, gx_n = b.fields.shape[0], (win or sk.full_window(cfg)).gw
+    gy_n = cfg.grid().Gy
+    r1 = n if r1 is None else r1
     starts = b.starts.tolist()
     sc = b.cid.long()[b.order.long()].tolist()  # the cell of each position
-    n, group = cfg.n, threads // lanes
+    group = threads // lanes
     seqs = [[[] for _ in range(lanes)] for _ in range(n)]
     skips, chunks = [0] * n, [0] * n
-    for first in range(0, n, group):
+    for first in range(r0 // group * group, r1, group):
         hi, lo = min(first + group, n), first
         while lo < hi:
             gy, gxa = divmod(sc[lo], gx_n)
             e = max(min(starts[(gy + 1) * gx_n], hi), lo + 1)
+            if e <= r0 or lo >= r1:  # no receiver of the range in this run
+                lo = e
+                continue
             gxb = min(max(sc[e - 1] - gy * gx_n, gxa), gx_n - 1)
             x0, x1 = max(gxa - 1, 0), min(gxb + 1, gx_n - 1)
             base, length = [0, 0, 0], [0, 0, 0]
@@ -95,7 +105,7 @@ def lane_sequences(cfg, b: sk.Binned, threads: int, lanes: int, chunk: int,
                         return base[o] + k - off[o]
                 raise IndexError(k)
 
-            for s in range(lo, e):
+            for s in range(max(lo, r0), min(e, r1)):
                 gx = sc[s] - gy * gx_n
                 self_ = off[1] + s - base[1]
                 parts = []
@@ -124,17 +134,22 @@ def lane_sequences(cfg, b: sk.Binned, threads: int, lanes: int, chunk: int,
 
 
 def forces_split(cfg, b: sk.Binned, rp, dt, threads: int = THREADS,
-                 lanes: int | None = None, chunk: int | None = None):
+                 lanes: int | None = None, chunk: int | None = None,
+                 r0: int = 0, r1: int | None = None,
+                 win: sk.Window | None = None):
     """(pos, vel, skips, chunks): the forces + integrate kernel's result in
-    particle order, the pair sums split and combined in the kernel's order
-    (lanes, chunk: lanes a particle and candidates a staged chunk, default
-    the kernel's for cfg's count and dtype), with lane_sequences' skip and
-    chunk counts."""
+    particle order (NaN where a particle is not a receiver of [r0, r1)),
+    the pair sums split and combined in the kernel's order (lanes, chunk:
+    lanes a particle and candidates a staged chunk, default the kernel's
+    for the count and dtype), with lane_sequences' skip and chunk
+    counts."""
     f = b.fields
-    lanes = lanes or kernel_lanes(cfg.n)
+    n = f.shape[0]
+    r1 = n if r1 is None else r1
+    lanes = lanes or kernel_lanes(n)
     chunk = chunk or kernel_chunk(f.dtype)
-    seqs, skips, chunks = lane_sequences(cfg, b, threads, lanes, chunk)
-    n = cfg.n
+    seqs, skips, chunks = lane_sequences(cfg, b, threads, lanes, chunk,
+                                         r0=r0, r1=r1, win=win)
     longest = max((len(q) for per in seqs for q in per), default=0)
     nbr = torch.full((n, lanes, max(longest, 1)), -1, dtype=torch.long)
     for s, per in enumerate(seqs):
@@ -160,8 +175,9 @@ def forces_split(cfg, b: sk.Binned, rp, dt, threads: int = THREADS,
     if p.use_grav:
         acc = acc - torch.tensor([0.0, p.gravity], dtype=acc.dtype)
     pos_s, vel_s = sph_mod._integrate(cfg, f[:, :2], f[:, 2:], acc, dt)
-    order = b.order.long()
-    pos, vel = torch.empty_like(pos_s), torch.empty_like(vel_s)
-    pos[order] = pos_s
-    vel[order] = vel_s
+    order = b.order.long()[r0:r1]
+    pos = torch.full_like(pos_s, float("nan"))
+    vel = torch.full_like(vel_s, float("nan"))
+    pos[order] = pos_s[r0:r1]
+    vel[order] = vel_s[r0:r1]
     return pos, vel, skips, chunks

@@ -104,3 +104,31 @@ def failing(rank_to_fail: int):
     if m.rank == rank_to_fail:
         raise RuntimeError("this rank fails on purpose")
     return mesh.pmax(torch.zeros(()), m)
+
+
+def spatial_ops(payloads, owners, grids, mig_caps: tuple, p_cap: int,
+                W: int, H: int):
+    """parallel/spatial_common.py on this rank, as numpy for the check
+    against JAX's: migrate of rank r's payload rows and owners (the id in
+    the last column, -1 for an empty row) with each migration capacity of
+    `mig_caps`, and halo_fill (fill -7) and halo_reduce of its
+    (..., W + 2H) grid."""
+    from fluidsims_tpu_torch.parallel import spatial_common as sc
+
+    m = mesh.make_mesh_1d(axis="x", device=CPU)
+    p = torch.from_numpy(payloads[m.rank])
+    fill = torch.tensor([2.0, 2.0, 0.0, -1.0], dtype=p.dtype)
+    out = {}
+    for cap in mig_caps:
+        out[cap] = sc.migrate(
+            p, torch.from_numpy(owners[m.rank]), p[:, -1] >= 0, mesh=m,
+            axis="x", mig_cap=cap, p_cap=p_cap, fill_row=fill)
+    halo_fill, halo_reduce = sc.make_halo_ops(m, "x", W, H)
+    g = torch.from_numpy(grids[m.rank])
+    return launch.to_numpy({"migrate": out, "fill": halo_fill(g, -7.0),
+                            "reduce": halo_reduce(g)})
+
+
+def spatial_family(cases: list, ops: tuple):
+    """`runners.run_cases(cases)` on the CPU, then `spatial_ops(*ops)`."""
+    return runners.run_cases(cases, CPU), spatial_ops(*ops)

@@ -78,7 +78,10 @@ def test_every_module_listed():
                 "parallel.hypersonic3d_sharded", "parallel.periodic_sharded",
                 "parallel.tau_sharded", "parallel.mhd_sharded",
                 "parallel.flip_sharded", "parallel.mpm_sharded",
-                "parallel.nbody_sharded", "parallel.runners"):
+                "parallel.nbody_sharded", "parallel.runners",
+                "parallel.spatial_common", "parallel.sph_sharded",
+                "parallel.sph_spatial", "parallel.flip_spatial",
+                "parallel.mpm_spatial"):
         assert f"fluidsims_tpu_torch.{mod}" in MODULES
     assert "fluidsims_tpu_torch.kernels.nbody_cuda" in MODULES
     assert len(MODULES) >= 70

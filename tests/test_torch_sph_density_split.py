@@ -122,3 +122,52 @@ def test_chunk_holds_positions_only():
         assert split.kernel_chunk(dtype) == split.STAGE_BYTES // size
         assert (split.kernel_chunk(dtype, 24576)
                 == 3 * (24576 // (3 * size)))
+
+
+# receiver ranges: r0 off a block's boundary for the source's shape (16
+# particles a block at 8 lanes) and the small ones, the last one empty
+RANGES = [(5, 200), (37, 512), (0, 129), (300, 300)]
+
+
+@pytest.mark.parametrize("r0, r1", RANGES)
+@pytest.mark.parametrize("shape", [SHAPES[0], SHAPES[1]])
+@pytest.mark.parametrize("kind", ["stirred", "crowded"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_range_keeps_the_whole_launch_order(dtype, kind, shape, r0, r1):
+    """Over a range [r0, r1) the model keeps the blocks of the whole range
+    (the first the one holding r0), so each receiver's sum takes the same
+    order: the range's rows are bitwise the whole launch's, and within the
+    bar of the plain version over the same range."""
+    _, tc, _, b = setup(kind, dtype)
+    full, full_chunks = split.density_split(tc, b, *shape)
+    rp, chunks = split.density_split(tc, b, *shape, r0=r0, r1=r1)
+    assert rp.shape == (r1 - r0, 2)
+    assert torch.equal(rp, full[r0:r1])
+    assert chunks[r0:r1] == full_chunks[r0:r1]
+    if r1 > r0:
+        assert rel_cols(rp, sk.density_plain(tc, b, r0, r1)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_window_matches_the_whole_grid_inside(dtype):
+    """On a window of cell columns 2-5 of the 6x6 grid, over the particles
+    that lie in it, the receivers whose 3x3 cells lie in the window
+    (columns 3 and 4) get the whole grid's density within the bar, and
+    JAX's exact one; the model over the window equals the plain version
+    over it."""
+    jc, tc, pos, b = setup("stirred", dtype)
+    g = tc.grid()
+    col = np.clip(np.floor(pos[:, 0] / g.cell), 0, g.Gx - 1)
+    keep = np.nonzero((col >= 2) & (col < 6))[0]
+    win = sk.Window(2, 4)
+    vel = torch.zeros((len(keep), 2), dtype=tc.torch_dtype)
+    bw = sk.binning_plain(tc, torch.tensor(pos[keep]), vel, win)
+    rp, _ = split.density_split(tc, bw, 64, 4, 40, win=win)
+    assert rel_cols(rp, sk.density_plain(tc, bw, win=win)) <= TOL[dtype]
+    ids = torch.tensor(keep)[bw.order.long()]      # each local sorted id
+    inner = torch.tensor((col >= 3) & (col < 5))[ids]
+    assert inner.sum() > 20
+    _, rho, press = js._exact_density(jc, jnp.asarray(pos))
+    rho_n, press_n = np.asarray(rho), np.asarray(press)
+    ref = np.stack([rho_n, press_n / np.maximum(rho_n, 1e-30) ** 2], -1)
+    assert rel_cols(rp[inner].numpy(), ref[ids[inner].numpy()]) <= TOL[dtype]

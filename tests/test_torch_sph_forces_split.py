@@ -150,3 +150,67 @@ def test_kernel_lanes_follow_the_particle_count(n, lanes):
     assert split.THREADS % 32 == 0 and split.THREADS % lanes == 0
     assert split.kernel_chunk(torch.float32) == split.STAGE_BYTES // 24
     assert split.kernel_chunk(torch.float64) == split.STAGE_BYTES // 48
+
+
+# receiver ranges: r0 off a block's boundary for the source's shape (16
+# particles a block at 8 lanes) and the small ones, the last one empty
+RANGES = [(5, 200), (37, 512), (0, 129), (300, 300)]
+
+
+@pytest.mark.parametrize("r0, r1", RANGES)
+@pytest.mark.parametrize("shape", [SHAPES[0], SHAPES[1]])
+@pytest.mark.parametrize("kind", ["stirred", "crowded"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_range_keeps_the_whole_launch_order(dtype, kind, shape, r0, r1):
+    """Over a range [r0, r1) the model keeps the blocks of the whole range
+    (the first the one holding r0), so each receiver's sums take the same
+    order: the range's rows are bitwise the whole launch's, and within the
+    bar of the plain version over the same range; the others are not
+    written."""
+    _, tc, _, _, b, rp, dt = setup(kind, dtype)
+    full_p, full_v, full_skips, full_chunks = split.forces_split(
+        tc, b, rp, dt, *shape)
+    pos, vel, skips, chunks = split.forces_split(tc, b, rp, dt, *shape,
+                                                 r0=r0, r1=r1)
+    mine = b.order.long()[r0:r1]
+    others = torch.ones(tc.n, dtype=torch.bool)
+    others[mine] = False
+    assert torch.equal(pos[mine], full_p[mine])
+    assert torch.equal(vel[mine], full_v[mine])
+    assert bool(pos[others].isnan().all())
+    assert skips[r0:r1] == full_skips[r0:r1] and chunks[r0:r1] == (
+        full_chunks[r0:r1])
+    if r1 > r0:
+        ref_p, ref_v = sk.forces_plain(tc, b, rp, dt, r0, r1)
+        assert rel(pos[mine], ref_p[mine]) <= TOL[dtype]
+        assert rel(vel[mine], ref_v[mine]) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_window_matches_the_whole_grid_inside(dtype):
+    """On a window of cell columns 2-5 of the 6x6 grid, over the particles
+    that lie in it, the receivers whose 3x3 cells lie in the window (columns
+    3 and 4) get the whole grid's forces within the bar, from the whole
+    run's densities; the model over the window equals the plain version
+    over it."""
+    _, tc, pos, vel, b, rp, dt = setup("stirred", dtype)
+    g = tc.grid()
+    col = np.clip(np.floor(pos[:, 0] / g.cell), 0, g.Gx - 1)
+    keep = np.nonzero((col >= 2) & (col < 6))[0]
+    win = sk.Window(2, 4)
+    bw = sk.binning_plain(tc, torch.tensor(pos[keep]),
+                          torch.tensor(vel[keep]), win)
+    rank_of = torch.empty(tc.n, dtype=torch.long)
+    rank_of[b.order.long()] = torch.arange(tc.n)
+    ids = torch.tensor(keep)[bw.order.long()]      # each local sorted id
+    rpw = rp[rank_of[ids]]
+    pos_w, vel_w, _, _ = split.forces_split(tc, bw, rpw, dt, 64, 4, 40,
+                                            win=win)
+    ref_p, ref_v = sk.forces_plain(tc, bw, rpw, dt, win=win)
+    assert rel(pos_w, ref_p) <= TOL[dtype] and rel(vel_w, ref_v) <= TOL[dtype]
+    inner = torch.tensor((col[keep] >= 3) & (col[keep] < 5))
+    full_p, full_v = sk.forces_plain(tc, b, rp, dt)
+    idx = torch.tensor(keep)[inner]
+    assert inner.sum() > 20
+    assert rel(pos_w[inner], full_p[idx]) <= TOL[dtype]
+    assert rel(vel_w[inner], full_v[idx]) <= TOL[dtype]
