@@ -361,22 +361,38 @@ failure of which ends the run with a non-zero exit:
              -1 (none) bitwise equal to its plain version; the SPH
              kernels over ranges of receivers and windows of cell
              columns against their plain versions, and the bin on
-             counts that share one scratch bitwise; then (a) every
+             counts that share one scratch bitwise; the Stam kernels at
+             the sharded runners' shapes, bitwise to their plain versions
+             (#9 on the round slabs of 512^2 and a ragged field in turn,
+             with their grid syncs; #10 over every rank's column window
+             at worlds 2 and 4 with 16, 2 and n / D exchanged columns,
+             clamp counts equal and > 0 at 2; #11 over z-slabs of
+             192^3 with the global faces inside, on an end slice and
+             absent, from even and odd sweeps, and the one-rank z-slab
+             solve at halo_k 1-4), timed there (STAM_*), and the x-slab
+             runner's clamp runs at world 2 on gloo (512^2, dt = 1, 2
+             and 16 exchanged columns: ovf > 0, equal to the plain
+             composition's, the states bitwise equal); then (a) every
              runner at world 1 on 'nccl' in this process at the main
              path's widths (PARALLEL_RUNS: the flagship 8192x1024 f64, 3-D
              64^3, Gray–Scott 2048^2 at K = 16, LBM 2048x1024 at K = 8,
              Burgers and shallow water 512^2, MHD 320x220, FLIP 65,536 on
-             128^2, MPM 32,768 on 96^2, n-body 2^17), every counter set to
-             0 before each sharded run and read after it, each equal to
-             the one-device run on the card bitwise (FLIP and MPM, whose
-             P2G adds with atomics, within FLIP_TRAJ_TOL / MPM_TRAJ_TOL;
-             the n-body layout bitwise where two one-device runs are), and
-             every kernel that the runners drive (PARALLEL_KERNELS)
-             launched; (b) the 1-D runners at world 2 and the 2x2 mesh at
-             world 4 on 'gloo', the ranks sharing cuda:0 (launch.spawn),
-             with the SPH and spatial particle runners at both (the
-             spatial ones from stirred states: particles must change
-             ranks, none be lost), each within its bar of PARALLEL_RUNS;
+             128^2, MPM 32,768 on 96^2, n-body 2^17, stam2d 512^2, stam3d
+             192^3), every counter set to 0 before each sharded run and
+             read after it, each equal to the one-device run on the card
+             bitwise (FLIP and MPM, whose P2G adds with atomics, within
+             FLIP_TRAJ_TOL / MPM_TRAJ_TOL; the n-body layout bitwise where
+             two one-device runs are; stam3d to the 'torch' engine at its
+             advect_k), every kernel that the runners drive
+             (PARALLEL_KERNELS) launched, and the Stam runners' launches
+             those their composition implies (PARALLEL_LAUNCHES); (b) the
+             1-D runners at world 2 and the 2x2 mesh at world 4 on
+             'gloo', the ranks sharing cuda:0 (launch.spawn), with the
+             SPH, spatial particle and Stam runners at both (the spatial
+             ones from stirred states: particles must change ranks, none
+             be lost; stam2d at JAX's calm dt, bitwise), each within its
+             bar of PARALLEL_RUNS, every rank's Stam launches as at world
+             1;
              a line {"parallel":
              ...} with each run's world, backend, steps, largest relative
              error, bitwise flag, each rank's launches and the host
@@ -441,7 +457,11 @@ crowded and wall cases, the two shapes of one scratch size and the grid of
 many tiles: rel errs and the tiled launch's stats).  Every line carries
 `launches_driver_surface` (phase 25's launches of its kernel) and
 `launches_parallel` (phase 26's launches at world 1), p1's line
-`inflow_col_cases` (phase 26's bitwise cases), and the
+`inflow_col_cases` (phase 26's bitwise cases), the Stam lines phase 26's
+checks at the sharded shapes (#9 `rect_bitwise_cases`, #10
+`window_bitwise_cases`, `window_clamped` and `clamp_runs`, #11
+`slab_bitwise_cases`) and `sharded_shapes` (ms, plain ms and bound
+there), and the
 flagship step's line `driver_surface`: phase 25's ms a frame by part,
 steps/s of the strided PNG run and the headless run, and the resume
 results.
@@ -5139,6 +5159,12 @@ PARALLEL_RUNS = {
     "sph_spatial": (dict(n=65536, rain=False), 5, 5, None),
     "flip_spatial": (dict(particles=65536, grid=128), 5, 5, None),
     "mpm_spatial": (dict(n=32768, gx=96, gy=96), 5, 30, None),
+    # the Stam runners at the default configs' full widths (bench.py's
+    # stam2d_512x512 and stam3d_192), bitwise at every world (worlds 2 and
+    # 4 at PARALLEL_MULTI's): stam2d to the one-device 'cuda' run, stam3d
+    # to the 'torch' run at its advect_k
+    "stam2d": (dict(n=512), 20, 5, 0.0),
+    "stam3d": (dict(n=192), 5, 3, 0.0),
 }
 # Worlds 2 and 4 of the SPH and spatial runners: SPH 16,384 and JAX's test
 # sizes of FLIP and MPM (tests/test_sharded_particles.py; MPM at the dt of
@@ -5148,6 +5174,25 @@ PARALLEL_MULTI = {
     "sph_spatial": dict(n=16384, rain=False, dtau=1e-2),
     "flip_spatial": dict(particles=4096, grid=32, jacobi=8),
     "mpm_spatial": dict(n=4096, gx=48, gy=48, dt=4.0e-4),
+    # at JAX's calm dt (tests/test_stam_sharded.py): at dt = 1 the init
+    # swirl traces back further than the default's 16 exchanged columns,
+    # and at world 4 further than n / D, so clamped cells would part from
+    # the one-device run (STAM2D_CLAMP_RUNS hold such runs to the plain
+    # composition)
+    "stam2d": dict(n=512, dt=0.05),
+    "stam3d": dict(n=192),
+}
+# The runners held bitwise to the one-device run at every world
+PARALLEL_EXACT = ("sph", "stam2d", "stam3d")
+# The Stam runners' launches a step, as their composition implies: stam2d
+# 5 solves of ceil(40 / halo_k) rounds (the runner's default halo_k = 8)
+# on #9 and 2 advections on #10; stam3d 6 solves of 12 sweeps on #11 and
+# no other stam3d kernel
+PARALLEL_LAUNCHES = {
+    "stam2d": ("stam2d_cuda", lambda steps: {
+        "lin_solve": 5 * -(-40 // 8) * steps, "advect": 2 * steps}),
+    "stam3d": ("stam3d_cuda", lambda steps: {
+        "jacobi": 6 * 12 * steps, "advect": 0, "set_bnd": 0}),
 }
 # Worlds 2 and 4 of the spatial runners start from init() with (seeded
 # noise of this amplitude, this x drift) added to the velocities, as the
@@ -5186,14 +5231,16 @@ PARALLEL_MODS = {"hypersonic2d_cuda": "hk", "sph_cuda": "sk",
                  "mpm_cuda": "mpk", "nbody_cuda": "nk"}
 # The kernels that the sharded runners drive: each must
 # launch at world 1.  #7 and #8 step plainly under the sharded runners;
-# the spatial FLIP and MPM runners compose the dense engine's torch ops.
+# the spatial FLIP and MPM runners compose the dense engine's torch ops,
+# the stam3d runner its advection (#12's place) and set_bnd (#13's).
 PARALLEL_KERNELS = ("hypersonic2d_step.cu", "hypersonic2d_wavespeed.cu",
                     "hypersonic3d_step.cu", "hypersonic3d_wavespeed.cu",
                     "gray_scott_step.cu", "gray_scott_multistep.cu",
                     "lbm_step.cu", "lbm_multistep.cu", "flip_p2g.cu",
                     "flip_grid.cu", "flip_g2p.cu", "mpm_p2g.cu",
                     "mpm_g2p.cu", "nbody_repulsion.cu", "sph_bin.cu",
-                    "sph_density.cu", "sph_forces.cu")
+                    "sph_density.cu", "sph_forces.cu", "stam2d_lin_solve.cu",
+                    "stam2d_advect.cu", "stam3d_jacobi.cu")
 # The SPH pair kernels over a range of receivers and a window of cell
 # columns (the SPH runners'), on 65,536 particles (64 x 64 cells): ranges
 # whose r0 is off a block's boundary (16 particles a block at 8 lanes),
@@ -5398,9 +5445,18 @@ def check_parallel_run(r: dict) -> None:
     ranks."""
     name, world = r["name"], r["world"]
     bar = PARALLEL_RUNS[name][3]
-    if name == "sph" and not r["bitwise"]:
-        raise AssertionError(f"sph at world {world}: not bitwise equal to "
-                             "the one-device run")
+    if name in PARALLEL_EXACT and not r["bitwise"]:
+        raise AssertionError(f"{name} at world {world}: not bitwise equal "
+                             "to the one-device run")
+    if name in PARALLEL_LAUNCHES:
+        mod, want = PARALLEL_LAUNCHES[name]
+        for rank, got in enumerate(r.get("launches_per_rank",
+                                         [r["launches"]])):
+            if got != {mod: want(r["steps"])}:
+                raise AssertionError(
+                    f"{name} at world {world}, rank {rank}: launches {got} "
+                    f"in {r['steps']} steps, want {{{mod!r}: "
+                    f"{want(r['steps'])}}}")
     if bar is not None and r["max_rel_err"] > bar:
         raise AssertionError(f"{name} at world {world}: max rel err "
                              f"{r['max_rel_err']:.3e} > {bar:g}")
@@ -5417,9 +5473,336 @@ def check_parallel_run(r: dict) -> None:
                              "ranks, so the migration carried nothing")
 
 
+# The Stam kernels at the sharded runners' shapes (phase 26).  #9 on
+# (ny, nx) fields, launched in turn on one stream: the x-slab runner's
+# round slabs of 512^2 (an edge rank's 512x136 and an inner rank's 512x144
+# at world 4, 512x264 at world 2, kb = 8), a ragged 65x9 and the whole
+# 512^2, so that a scratch or a grid query shared between shapes would
+# show
+STAM_RECT_SHAPES = ((512, 136), (512, 144), (65, 9), (512, 264), (512, 512))
+# #10 over the column windows of every rank at these worlds of 512^2, with
+# these exchanged columns (16: the runner's default; 2: clamps at dt = 1)
+# and with n / D, the most the runner takes
+STAM_WINDOW_WORLDS = (2, 4)
+STAM_WINDOW_HALOS = (16, 2)
+# #11 over windows of 192^3 (194 slices, padded to 196 at world 4): (first
+# global slice, slices): world 4's rank 0 with 4 exchanged slices (the
+# bottom face inside), an inner rank's (no face), the last rank's (the top
+# face inside, then padding), the faces on a window's end slice, and the
+# whole volume
+STAM_SLABS = ((-4, 57), (45, 57), (143, 57), (0, 10), (186, 8), (0, 194))
+# The clamp runs of the x-slab runner at world 2 on 512^2 at dt = 1, one
+# step: the exchanged columns (2, and the default 16)
+STAM2D_CLAMP_RUNS = (dict(advect_halo=2), dict())
+
+
+def check_stam_rects(s2k, device) -> list:
+    """#9 on STAM_RECT_SHAPES in turn, at 1, h, h + 1 and 40 sweeps (h:
+    sweeps a grid sync), f32 and f64: bitwise to the plain solve, x
+    unchanged, ceil(sweeps / h) - 1 grid syncs as the kernel counted them
+    on that shape's slot words, or the script fails.  Returns [cases
+    bitwise, cases]."""
+    n = 0
+    for dtype in (torch.float32, torch.float64):
+        inputs = {}
+        for k, (ny, nx) in enumerate(STAM_RECT_SHAPES):
+            rng = np.random.default_rng(SEED + 90 + k)
+            inputs[(ny, nx)] = [torch.tensor(rng.random((ny, nx)),
+                                             dtype=dtype, device=device)
+                                for _ in range(2)]
+        h = s2k.solve_launch(512, dtype, device.index, 136).halo
+        for iters in (1, h, h + 1, 40):
+            for (ny, nx), (x, b) in inputs.items():
+                keep = x.clone()
+                got = s2k.lin_solve(x, b, 0.26, 2.04, iters)
+                syncs = s2k.solve_grid_syncs(ny, dtype, device, nx)
+                ref = s2k.lin_solve_plain(x, b, 0.26, 2.04, iters)
+                what = f"lin_solve {ny}x{nx} {dtype} {iters} sweeps"
+                if not (bits_equal(got, ref) and torch.equal(x, keep)):
+                    raise AssertionError(f"{what}: not bitwise equal to the "
+                                         "plain solve, or x written")
+                if syncs != -(-iters // h) - 1:
+                    raise AssertionError(f"{what}: {syncs} grid syncs, want "
+                                         f"{-(-iters // h) - 1}")
+                n += 1
+    log(f"[parallel] #9 on {STAM_RECT_SHAPES} in turn, 1, h, h + 1 and 40 "
+        f"sweeps, f32 and f64: {n} of {n} bitwise to the plain solve, the "
+        "grid syncs as counted")
+    return [n, n]
+
+
+def check_stam_windows(s2k, s2, device) -> dict:
+    """#10 over the columns of every rank at STAM_WINDOW_WORLDS of 512^2,
+    with STAM_WINDOW_HALOS and n / D exchanged columns, one field and the
+    velocity pair, on init()'s swirl at dt = 1, f32 and f64: bitwise to the
+    plain windowed version, the clamp counts equal, the pair's twice the
+    one field's, and some clamped at 2 columns, or the script fails.
+    Returns the cases and the clamps counted."""
+    import torch.nn.functional as F
+
+    out = {"cases": [0, 0], "clamped": {}}
+    for dtype in ("float32", "float64"):
+        cfg = s2.Stam2DConfig(n=512, dtype=dtype)
+        st = s2.init(cfg, device)
+        q, q2 = stam2d_fields(512, cfg.torch_dtype, device, SEED + 91, 2)
+        for world in STAM_WINDOW_WORLDS:
+            nl = 512 // world
+            for h in STAM_WINDOW_HALOS + (nl,):
+                pads = [F.pad(f, (h, h)) for f in (q, q2)]
+                total = {1: 0, 2: 0}
+                for r in range(world):
+                    c = slice(r * nl, (r + 1) * nl)
+                    uu, vv = st.u[:, c].contiguous(), st.v[:, c].contiguous()
+                    win = s2k.Window(r * nl, h)
+                    for nf in (1, 2):
+                        slabs = tuple(f[:, r * nl:(r + 1) * nl + 2 * h]
+                                      .contiguous() for f in pads[:nf])
+                        ok, op = (torch.zeros((), dtype=torch.int32,
+                                              device=device)
+                                  for _ in range(2))
+                        got = s2k.advect(cfg, slabs, uu, vv, win, ok)
+                        ref = s2k.advect_plain(cfg, slabs, uu, vv, win, op)
+                        out["cases"][1] += 1
+                        if not (all(bits_equal(a, b)
+                                    for a, b in zip(got, ref))
+                                and int(ok) == int(op)):
+                            raise AssertionError(
+                                f"advect window {win} of {nl} columns, "
+                                f"{nf} field(s) {dtype}: kernel count "
+                                f"{int(ok)}, plain {int(op)}, or the fields "
+                                "differ")
+                        out["cases"][0] += 1
+                        total[nf] += int(ok)
+                if total[2] != 2 * total[1] or (h == 2 and total[1] == 0):
+                    raise AssertionError(f"advect windows at world {world}, "
+                                         f"h={h} {dtype}: clamps {total}")
+                out["clamped"][f"world {world} h={h} {dtype}"] = total[1]
+    log(f"[parallel] #10 over the windows of worlds {STAM_WINDOW_WORLDS} "
+        f"of 512^2, h = {STAM_WINDOW_HALOS} and n / D, one field and the "
+        f"pair, f32 "
+        f"and f64: {out['cases'][0]} of {out['cases'][1]} bitwise to the "
+        f"plain version with equal counts; cells clamped (one field, all "
+        f"ranks) {out['clamped']}")
+    return out
+
+
+def check_stam_slabs(sc, s3, s3s, device) -> dict:
+    """#11 over STAM_SLABS of 192^3: 4 sweeps of the runner's round
+    (stam3d_sharded._sweeps) from an even and from an odd sweep of the
+    solve, the kernel against its plain version, bitwise (the bar of
+    phase 15's #11 checks); then the runner's rounds at one rank
+    (halo_k 1-4, 12 sweeps, the window of zero slices a side) against the
+    one-device plain solve, bitwise, f32 and f64, or the script fails.
+    Returns [cases bitwise, cases]."""
+    from fluidsims_tpu_torch.parallel.mesh import Mesh
+
+    n, Np = 192, 194
+    one = Mesh(("x",), (1,), 0, device, "nccl")   # no collective runs
+    k = 0
+    for dtype in (torch.float32, torch.float64):
+        rng = np.random.default_rng(SEED + 92)
+        x, xe, b = (torch.tensor(rng.standard_normal((Np,) * 3), dtype=dtype,
+                                 device=device) for _ in range(3))
+
+        def window(t, g0, w):
+            lo, hi = max(g0, 0), min(g0 + w, Np)
+            return torch.cat([t.new_zeros((lo - g0, Np, Np)), t[lo:hi],
+                              t.new_zeros((g0 + w - hi, Np, Np))])
+
+        for g0, w in STAM_SLABS:
+            ring = s3s._ring_mask(g0, w, Np, device)
+            args = (window(x, g0, w), window(xe, g0, w), window(b, g0, w),
+                    ring, 1.0, 6.0, g0)
+            for done in (0, 1):
+                got = s3s._sweeps(*args, done, 4, jacobi=sc.jacobi)
+                ref = s3s._sweeps(*args, done, 4, jacobi=sc.jacobi_plain)
+                if not bits_equal(got, ref):
+                    raise AssertionError(f"jacobi slab ({g0}, {w}) {dtype} "
+                                         f"from sweep {done}: differs from "
+                                         "the plain version")
+                k += 1
+        cfg = s3.Stam3DConfig(n=n, dtype="float32" if dtype == torch.float32
+                              else "float64")
+        ref = s3._lin_solve(cfg, x, b, 1.0, 6.0)
+        for halo_k in (1, 2, 3, 4):
+            got = s3s._lin_solve_sharded(x, b, 1.0, 6.0, 12, halo_k, Np, 0,
+                                         one, "x")
+            if not bits_equal(got, ref):
+                raise AssertionError(f"stam3d solve at one rank, halo_k "
+                                     f"{halo_k} {dtype}: differs from the "
+                                     "one-device plain solve")
+            k += 1
+    log(f"[parallel] #11 over slabs {STAM_SLABS} of 192^3 from even and odd "
+        f"sweeps, and the one-rank solve at halo_k 1-4, f32 and f64: {k} of "
+        f"{k} bitwise to the plain versions")
+    return [k, k]
+
+
+def time_stam_shapes(s2k, s2, sc, s3s, device) -> dict:
+    """ms a launch (CUDA events) of the Stam kernels at the sharded
+    runners' shapes, f32, beside the plain versions and the bounds: #9 on
+    the round slabs of 512^2 (8 sweeps), #10 over a rank's window at
+    worlds 2 and 4 (the velocity pair, h = 16), #11 over an inner rank's
+    slab and rank 0's of 192^3 at world 4."""
+    import torch.nn.functional as F
+
+    dt = torch.float32
+    T = 4
+    res = {}
+    rng = np.random.default_rng(SEED + 93)
+    for ny, nx in STAM_RECT_SHAPES[:2] + STAM_RECT_SHAPES[3:4]:
+        x, b = (torch.tensor(rng.random((ny, nx)), dtype=dt, device=device)
+                for _ in range(2))
+        res[f"lin_solve {ny}x{nx} 8 sweeps"] = {
+            "ms": time_launches(lambda: s2k.lin_solve(x, b, 1.0, 4.0, 8),
+                                50),
+            "plain_ms": time_launches(
+                lambda: s2k.lin_solve_plain(x, b, 1.0, 4.0, 8), 5),
+            "bound": bound(3 * ny * nx * T,
+                           STAM2D_SOLVE_OPS_PER_CELL_SWEEP * 8 * ny * nx, dt)}
+    cfg = s2.Stam2DConfig(n=512)
+    st = s2.init(cfg, device)
+    ops0, ops_field = STAM2D_ADVECT_OPS
+    for world in STAM_WINDOW_WORLDS:
+        nl, h = 512 // world, 16
+        c = slice(nl, 2 * nl)
+        slabs = tuple(F.pad(f, (h, h))[:, nl:2 * nl + 2 * h].contiguous()
+                      for f in (st.u, st.v))
+        uu, vv = st.u[:, c].contiguous(), st.v[:, c].contiguous()
+        ovf = torch.zeros((), dtype=torch.int32, device=device)
+        win = s2k.Window(c.start, h)
+        res[f"advect pair, window {nl} of 512 columns, h=16"] = {
+            "ms": time_launches(lambda: s2k.advect(cfg, slabs, uu, vv, win,
+                                                   ovf), 100),
+            "plain_ms": time_launches(lambda: s2k.advect_plain(
+                cfg, slabs, uu, vv, win, ovf), 20),
+            "bound": bound((2 * 512 * nl + 2 * 512 * (nl + 2 * h)
+                            + 2 * 512 * nl + 3 * nl) * T,
+                           (ops0 + 2 * ops_field) * 512 * nl, dt)}
+    n, Np = 192, 194
+    for g0, w in STAM_SLABS[:2]:
+        x, x0, out = (torch.tensor(rng.standard_normal((w, Np, Np)),
+                                   dtype=dt, device=device) for _ in range(3))
+        m = min(w - 2, n - g0) - max(1, 1 - g0) + 1
+        res[f"jacobi slab ({g0}, {w}) of 192^3"] = {
+            "ms": time_launches(lambda: sc.jacobi(x, x0, out, 1.0, 6.0, g0),
+                                50),
+            "plain_ms": time_launches(
+                lambda: sc.jacobi_plain(x, x0, out, 1.0, 6.0, g0), 20),
+            "bound": bound((3 * m * n * n + 2 * n * n + 4 * m * n) * T,
+                           STAM3D_JACOBI_OPS_PER_CELL * m * n * n, dt)}
+    for key, r in res.items():
+        log(f"[parallel] {key} f32: {r['ms']:.4f} ms vs plain "
+            f"{r['plain_ms']:.4f} ms (bound {r['bound'][0]:.5f} ms, "
+            f"{r['bound'][1]})")
+    return res
+
+
+def stam2d_clamp_ranks(fields: dict, steps: int, runs: tuple, device):
+    """On each rank of a gloo group: the x-slab runner on init() of
+    Stam2DConfig(**fields) with each options dict of `runs`, once on the
+    kernels and once with the wrappers' plain versions in their place (the
+    plain composition); rank 0 returns, per run, both gathered clamp
+    counts, whether the states are bitwise equal, and the kernels'
+    launches."""
+    from fluidsims_tpu_torch.kernels import stam2d_cuda as s2k
+    from fluidsims_tpu_torch.parallel import mesh as pm
+    from fluidsims_tpu_torch.parallel import stam2d_sharded as s2s
+    from fluidsims_tpu_torch.solvers import stam2d as s2
+
+    m = pm.make_mesh_1d(device=device)
+    cfg = s2.Stam2DConfig(**fields)
+    s0 = s2.init(cfg, m.device)
+    kernels = (s2k.lin_solve, s2k.advect)
+    out = []
+    for options in runs:
+        got = []
+        for plain in (False, True):
+            if plain:
+                s2k.lin_solve, s2k.advect = (s2k.lin_solve_plain,
+                                             s2k.advect_plain)
+            try:
+                s2k.reset_launches()
+                run = s2s.make_sharded_run(cfg, m, steps, **options)
+                got.append((s2s.gather_state(run(s2s.shard_state(s0, m)), m),
+                            dict(s2k.LAUNCHES)))
+            finally:
+                s2k.lin_solve, s2k.advect = kernels
+        (a, la), (b, lb) = got
+        out.append({"options": options, "ovf": int(a.ovf),
+                    "ovf_plain": int(b.ovf), "launches": la,
+                    "launches_plain": lb,
+                    "bitwise": all(bits_equal(x, y) for x, y in zip(a, b))})
+    return out if m.rank == 0 else None
+
+
+def check_stam2d_clamps(device) -> list:
+    """STAM2D_CLAMP_RUNS at world 2 on gloo, the ranks sharing the card:
+    each run's clamp count equal to the plain composition's, its state
+    bitwise equal, and > 0 (at dt = 1 on the init swirl), the kernels
+    launched as the composition implies, or the script fails."""
+    from fluidsims_tpu_torch.parallel import launch
+
+    res = launch.spawn(stam2d_clamp_ranks, 2, "gloo",
+                       args=(dict(n=512), 1, STAM2D_CLAMP_RUNS, device),
+                       timeout=300)[0]
+    want = PARALLEL_LAUNCHES["stam2d"][1](1)
+    for r in res:
+        if not (r["ovf"] == r["ovf_plain"] > 0 and r["bitwise"]
+                and r["launches"] == want
+                and not any(r["launches_plain"].values())):
+            raise AssertionError(f"stam2d clamp run at world 2: {r}")
+        log(f"[parallel] stam2d 512^2 world 2, dt = 1, options "
+            f"{r['options']}: ovf {r['ovf']} (plain composition "
+            f"{r['ovf_plain']}), state bitwise equal to the plain "
+            f"composition's; launches {r['launches']}")
+    return res
+
+
+def phase_stam_kernels(device) -> dict:
+    """Phase 26's checks of #9, #10 and #11 at the sharded runners'
+    shapes, their times there, and the stam2d clamp runs."""
+    from fluidsims_tpu_torch.kernels import stam2d_cuda as s2k
+    from fluidsims_tpu_torch.kernels import stam3d_cuda as sc
+    from fluidsims_tpu_torch.parallel import stam3d_sharded as s3s
+    from fluidsims_tpu_torch.solvers import stam2d as s2
+    from fluidsims_tpu_torch.solvers import stam3d as s3
+
+    return {"rects": check_stam_rects(s2k, device),
+            "windows": check_stam_windows(s2k, s2, device),
+            "slabs": check_stam_slabs(sc, s3, s3s, device),
+            "times": time_stam_shapes(s2k, s2, sc, s3s, device),
+            "clamps": check_stam2d_clamps(device)}
+
+
+def stam_line_fields(stam: dict) -> dict:
+    """The fields phase 26 adds to the lines of #9, #10 and #11."""
+    t = stam["times"]
+
+    def timed(prefix):
+        return {k: {"ms": v["ms"], "plain_ms": v["plain_ms"],
+                    "bound_ms": v["bound"][0], "bound_by": v["bound"][1]}
+                for k, v in t.items() if k.startswith(prefix)}
+
+    return {
+        "stam2d_lin_solve": {"rect_bitwise_cases": stam["rects"],
+                             "sharded_shapes": timed("lin_solve")},
+        "stam2d_advect": {"window_bitwise_cases": stam["windows"]["cases"],
+                          "window_clamped": stam["windows"]["clamped"],
+                          "clamp_runs": [
+                              {k: r[k] for k in ("options", "ovf",
+                                                 "ovf_plain", "bitwise")}
+                              for r in stam["clamps"]],
+                          "sharded_shapes": timed("advect")},
+        "stam3d_jacobi": {"slab_bitwise_cases": stam["slabs"],
+                          "sharded_shapes": timed("jacobi")}}
+
+
 def phase_parallel(hk, h2, sk, ts, interop, device, smi) -> dict:
     """Phase 26: p1's inflow columns; the SPH kernels over ranges and
-    windows, and the bin on counts that share a scratch; (a) every runner at world 1 on 'nccl' in this process, each
+    windows, and the bin on counts that share a scratch; the Stam kernels
+    at the sharded shapes and the stam2d clamp runs (phase_stam_kernels);
+    (a) every runner at world 1 on 'nccl' in this process, each
     equal to the one-device run on the card bitwise (PARALLEL_TO_BAR
     within its bar), its kernels' launches counted, its rate beside the
     one-device run's; (b) world 2 (the 1-D runners) and world 4 (the 2x2
@@ -5442,6 +5825,7 @@ def phase_parallel(hk, h2, sk, ts, interop, device, smi) -> dict:
     p1_cases = check_inflow_columns(h2, hk, interop, device)
     sph_ranges = check_sph_ranges(sk, ts, device)
     bin_bucket = check_bin_bucket(sk, ts, device)
+    stam = phase_stam_kernels(device)
 
     with tempfile.TemporaryDirectory() as d:
         dist.init_process_group("nccl", init_method=f"file://{d}/rdv",
@@ -5499,7 +5883,8 @@ def phase_parallel(hk, h2, sk, ts, interop, device, smi) -> dict:
     return {"counts": counts, "lines": [parallel_line(r)
                                         for r in res_a + res_b],
             "compute_mode": mode, "inflow_col_cases": p1_cases,
-            "sph_ranges": sph_ranges, "bin_bucket": bin_bucket}
+            "sph_ranges": sph_ranges, "bin_bucket": bin_bucket,
+            "stam": stam_line_fields(stam)}
 
 
 def parallel_line(r: dict) -> dict:
@@ -5835,6 +6220,8 @@ def main() -> int:
         line["launches_driver_surface"] = driver_res["launches"][src]
         line["launches_parallel"] = parallel_res["counts"][src]
     kernels[1]["inflow_col_cases"] = parallel_res["inflow_col_cases"]
+    for line in kernels:
+        line.update(parallel_res["stam"].get(line["name"], {}))
     ranges = parallel_res["sph_ranges"]
     for line in kernels:
         name = line["name"][4:]

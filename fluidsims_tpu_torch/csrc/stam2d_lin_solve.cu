@@ -1,6 +1,11 @@
 // The whole Jacobi solve of the 2-D stable fluids in one launch, for float
-// and double: `iters` sweeps out = (b + a * sum4(x)) / c over an (n, n)
-// interior whose zero ring is implicit (neighbours outside read 0).
+// and double: `iters` sweeps out = (b + a * sum4(x)) / c over an (ny, nx)
+// interior whose zero ring is implicit on all four sides (neighbours
+// outside read 0).  The one-device solve's field is square (ny = nx = n);
+// the x-slab runner (parallel/stam2d_sharded.py) solves rounds of a few
+// sweeps on its slab of n rows, extended by exchanged columns on each side
+// that has a neighbour, so that on a domain edge the implicit ring is the
+// global one.
 //
 // Replaces the TPU kernel fluidsims_tpu/kernels/stam2d_pallas.py::
 // _lin_solve_kernel (pallas_call at :80), which held x and b in VMEM and
@@ -25,17 +30,18 @@
 // separates two phases: ceil(iters / h) - 1 syncs a solve (4 at the
 // default 40 sweeps with h = 8).  The last phase runs the sweeps left
 // (iters - h (phases - 1), also when iters < h).  The tile, h and the
-// threads a block are constants (kSolveTileX x kSolveTileY = 64 x 32
-// clipped to the field, h = kSolveSweeps = 8, 512 threads; the grid query
-// reports them), one value for float and double, from the measurements of
+// threads a block are constants (kSolveTileX x kSolveTileY = 64 x 32,
+// each clipped to its axis of the field, h = kSolveSweeps = 8, 512
+// threads; the grid query reports them), one value for float and double,
+// from the measurements of
 // tools/tune_tiles_torch.py.  The kernel counts its grid syncs (tiles.cuh
 // CountedGrid), which chip_smoke.py reads back and holds to ceil(iters /
 // h) - 1.  What bounds it now:
 // the sweeps' own work in shared memory, ~1.5x the cells of the tiles
 // (the halos shrink sweep by sweep) with a true division a cell, ~11 us a
 // phase at 512^2, against ~1.5 us a grid sync.  Window cells outside
-// [0, n)^2 are the zero ring: they are loaded as 0, set to 0 by every
-// sweep, and never written.
+// [0, ny) x [0, nx) are the zero ring: they are loaded as 0, set to 0 by
+// every sweep, and never written.
 //
 // The phases ping-pong between out and one scratch field, the first
 // reading x, with the parity chosen so that the last phase writes out: x,
@@ -84,7 +90,7 @@ struct LinSolveArgs {
   T* out;
   T* scratch;     // the other ping-pong field (unused with one phase)
   unsigned long long* words;  // kTileWords; the last takes the sync count
-  int n;
+  int ny, nx;
   int iters;
   int tile_x, tile_y;  // the tile, clipped to the field
   int tiles_x, tiles, window;
@@ -99,7 +105,7 @@ lin_solve_kernel(LinSolveArgs<T> p) {
   extern __shared__ __align__(16) unsigned char fst_smem[];
   T* sB = reinterpret_cast<T*>(fst_smem);
   T* sX[2] = {sB + p.window, sB + 2 * p.window};
-  const int n = p.n;
+  const int ny = p.ny, nx = p.nx;
   const int phases = (p.iters + kSolveSweeps - 1) / kSolveSweeps;
   const T* src = p.x;
   for (int ph = 0; ph < phases; ++ph) {
@@ -115,8 +121,8 @@ lin_solve_kernel(LinSolveArgs<T> p) {
         T* const sd[2] = {sX[0], sB};
         load_window<2>(w.wy, wx, [&](int ly, int lx) {
           const int j = w.oy + ly, i = w.ox + lx;
-          return j >= 0 && j < n && i >= 0 && i < n ? (long long)j * n + i
-                                                    : -1ll;
+          return j >= 0 && j < ny && i >= 0 && i < nx ? (long long)j * nx + i
+                                                      : -1ll;
         }, g, sd);
       }
       __syncthreads();
@@ -126,10 +132,10 @@ lin_solve_kernel(LinSolveArgs<T> p) {
         const bool last = k == count;
         for_region(k, w.wy - k, k, wx - k, wx, [&](int ly, int lx, int c) {
           const int j = w.oy + ly, i = w.ox + lx;
-          const bool in = j >= 0 && j < n && i >= 0 && i < n;
+          const bool in = j >= 0 && j < ny && i >= 0 && i < nx;
           if (last) {  // the tile: write its cells inside the grid
             if (in)
-              dst[(long long)j * n + i] =
+              dst[(long long)j * nx + i] =
                   (sB[c] + p.a * (xs[c - wx] + xs[c + wx] + xs[c - 1] +
                                   xs[c + 1])) / p.c;
             return;
@@ -150,25 +156,26 @@ lin_solve_kernel(LinSolveArgs<T> p) {
 // The kernel's args (pointers aside) and dynamic shared memory;
 // cudaErrorInvalidValue for a field it does not take.
 template <typename T>
-int make_args(int n, LinSolveArgs<T>* a, size_t* smem) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  a->n = n;
-  a->tile_x = tile_of(kSolveTileX, n);
-  a->tile_y = tile_of(kSolveTileY, n);
-  a->tiles_x = (n + a->tile_x - 1) / a->tile_x;
-  a->tiles = a->tiles_x * ((n + a->tile_y - 1) / a->tile_y);
+int make_args(int ny, int nx, LinSolveArgs<T>* a, size_t* smem) {
+  if (ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;
+  a->ny = ny;
+  a->nx = nx;
+  a->tile_x = tile_of(kSolveTileX, nx);
+  a->tile_y = tile_of(kSolveTileY, ny);
+  a->tiles_x = (nx + a->tile_x - 1) / a->tile_x;
+  a->tiles = a->tiles_x * ((ny + a->tile_y - 1) / a->tile_y);
   a->window = (a->tile_x + 2 * kSolveSweeps) * (a->tile_y + 2 * kSolveSweeps);
   *smem = (size_t)3 * a->window * sizeof(T);
   return 0;
 }
 
-// The launch of a solve on an (n, n) field: make_args's tile and shared
+// The launch of a solve on an (ny, nx) field: make_args's tile and shared
 // memory, the sweeps a phase as the halo, and the blocks of kSolveThreads.
 template <typename T>
-int lin_solve_grid(int n, int device, TileLaunch* out) {
+int lin_solve_grid(int ny, int nx, int device, TileLaunch* out) {
   LinSolveArgs<T> a{};
   size_t smem = 0;
-  const int err = make_args(n, &a, &smem);
+  const int err = make_args(ny, nx, &a, &smem);
   if (err != 0) return err;
   *out = {0, kSolveThreads, a.tile_x, a.tile_y, kSolveSweeps, (int)smem};
   return cooperative_blocks(lin_solve_kernel<T>, a.tiles, device, &out->grid,
@@ -177,11 +184,12 @@ int lin_solve_grid(int n, int device, TileLaunch* out) {
 
 template <typename T>
 int launch_lin_solve(const T* x, const T* b, T* out, T* scratch,
-                     unsigned long long* words, int n, double a, double c,
-                     int iters, int grid, int device, void* stream) {
+                     unsigned long long* words, int ny, int nx, double a,
+                     double c, int iters, int grid, int device,
+                     void* stream) {
   LinSolveArgs<T> args{};
   size_t smem = 0;
-  const int err = make_args(n, &args, &smem);
+  const int err = make_args(ny, nx, &args, &smem);
   if (err != 0) return err;
   if (iters < 1) return (int)cudaErrorInvalidValue;
   args.x = x;
@@ -203,33 +211,35 @@ int launch_lin_solve(const T* x, const T* b, T* out, T* scratch,
 
 extern "C" {
 
-// The launch of a solve on an (n, n) field on `device` (fst::TileLaunch):
-// the wrapper asks once per (n, dtype, device) and passes the grid to
-// every launch.
-int fst_stam2d_lin_solve_grid_f32(int n, int device, fst::TileLaunch* out) {
-  return fst::lin_solve_grid<float>(n, device, out);
+// The launch of a solve on an (ny, nx) field on `device`
+// (fst::TileLaunch): the wrapper asks once per (ny, nx, dtype, device) and
+// passes the grid to every launch.
+int fst_stam2d_lin_solve_grid_f32(int ny, int nx, int device,
+                                  fst::TileLaunch* out) {
+  return fst::lin_solve_grid<float>(ny, nx, device, out);
 }
 
-int fst_stam2d_lin_solve_grid_f64(int n, int device, fst::TileLaunch* out) {
-  return fst::lin_solve_grid<double>(n, device, out);
+int fst_stam2d_lin_solve_grid_f64(int ny, int nx, int device,
+                                  fst::TileLaunch* out) {
+  return fst::lin_solve_grid<double>(ny, nx, device, out);
 }
 
 // `words`: kTileWords words; the launch leaves the count of its grid syncs
 // in the last.
 int fst_stam2d_lin_solve_f32(const float* x, const float* b, float* out,
-                             float* scratch, unsigned long long* words, int n,
-                             double a, double c, int iters, int grid,
-                             int device, void* stream) {
-  return fst::launch_lin_solve<float>(x, b, out, scratch, words, n, a, c,
-                                      iters, grid, device, stream);
+                             float* scratch, unsigned long long* words,
+                             int ny, int nx, double a, double c, int iters,
+                             int grid, int device, void* stream) {
+  return fst::launch_lin_solve<float>(x, b, out, scratch, words, ny, nx, a,
+                                      c, iters, grid, device, stream);
 }
 
 int fst_stam2d_lin_solve_f64(const double* x, const double* b, double* out,
                              double* scratch, unsigned long long* words,
-                             int n, double a, double c, int iters, int grid,
-                             int device, void* stream) {
-  return fst::launch_lin_solve<double>(x, b, out, scratch, words, n, a, c,
-                                       iters, grid, device, stream);
+                             int ny, int nx, double a, double c, int iters,
+                             int grid, int device, void* stream) {
+  return fst::launch_lin_solve<double>(x, b, out, scratch, words, ny, nx, a,
+                                       c, iters, grid, device, stream);
 }
 
 }  // extern "C"

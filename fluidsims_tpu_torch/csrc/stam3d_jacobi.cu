@@ -2,6 +2,18 @@
 // out = (x0 + a * sum6(x)) / c on the interior of an (n+2)^3 volume; the
 // ghost ring of out is not touched.
 //
+// Over a z-slab (the z-slab runner, parallel/stam3d_sharded.py): x, x0 and
+// out are W slices of (n+2)^2 whose first is the global slice z_off, and
+// the sweep writes the cells of the slab's inner slices [1, W - 2] that lie
+// in the global interior 1 <= z_off + k <= n; the global faces, the slices
+// past gz = n + 1 (the padding of the z extent to a multiple of the ranks)
+// and the slab's two end slices are not touched.  The runner gives the
+// global ring its parity (the entry buffer's ring before an even sweep of
+// the solve, zero before an odd one) by ping-ponging two windows whose
+// rings hold those values, as the one-device wrapper ping-pongs a copy of
+// x and a zero-ring scratch.  The whole volume is the slab of W = n + 2
+// slices at z_off = 0: today's launch.
+//
 // Replaces the TPU kernel fluidsims_tpu/kernels/stam3d_pallas.py::
 // _jacobi_kernel (pallas_call at :176), which ran `ip` sweeps of a z band in
 // VMEM, recomputing a halo band instead of syncing through HBM, and
@@ -28,10 +40,10 @@ namespace {
 template <typename T>
 __global__ void __launch_bounds__(256)
 jacobi_kernel(const T* __restrict__ x, const T* __restrict__ x0,
-              T* __restrict__ out, int n, T a, T c) {
+              T* __restrict__ out, int n, int k0, T a, T c) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x + 1;
   const int j = blockIdx.y * blockDim.y + threadIdx.y + 1;
-  const int k = blockIdx.z + 1;
+  const int k = blockIdx.z + k0;
   if (i > n || j > n) return;
   const size_t N = (size_t)n + 2;
   const size_t sy = N, sz = N * N;
@@ -41,16 +53,23 @@ jacobi_kernel(const T* __restrict__ x, const T* __restrict__ x0,
   out[s] = (__ldg(x0 + s) + a * sum) / c;
 }
 
+// A slab of w slices of (n+2)^2 from global slice z_off: the slices k in
+// [max(1, 1 - z_off), min(w - 2, n - z_off)] are swept, one block row of
+// the grid's z each; none is no launch.
 template <typename T>
-int launch_jacobi(const T* x, const T* x0, T* out, int n, double a, double c,
-                  int device, void* stream) {
+int launch_jacobi(const T* x, const T* x0, T* out, int n, int w, int z_off,
+                  double a, double c, int device, void* stream) {
+  if (n < 1 || w < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const int k0 = 1 - z_off > 1 ? 1 - z_off : 1;
+  const int k1 = n - z_off < w - 2 ? n - z_off : w - 2;
+  if (k1 < k0) return 0;
   const dim3 block(32, 8);
   const dim3 grid((n + block.x - 1) / block.x, (n + block.y - 1) / block.y,
-                  n);
+                  k1 - k0 + 1);
   jacobi_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-      x, x0, out, n, T(a), T(c));
+      x, x0, out, n, k0, T(a), T(c));
   return (int)cudaGetLastError();
 }
 
@@ -59,15 +78,20 @@ int launch_jacobi(const T* x, const T* x0, T* out, int n, double a, double c,
 
 extern "C" {
 
+// w slices of (n+2)^2 from global slice z_off; the whole volume is w =
+// n + 2, z_off = 0.
 int fst_stam3d_jacobi_f32(const float* x, const float* x0, float* out, int n,
-                          double a, double c, int device, void* stream) {
-  return fst::launch_jacobi<float>(x, x0, out, n, a, c, device, stream);
+                          int w, int z_off, double a, double c, int device,
+                          void* stream) {
+  return fst::launch_jacobi<float>(x, x0, out, n, w, z_off, a, c, device,
+                                   stream);
 }
 
 int fst_stam3d_jacobi_f64(const double* x, const double* x0, double* out,
-                          int n, double a, double c, int device,
-                          void* stream) {
-  return fst::launch_jacobi<double>(x, x0, out, n, a, c, device, stream);
+                          int n, int w, int z_off, double a, double c,
+                          int device, void* stream) {
+  return fst::launch_jacobi<double>(x, x0, out, n, w, z_off, a, c, device,
+                                    stream);
 }
 
 }  // extern "C"

@@ -1,10 +1,13 @@
 """CUDA kernels of the 3-D stable-fluids step, with their wrappers and plain
 PyTorch versions, and the 'cuda' engine's step built on them.
 
-* `jacobi(x, x0, out, a, c)` — csrc/stam3d_jacobi.cu, which replaces the
-  TPU kernel fluidsims_tpu/kernels/stam3d_pallas.py::_jacobi_kernel: one
-  sweep, out's interior = (x0 + a * sum6(x)) / c, out's ring untouched.
-  Plain version: `jacobi_plain`.
+* `jacobi(x, x0, out, a, c, z_off)` — csrc/stam3d_jacobi.cu, which
+  replaces the TPU kernel fluidsims_tpu/kernels/stam3d_pallas.py::
+  _jacobi_kernel: one sweep, out's interior = (x0 + a * sum6(x)) / c,
+  out's ring untouched; on a z-slab of W slices from global slice z_off
+  (the z-slab runner's, parallel/stam3d_sharded.py) the slab's inner
+  slices that lie in the global interior.  Plain version:
+  `jacobi_plain`.
 * `advect(cfg, q0, u, v, w)` — csrc/stam3d_advect.cu, which replaces
   stam3d_pallas.py::_advect_kernel: the exact trilinear gather of the
   backtrace, q0's ring passed through, in a new volume.  Plain version:
@@ -39,7 +42,8 @@ import torch
 from ..ops.scalar import div
 from ..solvers import stam3d as s3
 from . import _build
-from ._common import LaunchCounter, TileLaunch, on_cpu, tile_launch
+from ._common import (LaunchCounter, TileLaunch, check_tensors, on_cpu,
+                      tile_launch)
 
 __all__ = ["LAUNCHES", "reset_launches", "jacobi", "jacobi_plain", "advect",
            "advect_plain", "set_bnd", "set_bnd_plain", "lin_solve",
@@ -62,7 +66,7 @@ def load() -> ctypes.CDLL:
     lib = _build.load_library()
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for sfx in _SUFFIX.values():
-        for name, argtypes in (("jacobi", [P, P, P, I, D, D]),
+        for name, argtypes in (("jacobi", [P, P, P, I, I, I, D, D]),
                                ("advect", [P] * 5 + [I, D]),
                                ("set_bnd", [P] * 4 + [I])):
             fn = getattr(lib, f"fst_stam3d_{name}_{sfx}")
@@ -75,26 +79,27 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def _check(**fields) -> int:
-    """n of the (n+2)^3 volumes; raises unless all lie on one device with
-    one dtype that has a kernel, and are cubic, equal and contiguous."""
+def _check_slab(**fields) -> tuple:
+    """(W, n) of the (W, n+2, n+2) slabs; raises unless all lie on one
+    device with one dtype that has a kernel, and are equal and
+    contiguous."""
     ref = next(iter(fields.values()))
     if ref.dtype not in _SUFFIX:
         raise TypeError(f"no kernel for dtype {ref.dtype}")
     shape = tuple(ref.shape)
+    if len(shape) != 3 or shape[1] != shape[2] or shape[1] < 3 or (
+            shape[0] < 1):
+        raise ValueError(f"fields must be (W, n+2, n+2), got {shape}")
+    check_tensors(fields, shape, ref.dtype, ref.device)
+    return shape[0], shape[1] - 2
+
+
+def _check(**fields) -> int:
+    """n of the (n+2)^3 volumes, checked as `_check_slab` checks slabs."""
+    shape = tuple(next(iter(fields.values())).shape)
     if len(shape) != 3 or len(set(shape)) != 1 or shape[0] < 3:
         raise ValueError(f"fields must be (n+2, n+2, n+2), got {shape}")
-    for name, f in fields.items():
-        if f.device != ref.device:
-            raise ValueError(f"{name} on {f.device}, expected {ref.device}")
-        if f.dtype != ref.dtype:
-            raise TypeError(f"{name} is {f.dtype}, expected {ref.dtype}")
-        if tuple(f.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(f.shape)}, expected "
-                             f"{shape}")
-        if not f.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    return shape[0] - 2
+    return _check_slab(**fields)[1]
 
 
 def _launch(name: str, ref: torch.Tensor, *args) -> None:
@@ -113,23 +118,36 @@ def _launch(name: str, ref: torch.Tensor, *args) -> None:
 # ------------------------------- Jacobi sweep --------------------------------
 
 
-def jacobi_plain(x, x0, out, a: float, c: float):
+def _swept(w: int, n: int, z_off: int) -> slice:
+    """The slices a sweep writes on a slab of w slices from global slice
+    z_off: the slab's inner ones in the global interior [1, n]."""
+    return slice(max(1, 1 - z_off), max(1, min(w - 2, n - z_off) + 1))
+
+
+def jacobi_plain(x, x0, out, a: float, c: float, z_off: int = 0):
     """Plain PyTorch version of the Jacobi kernel: out's interior =
-    (x0 + a * sum6(x)) / c, in place; returns out."""
-    out[1:-1, 1:-1, 1:-1] = div(s3._interior(x0) + a * s3._sum6(x), c)
+    (x0 + a * sum6(x)) / c, in place, on the slices `_swept` names (the
+    whole interior of an (n+2)^3 volume at z_off = 0); returns out."""
+    k = _swept(x.shape[0], x.shape[1] - 2, z_off)
+    if k.stop > k.start:
+        out[k, 1:-1, 1:-1] = div(
+            x0[k, 1:-1, 1:-1] + a * s3._sum6(x[k.start - 1:k.stop + 1]), c)
     return out
 
 
-def jacobi(x, x0, out, a: float, c: float):
+def jacobi(x, x0, out, a: float, c: float, z_off: int = 0):
     """One Jacobi sweep into out's interior: the kernel on CUDA tensors,
-    the plain version on CPU tensors.  out must not be x."""
+    the plain version on CPU tensors.  x, x0 and out are (n+2)^3 volumes,
+    or z-slabs of W slices of (n+2)^2 from global slice z_off, of which
+    the sweep writes the inner slices in the global interior.  out must
+    not be x."""
     if out.data_ptr() == x.data_ptr():
         raise ValueError("jacobi: out must be another buffer than x")
     if on_cpu(x):
-        return jacobi_plain(x, x0, out, a, c)
-    n = _check(x=x, x0=x0, out=out)
-    _launch("jacobi", x, x.data_ptr(), x0.data_ptr(), out.data_ptr(), n,
-            float(a), float(c))
+        return jacobi_plain(x, x0, out, a, c, z_off)
+    w, n = _check_slab(x=x, x0=x0, out=out)
+    _launch("jacobi", x, x.data_ptr(), x0.data_ptr(), out.data_ptr(), n, w,
+            int(z_off), float(a), float(c))
     return out
 
 

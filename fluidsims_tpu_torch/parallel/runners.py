@@ -5,13 +5,20 @@ Each runner module has the shape of its JAX twin: `shard_state(state,
 mesh)`, `make_sharded_run(cfg, mesh, n_steps)` and `gather_state(local,
 mesh)`; the spatial ones (owner buffers of particles, migration)
 `shard_state(state, cfg, mesh, axis)`, `make_sharded_run(cfg, mesh,
-n_steps, axis)` and `gather_state(local, n, mesh)`, by particle id.  `RUNNERS` names them with the solver module, the mesh they
-take and the one-device run they are held to.  The τ-clock and MHD
-runners step plainly (see tau_sharded.py), so their one-device run is the
-plain 'torch' engine's; the SPH runners' is the 'cuda' engine's (their
-kernels, or those kernels' plain versions on the CPU), the spatial FLIP
-and MPM runners' the 'dense' engine's (the engine they split); every
-other one is the solver's `run` on the engine it picks for the device.
+n_steps, axis)` and `gather_state(local, n, mesh)`, by particle id.
+`RUNNERS` names them with the solver module, the mesh they take and the
+one-device run they are held to.  The τ-clock and MHD runners step
+plainly (see tau_sharded.py), so their one-device run is the plain
+'torch' engine's; so is stam3d's, at the same `advect_k`: its runner
+composes the dense-shift advection, set_bnd and the projection in torch
+ops, as JAX's does, and runs only its Jacobi sweeps on #11 (the 'cuda'
+engine's #12 gathers exactly, with no cap).  The SPH runners' one-device
+run is the 'cuda' engine's (their kernels, or those kernels' plain
+versions on the CPU), the spatial FLIP and MPM runners' the 'dense'
+engine's (the engine they split); every other one, stam2d's (#9 and #10)
+included, is the solver's `run` on the engine it picks for the device.
+A case may give a runner's options (stam2d's `halo_k` and
+`advect_halo`, stam3d's `halo_k`).
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from ..kernels import (burgers_cuda, flip_cuda, gray_scott_cuda,
                        sph_cuda, stam2d_cuda, stam3d_cuda)
 from ..solvers import (burgers, flip_apic, gray_scott, hypersonic2d,
                        hypersonic3d, lbm, mhd, mpm, nbody_graph,
-                       shallow_water, sph)
+                       shallow_water, sph, stam2d, stam3d)
 from . import flip_sharded as fsh
 from . import flip_spatial as fsp
 from . import hypersonic2d_sharded as h2s
@@ -44,6 +51,8 @@ from . import nbody_sharded as nsh
 from . import periodic_sharded as psh
 from . import sph_sharded as ssh
 from . import sph_spatial as ssp
+from . import stam2d_sharded as s2s
+from . import stam3d_sharded as s3s
 from . import tau_sharded as tsh
 from .launch import to_numpy, tree_map
 from .mesh import make_mesh_1d, psum
@@ -130,6 +139,12 @@ RUNNERS = {
     "mpm_spatial": Runner(mpm, mpm.MPMConfig, "x", mpsp.shard_state,
                           mpsp.make_sharded_run, mpsp.gather_state,
                           dense_engine="dense", spatial=True),
+    "stam2d": Runner(stam2d, stam2d.Stam2DConfig, "x", s2s.shard_state,
+                     s2s.make_sharded_run, s2s.gather_state),
+    # JAX's axis name; the slabs are cut along z
+    "stam3d": Runner(stam3d, stam3d.Stam3DConfig, "x", s3s.shard_state,
+                     s3s.make_sharded_run, s3s.gather_state,
+                     dense_engine="torch"),
 }
 
 
@@ -143,15 +158,16 @@ def make_mesh(name: str, device=None, mesh2d: tuple | None = None):
     return h2s2.make_mesh_2d(px, py, device=device)
 
 
-def run_sharded(name: str, cfg, state, n_steps: int, mesh):
+def run_sharded(name: str, cfg, state, n_steps: int, mesh, **options):
     """`n_steps` sharded steps of a global `state` (the same on every
-    rank): shard, run, gather.  Returns the global result on every rank
+    rank): shard, run, gather; `options` go to the runner's
+    `make_sharded_run`.  Returns the global result on every rank
     (particles in interleaved order, or in particle order for the spatial
     runners)."""
-    return _run(name, cfg, state, n_steps, mesh)[0]
+    return _run(name, cfg, state, n_steps, mesh, options)[0]
 
 
-def _run(name: str, cfg, state, n_steps: int, mesh):
+def _run(name: str, cfg, state, n_steps: int, mesh, options: dict):
     """(run_sharded's result, what the run reports: a spatial run the
     particles lost to capacity and those that changed rank (summed over
     the ranks); the SPH runs [halo receivers, all receivers] of the rank's
@@ -159,7 +175,7 @@ def _run(name: str, cfg, state, n_steps: int, mesh):
     r = RUNNERS[name]
     info = {}
     if not r.spatial:
-        run = r.make_run(cfg, mesh, n_steps)
+        run = r.make_run(cfg, mesh, n_steps, **options)
         got = r.gather(run(r.shard(state, mesh)), mesh)
     else:
         local = r.shard(state, cfg, mesh, r.axis)
@@ -241,9 +257,9 @@ def run_cases(cases: list, device=None) -> list:
     it with the same cases).  A case is a dict: `name` (a key of RUNNERS),
     `config` (the config's fields), `steps`, optionally `state` (a global
     state of tensors; default: the solver's `init` on the mesh's device),
-    `mesh2d` ((py, px) for the 2-D mesh), `dense` (also run the
-    one-device run on rank 0 and compare) and `keep` (rank 0 returns the
-    gathered state).
+    `mesh2d` ((py, px) for the 2-D mesh), `options` (the runner's
+    options), `dense` (also run the one-device run on rank 0 and compare)
+    and `keep` (rank 0 returns the gathered state).
     Returns, per case, the seconds of the sharded run (host clock, the
     device synchronised), the kernels' launches in it, what a spatial run
     reports (`_run`) and, on rank 0, what `dense` (with the one-device
@@ -262,7 +278,8 @@ def run_cases(cases: list, device=None) -> list:
         sync(mesh.device)
         reset_launches()
         t0 = time.perf_counter()
-        got, info = _run(name, cfg, state, case["steps"], mesh)
+        got, info = _run(name, cfg, state, case["steps"], mesh,
+                         case.get("options", {}))
         sync(mesh.device)
         res = {"name": name, "world": mesh.size, "backend": mesh.backend,
                "steps": case["steps"], "seconds": time.perf_counter() - t0,

@@ -27,11 +27,13 @@ Engines (`resolve_engine`):
 * 'torch' — `_step_torch` below, JAX's exact XLA engine written in
   PyTorch.  The default on the CPU.
 
-Neither engine clamps a back-trace, so `state.ovf` stays 0.  JAX's TPU
-engines 'pallas' (a row band of `advect_band` cells that clamps past it)
-and 'hybrid' (the band with an exact repair window) exist only for the
-TPU's missing gathers and are not ported; `advect_overflow_count` still
-counts the back-traces the band would have clamped.
+Neither engine clamps a back-trace, so a one-device run leaves
+`state.ovf` at 0; the x-slab runner (parallel/stam2d_sharded.py) clamps
+the back-traces that leave its exchanged columns and counts them there.
+JAX's TPU engines 'pallas' (a row band of `advect_band` cells that clamps
+past it) and 'hybrid' (the band with an exact repair window) exist only
+for the TPU's missing gathers and are not ported; `advect_overflow_count`
+still counts the back-traces the band would have clamped.
 """
 
 from __future__ import annotations
@@ -66,8 +68,10 @@ class Stam2DConfig(BaseConfig):
     eta_min: float = -1.5
     eta_max: float = 1.5
     jacobi_iters: int = 40
-    # the row band of JAX's TPU advection kernel, in cells: read only by
-    # advect_overflow_count (no engine of the port bands or clamps)
+    # the row band of JAX's TPU advection kernel, in cells: read by
+    # advect_overflow_count (no one-device engine of the port bands or
+    # clamps) and, as the default of its exchanged columns (capped at
+    # n / D), by the x-slab runner (parallel/stam2d_sharded.py)
     advect_band: int = 16
     engine: str = "auto"   # auto | cuda | torch
     dtype: str = "float32"
@@ -91,7 +95,8 @@ class Stam2DState(NamedTuple):
     d: torch.Tensor
     d0: torch.Tensor
     step_idx: torch.Tensor   # 0-d int32: the orbiting source's phase
-    ovf: torch.Tensor        # 0-d int32: clamped back-traces, always 0 here
+    ovf: torch.Tensor        # 0-d int32: clamped back-traces; only the
+    #                          x-slab runner clamps and counts them
 
 
 def _deta(cfg) -> float:

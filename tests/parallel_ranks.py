@@ -132,3 +132,38 @@ def spatial_ops(payloads, owners, grids, mig_caps: tuple, p_cap: int,
 def spatial_family(cases: list, ops: tuple):
     """`runners.run_cases(cases)` on the CPU, then `spatial_ops(*ops)`."""
     return runners.run_cases(cases, CPU), spatial_ops(*ops)
+
+
+def stam_solve(dim: int, x, b, a: float, c: float, iters: int, halo_k: int):
+    """The sharded Jacobi solve of parallel/stam2d_sharded.py (dim 2: x and
+    b (n, n), cut into x-slabs) or parallel/stam3d_sharded.py (dim 3: x and
+    b (n+2)^3, padded along z and cut into z-slabs) on this rank; the
+    gathered result on rank 0, as numpy."""
+    from fluidsims_tpu_torch.parallel import stam2d_sharded as s2s
+    from fluidsims_tpu_torch.parallel import stam3d_sharded as s3s
+
+    m = mesh.make_mesh_1d(device=CPU)
+    if dim == 2:
+        xs, bs = (mesh.shard(t, m, {"x": 1}) for t in (x, b))
+        got = mesh.gather(s2s._lin_solve_sharded(
+            xs, bs, a, c, iters, halo_k, m, "x"), m, {"x": 1})
+    else:
+        Np = x.shape[0]
+        zp = s3s.padded_z(Np - 2, m.size)
+
+        def slab(t):
+            return mesh.shard(torch.cat([t, t.new_zeros((zp - Np, Np, Np))]),
+                              m, {"x": 0})
+
+        B = zp // m.size
+        got = mesh.gather(s3s._lin_solve_sharded(
+            slab(x), slab(b), a, c, iters, halo_k, Np, m.rank * B, m, "x"),
+            m, {"x": 0})[:Np]
+    return got.numpy() if m.rank == 0 else None
+
+
+def stam_family(cases: list, solves: list):
+    """`runners.run_cases(cases)` on the CPU, then each `stam_solve` of
+    `solves` (tuples of its arguments)."""
+    return (runners.run_cases(cases, CPU),
+            [stam_solve(*args) for args in solves])

@@ -81,7 +81,8 @@ def test_every_module_listed():
                 "parallel.nbody_sharded", "parallel.runners",
                 "parallel.spatial_common", "parallel.sph_sharded",
                 "parallel.sph_spatial", "parallel.flip_spatial",
-                "parallel.mpm_spatial"):
+                "parallel.mpm_spatial", "parallel.stam2d_sharded",
+                "parallel.stam3d_sharded"):
         assert f"fluidsims_tpu_torch.{mod}" in MODULES
     assert "fluidsims_tpu_torch.kernels.nbody_cuda" in MODULES
     assert len(MODULES) >= 70

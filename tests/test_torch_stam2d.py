@@ -365,27 +365,28 @@ def test_cuda_composition_equals_torch_engine(dtype, iters):
 
 
 def tiled_lin_solve(x, b, a, c, iters, tile, short=0):
-    """A plain torch model of csrc/stam2d_lin_solve.cu's temporal blocking:
-    phases of up to h sweeps; each tile's window (the tile and a halo of
-    the phase's sweeps, zero outside [0, n)^2) is swept in place, sweep k
-    on the window less a ring of k cells, cells outside the grid set to 0;
-    the tile of the window after the phase's last sweep is the phase's
-    result there.  `short` cuts the halo by that many cells (and sweeps
-    the window less a ring of min(k, halo) cells)."""
+    """A plain torch model of csrc/stam2d_lin_solve.cu's temporal blocking
+    on an (ny, nx) field: phases of up to h sweeps; each tile's window (the
+    tile and a halo of the phase's sweeps, zero outside [0, ny) x [0, nx))
+    is swept in place, sweep k on the window less a ring of k cells,
+    cells outside the grid set to 0; the tile of the window after the
+    phase's last sweep is the phase's result there.  `short` cuts the halo
+    by that many cells (and sweeps the window less a ring of min(k, halo)
+    cells)."""
     tx, ty, h = tile[:3]
-    n = x.shape[0]
+    ny, nx = x.shape
     src = x
     for p in range(-(-iters // h)):
         cnt = min(h, iters - p * h)
         halo = cnt - short
         dst = torch.empty_like(x)
-        for y0 in range(0, n, ty):
-            for x0 in range(0, n, tx):
+        for y0 in range(0, ny, ty):
+            for x0 in range(0, nx, tx):
                 ys = torch.arange(y0 - halo, y0 + ty + halo)
                 xs = torch.arange(x0 - halo, x0 + tx + halo)
-                inside = (((ys >= 0) & (ys < n))[:, None]
-                          & ((xs >= 0) & (xs < n))[None, :])
-                yc, xc = ys.clamp(0, n - 1), xs.clamp(0, n - 1)
+                inside = (((ys >= 0) & (ys < ny))[:, None]
+                          & ((xs >= 0) & (xs < nx))[None, :])
+                yc, xc = ys.clamp(0, ny - 1), xs.clamp(0, nx - 1)
                 zero = torch.zeros((), dtype=x.dtype)
                 win = torch.where(inside, src[yc][:, xc], zero)
                 bw = torch.where(inside, b[yc][:, xc], zero)
@@ -401,7 +402,7 @@ def tiled_lin_solve(x, b, a, c, iters, tile, short=0):
                     new[r] = torch.where(inside[r], div(
                         bw[r] + a * (up + dn + lf + rt), c), zero)
                     win = new
-                hy, hx = min(ty, n - y0), min(tx, n - x0)
+                hy, hx = min(ty, ny - y0), min(tx, nx - x0)
                 dst[y0:y0 + hy, x0:x0 + hx] = win[halo:halo + hy,
                                                   halo:halo + hx]
         src = dst

@@ -106,7 +106,9 @@ wavespeed (csrc/hypersonic3d_wavespeed.cu).
   two runs differ); set_bnd ("set_bnd 192 f32", "... f64") on the four
   fields of the final state of the stam3d runs (192^3 f32 x 100, f64 x
   20), also as device time, with digests of that state and of the
-  output; the MPM G2P with its grid update (#20 and #21, one launch) on
+  output, and the Jacobi sweep (#11, "<key> jacobi", also as device
+  time) on that state; the MPM G2P with its grid update (#20 and #21, one
+  launch) on
   the P2G grids of the final state of the MPM runs ("mpm 96 f32", "mpm
   96 f64", "mpm 512 f32"; "<key> g2p", and for a tree that launches the
   grid update on its own, as the parent of that design does, "<key>
@@ -1385,6 +1387,11 @@ def set_bnd_timings(m, dev, only, dump) -> dict:
             bits_equal(a, b) for a, b in zip(bnd, ref))
         if hasattr(m.sc, "set_bnd_launch"):
             res[key + " launch"] = json.dumps(m.sc.set_bnd_launch(n).asdict())
+        # the Jacobi sweep (#11) of the projection's solve on that state
+        buf = out.w0.clone()
+        sweep = lambda: m.sc.jacobi(out.u, out.v, buf, 1.0, 6.0)  # noqa: E731
+        res[key + " jacobi"] = time_ms(sweep, reps)
+        res[key + " jacobi device"] = device_ms(sweep, reps, "jacobi_kernel")
         record(res, key, list(out[:8]), bnd, dump)
     return res
 
