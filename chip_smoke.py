@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Needs one CUDA GPU and nvcc (found through $CUDA_HOME, $PATH or
-/usr/local/cuda).  Imports torch, numpy and the port only.  Phases, any
-failure of which ends the run with a non-zero exit:
+/usr/local/cuda).  Imports torch, numpy, the port and, for phase 27,
+tests/analytic_gates.py with the numpy Riemann oracles of tests/oracles.
+Phases, any failure of which ends the run with a non-zero exit:
 
 1. device  — a CUDA device is present; print its name and power limit.
 2. build   — build every kernel from fluidsims_tpu_torch/csrc; print the
@@ -398,6 +399,27 @@ failure of which ends the run with a non-zero exit:
              error, bitwise flag, each rank's launches and the host
              clock's steps/s (at world 2 and 4 gloo-staged on one card, no
              scaling figure).  A failed rank fails the run.
+27. analytic_gates — the JAX suite's analytic gates on the card
+             (tests/analytic_gates.py, ANALYTIC_GATES), each through its
+             solver's entry point in the JAX gate's configuration and
+             held to the JAX gate's bars, every counter set to 0 first:
+             Sod 2-D (600x4 f64 x 300, y-uniform to the bit), the double
+             rarefaction (600x4 x 100, mirror symmetric to 1e-12), the
+             3-D WENO Sod (256x4x4 f64 x 400, at the accumulated dt,
+             y/z-uniform to the bit), the MHD hydro limit (600x6 f64,
+             stable_hll, x 600 at block_k 8, B identically 0), the
+             shallow-water dam break (600x4 f64, 400 one-step launches, at
+             the accumulated dt), the convergence ladder (100 to 1600
+             cells, every rate > 1.7), the long-horizon f32 against f64
+             drift (128x64 x 1000), Poiseuille (32x34 f32 x 20,000 at
+             block_k 8 and 1), Cole–Hopf (256x1 f64 x 200) and the
+             standing wave (128x8 f32, 200 one-step launches); each gate
+             must launch the kernels it names (#1 and p1; #2 and p2; #8;
+             #7 for shallow water; #6 and #5; #7 for Burgers) and no
+             other; then the long-horizon comparison at default_config()
+             (8192x1024) as a reading beside the bar; a line
+             {"analytic_gates": ...} with each gate's errors, bars,
+             steps, kernels' launches and seconds.
 
 Every kernel's line in {"kernels": [...]} carries bound_ms, the least time
 the card could take for its work at the main path's shape: the larger of
@@ -455,8 +477,9 @@ query reports at each main run's size: the picked and the tiled design,
 and ptxas's report of both kernels) and `edge_cases` (phases 19 and 21's
 crowded and wall cases, the two shapes of one scratch size and the grid of
 many tiles: rel errs and the tiled launch's stats).  Every line carries
-`launches_driver_surface` (phase 25's launches of its kernel) and
-`launches_parallel` (phase 26's launches at world 1), p1's line
+`launches_driver_surface` (phase 25's launches of its kernel),
+`launches_parallel` (phase 26's launches at world 1) and
+`launches_analytic` (phase 27's), p1's line
 `inflow_col_cases` (phase 26's bitwise cases), the Stam lines phase 26's
 checks at the sharded shapes (#9 `rect_bitwise_cases`, #10
 `window_bitwise_cases`, `window_clamped` and `clamp_runs`, #11
@@ -466,7 +489,8 @@ flagship step's line `driver_surface`: phase 25's ms a frame by part,
 steps/s of the strided PNG run and the headless run, and the resume
 results.
 
-The line before {"kernels": [...]} is {"parallel": {...}} (phase 26).
+The line before {"kernels": [...]} is {"analytic_gates": {...}} (phase
+27), and the one before it {"parallel": {...}} (phase 26).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -475,6 +499,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import pathlib
 import re
 import subprocess
 import sys
@@ -5108,8 +5133,7 @@ def phase_driver_surface(mods: dict, smi) -> dict:
         m.reset_launches()
     with tempfile.TemporaryDirectory() as d:
         driver_flags(cli, d, smi)
-        launches = {src: sum(mods[m].LAUNCHES[k] for k in keys)
-                    for src, (m, keys) in DRIVER_COUNTERS.items()}
+        launches = launch_counts(mods)
         idle = [src for src, n in launches.items() if n == 0]
         if idle:
             raise AssertionError(f"the driver surface runs launched no "
@@ -5937,6 +5961,109 @@ def nbody_dense_repeat(runners, device) -> dict:
     return {"dense_repeat_bitwise": same, "dense_repeat_rel_err": err}
 
 
+# ------------------------------ analytic gates -------------------------------
+
+# Phase 27: the JAX suite's analytic gates (tests/analytic_gates.py, whose
+# docstrings name each JAX gate) on the card, each held to its JAX bars:
+# gate -> (its keywords, the kernel sources it must launch and no other).
+# The convergence ladder goes on to 800 and 1600 cells; Poiseuille runs
+# once on the K-step kernel (block_k 8) and once on the one-step kernel
+# (block_k 1).
+HYP2D_SOURCES = ("hypersonic2d_step.cu", "hypersonic2d_wavespeed.cu")
+ANALYTIC_GATES = {
+    "sod_2d": ({}, HYP2D_SOURCES),
+    "double_rarefaction": ({}, HYP2D_SOURCES),
+    "sod_3d": ({}, ("hypersonic3d_step.cu", "hypersonic3d_wavespeed.cu")),
+    "mhd_hydro_limit": ({}, ("mhd_multistep.cu",)),
+    "dam_break": ({}, ("shallow_water_multistep.cu",)),
+    "convergence": ({"ladder": (100, 200, 400, 800, 1600)}, HYP2D_SOURCES),
+    "long_horizon": ({}, HYP2D_SOURCES),
+    "poiseuille": ({"block_ks": (8, 1)}, ("lbm_multistep.cu", "lbm_step.cu")),
+    "cole_hopf": ({}, ("burgers_multistep.cu",)),
+    "standing_wave": ({}, ("shallow_water_multistep.cu",)),
+}
+# The long-horizon comparison at the flagship's default_config(), a reading
+# beside the bar (JAX measured it at 128x64 only)
+FULL_WIDTH = {"nx": 8192, "ny": 1024}
+
+
+def launch_counts(mods: dict) -> dict:
+    """Each kernel source's launches so far (DRIVER_COUNTERS)."""
+    return {src: sum(mods[m].LAUNCHES[k] for k in keys)
+            for src, (m, keys) in DRIVER_COUNTERS.items()}
+
+
+def run_gate(gate_fn, kw: dict, mods: dict, device) -> tuple:
+    """One gate on the card: (the gate, the sources it launched and how
+    often, its seconds on the host clock)."""
+    before = launch_counts(mods)
+    t0 = time.perf_counter()
+    gate = gate_fn(device, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = {src: n - before[src]
+                for src, n in launch_counts(mods).items() if n > before[src]}
+    return gate, launched, secs
+
+
+def gate_line(gate, launched: dict, secs: float) -> dict:
+    """One gate's entry of the {"analytic_gates": ...} line."""
+    return {"errors": {k: v for k, (v, _, _) in gate.readings.items()},
+            "bars": {k: [op, bar] for k, (_, op, bar) in
+                     gate.readings.items()},
+            "info": gate.info, "steps": gate.steps, "kernels": launched,
+            "seconds": secs}
+
+
+def repo_tests_module(name: str):
+    """tests/<name>.py of this checkout.  The checkout's tests/ is a
+    namespace package, which an installed regular package named `tests`
+    shadows wherever it sits on sys.path, so it is bound as `tests`
+    first."""
+    import importlib
+    import types
+
+    pkg = types.ModuleType("tests")
+    pkg.__path__ = [str(pathlib.Path(__file__).resolve().parent / "tests")]
+    sys.modules["tests"] = pkg
+    return importlib.import_module(f"tests.{name}")
+
+
+def phase_analytic_gates(mods: dict, device, smi) -> dict:
+    """Phase 27: every gate of ANALYTIC_GATES on the card through the
+    solvers' entry points; a gate fails the run if it misses a bar,
+    launched no time a kernel it names or launched another; then the
+    long-horizon comparison at FULL_WIDTH as a reading.  Every counter is
+    set to 0 first; the launches of the phase go into each kernel line as
+    launches_analytic."""
+    ag = repo_tests_module("analytic_gates")
+    t_phase = time.perf_counter()
+    for m in mods.values():
+        m.reset_launches()
+    gates = {}
+    for name, (kw, sources) in ANALYTIC_GATES.items():
+        gate, launched, secs = run_gate(getattr(ag, name), kw, mods, device)
+        line = gates[name] = gate_line(gate, launched, secs)
+        log(f"[analytic] {name}: {line['errors']} ({gate.steps} steps, "
+            f"{secs:.2f} s; launches {launched}; {smi})")
+        gate.check()
+        idle = [src for src in sources if not launched.get(src)]
+        stray = sorted(set(launched) - set(sources))
+        if idle or stray:
+            raise AssertionError(f"gate {name} launched no {idle} or other "
+                                 f"kernels {stray}: {launched}")
+    gate, launched, secs = run_gate(ag.long_horizon, FULL_WIDTH, mods,
+                                    device)
+    full = gate_line(gate, launched, secs)
+    full["misses"] = sorted(gate.misses())
+    log(f"[analytic] {gate.name} (a reading): {full['errors']}; misses "
+        f"{full['misses']} "
+        f"({secs:.2f} s; {smi})")
+    log(f"[analytic] phase 27 took {time.perf_counter() - t_phase:.1f} s")
+    return {"gates": gates, "full_width": full,
+            "launches": launch_counts(mods)}
+
+
 def main() -> int:
     smi = phase_device()
     from fluidsims_tpu_torch import interop, regression
@@ -6066,11 +6193,12 @@ def main() -> int:
     for m in others:
         m.reset_launches()
     nbody_res = phase_nbody_main(nk, ng, device, smi, nbody_errs, others)
-    driver_res = phase_driver_surface(
-        {"hk": hk, "sk": sk, "hk3": hk3, "gk": gk, "lk": lk, "bk": bk,
-         "swk": swk, "mk": mk, "sc": sc, "s2k": s2k, "fk": fk, "mpk": mpk,
-         "nk": nk}, smi)
+    counters = {"hk": hk, "sk": sk, "hk3": hk3, "gk": gk, "lk": lk,
+                "bk": bk, "swk": swk, "mk": mk, "sc": sc, "s2k": s2k,
+                "fk": fk, "mpk": mpk, "nk": nk}
+    driver_res = phase_driver_surface(counters, smi)
     parallel_res = phase_parallel(hk, h2, sk, ts, interop, device, smi)
+    analytic_res = phase_analytic_gates(counters, device, smi)
 
     tiling = hyp_tiling(hk, hk3, _build)
     t = main_res["times"]
@@ -6219,6 +6347,7 @@ def main() -> int:
         src = line["source"].rsplit("/", 1)[1]
         line["launches_driver_surface"] = driver_res["launches"][src]
         line["launches_parallel"] = parallel_res["counts"][src]
+        line["launches_analytic"] = analytic_res["launches"][src]
     kernels[1]["inflow_col_cases"] = parallel_res["inflow_col_cases"]
     for line in kernels:
         line.update(parallel_res["stam"].get(line["name"], {}))
@@ -6269,6 +6398,9 @@ def main() -> int:
     print(json.dumps({"parallel": {
         "compute_mode": parallel_res["compute_mode"], "card": smi,
         "runs": parallel_res["lines"]}}))
+    print(json.dumps({"analytic_gates": {
+        "card": smi, **analytic_res["gates"],
+        "long_horizon_full_width": analytic_res["full_width"]}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
