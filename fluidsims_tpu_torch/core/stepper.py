@@ -3,10 +3,16 @@ benchmark.
 
 Port of fluidsims_tpu.core.stepper.  JAX compiles a batch of steps into one
 `lax.scan`; PyTorch runs eagerly, so the loop is a Python loop that only
-enqueues device work.  Nothing inside it reads a value back to the host
-(no `.item()`, `float()` or sync): dt lives on the device from the
-wavespeed reduction to the update (see core/clock.py).  Capturing the loop
-in a CUDA graph, the GPU analog of the compiled scan, is later work.
+enqueues device work.  The loop itself reads nothing back to the host (no
+`.item()`, `float()` or sync), and dt lives on the device from the
+wavespeed reduction to the update (see core/clock.py).  A step may still
+wait for the device on its own: the 3-D hypersonic step copies its inflow
+constants to the device each step (`hypersonic3d.inflow_prim`), and each
+such host-to-device copy synchronises the stream.  Capturing the loop in a
+CUDA graph, the GPU analog of the compiled scan, is later work.
+
+Under a profiler `run_steps` records the spans `fst.run` around the loop
+and `fst.step` around each call of the step function (core/metrics.span).
 """
 
 from __future__ import annotations
@@ -16,14 +22,18 @@ from typing import Any, Callable
 
 import torch
 
+from .metrics import span
+
 __all__ = ["run_steps", "run_split", "frame_loop", "device_of", "sync",
            "benchmark"]
 
 
 def run_steps(step_fn: Callable[[Any], Any], state: Any, n_steps: int):
     """Apply `step_fn(state) -> state` `n_steps` times."""
-    for _ in range(n_steps):
-        state = step_fn(state)
+    with span("fst.run"):
+        for _ in range(n_steps):
+            with span("fst.step"):
+                state = step_fn(state)
     return state
 
 

@@ -22,7 +22,10 @@ reduction through two hand-written CUDA kernels
 (kernels/hypersonic3d_cuda.py); `step` picks them by default, and their
 wrappers take the plain versions below only for CPU tensors.  The rest of
 a step (decode, BC padding, τ arithmetic, encode) is torch on the device;
-dt, gain and dτ stay 0-d device tensors, so a step never syncs the host.
+dt, gain and dτ stay 0-d device tensors and are never read by the host.
+The step still waits for the device: the padding copies the inflow
+constants from the host each step (`inflow_prim`), and each copy
+synchronises the stream.
 
 Every quotient with a Python-number operand is taken tensor by tensor
 (`_div`, `_rdiv`): on the GPU `tensor / c` multiplies by a rounded
@@ -43,6 +46,7 @@ import torch
 from ..core.clock import dtau_feedback
 from ..core.config import BaseConfig
 from ..core.device import resolve_device
+from ..core.metrics import span
 from ..core.stepper import run_steps
 from ..ops.scalar import div, rdiv, scalar
 from ..ops.weno import weno5_lr_slab
@@ -384,7 +388,10 @@ def inflow_values(cfg) -> tuple:
 
 def inflow_prim(cfg, dtype=None, device=None) -> PrimT:
     """The inflow state as 0-d tensors in `dtype` (the config's by
-    default)."""
+    default), made anew on each call.  On a CUDA device each of the six is
+    a blocking copy from the host: the copy waits for the stream to drain,
+    so a step that calls this (through `_padded_prims`) syncs the host six
+    times."""
     dt = dtype or cfg.torch_dtype
     return PrimT(*(torch.tensor(v, dtype=dt, device=device)
                    for v in inflow_values(cfg)))
@@ -863,7 +870,9 @@ def step(cfg: Hypersonic3DConfig, s: Hypersonic3DState,
     reduction.  Both default to the CUDA kernels of
     kernels.hypersonic3d_cuda, whose wrappers run their plain versions
     (step_core_padded, max_wavespeed) for CPU tensors.  dt never leaves
-    the device."""
+    the device.  Under a profiler the phases are the spans `fst.h3d.tau`,
+    `.decode`, `.pad`, `.update`, `.dt` (the wavespeed, its reduce and the
+    dτ feedback) and `.encode`."""
     from ..kernels import hypersonic3d_cuda as hk
 
     solid = s.solid
@@ -871,35 +880,41 @@ def step(cfg: Hypersonic3DConfig, s: Hypersonic3DState,
         solid_pad = solid_pad_of(cfg, solid.device)
 
     # τ advance (pre-step, :1680-1683)
-    t = s.t * torch.exp(s.dtau)
-    dt = t * s.dtau
-    inflow_gain = torch.clamp(div(t, 0.02), 0.0, 1.0)
-    if gain_mul is not None:
-        inflow_gain = inflow_gain * gain_mul
+    with span("fst.h3d.tau"):
+        t = s.t * torch.exp(s.dtau)
+        dt = t * s.dtau
+        inflow_gain = torch.clamp(div(t, 0.02), 0.0, 1.0)
+        if gain_mul is not None:
+            inflow_gain = inflow_gain * gain_mul
 
-    q = _decode(cfg, s.xi, s.phix, s.phiy, s.phiz, s.lam, s.zet)
-    qp = _padded_prims(cfg, q, solid_pad)
+    with span("fst.h3d.decode"):
+        q = _decode(cfg, s.xi, s.phix, s.phiy, s.phiz, s.lam, s.zet)
+    with span("fst.h3d.pad"):
+        qp = _padded_prims(cfg, q, solid_pad)
 
-    if core is None:
-        q1 = hk.step_core(cfg, qp, solid_pad, dt, inflow_gain)
-    else:
-        q1 = core(qp, solid_pad, dt, inflow_gain)
+    with span("fst.h3d.update"):
+        if core is None:
+            q1 = hk.step_core(cfg, qp, solid_pad, dt, inflow_gain)
+        else:
+            q1 = core(qp, solid_pad, dt, inflow_gain)
 
-    if wavespeed is None:
-        maxs = hk.wavespeed(cfg, q1, solid)
-    else:
-        maxs = wavespeed(q1, solid)
-    if wavespeed_reduce is not None:
-        maxs = wavespeed_reduce(maxs)
+    with span("fst.h3d.dt"):
+        if wavespeed is None:
+            maxs = hk.wavespeed(cfg, q1, solid)
+        else:
+            maxs = wavespeed(q1, solid)
+        if wavespeed_reduce is not None:
+            maxs = wavespeed_reduce(maxs)
 
-    # dτ feedback controller (:1697-1704), shared deadband helper
-    dt_cfl = rdiv(cfg.cfl, torch.clamp_min(maxs, 1e-9))
-    dtau = dtau_feedback(s.dtau, dt, dt_cfl)
+        # dτ feedback controller (:1697-1704), shared deadband helper
+        dt_cfl = rdiv(cfg.cfl, torch.clamp_min(maxs, 1e-9))
+        dtau = dtau_feedback(s.dtau, dt, dt_cfl)
 
-    new = _encode(cfg, q1)
-    old = (s.xi, s.phix, s.phiy, s.phiz, s.lam, s.zet)
-    # solid cells keep their previous state (:1063-1072)
-    kept = [torch.where(solid, o, n) for n, o in zip(new, old)]
+    with span("fst.h3d.encode"):
+        new = _encode(cfg, q1)
+        old = (s.xi, s.phix, s.phiy, s.phiz, s.lam, s.zet)
+        # solid cells keep their previous state (:1063-1072)
+        kept = [torch.where(solid, o, n) for n, o in zip(new, old)]
     return Hypersonic3DState(*kept, solid=solid, t=t, dtau=dtau)
 
 
