@@ -65,8 +65,14 @@ Phases, any failure of which ends the run with a non-zero exit:
              version at that shape (same bars), per-launch times (the bin
              and density also as torch.profiler's device time) and the
              pair counts.
-8. hyp3d_kernels — the two 3-D hypersonic kernels (cell update, masked
-             max wavespeed) against their plain PyTorch versions, f32 and
+8. hyp3d_kernels — the three 3-D hypersonic kernels (prologue, cell
+             update, masked max wavespeed) against their plain PyTorch
+             versions.  The prologue bitwise on every grid below, on 64^3
+             and 256^3 and on the sharded runner's z-slab (rank 1 of 4
+             on 64^3, its own padded mask), f32 and f64, both outflow
+             modes, with NaN and infinite cells in the last column; 3
+             steps of 64^3 under torch.cuda.set_sync_debug_mode("error"),
+             each launching it once.  The cell update and wavespeed f32 and
              f64, both outflow modes, on a non-cubic 24x40x56 (z, y, x) grid,
              on 32^3 and two against the step kernel's tile (9x13x19, not a
              multiple of it, and 3x7x5, narrower than it in every axis,
@@ -87,7 +93,8 @@ Phases, any failure of which ends the run with a non-zero exit:
 9. hyp3d_main — solvers.hypersonic3d.run with the CUDA engine:
              default_config(64) f32 x 400 steps (bench.py's hypersonic3d_64
              and the reference's size) and default_config(256) f32 x 20;
-             each kernel launched once a step; steps/s beside the plain
+             each kernel launched once a step (the prologue's device time
+             a launch against its bound too); steps/s beside the plain
              engine's (20 steps at 64^3, 1 at 256^3); physics (finite,
              rho > 0, p > 0, t advanced, dtau in [1e-7, 5e-2], solid cells
              unchanged, max u > 0.1 at 64^3); then from each final state
@@ -549,6 +556,10 @@ HYP3D_STEP_OPS_PER_CELL = 2300
 # hypersonic3d_wavespeed.cu per fluid cell: sound speed (4), three
 # |u|+a divided by d (9), two adds, the test.
 HYP3D_WAVESPEED_OPS_PER_FLUID_CELL = 17
+# hypersonic3d_pad.cu per padded cell: the decode (three exp, three sinh,
+# three multiplies by u_ref); the ghost columns' and wall cells' few more
+# not counted.
+HYP3D_PAD_OPS_PER_CELL = 9
 # gray_scott.cuh::gs_cell per cell-step: two Laplacians (3 adds for the
 # four neighbours, 4c, the subtraction, x inv_dx2: 6 each), uvv (2), du
 # (5), dv (4), the two forward-Euler updates (4).
@@ -1350,7 +1361,136 @@ def plain3(hk3, cfg) -> dict:
     """run()/step() hooks of the plain engine."""
     return {"core": lambda qp, sp, dt, g: hk3.step_core_plain(cfg, qp, sp,
                                                               dt, g),
-            "wavespeed": lambda q1, solid: hk3.wavespeed_plain(cfg, q1, solid)}
+            "wavespeed": lambda q1, solid: hk3.wavespeed_plain(cfg, q1, solid),
+            "pad": lambda s, sp: hk3.pad_plain(cfg, s, sp)}
+
+
+def slab_case(h3, s, cfg, ranks: int, rank: int):
+    """(config, state, padded mask) of `rank`'s extended z-slab of the
+    global state `s` as the sharded runner steps it: the rank's slices
+    with HALO more from each ring neighbour, and the mask from a ring of
+    2 * HALO slices, wrapped in y and padded with False in x
+    (hypersonic3d_sharded._solid_pad), gathered here on one device."""
+    from dataclasses import replace
+
+    H, nzl = h3.HALO, cfg.nz // ranks
+    dev = s.xi.device
+
+    def ring(f, h):
+        idx = torch.arange(rank * nzl - h, (rank + 1) * nzl + h, device=dev)
+        return f[idx % cfg.nz]
+
+    fields = [ring(f, H) for f in s[:6]]
+    sp = ring(s.solid, 2 * H)
+    sp = torch.cat([sp[:, -H:, :], sp, sp[:, :H, :]], dim=1)
+    zf = torch.zeros((sp.shape[0], sp.shape[1], H), dtype=torch.bool,
+                     device=dev)
+    sp = torch.cat([zf, sp, zf], dim=2).contiguous()
+    st = h3.Hypersonic3DState(*fields, solid=ring(s.solid, H), t=s.t,
+                              dtau=s.dtau)
+    return replace(cfg, nz=nzl + 2 * H), st, sp
+
+
+def with_bad_cells(h3, cfg, s):
+    """`s` with a NaN and an infinite velocity in the last column (the
+    outflow ghosts' source) and a NaN pressure inside."""
+    f = [x.clone() for x in s[:6]]
+    nz, ny, nx = cfg.nz, cfg.ny, cfg.nx
+    f[0][nz // 3, ny // 4, nx - 1] = float("nan")
+    f[1][(2 * nz) // 3, ny // 2, nx - 1] = float("inf")
+    f[4][nz // 2, ny // 3, nx // 2] = float("nan")
+    return h3.Hypersonic3DState(*f, solid=s.solid, t=s.t, dtau=s.dtau)
+
+
+def check_pad(h3, hk3, cfg, s, sp, what: str) -> None:
+    """The prologue kernel bitwise equal to the plain prologue."""
+    got = hk3.pad(cfg, s, sp)
+    want = hk3.pad_plain(cfg, s, sp)
+    for name, a, b in zip(h3.PrimT._fields, got, want):
+        if a.shape != b.shape or not bits_equal(a, b):
+            n = int((a.view(-1) != b.view(-1)).sum()) \
+                if a.shape == b.shape else -1
+            raise AssertionError(f"hyp3d pad {what}.{name}: not bitwise "
+                                 f"equal to the plain prologue ({n} cells "
+                                 "differ)")
+
+
+def check_pad_cases(h3, hk3, interop, device) -> int:
+    """The prologue kernel bitwise equal to its plain version on every
+    HYP3D_PAD_GRIDS grid and on the sharded runner's z-slab, f32 and f64,
+    both outflow modes, from hyp3d_state with NaN and infinite cells: the
+    cases it ran."""
+    cases = 0
+    for dtype in ("float32", "float64"):
+        for outflow in ("transmissive", "characteristic"):
+            for nz, ny, nx in HYP3D_PAD_GRIDS:
+                cfg = h3.Hypersonic3DConfig(
+                    nx=nx, ny=ny, nz=nz, dx=1.0 / nx, dy=1.0 / ny,
+                    dz=1.0 / nz, outflow=outflow, dtype=dtype)
+                s = with_bad_cells(h3, cfg, hyp3d_state(
+                    h3, interop, cfg, device, SEED + cases))
+                check_pad(h3, hk3, cfg, s, h3.solid_pad_of(cfg, device),
+                          f"{nz}x{ny}x{nx} {dtype} {outflow}")
+                cases += 1
+            n = HYP3D_PAD_SLAB_N
+            cfg = h3.default_config(n, outflow=outflow, dtype=dtype)
+            s = hyp3d_state(h3, interop, cfg, device, SEED + cases)
+            cfg_ext, st, sp = slab_case(h3, s, cfg, HYP3D_PAD_SLAB_RANKS, 1)
+            check_pad(h3, hk3, cfg_ext, st, sp,
+                      f"z-slab {tuple(st.xi.shape)} of {n}^3 {dtype} "
+                      f"{outflow}")
+            cases += 1
+    log(f"[hyp3d] prologue kernel bitwise equal to the plain prologue in "
+        f"{cases} cases: {HYP3D_PAD_GRIDS} and rank 1's z-slab of "
+        f"{HYP3D_PAD_SLAB_N}^3 over {HYP3D_PAD_SLAB_RANKS} ranks, f32/f64, "
+        "transmissive/characteristic, NaN and infinite cells")
+    return cases
+
+
+def check_pad_steps(h3, hk3, device, steps: int = 3) -> dict:
+    """`steps` steps of default_config(64) under the sync debug mode
+    "error" (no step may wait for the device), each launching the
+    prologue once."""
+    cfg = h3.default_config(64)
+    s = h3.init(cfg, device)
+    s = h3.step(cfg, s)   # builds the padded mask, loads the library
+    torch.cuda.synchronize()
+    hk3.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(steps):
+            s = h3.step(cfg, s)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches = dict(hk3.LAUNCHES)
+    if launches["pad"] != steps:
+        raise AssertionError(f"pad launched {launches['pad']} times in "
+                             f"{steps} steps")
+    log(f"[hyp3d] {steps} steps of 64^3 f32 under sync debug mode 'error': "
+        f"no sync; launches {launches}")
+    return launches
+
+
+def pad_times(h3, hk3, cfg, s, smi) -> dict:
+    """The prologue of state `s`: the kernel's device time a launch
+    (torch.profiler), its wrapper call and the plain prologue's (CUDA
+    events), against its bound."""
+    sp = h3.solid_pad_of(cfg, s.xi.device)
+    T = torch.finfo(cfg.torch_dtype).bits // 8
+    cells = cfg.nx * cfg.ny * cfg.nz
+    padded = (cfg.nx + 6) * (cfg.ny + 6) * (cfg.nz + 6)
+    b = bound(cells * 6 * T + padded * (1 + 6 * T),
+              padded * HYP3D_PAD_OPS_PER_CELL, cfg.torch_dtype)
+    res = {"device": device_ms(lambda: hk3.pad(cfg, s, sp), 20,
+                               "pad3_kernel"),
+           "call": time_launches(lambda: hk3.pad(cfg, s, sp), 20),
+           "plain": time_launches(lambda: hk3.pad_plain(cfg, s, sp), 5),
+           "bound": b}
+    log(f"[hyp3d] prologue {cfg.nx}^3 {cfg.dtype} on {smi}: kernel "
+        f"{ms_text(res['device'])} of device time a launch, "
+        f"{res['call']:.4f} ms a wrapper call (events); plain prologue "
+        f"{res['plain']:.4f} ms; bound {b[0]:.4f} ms ({b[1]})")
+    return res
 
 
 # Phase 8's grids (nz, ny, nx): non-cubic, cubic, and two against the
@@ -1358,6 +1498,12 @@ def plain3(hk3, cfg) -> dict:
 # axis; the last two with the NaN cell on a tile corner (the second tile
 # of each axis, clipped to the grid).
 HYP3D_KERNEL_GRIDS = ((24, 40, 56), (32, 32, 32), (9, 13, 19), (3, 7, 5))
+# The prologue kernel's grids (nz, ny, nx): phase 8's kernel grids, 64^3
+# and 256^3; then the z-slab of the sharded runner (parallel/
+# hypersonic3d_sharded) of rank 1 of HYP3D_PAD_SLAB_RANKS on a
+# HYP3D_PAD_SLAB_N^3 grid, with its own padded mask
+HYP3D_PAD_GRIDS = HYP3D_KERNEL_GRIDS + ((64, 64, 64), (256, 256, 256))
+HYP3D_PAD_SLAB_N, HYP3D_PAD_SLAB_RANKS = 64, 4
 
 
 def wavespeed_inputs(h3, cfg, device, seed: int, offsets=None):
@@ -1466,6 +1612,8 @@ def phase_hyp3d_kernels(h3, hk3, interop, device) -> dict:
     log(f"[hyp3d] step kernel bitwise equal to its plain version in {ok} of "
         f"{n} calls; not in {differ}")
     errs["wavespeed_cases"] = check_wavespeed_cases(h3, hk3, device)
+    errs["pad_cases"] = check_pad_cases(h3, hk3, interop, device)
+    errs["pad_steps"] = check_pad_steps(h3, hk3, device)
     for nz, ny, nx in HYP3D_KERNEL_GRIDS[:2]:
         cfg = h3.Hypersonic3DConfig(nx=nx, ny=ny, nz=nz, dx=1.0 / nx,
                                     dy=1.0 / ny, dz=1.0 / nz)
@@ -1563,6 +1711,7 @@ def phase_hyp3d_main(h3, hk3, device, smi, errs) -> dict:
             "wavespeed_plain": time_launches(
                 lambda: hk3.wavespeed_plain(cfg, q1, out.solid), 10),
         }
+        times["pad"] = pad_times(h3, hk3, cfg, out, smi)
         bounds = hyp3d_bounds(cfg, out.solid)
         log(f"[hyp3d] {n}^3 f32 final state: kernels vs plain: step max rel "
             f"err {rel:.3e}, wavespeed bitwise; per launch on {smi}: step "
@@ -4662,6 +4811,7 @@ DRIVER_COUNTERS = {
     "sph_forces.cu": ("sk", ("forces",)),
     "hypersonic3d_step.cu": ("hk3", ("step",)),
     "hypersonic3d_wavespeed.cu": ("hk3", ("wavespeed",)),
+    "hypersonic3d_pad.cu": ("hk3", ("pad",)),
     "gray_scott_step.cu": ("gk", ("step",)),
     "gray_scott_multistep.cu": ("gk", ("multistep",)),
     "lbm_step.cu": ("lk", ("step",)), "lbm_multistep.cu": ("lk", ("multistep",)),
@@ -5259,8 +5409,9 @@ PARALLEL_MODS = {"hypersonic2d_cuda": "hk", "sph_cuda": "sk",
 # the stam3d runner its advection (#12's place) and set_bnd (#13's).
 PARALLEL_KERNELS = ("hypersonic2d_step.cu", "hypersonic2d_wavespeed.cu",
                     "hypersonic3d_step.cu", "hypersonic3d_wavespeed.cu",
-                    "gray_scott_step.cu", "gray_scott_multistep.cu",
-                    "lbm_step.cu", "lbm_multistep.cu", "flip_p2g.cu",
+                    "hypersonic3d_pad.cu", "gray_scott_step.cu",
+                    "gray_scott_multistep.cu", "lbm_step.cu",
+                    "lbm_multistep.cu", "flip_p2g.cu",
                     "flip_grid.cu", "flip_g2p.cu", "mpm_p2g.cu",
                     "mpm_g2p.cu", "nbody_repulsion.cu", "sph_bin.cu",
                     "sph_density.cu", "sph_forces.cu", "stam2d_lin_solve.cu",
@@ -5973,7 +6124,8 @@ HYP2D_SOURCES = ("hypersonic2d_step.cu", "hypersonic2d_wavespeed.cu")
 ANALYTIC_GATES = {
     "sod_2d": ({}, HYP2D_SOURCES),
     "double_rarefaction": ({}, HYP2D_SOURCES),
-    "sod_3d": ({}, ("hypersonic3d_step.cu", "hypersonic3d_wavespeed.cu")),
+    "sod_3d": ({}, ("hypersonic3d_step.cu", "hypersonic3d_wavespeed.cu",
+                    "hypersonic3d_pad.cu")),
     "mhd_hydro_limit": ({}, ("mhd_multistep.cu",)),
     "dam_break": ({}, ("shallow_water_multistep.cu",)),
     "convergence": ({"ladder": (100, 200, 400, 800, 1600)}, HYP2D_SOURCES),
@@ -6307,6 +6459,23 @@ def main() -> int:
     kernels[-2]["bitwise_cases"] = hyp3d_errs["bitwise"][:2]
     kernels[-2]["not_bitwise"] = hyp3d_errs["bitwise"][2]
     kernels[-2]["tiling"] = tiling["hypersonic3d_step"]
+    pad64, pad256 = a3["times"]["pad"], b3["times"]["pad"]
+    kernels.append({
+        "name": "hypersonic3d_pad", "route": "cuda",
+        "source": "fluidsims_tpu_torch/csrc/hypersonic3d_pad.cu",
+        # JAX forms the prologue in XLA, ahead of the Pallas step kernel
+        "replaces": "fluidsims_tpu/solvers/hypersonic3d.py:905",
+        "launches": a3["launches"]["pad"],
+        "bitwise_cases": hyp3d_errs["pad_cases"],
+        "ms": pad64["call"], "ms_device": pad64["device"],
+        "plain_ms": pad64["plain"], "bound_ms": pad64["bound"][0],
+        "bound_by": pad64["bound"][1], "library_ms": None,
+        "launches_256": b3["launches"]["pad"],
+        "launches_th3cs": th3cs_res["launches"]["pad"],
+        "ms_256": pad256["call"], "ms_device_256": pad256["device"],
+        "plain_ms_256": pad256["plain"], "bound_ms_256": pad256["bound"][0],
+        "bound_by_256": pad256["bound"][1],
+        "ptxas": _build.ptxas_usage("pad3_kernel")})
     kernels.extend(stencil_kernel_lines(stencil_res, stencil_errs,
                                         gs_tiling(gk, gs, _build),
                                         lbm_tiling(lk, lbm, _build)))

@@ -12,8 +12,9 @@ as hand-written CUDA kernels on the GPU (`kernels.hypersonic2d_cuda`), and
 2-D SPH (`solvers.sph`, `ops.cell_dense`), whose binning, density and
 forces + integrate run as three more (`kernels.sph_cuda`), and the 3-D
 hypersonic solver (`solvers.hypersonic3d`, `ops.weno`) with its `.4spl`
-export (`solvers.th3cs`, `io.fourspl`), whose cell update and masked
-max-wavespeed reduction run as two more (`kernels.hypersonic3d_cuda`),
+export (`solvers.th3cs`, `io.fourspl`), whose prologue (decode and halo
+padding), cell update and masked max-wavespeed reduction run as three
+more (`kernels.hypersonic3d_cuda`),
 and Gray–Scott (`solvers.gray_scott`) and the D2Q9 LBM (`solvers.lbm`,
 `ops.shift`), each stepped by a one-step and a K-step kernel
 (`kernels.gray_scott_cuda`, `kernels.lbm_cuda`), Burgers, shallow water

@@ -557,6 +557,8 @@ def cmd_hypersonic3d(args):
     cfg = h3.default_config(args.n, dtype=args.dtype, outflow=args.outflow)
     engine = _engine(cfg, args.impl, device, hk3.step_core_plain,
                      hk3.wavespeed_plain)
+    if engine:
+        engine["pad"] = functools.partial(hk3.pad_plain, cfg)
     s = h3.init(cfg, device)
     head = (f"hypersonic3d {cfg.nx}^3 {cfg.dtype} outflow={cfg.outflow} "
             f"impl={args.impl} device={_device_name(device)}")

@@ -5,10 +5,9 @@ Port of fluidsims_tpu.core.stepper.  JAX compiles a batch of steps into one
 `lax.scan`; PyTorch runs eagerly, so the loop is a Python loop that only
 enqueues device work.  The loop itself reads nothing back to the host (no
 `.item()`, `float()` or sync), and dt lives on the device from the
-wavespeed reduction to the update (see core/clock.py).  A step may still
-wait for the device on its own: the 3-D hypersonic step copies its inflow
-constants to the device each step (`hypersonic3d.inflow_prim`), and each
-such host-to-device copy synchronises the stream.  Capturing the loop in a
+wavespeed reduction to the update (see core/clock.py).  The hypersonic
+steps copy nothing from the host either: the 3-D step's prologue kernel
+takes its inflow state as a launch argument.  Capturing the loop in a
 CUDA graph, the GPU analog of the compiled scan, is later work.
 
 Under a profiler `run_steps` records the spans `fst.run` around the loop

@@ -17,6 +17,13 @@ PyTorch versions.
   grid shape, and taken by the last block to finish (the kernel leaves
   both words at 0 for the next launch on it).  Plain version:
   `wavespeed_plain` (max_wavespeed of the solver).
+* `pad(cfg, s, solid_pad) -> PrimT` — csrc/hypersonic3d_pad.cu: the
+  step's prologue in one launch, the six encoded fields of `s` to the six
+  halo-3 padded, boundary-resolved primitives that `step_core` reads,
+  one thread a padded cell along x; the inflow state comes from
+  `_params(cfg)`, so no value is copied from the host.  Plain version:
+  `pad_plain` (`_padded_prims(cfg, _decode(...), solid_pad)` of the
+  solver), bitwise the kernel's.
 
 The wrappers take the plain version for CPU tensors only.  For CUDA
 tensors they check device, dtype, shape and contiguity, launch on the
@@ -34,13 +41,13 @@ import torch
 from ..solvers import hypersonic3d as h3
 from ..solvers.hypersonic3d import HALO, PrimT
 from . import _build
-from ._common import LaunchCounter, on_cpu, tile_scratch
+from ._common import LaunchCounter, check_tensors, on_cpu, tile_scratch
 
 __all__ = ["LAUNCHES", "reset_launches", "step_core", "step_core_plain",
            "step_launch", "Tile3Launch", "wavespeed", "wavespeed_plain",
-           "load"]
+           "pad", "pad_plain", "load"]
 
-LAUNCHES = LaunchCounter("step", "wavespeed")
+LAUNCHES = LaunchCounter("step", "wavespeed", "pad")
 reset_launches = LAUNCHES.reset
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -74,6 +81,18 @@ class _Params(ctypes.Structure):
     ]
 
 
+class _PadParams(ctypes.Structure):
+    """Mirror of fst::Hyp3DPadParams (csrc/hypersonic3d_pad.cu)."""
+
+    _fields_ = [
+        ("u_ref", ctypes.c_double),
+        ("p_amb", ctypes.c_double),
+        ("wall_div", ctypes.c_double),
+        ("Twall", ctypes.c_double),
+        ("characteristic", ctypes.c_int),
+    ]
+
+
 class Tile3Launch(ctypes.Structure):
     """Mirror of fst::Tile3Launch (csrc/hypersonic3d_step.cu): what the
     step's launch query reports, as the launch computes it."""
@@ -102,6 +121,10 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, f"fst_hyp3d_wavespeed_{sfx}")
         fn.argtypes = [P] * 8 + [ctypes.POINTER(_Params), ctypes.c_int, P]
         fn.restype = ctypes.c_int
+        fn = getattr(lib, f"fst_hyp3d_pad_{sfx}")
+        fn.argtypes = [P] * 13 + [ctypes.POINTER(_Params),
+                                  ctypes.POINTER(_PadParams), ctypes.c_int, P]
+        fn.restype = ctypes.c_int
     lib.fst_cuda_error_string.argtypes = [ctypes.c_int]
     lib.fst_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -124,6 +147,16 @@ def _params(cfg, x0: int = 0) -> _Params:
         cfg.sponge_strength, cfg.sponge_out_strength,
         max(cfg.inflow_r, h3.RHO_P_FLOOR), max(cfg.inflow_p, h3.RHO_P_FLOOR),
         h3.evib_eq_py(cfg, tgtT))
+
+
+@functools.lru_cache(maxsize=None)
+def _pad_params(cfg) -> _PadParams:
+    """The prologue's constants beyond `_params`, in double, formed as the
+    plain code forms them."""
+    return _PadParams(
+        cfg.u_ref, max(cfg.inflow_p, h3.RHO_P_FLOOR),
+        cfg.R * max(cfg.Twall, h3.NEWTON_TEMP_FLOOR), cfg.Twall,
+        int(cfg.outflow == "characteristic"))
 
 
 def step_launch(nz: int, ny: int, nx: int,
@@ -241,4 +274,45 @@ def wavespeed(cfg, q1: PrimT, solid) -> torch.Tensor:
                   solid.device.index or 0, stream)
     _raise_on_error(lib, code, "hypersonic3d wavespeed")
     LAUNCHES["wavespeed"] += 1
+    return out
+
+
+def pad_plain(cfg, s, solid_pad) -> PrimT:
+    """Plain PyTorch version of the prologue kernel."""
+    return h3._padded_prims(cfg, h3._decode(cfg, *s[:6]), solid_pad)
+
+
+def pad(cfg, s, solid_pad) -> PrimT:
+    """The halo-3 padded, boundary-resolved primitives of the state `s`
+    (its six encoded fields) on the padded mask `solid_pad`: the prologue
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    if on_cpu(solid_pad):
+        return pad_plain(cfg, s, solid_pad)
+    if cfg.torch_dtype not in _SUFFIX:
+        raise TypeError(f"no kernel for dtype {cfg.torch_dtype}")
+    shape = _padded_shape(cfg)
+    if solid_pad.dtype != torch.bool or tuple(solid_pad.shape) != shape:
+        raise ValueError(f"solid_pad must be bool {shape}, got "
+                         f"{solid_pad.dtype} {tuple(solid_pad.shape)}")
+    if not solid_pad.is_contiguous():
+        raise ValueError("solid_pad must be contiguous")
+    if cfg.nz < HALO or cfg.ny < HALO:
+        raise ValueError(f"the periodic halo needs nz, ny >= {HALO}, got "
+                         f"{cfg.nz}, {cfg.ny}")
+    dev = solid_pad.device
+    check_tensors(dict(zip(h3.Hypersonic3DState._fields, s[:6])),
+                  (cfg.nz, cfg.ny, cfg.nx), cfg.torch_dtype, dev)
+    lib = load()
+    # one allocation for the six fields: the wrapper's host time is the
+    # device's idle time where a frame begins with a step
+    out = PrimT(*torch.empty((6, *shape), dtype=cfg.torch_dtype,
+                             device=dev).unbind(0))
+    fn = getattr(lib, f"fst_hyp3d_pad_{_SUFFIX[cfg.torch_dtype]}")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(*(f.data_ptr() for f in s[:6]), solid_pad.data_ptr(),
+                  *(f.data_ptr() for f in out), ctypes.byref(_params(cfg)),
+                  ctypes.byref(_pad_params(cfg)), dev.index or 0, stream)
+    _raise_on_error(lib, code, "hypersonic3d pad")
+    LAUNCHES["pad"] += 1
     return out

@@ -16,16 +16,16 @@ tau_hypersonic_3d_cuda.cu —
     of non-finite cells to inflow, τ clock with dτ feedback (:1680-1704)
 
 The functions here are the plain PyTorch version, written as the JAX module
-writes them.  On the GPU the step runs its cell update (`_padded_prims` is
-built here, then `step_core_padded`) and the masked max-wavespeed
-reduction through two hand-written CUDA kernels
-(kernels/hypersonic3d_cuda.py); `step` picks them by default, and their
-wrappers take the plain versions below only for CPU tensors.  The rest of
-a step (decode, BC padding, τ arithmetic, encode) is torch on the device;
-dt, gain and dτ stay 0-d device tensors and are never read by the host.
-The step still waits for the device: the padding copies the inflow
-constants from the host each step (`inflow_prim`), and each copy
-synchronises the stream.
+writes them.  On the GPU the step runs its prologue (decode and BC
+padding, `_padded_prims(_decode(...))`), its cell update
+(`step_core_padded`) and the masked max-wavespeed reduction through three
+hand-written CUDA kernels (kernels/hypersonic3d_cuda.py); `step` picks
+them by default, and their wrappers take the plain versions below only
+for CPU tensors.  The rest of a step (τ arithmetic, encode) is torch on
+the device; dt, gain and dτ stay 0-d device tensors and are never read by
+the host.  The prologue kernel takes the inflow state as a launch
+argument, so a step copies nothing from the host and never waits for the
+device.
 
 Every quotient with a Python-number operand is taken tensor by tensor
 (`_div`, `_rdiv`): on the GPU `tensor / c` multiplies by a rounded
@@ -389,9 +389,10 @@ def inflow_values(cfg) -> tuple:
 def inflow_prim(cfg, dtype=None, device=None) -> PrimT:
     """The inflow state as 0-d tensors in `dtype` (the config's by
     default), made anew on each call.  On a CUDA device each of the six is
-    a blocking copy from the host: the copy waits for the stream to drain,
-    so a step that calls this (through `_padded_prims`) syncs the host six
-    times."""
+    a blocking copy from the host that waits for the stream to drain.  The
+    plain versions call this (`_padded_prims`, which `vis_field` uses too,
+    and `step_core_padded`); the step's CUDA kernels take the inflow state
+    as a launch argument instead."""
     dt = dtype or cfg.torch_dtype
     return PrimT(*(torch.tensor(v, dtype=dt, device=device)
                    for v in inflow_values(cfg)))
@@ -859,20 +860,23 @@ def max_wavespeed(cfg, q1: PrimT, solid) -> torch.Tensor:
 
 def step(cfg: Hypersonic3DConfig, s: Hypersonic3DState,
          solid_pad=None, wavespeed_reduce=None,
-         core=None, gain_mul=None, wavespeed=None) -> Hypersonic3DState:
+         core=None, gain_mul=None, wavespeed=None,
+         pad=None) -> Hypersonic3DState:
     """One step.  `solid_pad` (halo-3 extended solid mask) and
     `wavespeed_reduce` (a cross-device max) are hooks for a sharded
     runner; `gain_mul` multiplies the inflow ramp (the interactive a_gain
     nudge, tau_hypersonic_3d_cuda.cu:1658-1661) and may be a 0-d tensor.
 
-    `core(qp, solid_pad, dt, gain) -> PrimT` is the cell-update engine and
-    `wavespeed(q1, solid) -> 0-d tensor` the masked max-wavespeed
-    reduction.  Both default to the CUDA kernels of
-    kernels.hypersonic3d_cuda, whose wrappers run their plain versions
-    (step_core_padded, max_wavespeed) for CPU tensors.  dt never leaves
-    the device.  Under a profiler the phases are the spans `fst.h3d.tau`,
-    `.decode`, `.pad`, `.update`, `.dt` (the wavespeed, its reduce and the
-    dτ feedback) and `.encode`."""
+    `pad(s, solid_pad) -> PrimT` is the prologue (the state's encoded
+    fields to halo-3 padded, BC-resolved primitives), `core(qp, solid_pad,
+    dt, gain) -> PrimT` the cell-update engine and `wavespeed(q1, solid)
+    -> 0-d tensor` the masked max-wavespeed reduction.  All three default
+    to the CUDA kernels of kernels.hypersonic3d_cuda, whose wrappers run
+    their plain versions (_padded_prims of _decode, step_core_padded,
+    max_wavespeed) for CPU tensors.  dt never leaves the device.  Under a
+    profiler the phases are the spans `fst.h3d.tau`, `.pad`, `.update`,
+    `.dt` (the wavespeed, its reduce and the dτ feedback) and
+    `.encode`."""
     from ..kernels import hypersonic3d_cuda as hk
 
     solid = s.solid
@@ -887,10 +891,11 @@ def step(cfg: Hypersonic3DConfig, s: Hypersonic3DState,
         if gain_mul is not None:
             inflow_gain = inflow_gain * gain_mul
 
-    with span("fst.h3d.decode"):
-        q = _decode(cfg, s.xi, s.phix, s.phiy, s.phiz, s.lam, s.zet)
     with span("fst.h3d.pad"):
-        qp = _padded_prims(cfg, q, solid_pad)
+        if pad is None:
+            qp = hk.pad(cfg, s, solid_pad)
+        else:
+            qp = pad(s, solid_pad)
 
     with span("fst.h3d.update"):
         if core is None:
@@ -919,9 +924,11 @@ def step(cfg: Hypersonic3DConfig, s: Hypersonic3DState,
 
 
 def run(cfg: Hypersonic3DConfig, s: Hypersonic3DState, n_steps: int,
-        gain_mul=None, core=None, wavespeed=None) -> Hypersonic3DState:
+        gain_mul=None, core=None, wavespeed=None,
+        pad=None) -> Hypersonic3DState:
     return run_steps(lambda st: step(cfg, st, gain_mul=gain_mul, core=core,
-                                     wavespeed=wavespeed), s, n_steps)
+                                     wavespeed=wavespeed, pad=pad),
+                     s, n_steps)
 
 
 # ------------------------------ view modes ---------------------------------

@@ -49,7 +49,8 @@ def _hooks(cfg, engine: str) -> dict:
         return {}
     if engine == "torch":
         return {"core": functools.partial(hk.step_core_plain, cfg),
-                "wavespeed": functools.partial(hk.wavespeed_plain, cfg)}
+                "wavespeed": functools.partial(hk.wavespeed_plain, cfg),
+                "pad": functools.partial(hk.pad_plain, cfg)}
     raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
 
 

@@ -131,7 +131,7 @@ def test_step_kernel_plain_matches_pallas_interpret():
                        torch.from_numpy(np.array(sp)),
                        torch.tensor(dt, dtype=torch.float64),
                        torch.tensor(gain, dtype=torch.float64))
-    assert hk.LAUNCHES == {"step": 0, "wavespeed": 0}
+    assert hk.LAUNCHES == {"step": 0, "wavespeed": 0, "pad": 0}
     for name, a, b in zip(th.PrimT._fields, got, ref):
         b = np.asarray(b)
         assert np.abs(a.numpy() - b).max() <= 1e-12 * np.abs(b).max(), name

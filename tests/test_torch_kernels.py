@@ -31,7 +31,7 @@ def test_imports_without_cuda_and_counts_start_at_zero():
         _build.CSRC / f for f in (
             "hypersonic2d_step.cu", "hypersonic2d_wavespeed.cu",
             "hypersonic3d_step.cu", "hypersonic3d_wavespeed.cu",
-            "sph_bin.cu", "sph_density.cu", "sph_forces.cu",
+            "hypersonic3d_pad.cu", "sph_bin.cu", "sph_density.cu", "sph_forces.cu",
             "gray_scott_step.cu", "gray_scott_multistep.cu", "lbm_step.cu",
             "lbm_multistep.cu", "burgers_multistep.cu",
             "shallow_water_multistep.cu", "mhd_multistep.cu",
@@ -187,7 +187,7 @@ def test_3d_cpu_tensors_take_plain_version_uncounted(dtype):
     w = hk3.wavespeed(cfg, out, s.solid)
     assert w.shape == () and w.dtype == cfg.torch_dtype
     assert torch.equal(w, hk3.wavespeed_plain(cfg, out, s.solid))
-    assert hk3.LAUNCHES == {"step": 0, "wavespeed": 0}
+    assert hk3.LAUNCHES == {"step": 0, "wavespeed": 0, "pad": 0}
 
 
 def test_3d_unsupported_device_raises():

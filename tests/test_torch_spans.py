@@ -21,8 +21,8 @@ CPU = torch.device("cpu")
 N_STEPS = 3
 PHASES = {
     "h2d": ("fst.h2d.dt", "fst.h2d.update"),
-    "h3d": ("fst.h3d.tau", "fst.h3d.decode", "fst.h3d.pad", "fst.h3d.update",
-            "fst.h3d.dt", "fst.h3d.encode"),
+    "h3d": ("fst.h3d.tau", "fst.h3d.pad", "fst.h3d.update", "fst.h3d.dt",
+            "fst.h3d.encode"),
 }
 
 

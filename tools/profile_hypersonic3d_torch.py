@@ -7,9 +7,9 @@ a GPU.
 For default_config(64) float32 x 400 steps and default_config(256)
 float32 x 20 (the two runs chip_smoke.py drives), through
 fluidsims_tpu_torch.solvers.hypersonic3d.run with its default engine (the
-CUDA step and wavespeed kernels), each from init: the unprofiled step
-time and steps/s, and under torch.profiler the device time of each kernel
-and of the torch ops around them (decode, BC padding, τ arithmetic,
+CUDA prologue, step and wavespeed kernels), each from init: the
+unprofiled step time and steps/s, and under torch.profiler the device
+time of each kernel and of the torch ops around them (τ arithmetic,
 encode, keep-solid), the busy and idle shares (tools/
 profile_torch_common.py says how each is read).
 
@@ -30,8 +30,8 @@ from fluidsims_tpu_torch.solvers import hypersonic3d as h3  # noqa: E402
 from profile_torch_common import Run, main  # noqa: E402
 
 RUNS = ((64, 400), (256, 20))
-# the kernels of csrc/hypersonic3d_step.cu and _wavespeed.cu
-GROUPS = ("step3_kernel", "wavespeed3_kernel")
+# the kernels of csrc/hypersonic3d_step.cu, _wavespeed.cu and _pad.cu
+GROUPS = ("step3_kernel", "wavespeed3_kernel", "pad3_kernel")
 
 
 def _make_go(n: int):
