@@ -1,9 +1,9 @@
 """Program side of configuration `hypersonic3d-sphere`: the port's public
 3-D solver API, engine `auto` (`solvers.hypersonic3d.run` through
-`core/stepper.run_steps` into `step`: the torch ops of decode, padding,
-τ clock and encode around kernels #2 `hypersonic3d_step` and p2
-`hypersonic3d_wavespeed`, whose wrappers take the plain versions on CPU
-tensors)."""
+`core/stepper.run_steps` into `step`: the torch ops of the τ clock and the
+encode around kernels p4 `hypersonic3d_pad` (decode and halo padding),
+#2 `hypersonic3d_step` and p2 `hypersonic3d_wavespeed`, whose wrappers
+take the plain versions on CPU tensors)."""
 
 from __future__ import annotations
 
@@ -13,7 +13,8 @@ from fluidsims_tpu_torch.kernels import hypersonic3d_cuda as hk
 from fluidsims_tpu_torch.solvers import hypersonic3d as h3
 
 FIELDS = ("xi", "phix", "phiy", "phiz", "lam", "zet")
-KERNELS = {"h3d_step": "step3_kernel", "h3d_wavespeed": "wavespeed3_kernel"}
+KERNELS = {"h3d_step": "step3_kernel", "h3d_wavespeed": "wavespeed3_kernel",
+           "h3d_pad": "pad3_kernel"}
 
 _PHYSICS = ("cfl", "u_ref", "R", "gamma_floor", "Twall", "tau_vib",
             "theta_v", "sdf_cx", "sdf_cy", "sdf_cz", "sdf_r", "inflow_r",

@@ -480,8 +480,10 @@ class Reference:
 
     def work(self) -> dict:
         """The units of work the rate and the kernels' counts use: every
-        cell of the grid, the fluid cells, and the stated precision."""
+        cell of the grid, the fluid cells, the grid's (nz, ny, nx) and the
+        stated precision."""
         return {"cells": self.solid.numel(),
+                "shape": tuple(self.solid.shape),
                 "fluid_cells": int((~self.solid).sum()),
                 "itemsize": self.dtype.itemsize,
                 "dtype": str(self.dtype).removeprefix("torch.")}

@@ -5,7 +5,9 @@ Run the card's tests on the GPU machine:  python3 -m pytest portbench/tests -q -
 
 `tiny_root` is a copy of the benchmark (BENCHMARK.json and portbench/) in a
 temporary directory, the program linked beside it, whose cells run the
-same configurations at tiny grids, so a whole run fits the CPU."""
+same configurations at tiny grids, so a whole run fits the CPU.  A
+configuration's tiny sizes are the file tests/tiny/<config>.json, found by
+the configuration's name."""
 
 from __future__ import annotations
 
@@ -13,17 +15,13 @@ import json
 import shutil
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 
 REPO = Path(__file__).resolve().parents[2]
 if str(REPO) not in sys.path:
     sys.path.insert(0, str(REPO))
-
-TINY = {"hypersonic2d-capsule": dict(nx=64, ny=32, steps_per_frame=3,
-                                     check_frames=2, trace_frames=2),
-        "hypersonic3d-sphere": dict(n=12, steps_per_frame=2, check_frames=2,
-                                    trace_frames=2)}
 
 
 def pytest_configure(config):
@@ -41,17 +39,32 @@ def card():
     return torch.device("cuda", 0)
 
 
-def make_tiny_root(dst: Path) -> Path:
+def tiny_file(root: Path, config: str) -> Path:
+    """Where the tiny sizes of configuration `config` lie under `root`."""
+    return Path(root) / "portbench" / "tests" / "tiny" / f"{config}.json"
+
+
+def tiny_sizes(root: Path, config: str) -> dict:
+    path = tiny_file(root, config)
+    if not path.is_file():
+        raise FileNotFoundError(
+            f"configuration {config!r} has no tiny sizes: {path} is missing")
+    return json.loads(path.read_text())
+
+
+def make_tiny_root(dst: Path, src: Path = REPO) -> Path:
+    """A copy of the benchmark under `src` in `dst`, each cell's traffic
+    replaced by its configuration's tiny sizes in the cell's dtype."""
     dst.mkdir(parents=True, exist_ok=True)
-    shutil.copy(REPO / "BENCHMARK.json", dst / "BENCHMARK.json")
-    shutil.copytree(REPO / "portbench", dst / "portbench",
+    shutil.copy(src / "BENCHMARK.json", dst / "BENCHMARK.json")
+    shutil.copytree(src / "portbench", dst / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     (dst / "fluidsims_tpu_torch").symlink_to(REPO / "fluidsims_tpu_torch")
     bench = json.loads((dst / "BENCHMARK.json").read_text())
     for w in bench["workloads"]:
         real = json.loads(
             (dst / "portbench" / "traffic" / f"{w['traffic']}.json").read_text())
-        tiny = dict(TINY[w["config"]], dtype=real["dtype"])
+        tiny = dict(tiny_sizes(src, w["config"]), dtype=real["dtype"])
         w["traffic"] = "tiny-" + w["name"]
         (dst / "portbench" / "traffic" / f"{w['traffic']}.json").write_text(
             json.dumps(tiny))
@@ -62,6 +75,13 @@ def make_tiny_root(dst: Path) -> Path:
 @pytest.fixture
 def tiny_root(tmp_path) -> Path:
     return make_tiny_root(tmp_path / "checkout")
+
+
+@pytest.fixture
+def tiny():
+    """The tiny sizes' helpers, for tests that build a root of their own."""
+    return SimpleNamespace(file=tiny_file, sizes=tiny_sizes,
+                           make_root=make_tiny_root)
 
 
 @pytest.fixture(autouse=True)

@@ -4,9 +4,11 @@ are each added with new files and entries alone."""
 
 from __future__ import annotations
 
+import hashlib
 import json
 import re
 import shutil
+from pathlib import Path
 
 import pytest
 import torch
@@ -65,9 +67,12 @@ def test_benchmark_json_keeps_to_the_contract():
 
 
 @pytest.mark.parametrize("workload", [w["name"] for w in BENCH["workloads"]])
-def test_every_part_of_a_cell_is_found_by_name(workload):
+def test_every_part_of_a_cell_is_found_by_name(workload, tiny):
     cell = harness.Cell(harness.ROOT, workload)
     assert set(cell.limits) == {"init_err", "frame_err", "time_err"}
+    # the configuration's tiny sizes, which the CPU tests run it at
+    assert {"steps_per_frame", "check_frames", "trace_frames"} <= set(
+        tiny.sizes(harness.ROOT, cell.config_name))
     assert hasattr(cell.adapter, "Program") and cell.adapter.KERNELS
     assert cell.reference.FIELDS == cell.adapter.FIELDS
     ref = cell.reference.Reference(cell.cfg, cell.traffic, "cpu")
@@ -134,25 +139,77 @@ def test_a_cell_is_added_as_files(tiny_root):
                                    "setup_s"}
 
 
-def test_a_configuration_is_added_as_files(tiny_root):
-    pb = tiny_root / "portbench"
+def _benchmark_copy(dst):
+    """BENCHMARK.json and portbench/, tests and tiny sizes included."""
+    dst.mkdir(parents=True)
+    shutil.copy(harness.ROOT / "BENCHMARK.json", dst)
+    shutil.copytree(harness.ROOT / "portbench", dst / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    return dst
+
+
+def _hashes(root):
+    return {p.relative_to(root): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in root.rglob("*")
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+def test_a_configuration_is_added_as_files(tmp_path, tiny):
+    src = _benchmark_copy(tmp_path / "benchmark")
+    before, bench_before = _hashes(src), json.loads(
+        (src / "BENCHMARK.json").read_text())
+    pb = src / "portbench"
     cfg = json.loads((pb / "configs" / "hypersonic2d-capsule.json").read_text())
     cfg.update(name="capsule-mach10", inflow_mach=10.0)
     (pb / "configs" / "capsule-mach10.json").write_text(json.dumps(cfg))
     for d in ("adapters", "reference"):
         shutil.copy(pb / d / "hypersonic2d-capsule.py",
                     pb / d / "capsule-mach10.py")
+    (pb / "traffic" / "f64-4096x512-8spf.json").write_text(json.dumps(dict(
+        nx=4096, ny=512, dtype="float64", steps_per_frame=8, check_frames=2,
+        trace_frames=4)))
     shutil.copy(pb / "cells" / "h2d-capsule-f64-8192x1024.json",
                 pb / "cells" / "mach10.json")
-    _add_entry(tiny_root, "configs", {
+    tiny.file(src, "capsule-mach10").write_text(json.dumps(dict(
+        nx=48, ny=24, steps_per_frame=2, check_frames=1, trace_frames=1)))
+    _add_entry(src, "configs", {
         "name": "capsule-mach10", "source": "https://example.org/mach10",
         "file": "portbench/configs/capsule-mach10.json", "reduced": [],
         "why": "a throwaway configuration"})
-    _add_entry(tiny_root, "workloads", {
+    _add_entry(src, "workloads", {
         "name": "mach10", "config": "capsule-mach10",
-        "traffic": "tiny-h2d-capsule-f64-8192x1024", "chips": 1,
+        "traffic": "f64-4096x512-8spf", "chips": 1,
         "why": "a throwaway cell"})
-    res = harness.run("mach10", 7, 0.2, False, root=tiny_root, device="cpu")
+    # new files, and entries appended to BENCHMARK.json: nothing else moved
+    after = _hashes(src)
+    assert {f for f in before if after[f] != before[f]} == {
+        Path("BENCHMARK.json")}
+    bench = json.loads((src / "BENCHMARK.json").read_text())
+    for key, old in bench_before.items():
+        new = bench[key]
+        assert (new[:len(old)] if isinstance(old, list) else new) == old, key
+
+    root = tiny.make_root(tmp_path / "checkout", src)
+    res = harness.run("mach10", 7, 0.2, False, root=root, device="cpu")
     assert res["correct"], res["check"]
-    cell = harness.Cell(tiny_root, "mach10")
+    cell = harness.Cell(root, "mach10")
     assert cell.cfg["inflow_mach"] == 10.0
+    assert (cell.traffic["nx"], cell.traffic["ny"],
+            cell.traffic["steps_per_frame"]) == (48, 24, 2)
+
+
+def test_a_configuration_without_tiny_sizes_is_named(tmp_path, tiny):
+    src = _benchmark_copy(tmp_path / "benchmark")
+    _add_entry(src, "configs", {
+        "name": "capsule-untried", "source": "https://example.org/untried",
+        "file": "portbench/configs/hypersonic2d-capsule.json", "reduced": [],
+        "why": "a configuration with no tiny sizes"})
+    _add_entry(src, "workloads", {
+        "name": "untried", "config": "capsule-untried",
+        "traffic": "f64-8192x1024-24spf", "chips": 1,
+        "why": "a throwaway cell"})
+    missing = tiny.file(src, "capsule-untried")
+    with pytest.raises(FileNotFoundError) as e:
+        tiny.make_root(tmp_path / "checkout", src)
+    assert str(missing) in str(e.value)
+    assert "'capsule-untried'" in str(e.value)
